@@ -1,0 +1,198 @@
+"""Radix-2 NTT / INTT and coset LDE over Goldilocks.
+
+Semantics match the reference engine's polynomial ops (external qp-plonky2
+crate): ``ntt(coeffs)[i] = p(w^i)`` in natural order with w the primitive
+2^k-th root of unity derived from POWER_OF_TWO_GENERATOR; ``coset_lde``
+evaluates on the coset ``shift * <w>`` after zero-padding by the rate
+(rate_bits=3 for the standard configs, cf. SURVEY.md §0).
+
+Two implementations, bit-identical:
+- host_*: numpy golden model (zk_circuits_torch.host.gl).
+- tensor functions: torch int64 tensors on any device, a radix-2 stage
+  loop of whole-tensor butterflies.
+
+The NTT always runs along the LAST axis; leading axes are batch.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..field import goldilocks as gfd
+from ..host import gl
+
+# ---------------------------------------------------------------------------
+# Host (numpy) golden model
+# ---------------------------------------------------------------------------
+
+
+def _bit_reverse_indices(n: int) -> np.ndarray:
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+@functools.lru_cache(maxsize=None)
+def _host_stage_twiddles(n: int) -> tuple:
+    """Per-stage twiddle tables: stage s (half=2^s) uses w_{2^{s+1}}^j."""
+    stages = []
+    bits = n.bit_length() - 1
+    for s in range(bits):
+        half = 1 << s
+        w = gl.primitive_root_of_unity(s + 1)
+        tw = np.empty(half, dtype=np.uint64)
+        acc = 1
+        for j in range(half):
+            tw[j] = acc
+            acc = (acc * w) % gl.P_INT
+        stages.append(tw)
+    return tuple(stages)
+
+
+def host_ntt(coeffs: np.ndarray) -> np.ndarray:
+    """values[i] = p(w^i); operates along the last axis (power-of-two len)."""
+    coeffs = np.asarray(coeffs, dtype=np.uint64)
+    n = coeffs.shape[-1]
+    if n == 1:
+        return coeffs.copy()
+    assert n & (n - 1) == 0
+    x = coeffs[..., _bit_reverse_indices(n)]
+    for s, tw in enumerate(_host_stage_twiddles(n)):
+        half = 1 << s
+        shape = x.shape[:-1] + (n // (2 * half), 2, half)
+        x = x.reshape(shape)
+        a = x[..., 0, :]
+        b = gl.mul(x[..., 1, :], tw)
+        x = np.concatenate([gl.add(a, b)[..., None, :], gl.sub(a, b)[..., None, :]], axis=-2)
+        x = x.reshape(x.shape[:-3] + (n,))
+    return x
+
+
+def host_intt(values: np.ndarray) -> np.ndarray:
+    values = np.asarray(values, dtype=np.uint64)
+    n = values.shape[-1]
+    if n == 1:
+        return values.copy()
+    # INTT(x)[k] = (1/n) * NTT(x)[-k mod n]
+    y = host_ntt(values)
+    y = np.concatenate([y[..., :1], y[..., :0:-1]], axis=-1)
+    n_inv = gl.inverse(np.uint64(n))
+    return gl.mul(y, n_inv)
+
+
+def host_coset_ntt(coeffs: np.ndarray, shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> np.ndarray:
+    """values[i] = p(shift * w^i)."""
+    coeffs = np.asarray(coeffs, dtype=np.uint64)
+    n = coeffs.shape[-1]
+    powers = np.empty(n, dtype=np.uint64)
+    acc = 1
+    for k in range(n):
+        powers[k] = acc
+        acc = (acc * shift) % gl.P_INT
+    return host_ntt(gl.mul(coeffs, powers))
+
+
+def host_coset_intt(values: np.ndarray, shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> np.ndarray:
+    coeffs = host_intt(values)
+    n = coeffs.shape[-1]
+    inv_shift = pow(shift, gl.P_INT - 2, gl.P_INT)
+    powers = np.empty(n, dtype=np.uint64)
+    acc = 1
+    for k in range(n):
+        powers[k] = acc
+        acc = (acc * inv_shift) % gl.P_INT
+    return gl.mul(coeffs, powers)
+
+
+def host_lde(coeffs: np.ndarray, rate_bits: int,
+             shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> np.ndarray:
+    """Zero-pad by 2^rate_bits then coset-NTT (the low-degree extension)."""
+    coeffs = np.asarray(coeffs, dtype=np.uint64)
+    n = coeffs.shape[-1]
+    padded = np.zeros(coeffs.shape[:-1] + (n << rate_bits,), dtype=np.uint64)
+    padded[..., :n] = coeffs
+    return host_coset_ntt(padded, shift)
+
+
+# ---------------------------------------------------------------------------
+# Tensor (torch) implementation
+# ---------------------------------------------------------------------------
+
+_TABLES: dict = {}
+
+
+def _cached(key, make):
+    if key not in _TABLES:
+        _TABLES[key] = make()
+    return _TABLES[key]
+
+
+def _stage_twiddles(n: int, device) -> tuple:
+    return _cached(("tw", n, str(device)), lambda: tuple(
+        gfd.from_u64(tw, device) for tw in _host_stage_twiddles(n)))
+
+
+def _bit_reverse(n: int, device) -> torch.Tensor:
+    return _cached(("rev", n, str(device)),
+                   lambda: torch.from_numpy(_bit_reverse_indices(n)).to(device))
+
+
+def powers(base: int, n: int, device) -> torch.Tensor:
+    """[1, base, ..., base^(n-1)] as a tensor on ``device`` (cached)."""
+    return _cached(("pow", int(base) % gl.P_INT, n, str(device)),
+                   lambda: gfd.from_u64(gl.powers(base, n), device))
+
+
+def ntt(coeffs: torch.Tensor) -> torch.Tensor:
+    """NTT along the last axis: bit-reversal gather, then log2(n) radix-2
+    butterfly stages over the whole tensor."""
+    n = coeffs.shape[-1]
+    if n == 1:
+        return coeffs
+    assert n & (n - 1) == 0
+    batch = coeffs.shape[:-1]
+    x = coeffs.index_select(-1, _bit_reverse(n, coeffs.device))
+    for s, tw in enumerate(_stage_twiddles(n, coeffs.device)):
+        half = 1 << s
+        x = x.reshape(*batch, n // (2 * half), 2, half)
+        a = x[..., 0, :]
+        b = gfd.mul(x[..., 1, :], tw)
+        x = torch.stack([gfd.add(a, b), gfd.sub(a, b)], dim=-2).reshape(*batch, n)
+    return x
+
+
+def intt(values: torch.Tensor) -> torch.Tensor:
+    n = values.shape[-1]
+    if n == 1:
+        return values
+    # INTT(x)[k] = (1/n) * NTT(x)[-k mod n]
+    y = ntt(values)
+    y = torch.cat([y[..., :1], y[..., 1:].flip(-1)], dim=-1)
+    return gfd.mul_const(y, int(gl.inverse(np.uint64(n))))
+
+
+def coset_ntt(coeffs: torch.Tensor,
+              shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    n = coeffs.shape[-1]
+    return ntt(gfd.mul(coeffs, powers(shift, n, coeffs.device)))
+
+
+def coset_intt(values: torch.Tensor,
+               shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    coeffs = intt(values)
+    inv_shift = pow(shift, gl.P_INT - 2, gl.P_INT)
+    return gfd.mul(coeffs, powers(inv_shift, coeffs.shape[-1], coeffs.device))
+
+
+def lde(coeffs: torch.Tensor, rate_bits: int,
+        shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    """Zero-pad by 2^rate_bits then coset-NTT (the low-degree extension)."""
+    n = coeffs.shape[-1]
+    padded = torch.nn.functional.pad(coeffs, (0, n * ((1 << rate_bits) - 1)))
+    return coset_ntt(padded, shift)
