@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from zk_circuits_torch.hash import poseidon_cuda
+from zk_circuits_torch.utils import nvcc
 from zk_circuits_tpu.host import gl as jgl
 from zk_circuits_tpu.host import poseidon as jpos
 
@@ -48,14 +49,14 @@ U64 = np.uint64
 def lib():
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to build the kernel headers for the host"
-    build = poseidon_cuda.BUILD_DIR / f"host_shim_{os.getpid()}"
+    build = nvcc.BUILD_DIR / f"host_shim_{os.getpid()}"
     build.mkdir(parents=True, exist_ok=True)
     poseidon_cuda.write_constants_header(build)
     src = build / "shim.cc"
     src.write_text(SHIM)
     so = build / "libshim.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
-                    "-I", str(poseidon_cuda.CSRC), "-I", str(build),
+                    "-I", str(nvcc.CSRC), "-I", str(build),
                     "-o", str(so), str(src)], check=True)
     yield ctypes.CDLL(str(so))
     shutil.rmtree(build, ignore_errors=True)

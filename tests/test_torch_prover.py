@@ -103,3 +103,17 @@ def test_prove_without_cuda_raises():
         data.prove(_witness(TORCH, assignments))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _build(TORCH, square, False)
+    # the commit oracle, the mesh and the sharded prover default to the card
+    from zk_circuits_torch.fri.oracle import PolynomialBatch
+    from zk_circuits_torch.parallel.mesh import make_mesh
+    from zk_circuits_torch.plonk.prover_sharded import prove_sharded
+
+    coeffs = np.arange(64, dtype=np.uint64).reshape(2, 32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PolynomialBatch.from_coeffs(coeffs, 3, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PolynomialBatch.from_values(coeffs, 3, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prove_sharded(data, _witness(TORCH, assignments))

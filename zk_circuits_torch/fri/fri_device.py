@@ -30,6 +30,7 @@ from ..hash import merkle as merklem
 from ..host import gl, gle
 from ..ntt import ntt as nttm
 from . import fri as frim
+from .oracle import ext_powers
 
 
 def _reduce_alpha(batch, ap0, ap1):
@@ -99,18 +100,25 @@ def _commit_codeword(f0, f1, shift: int, size: int, arity_bits: int,
     return leaves, merklem.device_merkle_levels(leaves, cap_height)
 
 
-def gather_trees(trees: list, idxs: list, colmajor: tuple) -> list:
+def take_rows(leaves: torch.Tensor, idx: np.ndarray, colmajor: bool) -> torch.Tensor:
+    """Rows ``idx`` of a (N, w) row-major or (w, N) column-major matrix."""
+    i = torch.from_numpy(idx).to(leaves.device)
+    return leaves[:, i].t() if colmajor else leaves[i]
+
+
+def gather_trees(trees: list, idxs: list, colmajor: tuple, take=take_rows) -> list:
     """trees: per tree (leaves, levels) with leaves (N, w) row-major, or
     (w, N) column-major where ``colmajor`` says so; idxs: per-tree query
-    indices.  Gathers every row and sibling path on the device and fetches
-    them in ONE transfer.  Returns [(rows u64 (Q, w), sibs u64 (Q, L, 4))]."""
+    indices.  Gathers every row and sibling path on the device with
+    ``take(leaves_or_level, idx, colmajor)`` and fetches them in ONE
+    transfer.  Returns [(rows u64 (Q, w), sibs u64 (Q, L, 4))]."""
     chunks, shapes = [], []
     for (leaves, levels), idx, cm in zip(trees, idxs, colmajor):
-        i = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(leaves.device)
-        rows = leaves[:, i].t() if cm else leaves[i]
+        i = np.asarray(idx, dtype=np.int64)
+        rows = take(leaves, i, cm)
         chunks.append(rows.reshape(-1))
         for lv in levels[:-1]:
-            chunks.append(lv[i ^ 1].reshape(-1))
+            chunks.append(take(lv, i ^ 1, False).reshape(-1))
             i = i >> 1
         shapes.append((rows.shape, len(levels) - 1))
     flat = gfd.to_u64(torch.cat(chunks))
@@ -125,13 +133,100 @@ def gather_trees(trees: list, idxs: list, colmajor: tuple) -> list:
     return out
 
 
+def openings_set(evals: np.ndarray, zs_next: np.ndarray, widths: tuple):
+    """OpeningSet from the (K, 2) evaluations at zeta of every oracle
+    polynomial (oracle order, ``widths`` polynomials each) and the
+    (num_zs, 2) evaluations of the Z polynomials at g*zeta."""
+    from ..plonk.proof import OpeningSet
+
+    k0, k1, k2, _ = widths
+    return OpeningSet(
+        constants_sigmas=evals[:k0],
+        wires=evals[k0 : k0 + k1],
+        zs_partial_products=evals[k0 + k1 : k0 + k1 + k2],
+        quotient=evals[k0 + k1 + k2 :],
+        zs_next=zs_next,
+    )
+
+
+def compose(comp0, comp1, zeta, zeta_next, alpha, num_zs: int, zp, znp):
+    """The FRI polynomial from the alpha-reduced batches: comp0 (all
+    polynomials, opened at zeta) and comp1 (the Z polynomials, at g*zeta),
+    each an (n,) ext pair; zp/znp are the powers of zeta/g*zeta as device
+    pairs.  final[:n-1] = q1 + alpha^num_zs * q0, final[n-1] = 0."""
+    n = comp0[0].shape[-1]
+    device = comp0[0].device
+
+    def pair(arr):
+        return gfd.ext_pair(arr, device)
+
+    zi0, zi1 = pair(ext_powers(gle.inverse(zeta), n))
+    zni0, zni1 = pair(ext_powers(gle.inverse(zeta_next), n))
+    q0 = _ddl(*comp0, *zp, zi0, zi1)
+    q1 = _ddl(*comp1, *znp, zni0, zni1)
+    sq = _emul(*q0, *pair(gle.powmod(alpha, num_zs)))
+    f0, f1 = (torch.nn.functional.pad(v, (0, 1)) for v in _eadd(*q1, *sq))
+    return f0, f1
+
+
+def commit_phase(f0, f1, fri_config, degree_bits: int, ch):
+    """The FRI commit chain on one device from the (n,) ext coefficient
+    pair f: per fold round, NTT onto the round's coset, commit the fiber
+    tree, observe its cap, draw beta, fold.  Returns (caps, trees, betas,
+    final f0, final f1) with trees the (leaves, levels) of every round."""
+    size = f0.shape[-1] << fri_config.rate_bits
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    caps, trees, betas = [], [], []
+    for a_bits in fri_config.reduction_arities(degree_bits):
+        leaves, levels = _commit_codeword(f0, f1, shift, size, a_bits,
+                                          fri_config.cap_height)
+        cap = gfd.to_u64(levels[-1])
+        caps.append(cap)
+        trees.append((leaves, levels))
+        ch.observe_cap(cap)
+        beta = ch.get_extension_challenge()
+        betas.append(beta)
+        b0, b1 = gfd.ext_pair(beta, f0.device)
+        f0, f1 = _fold_dev(f0, f1, b0, b1, a_bits)
+        shift = pow(shift, 1 << a_bits, gl.P_INT)
+        size >>= a_bits
+    return caps, trees, betas, f0, f1
+
+
+def query_indices(ch, fri_config, degree_bits: int) -> tuple:
+    """Draw the query indices; returns them and each fold round's indices
+    into its tree."""
+    lde_size = 1 << (degree_bits + fri_config.rate_bits)
+    indices = np.array([ch.get_challenge() % lde_size
+                        for _ in range(fri_config.num_query_rounds)], dtype=np.int64)
+    step_idx, cur = [], lde_size
+    for a_bits in fri_config.reduction_arities(degree_bits):
+        cur >>= a_bits
+        step_idx.append(indices % cur)
+    return indices, step_idx
+
+
+def fri_proof(caps, opened, fri_opened, final_poly, pow_witness):
+    """Assemble the FriProof from the gathered oracle rows/paths
+    (``opened``) and fold-tree rows/paths (``fri_opened``)."""
+    query_rounds = []
+    for qi in range(opened[0][0].shape[0]):
+        initial = [(rows[qi].copy(), [s.copy() for s in sibs[qi]])
+                   for rows, sibs in opened]
+        steps = []
+        for rows, sibs in fri_opened:
+            coset_values = rows[qi].reshape(-1, 2).copy()  # interleaved ext
+            steps.append(frim.FriQueryStep(coset_values,
+                                           [s.copy() for s in sibs[qi]]))
+        query_rounds.append(frim.FriQueryRound(initial, steps))
+    return frim.FriProof(caps, query_rounds, final_poly, pow_witness)
+
+
 def open_and_fri_device(common, oracles, ch, device) -> tuple:
     """Openings and FRI proof on ``device``: returns (OpeningSet, FriProof).
 
     ``oracles`` are PolynomialBatch instances resident on ``device``."""
-    from ..plonk.proof import OpeningSet
     from ..utils.profiling import stage_timer
-    from .oracle import ext_powers
 
     cfg = common.config
     n = common.degree
@@ -150,68 +245,27 @@ def open_and_fri_device(common, oracles, ch, device) -> tuple:
     zs2 = sets[2][:num_zs]
 
     with stage_timer("fri/openings_eval"):
-        zpow = ext_powers(zeta, n)
-        zpow_next = ext_powers(zeta_next, n)
-        zp0, zp1 = pair(zpow)
-        znp0, znp1 = pair(zpow_next)
-        e0 = gfd.sum_mod(gfd.mul(batch0, zp0[None, :]), axis=-1)
-        e1 = gfd.sum_mod(gfd.mul(batch0, zp1[None, :]), axis=-1)
-        zn0 = gfd.sum_mod(gfd.mul(zs2, znp0[None, :]), axis=-1)
-        zn1 = gfd.sum_mod(gfd.mul(zs2, znp1[None, :]), axis=-1)
-        evals = gfd.to_ext(e0, e1)          # (K, 2)
-        zs_next = gfd.to_ext(zn0, zn1)      # (num_zs, 2)
-    k0, k1, k2, _ = widths
-    openings = OpeningSet(
-        constants_sigmas=evals[:k0],
-        wires=evals[k0 : k0 + k1],
-        zs_partial_products=evals[k0 + k1 : k0 + k1 + k2],
-        quotient=evals[k0 + k1 + k2 :],
-        zs_next=zs_next,
-    )
+        zp = pair(ext_powers(zeta, n))
+        znp = pair(ext_powers(zeta_next, n))
+        e0 = gfd.sum_mod(gfd.mul(batch0, zp[0][None, :]), axis=-1)
+        e1 = gfd.sum_mod(gfd.mul(batch0, zp[1][None, :]), axis=-1)
+        zn0 = gfd.sum_mod(gfd.mul(zs2, znp[0][None, :]), axis=-1)
+        zn1 = gfd.sum_mod(gfd.mul(zs2, znp[1][None, :]), axis=-1)
+        openings = openings_set(gfd.to_ext(e0, e1), gfd.to_ext(zn0, zn1), widths)
     ch.observe_extension_elements(openings.batch0_flat())
     ch.observe_extension_elements(openings.batch1_flat())
     alpha = ch.get_extension_challenge()
 
     fri_config = cfg.fri_config
-    lde_size = n << fri_config.rate_bits
-    arities = fri_config.reduction_arities(common.degree_bits)
-    coset_shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
-    cap_h = fri_config.cap_height
-
-    # --- compose + round-0 commit --------------------------------------------
     with stage_timer("fri/compose_r0"):
-        apow = ext_powers(alpha, sum(widths))
-        shift_pow = gle.powmod(alpha, num_zs)
-        zi0, zi1 = pair(ext_powers(gle.inverse(zeta), n))
-        zni0, zni1 = pair(ext_powers(gle.inverse(zeta_next), n))
-        ap0, ap1 = pair(apow)
+        ap0, ap1 = pair(ext_powers(alpha, sum(widths)))
         comp0 = _reduce_alpha(batch0, ap0, ap1)
-        q0 = _ddl(*comp0, zp0, zp1, zi0, zi1)
         comp1 = _reduce_alpha(zs2, ap0[:num_zs], ap1[:num_zs])
-        q1 = _ddl(*comp1, znp0, znp1, zni0, zni1)
-        # final[:n-1] = q1 + shift_pow * q0;  final[n-1] = 0
-        sq = _emul(*q0, *pair(shift_pow))
-        f0, f1 = (torch.nn.functional.pad(v, (0, 1)) for v in _eadd(*q1, *sq))
-        if arities:
-            cur_leaves, cur_levels = _commit_codeword(
-                f0, f1, coset_shift, lde_size, arities[0], cap_h)
+        f0, f1 = compose(comp0, comp1, zeta, zeta_next, alpha, num_zs, zp, znp)
 
-    caps: list[np.ndarray] = []
-    trees: list[tuple] = []
-    shift = coset_shift
     with stage_timer("fri/commit_phase"):
-        for r, a_bits in enumerate(arities):
-            cap = gfd.to_u64(cur_levels[-1])
-            caps.append(cap)
-            trees.append((cur_leaves, cur_levels))
-            ch.observe_cap(cap)
-            b0, b1 = pair(ch.get_extension_challenge())
-            shift = pow(shift, 1 << a_bits, gl.P_INT)
-            f0, f1 = _fold_dev(f0, f1, b0, b1, a_bits)
-            if r + 1 < len(arities):
-                size = f0.shape[-1] << fri_config.rate_bits
-                cur_leaves, cur_levels = _commit_codeword(
-                    f0, f1, shift, size, arities[r + 1], cap_h)
+        caps, trees, _, f0, f1 = commit_phase(f0, f1, fri_config,
+                                              common.degree_bits, ch)
 
     final_poly = gfd.to_ext(f0, f1)
     ch.observe_extension_elements(final_poly)
@@ -222,35 +276,16 @@ def open_and_fri_device(common, oracles, ch, device) -> tuple:
             pow_base, fri_config.proof_of_work_bits, device)
     ch.observe_element(pow_witness)
 
-    indices = [ch.get_challenge() % lde_size
-               for _ in range(fri_config.num_query_rounds)]
-    idx_arr = np.array(indices, dtype=np.int64)
+    idx_arr, step_idx = query_indices(ch, fri_config, common.degree_bits)
 
     # --- query gathers: one transfer for oracles and FRI trees together ---
     with stage_timer("fri/query_gather"):
-        step_idx = []
-        cur_size = lde_size
-        for a_bits in arities:
-            cur_size >>= a_bits
-            step_idx.append(idx_arr % cur_size)
         all_opened = gather_trees(
             [(o.values_dev, o.levels_dev) for o in oracles] + trees,
             [idx_arr] * len(oracles) + step_idx,
             colmajor=(True,) * len(oracles) + (False,) * len(trees),
         )
-        opened = all_opened[: len(oracles)]
-        fri_opened = all_opened[len(oracles):]
-
-    query_rounds = []
-    for qi in range(len(indices)):
-        initial = [(rows[qi].copy(), [s.copy() for s in sibs[qi]])
-                   for rows, sibs in opened]
-        steps = []
-        for rows, sibs in fri_opened:
-            coset_values = rows[qi].reshape(-1, 2).copy()  # interleaved ext
-            steps.append(frim.FriQueryStep(coset_values,
-                                           [s.copy() for s in sibs[qi]]))
-        query_rounds.append(frim.FriQueryRound(initial, steps))
-
-    proof = frim.FriProof(caps, query_rounds, final_poly, pow_witness)
+    opened = all_opened[: len(oracles)]
+    proof = fri_proof(caps, opened, all_opened[len(oracles):], final_poly,
+                      pow_witness)
     return openings, proof

@@ -109,7 +109,12 @@ class PolynomialBatch:
 
     @staticmethod
     def from_coeffs(coeffs: np.ndarray, rate_bits: int, cap_height: int,
-                    blinding: bool = False, device="cpu") -> "PolynomialBatch":
+                    blinding: bool = False, device="cuda") -> "PolynomialBatch":
+        """Commit (num_polys, n) coefficients on ``device`` ("cuda" by
+        default; it raises without CUDA unless ``device="cpu"``)."""
+        from .. import resolve_device
+
+        device = resolve_device(device)
         coeffs = np.asarray(coeffs, dtype=np.uint64)
         if blinding:
             # Salt *polynomials* (degree n), so every leaf column stays a
@@ -124,8 +129,11 @@ class PolynomialBatch:
 
     @staticmethod
     def from_values(values: np.ndarray, rate_bits: int, cap_height: int,
-                    blinding: bool = False, device="cpu") -> "PolynomialBatch":
+                    blinding: bool = False, device="cuda") -> "PolynomialBatch":
         """values: (num_polys, n) evaluations over H (natural order)."""
+        from .. import resolve_device
+
+        device = resolve_device(device)
         coeffs = nttm.host_intt(np.asarray(values, dtype=np.uint64))
         return PolynomialBatch.from_coeffs(coeffs, rate_bits, cap_height,
                                            blinding, device)

@@ -87,13 +87,17 @@ def device_merkle_levels(leaves: torch.Tensor, cap_height: int) -> list:
     (leaf digests first, cap last) as (m, 4) int64 tensors.  The leaf level
     goes through the sponge kernel for cols > 4 (hash_or_noop pads
     narrower rows)."""
-    n, cols = leaves.shape
+    n = leaves.shape[0]
     assert n & (n - 1) == 0 and n >= (1 << cap_height)
-    if cols > 4:
-        first = pp.hash_leaves(leaves)
-    else:
-        first = batch_hash_or_noop(leaves)
-    return _compress_levels([first], cap_height)
+    return _compress_levels([leaf_digests(leaves)], cap_height)
+
+
+def leaf_digests(leaves: torch.Tensor) -> torch.Tensor:
+    """hash_or_noop of every row of the row-major (n, cols) leaf matrix:
+    the sponge kernel for cols > 4, zero padding below."""
+    if leaves.shape[1] > 4:
+        return pp.hash_leaves(leaves)
+    return batch_hash_or_noop(leaves)
 
 
 def device_merkle_levels_values(values: torch.Tensor, cap_height: int) -> list:
@@ -107,3 +111,21 @@ def device_merkle_levels_values(values: torch.Tensor, cap_height: int) -> list:
     else:
         first = batch_hash_or_noop(values.t())
     return _compress_levels([first], cap_height)
+
+
+def sharded_merkle_levels(digests: list, cap_height: int) -> list:
+    """Tree builder on a row-sharded leaf level: ``digests`` holds each
+    shard's leaf digests (rows in global order across shards).  Returns the
+    levels, each a list of per-shard (m_i, 4) tensors.  Every shard builds
+    its own subtree; while the mesh has no more shards than the cap has
+    nodes, each subtree ends at that shard's cap nodes.  A level with one
+    node per shard and more nodes than the cap is gathered onto the first
+    shard's device, which builds the levels above it (a one-element list)."""
+    levels = [list(digests)]
+    while sum(t.shape[0] for t in levels[-1]) > (1 << cap_height):
+        cur = levels[-1]
+        if cur[0].shape[0] == 1:
+            dev = cur[0].device
+            cur = [torch.cat([t.to(dev) for t in cur])]
+        levels.append([pp.hash_leaves(t.reshape(t.shape[0] // 2, 8)) for t in cur])
+    return levels

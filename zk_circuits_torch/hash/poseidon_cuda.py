@@ -19,22 +19,15 @@ or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from ..utils.nvcc import BUILD_DIR, build_library
 from . import constants as C
 
-_PKG = Path(__file__).resolve().parents[1]
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-SOURCES = ("goldilocks.cuh", "poseidon.cuh", "poseidon_leaf.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HEADERS = ("goldilocks.cuh", "poseidon.cuh")
 
 # Launches of the CUDA kernel in this process (the plain version on CPU
 # tensors is not counted).
@@ -80,33 +73,14 @@ def write_constants_header(directory: Path) -> Path:
     return path
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the Poseidon leaf kernel")
-    return found
-
-
 def build() -> Path:
     """Compile csrc/poseidon_leaf.cu into a shared library (cached by the
     hash of its sources); returns its path."""
     global build_log
     hdr = write_constants_header(BUILD_DIR)
-    digest = hashlib.sha256(hdr.read_bytes())
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
-    lib = BUILD_DIR / f"libposeidon_leaf_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(BUILD_DIR), "-o", str(tmp),
-           str(CSRC / "poseidon_leaf.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, lib)
+    lib, log = build_library("poseidon_leaf", "poseidon_leaf.cu", HEADERS, (hdr,))
+    if log:
+        build_log = log
     return lib
 
 

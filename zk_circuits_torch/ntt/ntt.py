@@ -44,14 +44,7 @@ def _host_stage_twiddles(n: int) -> tuple:
     stages = []
     bits = n.bit_length() - 1
     for s in range(bits):
-        half = 1 << s
-        w = gl.primitive_root_of_unity(s + 1)
-        tw = np.empty(half, dtype=np.uint64)
-        acc = 1
-        for j in range(half):
-            tw[j] = acc
-            acc = (acc * w) % gl.P_INT
-        stages.append(tw)
+        stages.append(gl.powers(gl.primitive_root_of_unity(s + 1), 1 << s))
     return tuple(stages)
 
 

@@ -27,16 +27,18 @@ from .vanishing import VanishingVars, check_constraints_on_h, eval_vanishing
 
 
 def _device_vanishing_eval(common, cs_lde, wires_lde, zsp_lde, x, l1,
-                           pi_hash, betas, gammas, alphas):
+                           pi_hash, betas, gammas, alphas, zsp_next=None):
     """Vanishing-polynomial evaluation over the 8n coset on row-major
-    (8n, k) tensors."""
+    (rows, k) tensors.  ``zsp_next`` is zsp at g*x (the rows 2^rate_bits
+    further on); by default zsp_lde holds the whole coset and is rolled."""
     alg = algebra.TorchBase(x.device)
     cfg = common.config
     s = common.num_selectors
     c = cfg.num_constants
     num_pp = common.num_partial_products
 
-    zsp_next = torch.roll(zsp_lde, -(1 << cfg.rate_bits), dims=0)
+    if zsp_next is None:
+        zsp_next = torch.roll(zsp_lde, -(1 << cfg.rate_bits), dims=0)
     vv = VanishingVars(
         x=x,
         wires=wires_lde,
