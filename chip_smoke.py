@@ -5,19 +5,24 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-1. card     -- the card's name and power limit; build the Poseidon leaf
-               kernel (K1) and the block exchange (K2) from csrc/, one nvcc
-               each, both started together, timed.
-2. k1_check -- K1 against its plain torch version on the card, at the main
-               path's widths and a ragged row count, both layouts.
-3. square   -- a one-gate square circuit under both standard configs: the
+1. card     -- the card's name and power limit; build the Poseidon kernel
+               (K1) and the block exchange (K2) from csrc/, one nvcc each,
+               both started together, timed.
+2. square   -- a one-gate square circuit under both standard configs: the
                proof from device="cuda" must equal the proof from
                device="cpu" byte for byte, and verify.
-4. wormhole -- the zk wormhole proof as bench.py proves it (circuit built
+3. wormhole -- the zk wormhole proof as bench.py proves it (circuit built
                on the card, one cold and three warm proves), verified,
                tamper-checked, and its sha256 held to the digest of the JAX
                package's host-path proof of the same inputs (pinned below).
-               K1's launch counter must rise during the proves.
+               K1's launches per proof, by mode (sponge / tree / top), must
+               be the count the circuit's trees give.
+4. k1_check -- K1 against its plain torch version on the card: the sponge
+               at every team size at the edges (n below the team, n not a
+               multiple of the block's rows, cols 1 to 139, both layouts)
+               and at the main path's widths; hash_tree against the plain
+               level loop at the three commit shapes and the FRI trees; the
+               sharded commit's per-shard sponge on every card.
 5. profile  -- one more warm wormhole proof under torch.profiler: device
                busy time and idle share, device operations, top kernels.
 6. k2_check -- K2 against its plain version at E = 2, 4, 8 shards on one
@@ -34,13 +39,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                wormhole (cold and warm; sha256 == the pinned digest,
                verified, tamper-checked).  K2's launch counter must rise in
                every sub-step, K1's in every sub-step that hashes leaves.
-8. k1_time  -- K1 timed with CUDA events at the main path's shapes beside
-               its plain version and its roofline bound.
-9. k2_time  -- K2's device time (a CUDA graph of back-to-back calls, timed
-               with CUDA events) at the four-step's exchange (2^22 points,
-               E=4 on one card) and the wires re-shard, beside its plain
-               version, one PyTorch call (transpose + contiguous) and its
-               byte bound; a share of the bound above 1.05 fails the phase.
+8. k1_time  -- K1's device time (graph_ms) at the main path's shapes and
+               the whole wires tree against the 13 launches of the level
+               loop, beside the plain version and the bound; every team
+               size and block size as a candidate, at those shapes and at
+               the sharded path's per-shard ones; the permutation's
+               multiply and instruction counts from the built library's
+               SASS (cuobjdump).  A share of the bound above 1.05 fails.
+9. k2_time  -- K2's device time (graph_ms) at the four-step's exchange
+               (2^22 points, E=4 on one card) and the wires re-shard,
+               beside its plain version, one PyTorch call (transpose +
+               contiguous) and its byte bound, each with the min and max
+               of its replays; a share of the bound above 1.05 fails.
 
 The last lines are the card line, the kernels line and
 {"ok": true, "device": {...}}.  Needs no network; imports no JAX.
@@ -73,16 +83,21 @@ GRIND_ROWS = 1 << 17   # candidates per PoW sweep (fri.GRIND_BATCH["cuda"])
 # 67 TFLOP/s FP32 figure = 132 x 128 x 2 x 1.98e9).
 HBM_BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
-# 32-bit multiply instructions per Poseidon permutation, counted from
-# csrc/poseidon.cuh: 118 S-boxes (8 full rounds x 12 + 22 partial) of four
-# 64x64->128 products, each four 32x32->64 partial products = 8 mul.lo/hi;
-# plus 30 MDS layers of 144 coefficient products, each on two 32-bit halves.
+# 32-bit multiply instructions per Poseidon permutation, in the cheapest
+# formulation K1 runs (csrc/poseidon.cuh): 118 S-boxes (8 full rounds x 12
+# + 22 partial) of four 64x64->128 products, each four 32x32->64 partial
+# products (IMAD.WIDE.U32, two 32-bit results each) = 8; the MDS layer in
+# the frequency domain (poseidon_mds_freq, one thread per row) is shifts
+# and adds, no multiply.  (The team form, poseidon_mds_rows, spends 288
+# IMAD.WIDE.U32 a layer; the direct circulant, 144 x 2 products a layer,
+# would come to 12416.)  k1_time checks this against the SASS.
 SBOX_MULS = (8 * 12 + 22) * 4 * 8
-MDS_MULS = 30 * 144 * 2
+MDS_MULS = 0
 MULS_PER_PERM = SBOX_MULS + MDS_MULS
 
 K1_SOURCE = "zk_circuits_torch/csrc/poseidon_leaf.cu"
 K1_REPLACES = "zk_circuits_tpu/hash/poseidon_pallas.py:164"
+K1_TIMED_CALLS = 8     # back-to-back calls per K1 timing (graph_ms)
 K2_SOURCE = "zk_circuits_torch/csrc/block_exchange.cu"
 K2_REPLACES = "zk_circuits_tpu/parallel/ntt_exchange.py:52"
 SHARDS = 4             # E of the sharded phase
@@ -94,12 +109,23 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def k1_bound_ms(n: int, cols: int) -> tuple[float, str]:
-    bytes_moved = n * cols * 8 + n * 32
-    perms = n * ((cols + 7) // 8)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+def k1_bound_ms(perms: int, nbytes: int) -> tuple[float, str]:
+    """The least time for ``perms`` permutations moving ``nbytes``: the
+    larger of the multiply bound and the byte bound, and which it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = perms * MULS_PER_PERM / INT32_MUL_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_work(n: int, cols: int, cap_height: int | None = None) -> tuple[int, int]:
+    """(permutations, bytes) of hashing n rows of cols felts, each row read
+    once and each digest written once; with ``cap_height`` also the tree's
+    compress levels up to the cap."""
+    perms, nbytes = n * ((cols + 7) // 8), n * cols * 8 + n * 32
+    if cap_height is not None:
+        inner = n - (1 << cap_height)       # nodes above the leaves
+        perms, nbytes = perms + inner, nbytes + inner * 32
+    return perms, nbytes
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -127,7 +153,7 @@ def _sync_all() -> None:
         torch.cuda.synchronize(i)
 
 
-def graph_ms(calls: list) -> float:
+def graph_ms(calls: list, replays: int = 8) -> dict:
     """Milliseconds of device time per call on cuda:0: ``calls`` are N
     closures, each on inputs of its own, captured back to back into one
     CUDA graph with every result kept; the graph's replay is timed with
@@ -136,7 +162,7 @@ def graph_ms(calls: list) -> float:
     written back to HBM while later calls run (only the last ~50 MB of N
     outputs may reach HBM after the window), and the host's launch time,
     which exceeds the device's for a copy of tens of MB, is left out.
-    Median of 3 replays after one, over N."""
+    Median, min and max of ``replays`` replays after one, over N."""
     import torch
 
     side = torch.cuda.Stream()
@@ -149,7 +175,7 @@ def graph_ms(calls: list) -> float:
         kept = [fn() for fn in calls]
     flush = torch.zeros(1 << 25, dtype=torch.int64, device="cuda")
     times = []
-    for _ in range(4):
+    for _ in range(replays + 1):
         flush.sum()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -157,9 +183,10 @@ def graph_ms(calls: list) -> float:
         graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / len(calls))
     del kept, graph
-    return statistics.median(times[1:]) / len(calls)
+    return {"ms": statistics.median(times[1:]), "min_ms": min(times[1:]),
+            "max_ms": max(times[1:])}
 
 
 def leaf_matrix(rng, n: int, cols: int):
@@ -202,37 +229,115 @@ def phase_card(state) -> None:
           "k1_build_s": k1, "k2_build_s": k2, "ptxas": ptxas})
 
 
+def wormhole_trees(common) -> list:
+    """(name, leaves, cols, layout) of every Merkle tree of one wormhole
+    proof: the wires, zs and quotient commits (column-major LDE values, 4
+    salt columns each in the zk config) and one FRI tree per fold round
+    (row-major fiber leaves of 2 * arity felts)."""
+    cfg, lde = common.config, common.lde_size
+    salts = 4 if cfg.zero_knowledge else 0
+    trees = [("wires", lde, cfg.num_wires + salts, "column-major"),
+             ("zs", lde, common.num_zs_partial_products_polys + salts, "column-major"),
+             ("quotient", lde, common.num_quotient_polys + salts, "column-major")]
+    size = lde
+    for r, a_bits in enumerate(cfg.fri_config.reduction_arities(common.degree_bits)):
+        size >>= a_bits
+        trees.append((f"fri_tree_{r}", size, 2 << a_bits, "row-major"))
+    return trees
+
+
+def expected_k1_launches(common) -> dict:
+    """K1's launches per proof by mode: one tree launch per tree, one top
+    launch per tree whose blocks' subtrees end below the cap, and the PoW
+    grind's sweeps (at least one) in sponge mode."""
+    from zk_circuits_torch.hash import poseidon_cuda as pc
+
+    cap = common.config.fri_config.cap_height
+    trees = wormhole_trees(common)
+    top = sum(bool(pc.tree_plan(n, cap, pc.config(n)[1])["top_threads"])
+              for _, n, _, _ in trees)
+    return {"tree": len(trees), "top": top, "sponge_min": 1}
+
+
+def _as_layout(rows, layout):
+    """The (n, cols) view K1 is given: row-major rows, or the transpose of
+    a column-major (cols, n) copy."""
+    return rows if layout == "row-major" else rows.t().contiguous().t()
+
+
 def phase_k1_check(state) -> None:
     import numpy as np
     import torch
 
-    from zk_circuits_torch.field import goldilocks as gf
-    from zk_circuits_torch.hash import poseidon as plain
-    from zk_circuits_torch.hash import poseidon_pallas as pp
+    from zk_circuits_torch.hash import poseidon_cuda as pc
 
     rng = np.random.default_rng(2026)
-    cases = ([(GRIND_ROWS, c) for c in (5, 8, 32, 135, 139)]
-             + [(GRIND_ROWS // 2, 139), (GRIND_ROWS - 37, 139), (1000, 5)])
-    max_err = 0
-    t0 = time.perf_counter()
-    for n, cols in cases:
-        host = leaf_matrix(rng, n, cols)
-        rows = torch.from_numpy(host.view(np.int64)).cuda()
-        vals = rows.t().contiguous()                  # column-major (cols, n)
-        want = gf.to_u64(plain.batch_hash_no_pad(rows))
-        got_rows = gf.to_u64(pp.hash_leaves(rows))
-        got_vals = gf.to_u64(pp.hash_values(vals))
-        torch.cuda.synchronize()
-        for got in (got_rows, got_vals):
-            diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
-            max_err = max(max_err, float(diff.max()))
-            if not np.array_equal(got, want):
-                raise AssertionError(f"K1 != plain at n={n} cols={cols}")
-        if not (got_vals < np.uint64(P)).all():
-            raise AssertionError("K1 digest not canonical")
+    cd = state["wormhole"][0]
+    max_err, cases, t0 = 0.0, [], time.perf_counter()
+
+    def compare(got, want, what, canonical=True):
+        nonlocal max_err
+        a = got.cpu().numpy().view(np.uint64)
+        b = want.cpu().numpy().view(np.uint64)
+        max_err = max(max_err, float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"K1 != plain: {what}")
+        if canonical and not (a < np.uint64(P)).all():
+            raise AssertionError(f"K1 digest not canonical: {what}")
+
+    # the sponge at every team size and block size, at the edges
+    edge_cases = [(n, cols) for n in (1, 3, 33, 517)
+                  for cols in (1, 5, 8, 9, 16, 32, 135, 139)]
+    for n, cols in edge_cases:
+        x = torch.from_numpy(leaf_matrix(rng, max(n, 5), cols)[:n].view(np.int64)).cuda()
+        want = pc.hash_rows_plain(x)
+        for team in pc.TEAMS:
+            for rows in (32, 256):
+                if -(-rows // (32 // team)) * 32 > pc.max_threads(team):
+                    continue
+                for layout in ("row-major", "column-major"):
+                    compare(pc.hash_rows(_as_layout(x, layout), team, rows), want,
+                            f"sponge team={team} rows={rows} n={n} cols={cols} {layout}")
+    cases.append(f"sponge: every team {list(pc.TEAMS)} x rows (32, 256) x both layouts "
+                 f"at {len(edge_cases)} (n, cols) edge cases")
+    # the sponge at the PoW sweep's shape and a ragged one, the configured
+    # team (the trees below cover the commits' widths)
+    for n, cols in ((GRIND_ROWS, 5), (GRIND_ROWS - 37, 24)):
+        x = torch.from_numpy(leaf_matrix(rng, n, cols).view(np.int64)).cuda()
+        want = pc.hash_rows_plain(x)
+        for layout in ("row-major", "column-major"):
+            compare(pc.hash_rows(_as_layout(x, layout)), want,
+                    f"sponge n={n} cols={cols} {layout}")
+        cases.append(f"sponge {n} x {cols}, both layouts")
+    # hash_tree at the wormhole's trees, and small trees at every cap height
+    cap = cd.common.config.fri_config.cap_height
+    trees = [(name, n, cols, layout, cap) for name, n, cols, layout in wormhole_trees(cd.common)]
+    trees += [(f"small {n} x {cols} cap {c}", n, cols, layout, c)
+              for n, cols, layout in ((256, 8, "row-major"), (1024, 139, "column-major"),
+                                      (64, 3, "row-major"))
+              for c in (0, 2, 4)]
+    for name, n, cols, layout, c in trees:
+        x = torch.from_numpy(leaf_matrix(rng, n, cols).view(np.int64)).cuda()
+        want = pc.hash_tree_plain(x, c)
+        got = pc.hash_tree(_as_layout(x, layout), c)
+        if len(got) != len(want):
+            raise AssertionError(f"hash_tree {name}: {len(got)} levels, want {len(want)}")
+        for lvl, (g, w) in enumerate(zip(got, want)):
+            # narrow leaves are their own digests (hash_or_noop), edge values and all
+            compare(g, w, f"hash_tree {name} level {lvl}", canonical=lvl > 0 or cols > 4)
+        cases.append(f"hash_tree {name}: {n} x {cols} {layout}, cap height {c}")
+    # every card, at a sharded commit's per-shard shape (one thread a row,
+    # above 48 KB of shared memory: an opt-in that holds card by card)
+    n, cols = cd.common.lde_size // SHARDS, cd.common.config.num_wires + 4
+    x = leaf_matrix(rng, n, cols).view(np.int64)
+    for i in range(torch.cuda.device_count()):
+        xi = torch.from_numpy(x).to(torch.device("cuda", i))
+        compare(pc.hash_rows(_as_layout(xi, "column-major")), pc.hash_rows_plain(xi),
+                f"sponge {n} x {cols} on cuda:{i}")
+        cases.append(f"sponge {n} x {cols} column-major on cuda:{i}")
+    _sync_all()
     state["k1_max_abs_err"] = max_err
-    emit({"phase": "k1_check", "cases": [list(c) for c in cases],
-          "layouts": ["row-major", "column-major"], "equal": True,
+    emit({"phase": "k1_check", "cases": cases, "equal": True,
           "max_abs_err": max_err, "s": time.perf_counter() - t0})
 
 
@@ -392,9 +497,10 @@ def phase_wormhole(state) -> None:
         return proof, time.perf_counter() - t
 
     profiling.reset_timings()
-    poseidon_cuda.launches = 0          # main path starts here
+    poseidon_cuda.reset_launches()      # main path starts here
     proof, cold_s = one_proof(prover)
     per_proof = poseidon_cuda.launches
+    by_mode = dict(poseidon_cuda.launches_by_mode)
     warm = []
     for _ in range(3):
         proof_w, dt = one_proof(WormholeProver(circuit_data=cd, targets=targets))
@@ -402,6 +508,10 @@ def phase_wormhole(state) -> None:
     launches = poseidon_cuda.launches   # main path ends here
     if per_proof <= 0 or launches != 4 * per_proof:
         raise AssertionError(f"K1 launches: {per_proof} per proof, {launches} in all")
+    want = expected_k1_launches(cd.common)
+    if (by_mode["tree"], by_mode["top"]) != (want["tree"], want["top"]) or \
+            by_mode["sponge"] < want["sponge_min"]:
+        raise AssertionError(f"K1 launches per proof by mode {by_mode}, want {want}")
 
     data = proof_to_bytes(proof)
     if proof_to_bytes(proof_w) != data:
@@ -424,13 +534,16 @@ def phase_wormhole(state) -> None:
     state["fri_arity"] = 1 << cfg.fri_config.reduction_arity_bits
     state["k1_launches"] = launches
     state["k1_launches_per_proof"] = per_proof
+    state["k1_launches_by_mode"] = dict(poseidon_cuda.launches_by_mode)
     timings = {k: statistics.median(v) for k, v in profiling.get_timings().items()}
     emit({"phase": "wormhole", "config": "standard_recursion_zk_config",
           "degree_bits": cd.common.degree_bits, "proof_bytes": len(data),
           "sha256": digest, "golden": True, "verified": True,
           "tamper_rejected": True, "build_s": build_s, "cold_s": cold_s,
           "warm_s": warm, "warm_proofs_per_s": 1.0 / statistics.median(warm),
-          "k1_launches_per_proof": per_proof, "k1_launches": launches,
+          "k1_launches_per_proof": per_proof, "k1_launches_per_proof_by_mode": by_mode,
+          "k1_launches_per_proof_expected": want, "k1_launches": launches,
+          "k1_launches_by_mode": state["k1_launches_by_mode"],
           "stage_median_s": timings})
 
 
@@ -459,7 +572,7 @@ def profiled(fn) -> dict:
             "device_idle_share": 1.0 - busy / wall,
             "device_ops": sum(v[1] for v in by_name.values()),
             "leaf_kernel_s": sum(v[0] for k, v in by_name.items()
-                                 if "poseidon_leaf" in k),
+                                 if "k1_" in k),
             "exchange_kernel_s": sum(v[0] for k, v in by_name.items()
                                      if "block_exchange" in k),
             "top_device_ops": [{"name": k[:100], "s": v[0], "count": v[1]}
@@ -557,7 +670,7 @@ def phase_sharded(state) -> None:
         _synced(fn)
         singles[name] = _synced(fn)
 
-    poseidon_cuda.launches = 0          # main path starts here
+    poseidon_cuda.reset_launches()      # main path starts here
     exchange_cuda.launches = 0
     # each sub-step runs twice and the second run is timed
     # 1. batch-sharded LDE commit at the wormhole wires shape
@@ -633,44 +746,173 @@ def phase_sharded(state) -> None:
     emit(out)
 
 
+def sass_functions(text: str) -> dict:
+    """cuobjdump -sass text -> {function: [(address, opcode), ...]}."""
+    import re
+
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,6})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", ln)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def k1_sass_counts() -> dict:
+    """Per permutation of each sponge kernel k1_sponge_kernel<T>, from the
+    SASS of the built library: its three round loops (4 full, 22 partial,
+    4 full rounds, one round per iteration) are the first three innermost
+    loops of the kernel that hold IMAD.WIDE; a row's permutation is T x
+    (4 x the first + 22 x the second + 4 x the third), T threads a row.  32-bit multiplies: IMAD.WIDE
+    counts 2 (a 64-bit result), IMAD and IMAD.HI 1; IMAD.MOV, .SHL, .IADD
+    and .X are moves, shifts and adds on the multiply unit, counted apart."""
+    from zk_circuits_torch.hash import poseidon_cuda
+
+    cuobjdump = "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(poseidon_cuda.build())],
+                          capture_output=True, text=True, timeout=120).stdout
+    return sass_round_counts(text)
+
+
+def sass_round_counts(text: str) -> dict:
+    """k1_sass_counts on the text of cuobjdump -sass."""
+    import collections
+    import re
+
+    out = {}
+    for name, ins in sass_functions(text).items():
+        m = re.match(r"_Z\d+k1_sponge_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        loops = []
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if t and int(t.group(1), 16) < addr:
+                loops.append((int(t.group(1), 16), addr))
+        inner = sorted(lp for lp in loops if not any(
+            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops))
+        bodies = []
+        for lo, hi in inner:
+            h = collections.Counter(op for a, op, _ in ins if lo <= a <= hi)
+            if sum(v for k, v in h.items() if k.startswith("IMAD.WIDE")) >= 8:
+                bodies.append(h)
+        if len(bodies) < 3:
+            raise AssertionError(f"{name}: {len(bodies)} round loops found in the SASS")
+        team = int(m.group(1))          # a row's permutation: all T threads of its team
+        per_perm = collections.Counter()
+        for h, times in zip(bodies[:3], (4, 22, 4)):
+            for k, v in h.items():
+                per_perm[k] += v * times * team
+        muls = sum(v * (2 if k.startswith("IMAD.WIDE") else 1) for k, v in per_perm.items()
+                   if k.startswith(("IMAD.WIDE", "IMAD.HI")) or k in ("IMAD", "IMAD.U32"))
+        other_imad = sum(v for k, v in per_perm.items()
+                         if k.startswith("IMAD") and not k.startswith(("IMAD.WIDE", "IMAD.HI"))
+                         and k not in ("IMAD", "IMAD.U32"))
+        out[f"team {team}"] = {
+            "mul32_per_perm": muls, "imad_wide_per_perm": sum(
+                v for k, v in per_perm.items() if k.startswith("IMAD.WIDE")),
+            "imad_mov_shl_iadd_x_per_perm": other_imad,
+            "shfl_per_perm": sum(v for k, v in per_perm.items() if k.startswith("SHFL")),
+            "instructions_per_perm": sum(per_perm.values()),
+            "round_loop_instructions": [sum(h.values()) for h in bodies[:3]],
+            "top_ops": per_perm.most_common(8)}
+    return out
+
+
 def phase_k1_time(state) -> None:
-    import numpy as np
     import torch
 
-    from zk_circuits_torch.hash import poseidon as plain
-    from zk_circuits_torch.hash import poseidon_pallas as pp
+    from zk_circuits_torch.hash import poseidon_cuda as pc
 
-    rng = np.random.default_rng(7)
-    # the wormhole proof's own shapes: the zk wires commit (135 wires + 4
-    # salts) over the LDE, the first FRI fold tree, one PoW sweep
-    # (plus the wires commit at twice the LDE: the reference Rust circuit's
-    # degree 2^14)
-    lde, arity = state["lde_size"], state["fri_arity"]
-    shapes = [("wires", lde, 139, "column-major"),
-              ("fri_tree", lde // arity, 2 * arity, "row-major"),
-              ("grind", GRIND_ROWS, 5, "row-major"),
-              ("wires_2x", 2 * lde, 139, "column-major")]
-    rows_out = []
-    for name, n, cols, layout in shapes:
-        x = torch.from_numpy(leaf_matrix(rng, n, cols).view(np.int64)).cuda()
-        arg = x.t().contiguous() if layout == "column-major" else x
-        fn = (lambda a=arg: pp.hash_values(a)) if layout == "column-major" \
-            else (lambda a=arg: pp.hash_leaves(a))
-        ms = cuda_ms(fn, reps=20)
-        plain_ms = cuda_ms(lambda a=x: plain.batch_hash_no_pad(a), reps=3, warmup=1)
-        bound, by = k1_bound_ms(n, cols)
-        rows_out.append({"shape": name, "n": n, "cols": cols, "layout": layout,
-                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                         "bound_by": by, "share_of_bound": bound / ms})
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cd = state["wormhole"][0]
+    cap = cd.common.config.fri_config.cap_height
+    trees = {name: (n, cols, layout) for name, n, cols, layout in wormhole_trees(cd.common)}
+
+    def inputs(n, cols, layout, count):
+        """``count`` (n, cols) views of their own, each made on the card."""
+        shape = (cols, n) if layout == "column-major" else (n, cols)
+        xs = [torch.randint(0, P >> 1, shape, generator=gen, dtype=torch.int64,
+                            device="cuda") for _ in range(count)]
+        return [x.t() if layout == "column-major" else x for x in xs]
+
+    def row(name, n, cols, layout, fn, plain, work, plain_ms=None):
+        xs = inputs(n, cols, layout, K1_TIMED_CALLS)
+        g = graph_ms([lambda x=x: fn(x) for x in xs])
+        call_ms = cuda_ms(lambda: fn(xs[0]), reps=10)
+        if plain_ms is None:
+            plain_ms = cuda_ms(lambda: plain(xs[0]), reps=1, warmup=0)
+        bound, by = k1_bound_ms(*work)
+        return {"shape": name, "n": n, "cols": cols, "layout": layout,
+                "team_rows": list(pc.config(n)), "ms": g["ms"], "min_ms": g["min_ms"],
+                "max_ms": g["max_ms"], "call_ms": call_ms, "plain_ms": plain_ms,
+                "perms": work[0], "bytes": work[1], "bound_ms": bound, "bound_by": by,
+                "share_of_bound": bound / g["ms"]}
+
+    shapes = [(name, *trees[name]) for name in ("wires", "zs", "quotient", "fri_tree_0",
+                                                "fri_tree_1")]
+    shapes += [("grind", GRIND_ROWS, 5, "row-major"),
+               ("compress_2^15", 1 << 15, 8, "row-major")]
+    rows_out = [row(name, n, cols, layout, pc.hash_rows, pc.hash_rows_plain,
+                    k1_work(n, cols)) for name, n, cols, layout in shapes]
+
+    # the whole wires tree: hash_tree (2 launches) against the level loop of
+    # earlier PRs (13 launches: leaves, then one compress launch a level)
+    n, cols, layout = trees["wires"]
+
+    def level_loop(x):
+        levels = [pc.hash_rows(x)]
+        while levels[-1].shape[0] > (1 << cap):
+            levels.append(pc.hash_rows(levels[-1].reshape(-1, 8)))
+        return levels
+
+    rows_out.append(row("wires_tree", n, cols, layout, lambda x: pc.hash_tree(x, cap),
+                        lambda x: pc.hash_tree_plain(x, cap), k1_work(n, cols, cap)))
+    rows_out.append(row("wires_tree_level_loop", n, cols, layout, level_loop, None,
+                        k1_work(n, cols, cap), plain_ms=rows_out[-1]["plain_ms"]))
+    over = [r for r in rows_out if r["share_of_bound"] > 1.05]
+    if over:
+        raise AssertionError(f"K1 timed below its bound: {over}")
+
+    # every team size and block size (graph_ms) at the sponge shapes, and
+    # at the sharded path's per-shard shapes (E=SHARDS): a commit's leaves,
+    # its first compress level and the first FRI tree's leaves
+    n, cols, _ = trees["wires"]
+    fri_n, fri_cols, _ = trees["fri_tree_0"]
+    sharded_shapes = [("shard_wires", n // SHARDS, cols, "column-major"),
+                      ("shard_compress", n // SHARDS // 2, 8, "row-major"),
+                      ("shard_fri_tree_0", fri_n // SHARDS, fri_cols, "row-major")]
+    candidates = {}
+    for name, n, cols, layout in shapes + sharded_shapes:
+        xs = inputs(n, cols, layout, 4)
+        got = {}
+        for team in pc.TEAMS:
+            for rows in (32, 64, 128, 256):
+                if -(-rows // (32 // team)) * 32 > pc.max_threads(team):
+                    continue
+                got[f"T={team} rows={rows}"] = graph_ms(
+                    [lambda x=x: pc.hash_rows(x, team, rows) for x in xs], replays=3)["ms"]
+        candidates[f"{name} {n} x {cols}"] = dict(sorted(got.items(), key=lambda kv: kv[1]))
+    sass = k1_sass_counts()
     emit({"phase": "k1_time", "muls_per_permutation": MULS_PER_PERM,
           "int32_mul_per_s": INT32_MUL_PER_S, "hbm_bytes_per_s": HBM_BYTES_PER_S,
-          "shapes": rows_out})
-    main = rows_out[0]
+          "timing": f"ms: CUDA events around the replay of a CUDA graph of "
+                    f"{K1_TIMED_CALLS} calls on inputs of their own, L2 emptied "
+                    f"first, per call, median of 8 replays (min_ms/max_ms: their "
+                    f"range); call_ms: CUDA events around one wrapper call; "
+                    f"plain_ms: one call of the plain version",
+          "shapes": rows_out, "candidates_ms": candidates, "sass": sass})
+    main = next(r for r in rows_out if r["shape"] == "wires_tree")   # the main path's launch
     state["kernels"] = [{
         "name": "poseidon_leaf_hash", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": state["k1_launches"],
         "launches_by_path": {"wormhole": state["k1_launches"],
                              "sharded": state["k1_launches_sharded"]},
+        "launches_by_mode": state["k1_launches_by_mode"],
         "max_abs_err": state["k1_max_abs_err"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None}]
@@ -696,25 +938,29 @@ def phase_k2_time(state) -> None:
         sets = [[view(b.clone()) for b in base] for _ in range(K2_TIMED_CALLS)]
         per_shard = list(sets[0][0].shape)
         nbytes = e * sets[0][0].numel() * 8          # the global (E, E, ...) tensor
-        ms = graph_ms([lambda xs=xs: exchange_cuda.exchange(xs) for xs in sets])
-        plain_ms = graph_ms([lambda xs=xs: exchange_cuda.exchange_plain(xs)
-                             for xs in sets])
+        k2 = graph_ms([lambda xs=xs: exchange_cuda.exchange(xs) for xs in sets])
+        plain = graph_ms([lambda xs=xs: exchange_cuda.exchange_plain(xs) for xs in sets])
         call_ms = cuda_ms(lambda: exchange_cuda.exchange(sets[0]), reps=20)
         stacked = [torch.stack(xs) for xs in sets]
         del sets
-        library_ms = graph_ms([lambda t=t: t.transpose(0, 1).contiguous()
-                               for t in stacked])
+        lib = graph_ms([lambda t=t: t.transpose(0, 1).contiguous() for t in stacked])
         del stacked
         bound = k2_bound_ms(nbytes)
         rows_out.append({"shape": name, "per_shard": per_shard, "shards": e,
-                         "bytes": nbytes, "ms": ms, "call_ms": call_ms,
-                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bytes": nbytes, "ms": k2["ms"], "min_ms": k2["min_ms"],
+                         "max_ms": k2["max_ms"], "call_ms": call_ms,
+                         "plain_ms": plain["ms"], "library_ms": lib["ms"],
+                         "library_min_ms": lib["min_ms"], "library_max_ms": lib["max_ms"],
+                         "k2_over_library": k2["ms"] / lib["ms"],
+                         "spreads_overlap": k2["min_ms"] <= lib["max_ms"]
+                         and lib["min_ms"] <= k2["max_ms"],
                          "bound_ms": bound, "bound_by": "bytes",
-                         "share_of_bound": bound / ms})
+                         "share_of_bound": bound / k2["ms"]})
     emit({"phase": "k2_time", "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "timing": f"ms/plain_ms/library_ms: CUDA events around the replay "
                     f"of a CUDA graph of {K2_TIMED_CALLS} calls on inputs of "
-                    f"their own, L2 emptied first, per call; call_ms: CUDA "
+                    f"their own, L2 emptied first, per call, median of 8 "
+                    f"replays (min_ms/max_ms: their range); call_ms: CUDA "
                     f"events around one wrapper call, L2 warm",
           "shapes": rows_out})
     over = [r for r in rows_out if r["share_of_bound"] > 1.05]
@@ -730,8 +976,8 @@ def phase_k2_time(state) -> None:
         "bound_by": "bytes", "library_ms": main["library_ms"]})
 
 
-PHASES = {"card": phase_card, "k1_check": phase_k1_check,
-          "square": phase_square, "wormhole": phase_wormhole,
+PHASES = {"card": phase_card, "square": phase_square,
+          "wormhole": phase_wormhole, "k1_check": phase_k1_check,
           "profile": phase_profile, "k2_check": phase_k2_check,
           "sharded": phase_sharded, "k1_time": phase_k1_time,
           "k2_time": phase_k2_time}
@@ -750,10 +996,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     state: dict = {}
+    phase_s = {}
     for name, phase in PHASES.items():
         t0 = time.perf_counter()
         try:
             phase(state)
+            phase_s[name] = time.perf_counter() - t0
         except Exception as e:  # any failing phase fails the run
             import traceback
 
@@ -761,6 +1009,7 @@ def main() -> int:
             emit({"phase": name, "ok": False, "error": repr(e),
                   "s": time.perf_counter() - t0})
             return 1
+    emit({"phase_s": phase_s, "total_s": sum(phase_s.values())})
     print(state["smi"], flush=True)
     emit({"kernels": state["kernels"]})
     emit({"ok": True, "device": {"platform": "gpu",

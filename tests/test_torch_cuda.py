@@ -42,6 +42,62 @@ def test_leaf_kernel_matches_plain(cuda, n, cols):
     assert (got_rows < np.uint64(P)).all()
 
 
+@pytest.mark.parametrize("team", list(poseidon_cuda.TEAMS))
+@pytest.mark.parametrize("rows", [32, 256])
+def test_sponge_every_team_at_the_edges(cuda, team, rows):
+    """Every team size and block size: n below the team, n not a multiple
+    of the block's rows, cols 1 to 139, both layouts."""
+    if -(-rows // (32 // team)) * 32 > poseidon_cuda.max_threads(team):
+        pytest.skip(f"{rows} rows a block need more threads than team {team} allows")
+    rng = np.random.default_rng(team * 1000 + rows)
+    for n in (1, 2, 3, 33, 517):
+        for cols in (1, 5, 8, 9, 16, 32, 135, 139):
+            x = rng.integers(0, 2**64 - 1, (n, cols), dtype=np.uint64, endpoint=True)
+            rows_t = torch.from_numpy(x.view(np.int64)).to(cuda)
+            want = poseidon_cuda.hash_rows_plain(rows_t)
+            for view in (rows_t, rows_t.t().contiguous().t()):
+                got = poseidon_cuda.hash_rows(view, team, rows)
+                assert torch.equal(got, want), (n, cols, view.stride())
+
+
+def test_k1_on_every_card(cuda):
+    """K1 on each card in turn, at a sharded commit's per-shard shape: one
+    thread a row and 256 rows a block, above 48 KB of shared memory, which a
+    card allows only once the kernel has opted in on that card."""
+    x = np.random.default_rng(3).integers(0, P, (1 << 14, 139), dtype=np.uint64)
+    for i in range(torch.cuda.device_count()):
+        rows_t = torch.from_numpy(x.view(np.int64)).to(torch.device("cuda", i))
+        view = rows_t.t().contiguous().t()
+        assert torch.equal(poseidon_cuda.hash_rows(view), poseidon_cuda.hash_rows_plain(rows_t))
+        got = poseidon_cuda.hash_tree(view, 4)
+        for g, w in zip(got, poseidon_cuda.hash_tree_plain(rows_t, 4), strict=True):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,cols,cap_height", [
+    (1 << 16, 139, 4), (1 << 16, 24, 4), (1 << 16, 20, 4), (1 << 12, 32, 4),
+    (1 << 8, 32, 4), (256, 8, 0), (1024, 139, 2), (64, 3, 2)])
+def test_hash_tree_matches_plain_levels(cuda, n, cols, cap_height):
+    """hash_tree against the plain level loop: the wormhole's commit and FRI
+    tree shapes, and small trees; row-major and column-major leaves."""
+    x = np.random.default_rng(n + cols).integers(0, P, (n, cols), dtype=np.uint64)
+    rows_t = torch.from_numpy(x.view(np.int64)).to(cuda)
+    want = poseidon_cuda.hash_tree_plain(rows_t, cap_height)
+    for view in (rows_t, rows_t.t().contiguous().t()):
+        before = dict(poseidon_cuda.launches_by_mode)
+        got = poseidon_cuda.hash_tree(view, cap_height)
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        team, rows = poseidon_cuda.config(n)
+        plan = poseidon_cuda.tree_plan(n if cols > 4 else n // 2, cap_height, rows)
+        if cols > 4 or n > 1 << cap_height:
+            assert poseidon_cuda.launches_by_mode["tree"] == before["tree"] + 1
+            assert poseidon_cuda.launches_by_mode["top"] == \
+                before["top"] + bool(plan["top_threads"])
+
+
 def test_square_proof_cuda_equals_cpu(cuda):
     from zk_circuits_torch.iop.builder import CircuitBuilder
     from zk_circuits_torch.iop.witness import PartialWitness

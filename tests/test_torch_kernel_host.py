@@ -3,7 +3,10 @@
 csrc/goldilocks.cuh and csrc/poseidon.cuh are __host__ __device__ code;
 here they are compiled with g++ behind a small C shim and checked against
 the numpy golden models (host/gl.py, host/poseidon.py) of both packages,
-so the field and permutation code is tested before any card runs it.
+so the field and permutation code is tested before any card runs it: both
+forms of the MDS layer, the thread-team permutation (the T threads of a
+team run in turn, arrays in place of the warp shuffles) and the Merkle
+subtree index arithmetic (the tree kernel's blocks run one at a time).
 """
 
 import ctypes
@@ -16,6 +19,7 @@ import pytest
 
 from zk_circuits_torch.hash import poseidon_cuda
 from zk_circuits_torch.utils import nvcc
+from zk_circuits_tpu.hash.merkle import MerkleTree
 from zk_circuits_tpu.host import gl as jgl
 from zk_circuits_tpu.host import poseidon as jpos
 
@@ -38,6 +42,89 @@ void shim_canon(const uint64_t* a, uint64_t* out, long n) {
 void shim_permute(uint64_t* states, long n) {
   for (long i = 0; i < n; i++) poseidon_permute(states + 12 * i, RC);
 }
+void shim_mds_freq(uint64_t* states, long n) {
+  for (long i = 0; i < n; i++) poseidon_mds_freq(states + 12 * i);
+}
+}
+
+// One row by a team of T threads, run in turn: thread j's lanes are
+// lanes[j][k] = state lane j + k*T; `rounds` of the permutation, or (with
+// rounds < 0) a bare MDS layer.
+template <int T>
+static void team_row(uint64_t* state, int rounds) {
+  constexpr int L = 12 / T;
+  uint64_t lanes[T][L], g[T][12];
+  for (int j = 0; j < T; j++)
+    for (int k = 0; k < L; k++) lanes[j][k] = state[j + k * T];
+  for (int r = 0; r < (rounds < 0 ? 1 : rounds); r++) {
+    for (int j = 0; j < T && rounds >= 0; j++) {
+      if (poseidon_full_round(r))
+        poseidon_team_sboxes<T, true>(lanes[j], j, r, RC);
+      else
+        poseidon_team_sboxes<T, false>(lanes[j], j, r, RC);
+    }
+    for (int j = 0; j < T; j++) {
+      for (int e = 0; e < L; e++) g[j][e * T] = lanes[j][e];
+      for (int d = 1; d < T; d++) {
+        int src = (j + d) % T;  // the shuffle's source thread
+        for (int e = 0; e < L; e++) g[j][d + e * T] = team_provide<T>(lanes[src], src, d, e);
+      }
+    }
+    for (int j = 0; j < T; j++) poseidon_mds_rows<T>(j, g[j], lanes[j]);
+  }
+  for (int j = 0; j < T; j++)
+    for (int k = 0; k < L; k++) state[j + k * T] = lanes[j][k];
+}
+
+extern "C" int shim_team(uint64_t* states, long n, int team, int rounds) {
+  for (long i = 0; i < n; i++) {
+    uint64_t* st = states + 12 * i;
+    switch (team) {
+      case 1: team_row<1>(st, rounds); break;
+      case 4: team_row<4>(st, rounds); break;
+      case 12: team_row<12>(st, rounds); break;
+      default: return -1;
+    }
+  }
+  return 0;
+}
+
+static void hash_row(const uint64_t* row, int cols, uint64_t digest[4]) {
+  uint64_t s[12] = {0};
+  for (int off = 0; off < cols; off += 8) {
+    for (int j = 0; j < 8 && off + j < cols; j++) s[j] = row[off + j];
+    poseidon_permute(s, RC);
+  }
+  for (int j = 0; j < 4; j++) digest[j] = gl_canon(s[j]);
+}
+
+// The tree launch's blocks of `rows` leaves one at a time (leaf digests
+// and `in_block` levels of each subtree, through a block-local digest
+// array), then the top launch's levels in_block+1 .. depth, with the
+// kernel's index arithmetic.
+extern "C" void shim_tree(const uint64_t* leaves, long long n, int cols, int rows,
+                          int in_block, int depth, uint64_t* out) {
+  uint64_t dig[256 * 4];
+  for (long long row0 = 0; row0 < n; row0 += rows) {
+    long long nrows = n - row0 < rows ? n - row0 : rows;
+    for (long long t = 0; t < nrows; t++) {
+      hash_row(leaves + (row0 + t) * cols, cols, dig + 4 * t);
+      for (int lane = 0; lane < 4; lane++) out[merkle_node_elem(n, 0, row0, t, lane)] = dig[4 * t + lane];
+    }
+    for (int l = 1; l <= in_block; l++)
+      for (long long t = 0; t < (nrows >> l); t++) {
+        uint64_t d[4];
+        hash_row(dig + 8 * t, 8, d);  // reads nodes 2t, 2t+1 before node t is written
+        for (int lane = 0; lane < 4; lane++) {
+          dig[4 * t + lane] = d[lane];
+          out[merkle_node_elem(n, l, row0, t, lane)] = d[lane];
+        }
+      }
+  }
+  for (int l = in_block + 1; l <= depth; l++)
+    for (long long k = 0; k < (n >> l); k++)
+      hash_row(out + merkle_level_offset(n, l - 1) + 8 * k, 8,
+               out + merkle_level_offset(n, l) + 4 * k);
 }
 """
 
@@ -125,3 +212,61 @@ def test_permutation_matches_host(lib):
     lib.shim_permute(_ptr(nc), ctypes.c_long(1))
     assert np.array_equal(_ref_mod(nc[0]),
                           jpos.permute(np.full(12, 2**32 - 2, dtype=U64)))
+
+
+EDGE = np.array([0, 1, P - 1, P, 2**64 - 1], dtype=U64)
+
+
+def _states(rng, n):
+    """n random 12-lane states, then every lane at each edge value, then the
+    edge values mixed across the lanes."""
+    st = rng.integers(0, 2**64 - 1, (n, 12), dtype=U64, endpoint=True)
+    edge_rows = np.repeat(EDGE[:, None], 12, axis=1)
+    mixed = EDGE[(np.arange(12)[None, :] + np.arange(5)[:, None]) % 5]
+    return np.ascontiguousarray(np.concatenate([st, edge_rows, mixed]))
+
+
+def test_mds_freq_matches_host(lib):
+    st = _states(np.random.default_rng(14), 500)
+    got = st.copy()
+    lib.shim_mds_freq(_ptr(got), ctypes.c_long(st.shape[0]))
+    assert np.array_equal(_ref_mod(got), jpos._mds_layer(_ref_mod(st)))
+
+
+# the team sizes the kernel runs: 1 and 4 in the sponge, 4 and 12 in the
+# tree levels above a block's first
+@pytest.mark.parametrize("team", [1, 4, 12])
+def test_team_mds_and_permutation_match_host(lib, team):
+    st = _states(np.random.default_rng(15 + team), 200)
+    got = st.copy()
+    assert lib.shim_team(_ptr(got), ctypes.c_long(st.shape[0]), team, -1) == 0
+    assert np.array_equal(_ref_mod(got), jpos._mds_layer(_ref_mod(st)))
+    got = st.copy()
+    assert lib.shim_team(_ptr(got), ctypes.c_long(st.shape[0]), team, 30) == 0
+    assert np.array_equal(_ref_mod(got), jpos.permute(_ref_mod(st)))
+
+
+def test_freq_blocks_are_small_shifts():
+    """The frequency-domain coefficients are 0 or +-2^k with |c| <= 32, so
+    the MDS in poseidon_mds_freq needs no multiplies."""
+    for vals in poseidon_cuda.freq_blocks().values():
+        for v in vals:
+            assert v == 0 or (abs(v) <= 32 and abs(v) & (abs(v) - 1) == 0), v
+
+
+@pytest.mark.parametrize("log_n,cap_height,rows,cols", [
+    (8, 0, 64, 5), (8, 2, 128, 8), (8, 4, 256, 32), (8, 4, 16, 9),
+    (10, 0, 128, 139), (10, 2, 32, 8), (10, 4, 128, 24), (10, 4, 1024 // 4, 5)])
+def test_subtree_index_arithmetic_matches_merkle_build(lib, log_n, cap_height, rows, cols):
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n * 100 + cap_height * 10 + cols)
+    leaves = np.ascontiguousarray(rng.integers(0, P, (n, cols), dtype=U64))
+    plan = poseidon_cuda.tree_plan(n, cap_height, rows=rows)
+    out = np.zeros((sum(plan["sizes"]), 4), dtype=U64)
+    lib.shim_tree(_ptr(leaves), ctypes.c_longlong(n), cols, rows, plan["in_block"],
+                  plan["depth"], _ptr(out))
+    want = MerkleTree.build(leaves, cap_height).levels
+    got = np.split(out, np.cumsum(plan["sizes"])[:-1])
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)

@@ -18,38 +18,91 @@
 #define GL_P 0xFFFFFFFF00000001ULL
 #define GL_EPS 0xFFFFFFFFULL  // 2^64 mod p
 
-// High 64 bits of the 128-bit product a * b.
-GL_HD uint64_t gl_mulhi(uint64_t a, uint64_t b) {
+// a + b over 64 bits and the carry out (0 or 1).  On the card the carry
+// comes from the adder's flag (add.cc / addc), with no compare.
+GL_HD uint64_t gl_add_carry(uint64_t a, uint64_t b, uint32_t* carry) {
 #ifdef __CUDA_ARCH__
-  return __umul64hi(a, b);
+  uint64_t s;
+  asm("add.cc.u64 %0, %2, %3;\n\taddc.u32 %1, 0, 0;" : "=l"(s), "=r"(*carry) : "l"(a), "l"(b));
+  return s;
 #else
-  return (uint64_t)(((unsigned __int128)a * b) >> 64);
+  uint64_t s = a + b;
+  *carry = s < a;
+  return s;
+#endif
+}
+
+// a - b over 64 bits and the borrow out (0 or 1).
+GL_HD uint64_t gl_sub_borrow(uint64_t a, uint64_t b, uint32_t* borrow) {
+#ifdef __CUDA_ARCH__
+  uint64_t d;
+  uint32_t m;
+  asm("sub.cc.u64 %0, %2, %3;\n\tsubc.u32 %1, 0, 0;" : "=l"(d), "=r"(m) : "l"(a), "l"(b));
+  *borrow = m & 1;
+  return d;
+#else
+  *borrow = a < b;
+  return a - b;
 #endif
 }
 
 // (lo + 2^64 * hi) mod p, non-canonical: the result may lie in [p, 2^64).
 GL_HD uint64_t gl_reduce128(uint64_t lo, uint64_t hi) {
-  uint64_t hi_hi = hi >> 32;
-  uint64_t hi_lo = hi & GL_EPS;
-  uint64_t t0 = lo - hi_hi;
-  if (lo < hi_hi) t0 -= GL_EPS;  // borrow: 2^64 = EPS, cannot underflow again
-  uint64_t t1 = (hi_lo << 32) - hi_lo;  // hi_lo * EPS < 2^64
-  uint64_t t2 = t0 + t1;
-  if (t2 < t0) t2 += GL_EPS;  // carry: cannot overflow again
-  return t2;
+  uint32_t b, c;
+  uint64_t t0 = gl_sub_borrow(lo, hi >> 32, &b);
+  t0 -= (uint64_t)(0u - b);  // borrow: 2^64 = EPS, cannot underflow again
+  uint64_t hl = hi & GL_EPS;
+  uint64_t t2 = gl_add_carry(t0, (hl << 32) - hl, &c);  // hl * EPS < 2^64
+  return t2 + (uint64_t)(0u - c);  // carry: cannot overflow again
 }
 
-// a * b mod p for any u64 a, b; non-canonical result.
+// a * b + c for 32-bit a, b and 64-bit c (no overflow: at most 2^64 - 1);
+// one IMAD.WIDE.U32 on the card.
+GL_HD uint64_t gl_madw(uint32_t a, uint32_t b, uint64_t c) {
+#ifdef __CUDA_ARCH__
+  uint64_t r;
+  asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(r) : "r"(a), "r"(b), "l"(c));
+  return r;
+#else
+  return (uint64_t)a * b + c;
+#endif
+}
+
+// a * b mod p for any u64 a, b; non-canonical result.  The 128-bit
+// product is four 32x32->64 multiply-adds whose addends absorb the middle
+// carries, so it costs four IMAD.WIDE.U32 and one 64-bit add.
 GL_HD uint64_t gl_mul(uint64_t a, uint64_t b) {
-  return gl_reduce128(a * b, gl_mulhi(a, b));
+  uint32_t a0 = (uint32_t)a, a1 = (uint32_t)(a >> 32);
+  uint32_t b0 = (uint32_t)b, b1 = (uint32_t)(b >> 32);
+  uint64_t p00 = gl_madw(a0, b0, 0);
+  uint64_t mid = gl_madw(a0, b1, p00 >> 32);            // < 2^64
+  uint64_t mid2 = gl_madw(a1, b0, (uint32_t)mid);       // < 2^64
+  uint64_t lo = (mid2 << 32) | (uint32_t)p00;
+  uint64_t hi = gl_madw(a1, b1, mid >> 32) + (mid2 >> 32);
+  return gl_reduce128(lo, hi);
+}
+
+// (lo + 2^64 * h) mod p for h < 2^32, non-canonical: 2^64 = 2^32 - 1.
+GL_HD uint64_t gl_reduce96(uint64_t lo, uint64_t h) {
+  uint32_t c;
+  uint64_t r = gl_add_carry(lo, (h << 32) - h, &c);  // h * EPS < 2^64 - 2^33
+  return r + (uint64_t)(0u - c);  // carry: r < h * EPS, so this cannot overflow
+}
+
+// (lo + 2^32 * hi) mod p for lo, hi < 2^63 (a lane split into 32-bit
+// halves, each half multiplied and summed on its own).
+GL_HD uint64_t gl_reduce_split(uint64_t lo, uint64_t hi) {
+  uint32_t c;
+  uint64_t x = gl_add_carry(lo, hi << 32, &c);
+  return gl_reduce96(x, (hi >> 32) + c);
 }
 
 // a + b mod p for any u64 a and canonical b (< p); non-canonical result.
 // On wraparound the corrected sum is <= p - 2, so one EPS-add suffices.
 GL_HD uint64_t gl_add_canon_rhs(uint64_t a, uint64_t b) {
-  uint64_t s = a + b;
-  if (s < a) s += GL_EPS;
-  return s;
+  uint32_t c;
+  uint64_t s = gl_add_carry(a, b, &c);
+  return s + (uint64_t)(0u - c);
 }
 
 // Any u64 -> [0, p).

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..host import poseidon as hposeidon
+from . import poseidon_cuda
 from . import poseidon_pallas as pp
 from .poseidon import batch_hash_or_noop
 
@@ -72,24 +73,13 @@ def verify_merkle_proof(
     return bool(np.array_equal(current, cap[i]))
 
 
-def _compress_levels(levels: list, cap_height: int) -> list:
-    """Append compress levels up to the cap.  compress(l, r) is
-    hash_no_pad(l || r) for 8 felts, so a level (m, 4) viewed row-major as
-    (m/2, 8) is one more leaf-kernel launch."""
-    while levels[-1].shape[0] > (1 << cap_height):
-        cur = levels[-1]
-        levels.append(pp.hash_leaves(cur.reshape(cur.shape[0] // 2, 8)))
-    return levels
-
-
 def device_merkle_levels(leaves: torch.Tensor, cap_height: int) -> list:
     """Tree builder on tensors: leaves (n, cols) row-major -> every level
-    (leaf digests first, cap last) as (m, 4) int64 tensors.  The leaf level
-    goes through the sponge kernel for cols > 4 (hash_or_noop pads
-    narrower rows)."""
+    (leaf digests first, cap last) as (m, 4) int64 tensors, through K1's
+    tree mode (hash_or_noop of narrower rows pads them)."""
     n = leaves.shape[0]
     assert n & (n - 1) == 0 and n >= (1 << cap_height)
-    return _compress_levels([leaf_digests(leaves)], cap_height)
+    return poseidon_cuda.hash_tree(leaves, cap_height)
 
 
 def leaf_digests(leaves: torch.Tensor) -> torch.Tensor:
@@ -104,13 +94,9 @@ def device_merkle_levels_values(values: torch.Tensor, cap_height: int) -> list:
     """Like :func:`device_merkle_levels` but takes the leaf matrix
     COLUMN-MAJOR -- ``values`` (cols, n), leaf row i = values[:, i] -- the
     natural orientation of the LDE output, hashed in place."""
-    cols, n = values.shape
+    n = values.shape[1]
     assert n & (n - 1) == 0 and n >= (1 << cap_height)
-    if cols > 4:
-        first = pp.hash_values(values)
-    else:
-        first = batch_hash_or_noop(values.t())
-    return _compress_levels([first], cap_height)
+    return poseidon_cuda.hash_tree(values.t(), cap_height)
 
 
 def sharded_merkle_levels(digests: list, cap_height: int) -> list:
