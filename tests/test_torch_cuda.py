@@ -98,6 +98,47 @@ def test_hash_tree_matches_plain_levels(cuda, n, cols, cap_height):
                 before["top"] + bool(plan["top_threads"])
 
 
+@pytest.mark.parametrize("n,cols,layout", [
+    (1 << 16, 139, "column-major"), (1 << 12, 32, "row-major"), (1 << 8, 32, "row-major"),
+    (64, 12, "column-major"), (32, 3, "row-major")])
+def test_batched_hash_tree_and_rows_match_plain(cuda, n, cols, layout):
+    """A batch of 4 matrices (a leading proof axis): one tree launch and at
+    most one top launch build the 4 trees, each equal to the plain one."""
+    x = np.random.default_rng(n + cols).integers(0, P, (4, n, cols), dtype=np.uint64)
+    rows_t = torch.from_numpy(x.view(np.int64)).to(cuda)
+    view = rows_t if layout == "row-major" else \
+        rows_t.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(poseidon_cuda.hash_rows(view), poseidon_cuda.hash_rows_plain(rows_t))
+    before = dict(poseidon_cuda.launches_by_mode)
+    got = poseidon_cuda.hash_tree(view, 2)
+    torch.cuda.synchronize()
+    assert poseidon_cuda.launches_by_mode["tree"] == before["tree"] + 1
+    assert poseidon_cuda.launches_by_mode["top"] <= before["top"] + 1
+    for g, w in zip(got, poseidon_cuda.hash_tree_plain(rows_t, 2), strict=True):
+        assert torch.equal(g, w)
+
+
+def test_prove_batch_cuda_equals_cpu(cuda):
+    from zk_circuits_torch.iop.builder import CircuitBuilder
+    from zk_circuits_torch.iop.witness import PartialWitness
+    from zk_circuits_torch.plonk.config import CircuitConfig
+    from zk_circuits_torch.plonk.prover import prove_batch
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    out = []
+    for device in ("cuda", "cpu"):
+        b = CircuitBuilder(CircuitConfig.standard_recursion_zk_config())
+        x = b.add_virtual_target()
+        b.register_public_input(b.square(x))
+        data = b.build(device=device)
+        pws = []
+        for v in (5, 6, 7):
+            pws.append(PartialWitness())
+            pws[-1].set_target(x, v)
+        out.append([proof_to_bytes(p) for p in prove_batch(data, pws, device=device)])
+    assert out[0] == out[1]
+
+
 def test_square_proof_cuda_equals_cpu(cuda):
     from zk_circuits_torch.iop.builder import CircuitBuilder
     from zk_circuits_torch.iop.witness import PartialWitness

@@ -101,11 +101,16 @@ static void hash_row(const uint64_t* row, int cols, uint64_t digest[4]) {
 // The tree launch's blocks of `rows` leaves one at a time (leaf digests
 // and `in_block` levels of each subtree, through a block-local digest
 // array), then the top launch's levels in_block+1 .. depth, with the
-// kernel's index arithmetic.
-extern "C" void shim_tree(const uint64_t* leaves, long long n, int cols, int rows,
-                          int in_block, int depth, uint64_t* out) {
+// kernel's index arithmetic; over a batch of `batch` trees, matrix b's
+// leaves at leaves + b * in_bstride and its tree at out + b * out_bstride.
+extern "C" void shim_tree(const uint64_t* all_leaves, long long n, int cols, int rows,
+                          int in_block, int depth, int batch, long long in_bstride,
+                          long long out_bstride, uint64_t* all_out) {
   uint64_t dig[256 * 4];
+  for (long long proof = 0; proof < batch; proof++)  // the grid's y: the matrix
   for (long long row0 = 0; row0 < n; row0 += rows) {
+    const uint64_t* leaves = all_leaves + proof * in_bstride;
+    uint64_t* out = all_out + proof * out_bstride;
     long long nrows = n - row0 < rows ? n - row0 : rows;
     for (long long t = 0; t < nrows; t++) {
       hash_row(leaves + (row0 + t) * cols, cols, dig + 4 * t);
@@ -121,10 +126,13 @@ extern "C" void shim_tree(const uint64_t* leaves, long long n, int cols, int row
         }
       }
   }
-  for (int l = in_block + 1; l <= depth; l++)
-    for (long long k = 0; k < (n >> l); k++)
-      hash_row(out + merkle_level_offset(n, l - 1) + 8 * k, 8,
-               out + merkle_level_offset(n, l) + 4 * k);
+  for (int b = 0; b < batch; b++) {  // the top launch's block b
+    uint64_t* out = all_out + b * out_bstride;
+    for (int l = in_block + 1; l <= depth; l++)
+      for (long long k = 0; k < (n >> l); k++)
+        hash_row(out + merkle_level_offset(n, l - 1) + 8 * k, 8,
+                 out + merkle_level_offset(n, l) + 4 * k);
+  }
 }
 """
 
@@ -264,9 +272,39 @@ def test_subtree_index_arithmetic_matches_merkle_build(lib, log_n, cap_height, r
     plan = poseidon_cuda.tree_plan(n, cap_height, rows=rows)
     out = np.zeros((sum(plan["sizes"]), 4), dtype=U64)
     lib.shim_tree(_ptr(leaves), ctypes.c_longlong(n), cols, rows, plan["in_block"],
-                  plan["depth"], _ptr(out))
+                  plan["depth"], 1, ctypes.c_longlong(0), ctypes.c_longlong(0), _ptr(out))
     want = MerkleTree.build(leaves, cap_height).levels
     got = np.split(out, np.cumsum(plan["sizes"])[:-1])
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("batch,log_n,cap_height,rows,cols", [
+    (3, 6, 2, 16, 12), (4, 8, 4, 128, 9), (2, 8, 0, 256, 32), (5, 5, 1, 64, 139),
+    (4, 12, 4, 128, 32)])
+def test_batched_subtree_index_arithmetic_matches_merkle_builds(lib, batch, log_n,
+                                                                cap_height, rows, cols):
+    """B trees in one tree launch and one top launch, the blocks run one at
+    a time: tree b equals MerkleTree.build of matrix b.  The matrices sit
+    a padded stride apart, as a strided batch does; rows per block at most
+    n (the wrapper's clamp), or above it (each matrix then one block)."""
+    n = 1 << log_n
+    rng = np.random.default_rng(batch * 1000 + log_n * 10 + cols)
+    in_bstride = n * cols + 3
+    buf = np.ascontiguousarray(rng.integers(0, P, batch * in_bstride, dtype=U64))
+    leaves = [buf[b * in_bstride : b * in_bstride + n * cols].reshape(n, cols)
+              for b in range(batch)]
+    plan = poseidon_cuda.tree_plan(n, cap_height, rows=rows)
+    out_bstride = 4 * sum(plan["sizes"])
+    out = np.zeros(batch * out_bstride, dtype=U64)
+    lib.shim_tree(_ptr(buf), ctypes.c_longlong(n), cols, rows, plan["in_block"],
+                  plan["depth"], batch, ctypes.c_longlong(in_bstride),
+                  ctypes.c_longlong(out_bstride), _ptr(out))
+    for b in range(batch):
+        tree = out[b * out_bstride : (b + 1) * out_bstride].reshape(-1, 4)
+        got = np.split(tree, np.cumsum(plan["sizes"])[:-1])
+        want = MerkleTree.build(leaves[b], cap_height).levels
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)

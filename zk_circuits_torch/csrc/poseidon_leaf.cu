@@ -6,8 +6,11 @@
 //              levels > 0 also the Merkle levels above the leaves inside
 //              each block (the block's subtree), digests kept in shared
 //              memory, every level written to its place in the output;
-//   k1_top:    one block that compresses the levels above the blocks'
-//              subtrees up to the cap.
+//   k1_top:    one block per tree that compresses the levels above the
+//              blocks' subtrees up to the cap.
+// Both take a batch of matrices of one shape (one per proof of a batched
+// prover), each with its own input and output at fixed strides: one
+// launch hashes every proof's rows, or builds every proof's tree.
 //
 // Bound: integer instructions, not bytes.  A row of c columns costs
 // ceil(c/8) permutations (118 S-boxes of four 64x64->128 products, 30 MDS
@@ -29,14 +32,17 @@
 // current permutation runs.  The input is addressed through (row_stride,
 // col_stride): column-major LDE output (cols, n) is read in place (its tile
 // is kept column-major, so neighbouring threads copy neighbouring rows),
-// row-major (n, cols) leaves row by row.  Rows past n are masked.
+// row-major (n, cols) leaves row by row.  Rows past n are masked.  A batch
+// of B matrices is a grid of ceil(n / rows) x B blocks: blockIdx.y is the
+// matrix, so no block straddles two of them and each tree stays its own.
 #include <cuda_runtime.h>
 
 #include "poseidon.cuh"
 
 __constant__ uint64_t POSEIDON_RC[POSEIDON_WIDTH * POSEIDON_ROUNDS] = POSEIDON_RC_INIT;
 
-constexpr int K1_MAX_ROWS = 256;  // rows per block (a power of two for trees)
+constexpr int K1_MAX_ROWS = 256;     // rows per block (a power of two for trees)
+constexpr int K1_MAX_BATCH = 65535;  // matrices per launch (the grid's y extent)
 
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
   unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -167,7 +173,7 @@ template <int T>
 __global__ void __launch_bounds__(T == 1 ? 256 : 512)
 k1_sponge_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long long n,
                  int cols, long long row_stride, long long col_stride, int rows, int levels,
-                 int vec16) {
+                 int vec16, long long in_bstride, long long out_bstride) {
   constexpr int L = Team<T>::L;
   extern __shared__ uint64_t smem[];
   uint64_t* rc_smem = smem;
@@ -179,6 +185,8 @@ k1_sponge_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, lo
 
   Team<T> tm;
   const int t = tm.index();
+  in += blockIdx.y * in_bstride;
+  out += blockIdx.y * out_bstride;
   const long long row0 = (long long)blockIdx.x * rows;
   const long long row = row0 + t;
   const bool valid = t < rows && row < n;
@@ -252,10 +260,13 @@ k1_sponge_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, lo
 }
 
 // Levels from+1 .. to of a tree over n leaves whose level `from` is already
-// in `out`; one block, level by level through global memory (a level is
-// visible to the whole block after __syncthreads).
-__global__ void __launch_bounds__(512) k1_top_kernel(uint64_t* out, long long n, int from, int to) {
+// in `out`; one block per tree (block b: the tree at out + b * out_bstride),
+// level by level through global memory (a level is visible to the whole
+// block after __syncthreads).
+__global__ void __launch_bounds__(512) k1_top_kernel(uint64_t* out, long long n, int from, int to,
+                                                     long long out_bstride) {
   __shared__ uint64_t rc_smem[POSEIDON_WIDTH * POSEIDON_ROUNDS];
+  out += blockIdx.x * out_bstride;
   load_round_constants(rc_smem);
   for (int l = from + 1; l <= to; l++) {
     __syncthreads();
@@ -274,18 +285,19 @@ static int max_threads(int team) { return team == 1 ? 256 : 512; }
 template <int T>
 static int launch_sponge(const uint64_t* in, uint64_t* out, long long n, int cols,
                          long long row_stride, long long col_stride, int rows, int levels,
-                         int vec16, cudaStream_t stream) {
+                         int vec16, int batch, long long in_bstride, long long out_bstride,
+                         cudaStream_t stream) {
   int threads = block_threads(T, rows);
   size_t shmem = sizeof(uint64_t) * (POSEIDON_WIDTH * POSEIDON_ROUNDS + 2 * 8 * rows + 2 * 4 * rows);
-  long long blocks = (n + rows - 1) / rows;
+  dim3 grid((unsigned)((n + rows - 1) / rows), (unsigned)batch);
   // Above 48 KB only after opting in, which holds for the current device
   // alone: set it before every launch, on whichever card this one runs.
   cudaError_t err = cudaFuncSetAttribute(
       k1_sponge_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(sizeof(uint64_t) * (POSEIDON_WIDTH * POSEIDON_ROUNDS + 24 * K1_MAX_ROWS)));
   if (err != cudaSuccess) return (int)err;
-  k1_sponge_kernel<T><<<(unsigned)blocks, threads, shmem, stream>>>(
-      in, out, n, cols, row_stride, col_stride, rows, levels, vec16);
+  k1_sponge_kernel<T><<<grid, threads, shmem, stream>>>(
+      in, out, n, cols, row_stride, col_stride, rows, levels, vec16, in_bstride, out_bstride);
   return (int)cudaGetLastError();
 }
 
@@ -294,29 +306,36 @@ static int launch_sponge(const uint64_t* in, uint64_t* out, long long n, int col
 // block's subtree, level l at out[merkle_level_offset(n, l)].  team: threads per
 // row (1 or 4); rows: rows per block (<= 256).  vec16: the input
 // may be copied 16 bytes at a time along its contiguous axis (the caller
-// checks alignment).  Returns a CUDA error code (0 on success), or -1 on
-// arguments the kernel does not take.
+// checks alignment).  batch: the number of such matrices, matrix b at
+// in + b * in_bstride, its digests (or tree) at out + b * out_bstride.
+// Returns a CUDA error code (0 on success), or -1 on arguments the kernel
+// does not take.
 extern "C" int k1_sponge(const uint64_t* in, uint64_t* out, long long n, int cols,
                          long long row_stride, long long col_stride, int team, int rows,
-                         int levels, int vec16, void* stream) {
-  if (n <= 0) return 0;
-  if (cols < 1 || rows < 1 || rows > K1_MAX_ROWS || block_threads(team, rows) > max_threads(team))
+                         int levels, int vec16, int batch, long long in_bstride,
+                         long long out_bstride, void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
+  if (cols < 1 || rows < 1 || rows > K1_MAX_ROWS || block_threads(team, rows) > max_threads(team) ||
+      batch > K1_MAX_BATCH)
     return -1;
   if (levels > 0 && (rows & (rows - 1)) != 0) return -1;
   if (rows % 2) vec16 = 0;  // 16-byte copies need an even tile stride
   cudaStream_t st = (cudaStream_t)stream;
   switch (team) {
-    case 1: return launch_sponge<1>(in, out, n, cols, row_stride, col_stride, rows, levels, vec16, st);
-    case 4: return launch_sponge<4>(in, out, n, cols, row_stride, col_stride, rows, levels, vec16, st);
+    case 1: return launch_sponge<1>(in, out, n, cols, row_stride, col_stride, rows, levels, vec16,
+                                    batch, in_bstride, out_bstride, st);
+    case 4: return launch_sponge<4>(in, out, n, cols, row_stride, col_stride, rows, levels, vec16,
+                                    batch, in_bstride, out_bstride, st);
     default: return -1;
   }
 }
 
-// Levels from+1 .. to of the tree in out (see k1_sponge), in one block of
-// `threads` threads (teams of TREE_TEAM).
-extern "C" int k1_top(uint64_t* out, long long n, int from, int to, int threads, void* stream) {
-  if (to <= from) return 0;
-  if (threads < 32 || threads % 32 != 0 || threads > 512) return -1;
-  k1_top_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(out, n, from, to);
+// Levels from+1 .. to of each of the `batch` trees in out (see k1_sponge),
+// one block of `threads` threads (teams of TREE_TEAM) per tree.
+extern "C" int k1_top(uint64_t* out, long long n, int from, int to, int threads, int batch,
+                      long long out_bstride, void* stream) {
+  if (to <= from || batch <= 0) return 0;
+  if (threads < 32 || threads % 32 != 0 || threads > 512 || batch > K1_MAX_BATCH) return -1;
+  k1_top_kernel<<<batch, threads, 0, (cudaStream_t)stream>>>(out, n, from, to, out_bstride);
   return (int)cudaGetLastError();
 }

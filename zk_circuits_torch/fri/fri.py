@@ -69,6 +69,15 @@ GRIND_BATCH = {"cuda": 1 << 17, "cpu": 1 << 14}
 def proof_of_work_grind(pow_base: np.ndarray, pow_bits: int, device) -> int:
     """Min witness w >= 0 with H(pow_base || w)[0] < 2^(64 - pow_bits),
     hashing the candidates on ``device`` through the leaf sponge."""
+    return proof_of_work_grind_batch(np.reshape(pow_base, (1, 4)), pow_bits, device)[0]
+
+
+def proof_of_work_grind_batch(pow_bases: np.ndarray, pow_bits: int,
+                              device) -> list[int]:
+    """proof_of_work_grind of B bases (one per proof of a batch), each its
+    smallest witness: every base scans the same windows from 0 upward, and
+    one sweep hashes the window of every base still without a witness in
+    one leaf-kernel launch (a (B x window, 5) candidate matrix)."""
     import torch
 
     from ..field import goldilocks as gfd
@@ -77,16 +86,23 @@ def proof_of_work_grind(pow_base: np.ndarray, pow_bits: int, device) -> int:
     device = torch.device(device)
     batch = GRIND_BATCH[device.type]
     threshold = gfd._i64(1 << (64 - pow_bits))
-    base = gfd.from_u64(np.asarray(pow_base, dtype=np.uint64).reshape(1, 4),
-                        device).expand(batch, 4)
+    bases = gfd.from_u64(np.asarray(pow_bases, dtype=np.uint64).reshape(-1, 4), device)
     ramp = torch.arange(batch, dtype=torch.int64, device=device)
+    out: list[int | None] = [None] * bases.shape[0]
     start = 0
     while start < 1 << 40:
-        cand = torch.cat([base, (ramp + start)[:, None]], dim=1)
-        ok = gfd.ult(pp.hash_leaves(cand)[:, 0], threshold)
-        hit = torch.nonzero(ok)
-        if hit.numel():
-            return start + int(hit[0, 0])
+        todo = [b for b, w in enumerate(out) if w is None]
+        if not todo:
+            return out  # type: ignore[return-value]
+        k = len(todo)
+        cand = torch.cat([bases[todo][:, None, :].expand(k, batch, 4),
+                          (ramp + start)[None, :, None].expand(k, batch, 1)], dim=-1)
+        ok = gfd.ult(pp.hash_leaves(cand.reshape(k * batch, 5))[:, 0], threshold)
+        ok = ok.reshape(k, batch)
+        first = ok.to(torch.int32).argmax(dim=1)    # the first hit of each row
+        for b, i in zip(todo, torch.where(ok.any(dim=1), first, -1).tolist()):
+            if i >= 0:
+                out[b] = start + i
         start += batch
     raise RuntimeError("proof-of-work grind found no witness below 2^40")
 

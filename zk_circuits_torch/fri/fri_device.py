@@ -1,7 +1,10 @@
 """Tensor-resident FRI opening proof + opening evaluations.
 
-Torch counterpart of the JAX package's fri/fri_device.py (single-proof
-path):
+Torch counterpart of the JAX package's fri/fri_device.py, for a batch of
+proofs of one circuit, one proof being the batch of one
+(``open_and_fri_device_batch``: every tensor but the circuit's
+constants/sigmas oracle carries a leading proof axis, and each transcript
+stage fetches the whole batch's caps or evaluations in one transfer):
 
 - openings: every oracle polynomial evaluated at zeta / g*zeta as one
   base-coefficient matvec against host-computed power tables;
@@ -34,20 +37,22 @@ from .oracle import ext_powers
 
 
 def _reduce_alpha(batch, ap0, ap1):
-    """sum_i alpha^i * P_i: (k, n) base polys x (k,) ext powers -> (n,) ext."""
-    w0 = gfd.mul(batch, ap0[:, None])
-    w1 = gfd.mul(batch, ap1[:, None])
-    return gfd.sum_mod(w0, axis=0), gfd.sum_mod(w1, axis=0)
+    """sum_i alpha^i * P_i: (..., k, n) base polys x (..., k) ext powers ->
+    (..., n) ext."""
+    w0 = gfd.mul(batch, ap0[..., None])
+    w1 = gfd.mul(batch, ap1[..., None])
+    return gfd.sum_mod(w0, axis=-2), gfd.sum_mod(w1, axis=-2)
 
 
 def _suffix_sum(s0, s1):
-    """s_i <- sum_{j>=i} s_j via log-step doubling (fri.divide_by_linear)."""
+    """s_i <- sum_{j>=i} s_j via log-step doubling (fri.divide_by_linear),
+    along the last axis."""
     n = s0.shape[-1]
     shift = 1
     while shift < n:
-        h0, h1 = _eadd(s0[:-shift], s1[:-shift], s0[shift:], s1[shift:])
-        s0 = torch.cat([h0, s0[-shift:]])
-        s1 = torch.cat([h1, s1[-shift:]])
+        h0, h1 = _eadd(s0[..., :-shift], s1[..., :-shift], s0[..., shift:], s1[..., shift:])
+        s0 = torch.cat([h0, s0[..., -shift:]], dim=-1)
+        s1 = torch.cat([h1, s1[..., -shift:]], dim=-1)
         shift *= 2
     return s0, s1
 
@@ -57,7 +62,7 @@ def _ddl(c0, c1, zp0, zp1, zi0, zi1):
     q_i = zinv^(i+1) * sum_{j>=i+1} c_j z^j."""
     w0, w1 = _emul(c0, c1, zp0, zp1)
     s0, s1 = _suffix_sum(w0, w1)
-    return _emul(s0[1:], s1[1:], zi0[1:], zi1[1:])
+    return _emul(s0[..., 1:], s1[..., 1:], zi0[..., 1:], zi1[..., 1:])
 
 
 def _ext_coset_ntt_dev(c0, c1, shift: int, out_size: int):
@@ -70,25 +75,29 @@ def _ext_coset_ntt_dev(c0, c1, shift: int, out_size: int):
 
 
 def _fiber_leaves(v0, v1, arity: int) -> torch.Tensor:
-    """Codeword (N,) pair -> (m, arity*2) leaf rows, fiber-grouped with
-    interleaved ext components: leaf j holds [v(0,j), v(1,j), ...] where
-    v(k, j) = v[k*m + j]."""
-    m = v0.shape[-1] // arity
-    g0 = v0.reshape(arity, m).t()
-    g1 = v1.reshape(arity, m).t()
-    return torch.stack([g0, g1], dim=-1).reshape(m, arity * 2)
+    """Codeword (..., N) pair -> (..., m, arity*2) leaf rows, fiber-grouped
+    with interleaved ext components: leaf j holds [v(0,j), v(1,j), ...]
+    where v(k, j) = v[k*m + j]."""
+    *lead, size = v0.shape
+    m = size // arity
+    g0 = v0.reshape(*lead, arity, m).transpose(-1, -2)
+    g1 = v1.reshape(*lead, arity, m).transpose(-1, -2)
+    return torch.stack([g0, g1], dim=-1).reshape(*lead, m, arity * 2)
 
 
 def _fold_dev(c0, c1, b0, b1, arity_bits: int):
-    """new_c[m] = sum_j beta^j c[A*m + j] (Horner over j)."""
+    """new_c[m] = sum_j beta^j c[A*m + j] (Horner over j); c (..., N) with
+    one beta (...) per leading index."""
     arity = 1 << arity_bits
-    m = c0.shape[-1] // arity
-    r0 = c0.reshape(m, arity)
-    r1 = c1.reshape(m, arity)
-    acc0, acc1 = r0[:, arity - 1], r1[:, arity - 1]
+    *lead, size = c0.shape
+    m = size // arity
+    r0 = c0.reshape(*lead, m, arity)
+    r1 = c1.reshape(*lead, m, arity)
+    b0, b1 = b0.reshape(*lead, 1), b1.reshape(*lead, 1)
+    acc0, acc1 = r0[..., arity - 1], r1[..., arity - 1]
     for j in range(arity - 2, -1, -1):
         acc0, acc1 = _emul(acc0, acc1, b0, b1)
-        acc0, acc1 = _eadd(acc0, acc1, r0[:, j], r1[:, j])
+        acc0, acc1 = _eadd(acc0, acc1, r0[..., j], r1[..., j])
     return acc0, acc1
 
 
@@ -100,13 +109,16 @@ def _commit_codeword(f0, f1, shift: int, size: int, arity_bits: int,
     return leaves, merklem.device_merkle_levels(leaves, cap_height)
 
 
-def take_rows(leaves: torch.Tensor, idx: np.ndarray, colmajor: bool) -> torch.Tensor:
-    """Rows ``idx`` of a (N, w) row-major or (w, N) column-major matrix."""
-    i = torch.from_numpy(idx).to(leaves.device)
-    return leaves[:, i].t() if colmajor else leaves[i]
+def take_rows_batch(x: torch.Tensor, idx: np.ndarray, colmajor: bool) -> torch.Tensor:
+    """Rows ``idx[b]`` (B, Q) of each matrix b of a (B, N, w) row-major or
+    (B, w, N) column-major batch, as (B * Q, w)."""
+    i = torch.from_numpy(idx).to(x.device)
+    b = torch.arange(i.shape[0], device=x.device)[:, None]
+    rows = x[b, :, i] if colmajor else x[b, i]
+    return rows.reshape(-1, rows.shape[-1])
 
 
-def gather_trees(trees: list, idxs: list, colmajor: tuple, take=take_rows) -> list:
+def gather_trees(trees: list, idxs: list, colmajor: tuple, take) -> list:
     """trees: per tree (leaves, levels) with leaves (N, w) row-major, or
     (w, N) column-major where ``colmajor`` says so; idxs: per-tree query
     indices.  Gathers every row and sibling path on the device with
@@ -133,6 +145,27 @@ def gather_trees(trees: list, idxs: list, colmajor: tuple, take=take_rows) -> li
     return out
 
 
+def gather_trees_batch(trees: list, idxs: list, shared: list, colmajor: list) -> list:
+    """``gather_trees`` for a batch of proofs: trees (leaves, levels) carry a
+    leading proof axis B unless ``shared`` (the circuit's constants/sigmas
+    oracle, one tree for every proof); idxs are (B, Q) per tree.  Every
+    proof's rows and paths come back in ONE transfer.  Returns per tree
+    (rows u64 (B, Q, w), sibs u64 (B, Q, L, 4))."""
+    idxs = [np.asarray(i, dtype=np.int64) for i in idxs]
+    B = idxs[0].shape[0]
+
+    def over_batch(tree, sh):   # a shared tree seen B times (no copy)
+        leaves, levels = tree
+        if not sh:
+            return tree
+        return leaves.expand(B, *leaves.shape), [lv.expand(B, *lv.shape) for lv in levels]
+
+    flat = gather_trees([over_batch(t, sh) for t, sh in zip(trees, shared)], idxs,
+                        tuple(colmajor), take=take_rows_batch)
+    return [(rows.reshape(*i.shape, -1), sibs.reshape(*i.shape, *sibs.shape[1:]))
+            for (rows, sibs), i in zip(flat, idxs)]
+
+
 def openings_set(evals: np.ndarray, zs_next: np.ndarray, widths: tuple):
     """OpeningSet from the (K, 2) evaluations at zeta of every oracle
     polynomial (oracle order, ``widths`` polynomials each) and the
@@ -149,31 +182,43 @@ def openings_set(evals: np.ndarray, zs_next: np.ndarray, widths: tuple):
     )
 
 
+def ext_powers_each(z: np.ndarray, n: int) -> np.ndarray:
+    """ext_powers of one ext element (2,) -> (n, 2), or of each of a batch
+    (B, 2) -> (B, n, 2)."""
+    z = np.asarray(z, dtype=np.uint64)
+    return ext_powers(z, n) if z.ndim == 1 else np.stack([ext_powers(e, n) for e in z])
+
+
 def compose(comp0, comp1, zeta, zeta_next, alpha, num_zs: int, zp, znp):
     """The FRI polynomial from the alpha-reduced batches: comp0 (all
     polynomials, opened at zeta) and comp1 (the Z polynomials, at g*zeta),
     each an (n,) ext pair; zp/znp are the powers of zeta/g*zeta as device
-    pairs.  final[:n-1] = q1 + alpha^num_zs * q0, final[n-1] = 0."""
+    pairs.  final[:n-1] = q1 + alpha^num_zs * q0, final[n-1] = 0.  For a
+    batch, the pairs are (B, n) and zeta, zeta_next, alpha (B, 2)."""
     n = comp0[0].shape[-1]
     device = comp0[0].device
 
     def pair(arr):
         return gfd.ext_pair(arr, device)
 
-    zi0, zi1 = pair(ext_powers(gle.inverse(zeta), n))
-    zni0, zni1 = pair(ext_powers(gle.inverse(zeta_next), n))
+    zi0, zi1 = pair(ext_powers_each(gle.inverse(zeta), n))
+    zni0, zni1 = pair(ext_powers_each(gle.inverse(zeta_next), n))
     q0 = _ddl(*comp0, *zp, zi0, zi1)
     q1 = _ddl(*comp1, *znp, zni0, zni1)
-    sq = _emul(*q0, *pair(gle.powmod(alpha, num_zs)))
+    s0, s1 = pair(gle.powmod(alpha, num_zs))
+    lead = q0[0].shape[:-1]
+    sq = _emul(*q0, s0.reshape(*lead, 1), s1.reshape(*lead, 1))
     f0, f1 = (torch.nn.functional.pad(v, (0, 1)) for v in _eadd(*q1, *sq))
     return f0, f1
 
 
-def commit_phase(f0, f1, fri_config, degree_bits: int, ch):
-    """The FRI commit chain on one device from the (n,) ext coefficient
-    pair f: per fold round, NTT onto the round's coset, commit the fiber
-    tree, observe its cap, draw beta, fold.  Returns (caps, trees, betas,
-    final f0, final f1) with trees the (leaves, levels) of every round."""
+def commit_phase(f0, f1, fri_config, degree_bits: int, chs: list):
+    """The FRI commit chain on one device for B proofs, from their (B, n)
+    ext coefficient pair f and one Challenger a proof: per fold round, NTT
+    onto the round's coset, commit the B fiber trees at once, fetch their
+    caps in one transfer, observe each proof's cap, draw its beta, fold.
+    Returns (caps, trees, betas, final f0, final f1): per round the caps
+    (B, m, 4), the trees' (leaves, levels) and the betas (B, 2)."""
     size = f0.shape[-1] << fri_config.rate_bits
     shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
     caps, trees, betas = [], [], []
@@ -183,8 +228,11 @@ def commit_phase(f0, f1, fri_config, degree_bits: int, ch):
         cap = gfd.to_u64(levels[-1])
         caps.append(cap)
         trees.append((leaves, levels))
-        ch.observe_cap(cap)
-        beta = ch.get_extension_challenge()
+        beta = []
+        for ch, proof_cap in zip(chs, cap):
+            ch.observe_cap(proof_cap)
+            beta.append(ch.get_extension_challenge())
+        beta = np.stack(beta)
         betas.append(beta)
         b0, b1 = gfd.ext_pair(beta, f0.device)
         f0, f1 = _fold_dev(f0, f1, b0, b1, a_bits)
@@ -222,70 +270,119 @@ def fri_proof(caps, opened, fri_opened, final_poly, pow_witness):
     return frim.FriProof(caps, query_rounds, final_poly, pow_witness)
 
 
-def open_and_fri_device(common, oracles, ch, device) -> tuple:
-    """Openings and FRI proof on ``device``: returns (OpeningSet, FriProof).
+# ---------------------------------------------------------------------------
+# a batch of proofs of one circuit (plonk/prover_batch.py)
+# ---------------------------------------------------------------------------
 
-    ``oracles`` are PolynomialBatch instances resident on ``device``."""
+
+class BatchedCommit:
+    """B same-shape polynomial batches committed on one device: coeffs
+    (B, k, n), values (B, k, 8n) -- column-major leaves, leaf row i of
+    proof b = values[b, :, i] -- and levels, each (B, m, 4).  The batch's
+    PolynomialBatch."""
+
+    __slots__ = ("coeffs", "values", "levels")
+
+    def __init__(self, coeffs, values, levels):
+        self.coeffs = coeffs
+        self.values = values
+        self.levels = list(levels)
+
+
+def open_and_fri_device_batch(common, cs_oracle, commits: list, chs: list,
+                              tag: str) -> list:
+    """Openings and FRI proofs of B proofs at once: returns one
+    (OpeningSet, FriProof) a proof, in batch order, each equal to the
+    proof's alone.
+
+    ``cs_oracle``: the circuit's constants/sigmas PolynomialBatch on the
+    device (shared by every proof); ``commits``: the [wires, zs, quotient]
+    BatchedCommits; ``chs``: one Challenger a proof, each just after
+    observing its quotient cap.  Every device stage runs over the proof
+    axis and every transcript stage is one packed fetch.  ``tag`` ends the
+    stage timers' names."""
+    from ..utils.fetch import fetch_packed
     from ..utils.profiling import stage_timer
 
     cfg = common.config
+    fri_config = cfg.fri_config
     n = common.degree
     num_zs = cfg.num_challenges
-    zeta = ch.get_extension_challenge()
+    B = len(chs)
+    device = cs_oracle.device
     g_ext = np.array([gl.primitive_root_of_unity(common.degree_bits), 0],
                      dtype=np.uint64)
-    zeta_next = gle.mul(zeta, g_ext)
+    zetas = np.stack([ch.get_extension_challenge() for ch in chs])    # (B, 2)
+    zetas_next = gle.mul(zetas, g_ext)
 
     def pair(arr):
         return gfd.ext_pair(arr, device)
 
-    sets = [o.coeffs_dev for o in oracles]
-    widths = tuple(s.shape[0] for s in sets)
-    batch0 = torch.cat(sets, dim=0)
-    zs2 = sets[2][:num_zs]
+    cs = cs_oracle.coeffs_dev
+    sets = [cs.expand(B, *cs.shape)] + [c.coeffs for c in commits]
+    widths = tuple(s.shape[-2] for s in sets)
+    batch0 = torch.cat(sets, dim=-2)                                  # (B, K, n)
+    zs2 = sets[2][:, :num_zs]
 
-    with stage_timer("fri/openings_eval"):
-        zp = pair(ext_powers(zeta, n))
-        znp = pair(ext_powers(zeta_next, n))
-        e0 = gfd.sum_mod(gfd.mul(batch0, zp[0][None, :]), axis=-1)
-        e1 = gfd.sum_mod(gfd.mul(batch0, zp[1][None, :]), axis=-1)
-        zn0 = gfd.sum_mod(gfd.mul(zs2, znp[0][None, :]), axis=-1)
-        zn1 = gfd.sum_mod(gfd.mul(zs2, znp[1][None, :]), axis=-1)
-        openings = openings_set(gfd.to_ext(e0, e1), gfd.to_ext(zn0, zn1), widths)
-    ch.observe_extension_elements(openings.batch0_flat())
-    ch.observe_extension_elements(openings.batch1_flat())
-    alpha = ch.get_extension_challenge()
+    with stage_timer(f"fri/openings_eval{tag}"):
+        zp = pair(ext_powers_each(zetas, n))                          # (B, n)
+        znp = pair(ext_powers_each(zetas_next, n))
+        evals = fetch_packed(
+            [gfd.sum_mod(gfd.mul(batch0, zp[0][:, None, :]), axis=-1),
+             gfd.sum_mod(gfd.mul(batch0, zp[1][:, None, :]), axis=-1),
+             gfd.sum_mod(gfd.mul(zs2, znp[0][:, None, :]), axis=-1),
+             gfd.sum_mod(gfd.mul(zs2, znp[1][:, None, :]), axis=-1)])
+    e0, e1, zn0, zn1 = evals
+    openings_l, alphas = [], []
+    for b, ch in enumerate(chs):
+        openings = openings_set(np.stack([e0[b], e1[b]], axis=-1),
+                                np.stack([zn0[b], zn1[b]], axis=-1), widths)
+        openings_l.append(openings)
+        ch.observe_extension_elements(openings.batch0_flat())
+        ch.observe_extension_elements(openings.batch1_flat())
+        alphas.append(ch.get_extension_challenge())
+    alphas = np.stack(alphas)
 
-    fri_config = cfg.fri_config
-    with stage_timer("fri/compose_r0"):
-        ap0, ap1 = pair(ext_powers(alpha, sum(widths)))
+    with stage_timer(f"fri/compose_r0{tag}"):
+        ap0, ap1 = pair(ext_powers_each(alphas, sum(widths)))         # (B, K)
         comp0 = _reduce_alpha(batch0, ap0, ap1)
-        comp1 = _reduce_alpha(zs2, ap0[:num_zs], ap1[:num_zs])
-        f0, f1 = compose(comp0, comp1, zeta, zeta_next, alpha, num_zs, zp, znp)
+        comp1 = _reduce_alpha(zs2, ap0[:, :num_zs], ap1[:, :num_zs])
+        f0, f1 = compose(comp0, comp1, zetas, zetas_next, alphas, num_zs, zp, znp)
 
-    with stage_timer("fri/commit_phase"):
+    with stage_timer(f"fri/commit_phase{tag}"):
         caps, trees, _, f0, f1 = commit_phase(f0, f1, fri_config,
-                                              common.degree_bits, ch)
+                                              common.degree_bits, chs)
 
-    final_poly = gfd.to_ext(f0, f1)
-    ch.observe_extension_elements(final_poly)
+    fp0, fp1 = fetch_packed([f0, f1])
+    final_polys = np.stack([fp0, fp1], axis=-1)                       # (B, len, 2)
+    pow_bases = []
+    for b, ch in enumerate(chs):
+        ch.observe_extension_elements(final_polys[b])
+        pow_bases.append(ch.get_hash())
 
-    pow_base = ch.get_hash()
-    with stage_timer("fri/pow_grind"):
-        pow_witness = frim.proof_of_work_grind(
-            pow_base, fri_config.proof_of_work_bits, device)
-    ch.observe_element(pow_witness)
+    with stage_timer(f"fri/pow_grind{tag}"):
+        pow_witnesses = frim.proof_of_work_grind_batch(
+            np.stack(pow_bases), fri_config.proof_of_work_bits, device)
 
-    idx_arr, step_idx = query_indices(ch, fri_config, common.degree_bits)
+    drawn = []
+    for ch, w in zip(chs, pow_witnesses):
+        ch.observe_element(w)
+        drawn.append(query_indices(ch, fri_config, common.degree_bits))
+    idx_arr = np.stack([d[0] for d in drawn])                         # (B, Q)
+    step_idx = [np.stack(s) for s in zip(*(d[1] for d in drawn))]
 
-    # --- query gathers: one transfer for oracles and FRI trees together ---
-    with stage_timer("fri/query_gather"):
-        all_opened = gather_trees(
-            [(o.values_dev, o.levels_dev) for o in oracles] + trees,
-            [idx_arr] * len(oracles) + step_idx,
-            colmajor=(True,) * len(oracles) + (False,) * len(trees),
-        )
-    opened = all_opened[: len(oracles)]
-    proof = fri_proof(caps, opened, all_opened[len(oracles):], final_poly,
-                      pow_witness)
-    return openings, proof
+    # --- query gathers: one transfer for every proof's oracles and trees ---
+    oracles = [(cs_oracle.values_dev, cs_oracle.levels_dev)] + [
+        (c.values, c.levels) for c in commits]
+    with stage_timer(f"fri/query_gather{tag}"):
+        all_opened = gather_trees_batch(
+            oracles + trees, [idx_arr] * len(oracles) + step_idx,
+            shared=[True] + [False] * (len(commits) + len(trees)),
+            colmajor=[True] * len(oracles) + [False] * len(trees))
+    out = []
+    for b in range(B):
+        opened = [(rows[b], sibs[b]) for rows, sibs in all_opened]
+        proof = fri_proof([c[b] for c in caps], opened[: len(oracles)],
+                          opened[len(oracles):], final_polys[b], pow_witnesses[b])
+        out.append((openings_l[b], proof))
+    return out

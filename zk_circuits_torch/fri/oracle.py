@@ -26,7 +26,10 @@ from ..ntt import ntt as nttm
 
 
 def _device_commit_fn(coeffs: torch.Tensor, rate_bits: int, cap_height: int):
-    """coeffs (num_polys, n) -> (values (num_polys, 8n), levels)."""
+    """coeffs (num_polys, n) -> (values (num_polys, 8n), levels).  With a
+    leading proof axis, coeffs (B, num_polys, n), it commits the B batches
+    at once (the JAX package's ``_device_commit_batch_fn``): the LDE runs
+    over the leading axis and K1 builds the B trees in one launch."""
     values = nttm.lde(coeffs, rate_bits)
     levels = merklem.device_merkle_levels_values(values, cap_height)
     return values, levels

@@ -76,8 +76,10 @@ def verify_merkle_proof(
 def device_merkle_levels(leaves: torch.Tensor, cap_height: int) -> list:
     """Tree builder on tensors: leaves (n, cols) row-major -> every level
     (leaf digests first, cap last) as (m, 4) int64 tensors, through K1's
-    tree mode (hash_or_noop of narrower rows pads them)."""
-    n = leaves.shape[0]
+    tree mode (hash_or_noop of narrower rows pads them).  A batch of
+    trees, leaves (B, n, cols), gives levels (B, m, 4) from the same
+    launches."""
+    n = leaves.shape[-2]
     assert n & (n - 1) == 0 and n >= (1 << cap_height)
     return poseidon_cuda.hash_tree(leaves, cap_height)
 
@@ -93,10 +95,11 @@ def leaf_digests(leaves: torch.Tensor) -> torch.Tensor:
 def device_merkle_levels_values(values: torch.Tensor, cap_height: int) -> list:
     """Like :func:`device_merkle_levels` but takes the leaf matrix
     COLUMN-MAJOR -- ``values`` (cols, n), leaf row i = values[:, i] -- the
-    natural orientation of the LDE output, hashed in place."""
-    n = values.shape[1]
+    natural orientation of the LDE output, hashed in place; a batch
+    (B, cols, n) too."""
+    n = values.shape[-1]
     assert n & (n - 1) == 0 and n >= (1 << cap_height)
-    return poseidon_cuda.hash_tree(values.t(), cap_height)
+    return poseidon_cuda.hash_tree(values.transpose(-1, -2), cap_height)
 
 
 def sharded_merkle_levels(digests: list, cap_height: int) -> list:

@@ -89,16 +89,15 @@ def permute(state: torch.Tensor) -> torch.Tensor:
 
 
 def batch_hash_no_pad(inputs: torch.Tensor) -> torch.Tensor:
-    """hash_no_pad over a batch: inputs (batch, n) -> (batch, 4).  Each
-    chunk of up to 8 columns overwrites lanes 0..len-1, then one
-    permutation."""
-    batch, n = inputs.shape
-    state = torch.zeros((batch, WIDTH), dtype=torch.int64, device=inputs.device)
+    """hash_no_pad over a batch: inputs (..., n) -> (..., 4).  Each chunk
+    of up to 8 columns overwrites lanes 0..len-1, then one permutation."""
+    *lead, n = inputs.shape
+    state = torch.zeros((*lead, WIDTH), dtype=torch.int64, device=inputs.device)
     for off in range(0, n, RATE):
-        chunk = inputs[:, off : off + RATE]
-        state = torch.cat([chunk, state[:, chunk.shape[1]:]], dim=1)
+        chunk = inputs[..., off : off + RATE]
+        state = torch.cat([chunk, state[..., chunk.shape[-1]:]], dim=-1)
         state = permute(state)
-    return state[:, :4].contiguous()
+    return state[..., :4].contiguous()
 
 
 def batch_compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
@@ -108,9 +107,9 @@ def batch_compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 
 
 def batch_hash_or_noop(inputs: torch.Tensor) -> torch.Tensor:
-    """hash_or_noop over a batch: (batch, n) -> (batch, 4)."""
-    batch, n = inputs.shape
+    """hash_or_noop over a batch: (..., n) -> (..., 4)."""
+    *lead, n = inputs.shape
     if n <= 4:
-        pad = torch.zeros((batch, 4 - n), dtype=torch.int64, device=inputs.device)
-        return torch.cat([inputs, pad], dim=1)
+        pad = torch.zeros((*lead, 4 - n), dtype=torch.int64, device=inputs.device)
+        return torch.cat([inputs, pad], dim=-1)
     return batch_hash_no_pad(inputs)

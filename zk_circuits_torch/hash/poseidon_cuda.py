@@ -10,8 +10,11 @@ rows enough to fill the card, and with a team of threads of a warp that
 share the 12-lane state through warp shuffles where there are few
 (``config``); it stages the input through shared memory, reads the
 column-major LDE output in place, and builds each block's Merkle subtree
-in shared memory; one more one-block launch builds the levels above the
-blocks' subtrees.
+in shared memory; one more launch, one block a tree, builds the levels
+above the blocks' subtrees.  A batch of B matrices of one shape (the
+proofs of a batched prover, a leading axis of the tensor) goes through the
+same launches: B times the blocks, each proof's digests and tree at a
+stride of their own.
 
 Three launch modes, each counted in ``launches_by_mode``: ``sponge``
 (``hash_rows``: digests only), ``tree`` (the leaves and the blocks'
@@ -55,16 +58,24 @@ def reset_launches() -> None:
 
 
 def config(n: int) -> tuple[int, int]:
-    """(threads per row, rows per block) for a launch over ``n`` rows:
-    one thread per row where there are rows enough to fill the card,
-    teams of four below; blocks of 256 rows where that still makes 128
-    blocks or more.  From chip_smoke.py's k1_time candidates: one thread a
-    row wins from 2^14 rows (a sharded commit's shard) up, teams of four at
-    2^13 (its first compress level) and below; at 2^14 rows, blocks of 128
-    rows beat 256 by a third."""
+    """(threads per row, rows per block) for a launch over ``n`` rows in
+    all (every matrix of a batch): one thread per row where there are rows
+    enough to fill the card, teams of four below; blocks of 256 rows where
+    that still makes 128 blocks or more.  From chip_smoke.py's k1_time
+    candidates: one thread a row wins from 2^14 rows (a sharded commit's
+    shard) up, teams of four at 2^13 (its first compress level) and below;
+    at 2^14 rows, blocks of 128 rows beat 256 by a third."""
     if n >= 1 << 15:
         return 1, 256
     return (1, 128) if n >= 1 << 14 else (4, 32)
+
+
+def _launch_config(x: torch.Tensor, team, rows) -> tuple[int, int]:
+    """``config`` of all of x's rows, the rows per block at most one
+    matrix's rows, unless the caller chose them."""
+    n = x.shape[-2]
+    t, r = config(x.shape[:-1].numel())
+    return (t if team is None else team), (min(r, n) if rows is None else rows)
 
 
 def max_threads(team: int) -> int:
@@ -173,31 +184,32 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        lib.k1_sponge.argtypes = [p, p, ll, i, ll, ll, i, i, i, i, p]
+        lib.k1_sponge.argtypes = [p, p, ll, i, ll, ll, i, i, i, i, i, ll, ll, p]
         lib.k1_sponge.restype = i
-        lib.k1_top.argtypes = [p, ll, i, i, i, p]
+        lib.k1_top.argtypes = [p, ll, i, i, i, i, ll, p]
         lib.k1_top.restype = i
         _LIB = lib
     return _LIB
 
 
 def _check(x: torch.Tensor) -> None:
-    if x.dtype != torch.int64 or x.dim() != 2:
-        raise ValueError(f"expected a 2-D int64 tensor, got {x.dtype} {tuple(x.shape)}")
-    if x.shape[1] < 1:
+    """x: an (n, cols) matrix, or a batch (B, n, cols) of them."""
+    if x.dtype != torch.int64 or x.dim() not in (2, 3):
+        raise ValueError(f"expected a 2-D or 3-D int64 tensor, got {x.dtype} {tuple(x.shape)}")
+    if x.shape[-1] < 1:
         raise ValueError("rows must hold at least one element")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if x.device.type == "cuda" and (min(x.stride()) < 0 or (
-            x.shape[0] > 1 and x.stride(0) == 0) or (x.shape[1] > 1 and x.stride(1) == 0)):
+    if x.device.type == "cuda" and (min(x.stride()) < 0 or any(
+            size > 1 and stride == 0 for size, stride in zip(x.shape, x.stride()))):
         raise ValueError(f"unsupported strides {x.stride()}")
 
 
 def _vec16(x: torch.Tensor) -> int:
     """1 if the kernel may copy two neighbouring elements of the contiguous
-    axis at once (16 bytes, 16-byte aligned)."""
-    rs, cs = x.stride()
-    if x.data_ptr() % 16:
+    axis at once (16 bytes, 16-byte aligned, in every matrix of a batch)."""
+    rs, cs = x.stride()[-2:]
+    if x.data_ptr() % 16 or (x.dim() == 3 and x.stride(0) % 2):
         return 0
     if rs == 1 and cs != 1:
         return int(cs % 2 == 0)
@@ -214,11 +226,21 @@ def _count(mode: str) -> None:
     launches_by_mode[mode] += 1
 
 
+def _batch(x: torch.Tensor, out: torch.Tensor) -> tuple[int, int, int]:
+    """(matrices, input stride, output stride) of a launch over x: one
+    matrix for a 2-D x; else its leading axis, out contiguous."""
+    if x.dim() == 2:
+        return 1, 0, 0
+    return x.shape[0], x.stride(0), out[0].numel()
+
+
 def _sponge(x, out, team, rows, levels, mode) -> None:
-    n, cols = x.shape
+    n, cols = x.shape[-2:]
+    batch, in_bstride, out_bstride = _batch(x, out)
     with torch.cuda.device(x.device):
-        err = _lib().k1_sponge(x.data_ptr(), out.data_ptr(), n, cols, x.stride(0),
-                               x.stride(1), team, rows, levels, _vec16(x), _stream(x))
+        err = _lib().k1_sponge(x.data_ptr(), out.data_ptr(), n, cols, x.stride(-2),
+                               x.stride(-1), team, rows, levels, _vec16(x), batch,
+                               in_bstride, out_bstride, _stream(x))
     if err != 0:
         raise RuntimeError(f"k1_sponge launch failed: error {err}")
     _count(mode)
@@ -233,35 +255,35 @@ def hash_rows_plain(x: torch.Tensor) -> torch.Tensor:
 
 def hash_rows(x: torch.Tensor, team: int | None = None,
               rows: int | None = None) -> torch.Tensor:
-    """hash_no_pad of every row of the (n, cols) matrix ``x`` -> (n, 4).
+    """hash_no_pad of every row of the (n, cols) matrix ``x`` -> (n, 4),
+    or of each matrix of a batch (B, n, cols) -> (B, n, 4), in one launch.
 
     ``x`` may be any strided view (e.g. ``values.T`` of a column-major
-    (cols, n) tensor); the kernel reads it in place.  ``team`` and ``rows``
-    override the threads per row and rows per block of ``config``."""
+    (cols, n) tensor, ``values.transpose(1, 2)`` of a (B, cols, n) one);
+    the kernel reads it in place.  ``team`` and ``rows`` override the
+    threads per row and rows per block of ``config``."""
     _check(x)
     if x.device.type == "cpu":
         return hash_rows_plain(x)
-    n = x.shape[0]
-    t, r = config(n)
-    team = t if team is None else team
-    rows = r if rows is None else rows
+    team, rows = _launch_config(x, team, rows)
     if team not in TEAMS or not 1 <= rows <= MAX_ROWS:
         raise ValueError(f"unsupported team {team} / rows per block {rows}")
-    out = torch.empty((n, 4), dtype=torch.int64, device=x.device)
-    if n:
+    out = torch.empty((*x.shape[:-1], 4), dtype=torch.int64, device=x.device)
+    if out.numel():
         _sponge(x, out, team, rows, 0, "sponge")
     return out
 
 
 def hash_tree_plain(x: torch.Tensor, cap_height: int) -> list:
     """Plain PyTorch version of ``hash_tree``: the leaf digests
-    (hash_or_noop of each row), then one compress level at a time."""
+    (hash_or_noop of each row), then one compress level at a time, over
+    any leading axes."""
     from .poseidon import batch_hash_no_pad, batch_hash_or_noop
 
     levels = [batch_hash_or_noop(x)]
-    while levels[-1].shape[0] > (1 << cap_height):
+    while levels[-1].shape[-2] > (1 << cap_height):
         cur = levels[-1]
-        levels.append(batch_hash_no_pad(cur.reshape(cur.shape[0] // 2, 8)))
+        levels.append(batch_hash_no_pad(cur.reshape(*cur.shape[:-2], cur.shape[-2] // 2, 8)))
     return levels
 
 
@@ -269,17 +291,20 @@ def hash_tree(x: torch.Tensor, cap_height: int) -> list:
     """Every level of the Merkle tree over the rows of ``x`` (n, cols), n a
     power of two >= 2^cap_height: the leaf digests (hash_or_noop of each
     row) first, the cap (2^cap_height digests) last, each an (m, 4) int64
-    tensor.  ``x`` may be any strided view, as for ``hash_rows``.
+    tensor.  For a batch ``x`` (B, n, cols), the B trees, each level (B, m,
+    4).  ``x`` may be any strided view, as for ``hash_rows``.
 
     On the card: one launch hashes the leaves and builds each block's
     subtree in shared memory, and, when the blocks' subtree roots are more
-    than the cap, one launch of a single block builds the levels above."""
+    than the cap, one more launch, a block a tree, builds the levels
+    above; a batch takes the same two launches."""
     _check(x)
-    n, cols = x.shape
+    n, cols = x.shape[-2:]
     if n < (1 << cap_height) or n & (n - 1):
         raise ValueError(f"{n} leaves: need a power of two >= 2^{cap_height}")
     if x.device.type == "cpu":
         return hash_tree_plain(x, cap_height)
+    lead = x.shape[:-2]
     if cols <= 4:
         # hash_or_noop pads narrow rows; the compress levels are the tree
         # of the padded digests paired up into rows of 8
@@ -288,16 +313,17 @@ def hash_tree(x: torch.Tensor, cap_height: int) -> list:
         leaves = batch_hash_or_noop(x)
         if n == 1 << cap_height:
             return [leaves]
-        return [leaves] + hash_tree(leaves.reshape(n // 2, 8), cap_height)
-    team, rows = config(n)
+        return [leaves] + hash_tree(leaves.reshape(*lead, n // 2, 8), cap_height)
+    team, rows = _launch_config(x, None, None)
     plan = tree_plan(n, cap_height, rows)
-    out = torch.empty((sum(plan["sizes"]), 4), dtype=torch.int64, device=x.device)
+    out = torch.empty((*lead, sum(plan["sizes"]), 4), dtype=torch.int64, device=x.device)
     _sponge(x, out, team, rows, plan["in_block"], "tree")
     if plan["top_threads"]:
+        batch, _, out_bstride = _batch(x, out)
         with torch.cuda.device(x.device):
             err = _lib().k1_top(out.data_ptr(), n, plan["in_block"], plan["depth"],
-                                plan["top_threads"], _stream(x))
+                                plan["top_threads"], batch, out_bstride, _stream(x))
         if err != 0:
             raise RuntimeError(f"k1_top launch failed: error {err}")
         _count("top")
-    return list(torch.split(out, plan["sizes"]))
+    return list(torch.split(out, plan["sizes"], dim=-2))

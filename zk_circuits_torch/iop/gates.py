@@ -136,7 +136,7 @@ class ArithmeticGate(Gate):
 
         w = v.local_wires  # tensor (npoints, num_wires)
         quad = w[..., : 4 * self.num_ops]
-        quad = quad.reshape(quad.shape[0], self.num_ops, 4)
+        quad = quad.reshape(*quad.shape[:-1], self.num_ops, 4)
         m0, m1, addend, o = (quad[..., j] for j in range(4))
         c0b = v.local_constants[..., 0:1]
         c1b = v.local_constants[..., 1:2]
@@ -252,7 +252,7 @@ class ArithmeticExtensionGate(Gate):
 
         w = v.local_wires
         oct_ = w[..., : 8 * self.num_ops]
-        oct_ = oct_.reshape(oct_.shape[0], self.num_ops, 8)
+        oct_ = oct_.reshape(*oct_.shape[:-1], self.num_ops, 8)
         m00, m01, m10, m11, a0, a1, o0, o1 = (oct_[..., j] for j in range(8))
         c0b = v.local_constants[..., 0:1]
         c1b = v.local_constants[..., 1:2]

@@ -115,23 +115,25 @@ def eval_permutation_terms(alg, common, vv: VanishingVars, c: int) -> list:
 
 def _eval_permutation_terms_device(common, vv: VanishingVars, c: int) -> list:
     """Vectorized tensor version of eval_permutation_terms: whole-tensor
-    ops over all routed wires instead of per-wire slices."""
+    ops over all routed wires instead of per-wire slices.  The wires may
+    carry a leading proof axis (B, npoints, k), with a proof's challenges
+    (B, 1) against the circuit's (npoints, k) sigmas."""
     from ..field import goldilocks as gfd
 
     cfg = common.config
     q = common.quotient_degree_factor
     num_routed = cfg.num_routed_wires
     num_chunks = num_routed // q
-    beta, gamma = vv.betas[c], vv.gammas[c]        # (1,)
-    w = vv.wires[..., :num_routed]                 # (npoints, 80)
+    beta = vv.betas[c][..., None]                  # (1, 1) or (B, 1, 1)
+    gamma = vv.gammas[c][..., None]
+    w = vv.wires[..., :num_routed]                 # (..., npoints, 80)
     sig = vv.sigmas                                # (npoints, 80)
     k = gfd.from_u64(common.k_is, w.device)        # (80,)
     kx = gfd.mul(vv.x[:, None], k[None, :])
     nums = gfd.add(w, gfd.add(gfd.mul(kx, beta), gamma))
     dens = gfd.add(w, gfd.add(gfd.mul(sig, beta), gamma))
-    npoints = w.shape[0]
-    nums = nums.reshape(npoints, num_chunks, q)
-    dens = dens.reshape(npoints, num_chunks, q)
+    nums = nums.reshape(*nums.shape[:-1], num_chunks, q)
+    dens = dens.reshape(*dens.shape[:-1], num_chunks, q)
     num_prod = nums[..., 0]
     den_prod = dens[..., 0]
     for j in range(1, q):
