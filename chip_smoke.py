@@ -35,20 +35,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                per-shard sponge on every card.
 6. profile  -- one more warm wormhole proof under torch.profiler: device
                busy time and idle share, device operations, top kernels.
-7. k2_check -- K2 against its plain version at E = 2, 4, 8 shards on one
+7. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
                card (and spread over the cards when there are several):
-               even and odd block sizes with edge values, and at E=4 every
-               block shape and stride the sharded phase gives K2.
+               copy with even and odd block sizes and edge values, and at E=4 every fiber regroup and
+               commit re-shard of the sharded phase; dft, twiddle and
+               interleave, forward and inverse, at bm = 1 and 2^12 and at
+               E=4 at every four-step of the sharded phase.  One launch
+               per card and mode; equal integers.
 8. sharded  -- the multi-device path on a mesh of E=4 shards, in the order
                of the JAX package's multi-chip dryrun: the batch-sharded
                wires commit (cap == the single-device commit's), the
                sharded FRI commit chain at the production shape (caps,
                betas, final poly == the single-device chain's), the
                four-step NTT, INTT and coset LDE at 2^22 points (== the
-               single-device transforms), and prove_sharded of the zk
+               single-device transforms; one dft, twiddle and interleave
+               launch per card each, no copy), and prove_sharded of the zk
                wormhole (cold and warm; sha256 == the pinned digest,
                verified, tamper-checked).  K2's launch counter must rise in
                every sub-step, K1's in every sub-step that hashes leaves.
+               Then the device operations of one profiled 2^22 four-step,
+               fused and as the sequence it replaced (K2 copies with eager
+               torch field operations between them), each with its K2
+               launches by mode.
 9. k1_time  -- K1's device time (graph_ms) at the main path's shapes and
                the whole wires tree against the 13 launches of the level
                loop, the B=4 batch's wires and FRI trees, beside the plain
@@ -57,11 +65,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the sharded path's per-shard ones; the permutation's
                multiply and instruction counts from the built library's
                SASS (cuobjdump).  A share of the bound above 1.05 fails.
-10. k2_time -- K2's device time (graph_ms) at the four-step's exchange
-               (2^22 points, E=4 on one card) and the wires re-shard,
-               beside its plain version, one PyTorch call (transpose +
-               contiguous) and its byte bound, each with the min and max
-               of its replays; a share of the bound above 1.05 fails.
+10. k2_time -- K2's device time (graph_ms) by mode: copy at the
+               four-step's 2^22 exchange shape, the wires re-shard and the
+               first FRI fiber regroup, beside its plain version, one
+               PyTorch call (transpose + contiguous) and its byte bound;
+               dft, twiddle and interleave (forward and inverse) at 2^22
+               points beside their plain versions and the sequence each
+               replaced (a K2 copy and the torch operations it absorbs),
+               the forward interleave also beside one PyTorch call (stack
+               viewed (E, E, bm), permuted, contiguous; equal to K2's
+               result); each with the min and max of its replays and the
+               host time per wrapper call; each kernel's instruction,
+               load and store counts from the built library's SASS
+               (cuobjdump).  A share of the bound above 1.05 fails.
 
 The last lines are the card line, the kernels line and
 {"ok": true, "device": {...}}.  Needs no network; imports no JAX.
@@ -371,10 +387,30 @@ def phase_k1_check(state) -> None:
           "max_abs_err": max_err, "s": time.perf_counter() - t0})
 
 
-def k2_bound_ms(nbytes: int) -> float:
-    """K2 moves every element once in and once out: 2 * bytes at the HBM
-    rate (all shards on one card)."""
-    return 2 * nbytes / HBM_BYTES_PER_S * 1e3
+def k2_bound_ms(nbytes: int, muls: int = 0) -> tuple[float, str]:
+    """The least time for K2 moving ``nbytes`` (each element read once and
+    written once, all shards on one card) and doing ``muls`` 32-bit
+    multiplies: the larger of the two, and which it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = muls / INT32_MUL_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def k2_fused_work(mode: str, n: int, e: int, inverse: bool) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of one fused K2 call over n points on E
+    shards: every element read and written once, plus twiddle's tables
+    (E x (L + m/L) values); 8 multiplies a 64x64 product: twiddle 2 an
+    element, the inverse interleave 1, dft none (shifts)."""
+    from zk_circuits_torch.parallel import exchange_cuda
+
+    nbytes, muls = 2 * 8 * n, 0
+    if mode == "twiddle":
+        split, table = exchange_cuda._twiddle_tables(n, e, inverse, "cpu")
+        nbytes += 8 * table.numel()
+        muls = 2 * 8 * n
+    elif mode == "interleave" and inverse:
+        muls = 8 * n
+    return nbytes, muls
 
 
 def _blocks(x):
@@ -395,24 +431,31 @@ def _reshard(x):
     return x.reshape(kps, SHARDS, lde // SHARDS).permute(1, 0, 2)
 
 
+def _four_step_sizes(common) -> list:
+    """(name, n) of every four-step the sharded phase runs: 2^22 points,
+    the quotient's coset INTT and each FRI round's coset NTT."""
+    cfg, lde = common.config, common.lde_size
+    sizes, size = [("four-step 2^22", 1 << NTT_LOG), ("quotient INTT four-step", lde)], lde
+    for r, a_bits in enumerate(cfg.fri_config.reduction_arities(common.degree_bits)):
+        sizes.append((f"FRI round {r} four-step", size))
+        size >>= a_bits
+    return sizes
+
+
 def _k2_cases(e: int, common=None) -> list:
-    """(name, per-shard base shape, view) of K2's check cases at E shards:
-    contiguous (E, B) blocks with B even and odd; and, given the wormhole's
-    ``common`` (E = SHARDS), every exchange the sharded phase gives K2,
-    built as the path builds it: the four-step's blocks at 2^22 points, in
-    the quotient's coset INTT and in each FRI round, each FRI round's fiber
-    regroup and each commit's re-shard."""
+    """(name, per-shard base shape, view) of K2's copy check cases at E
+    shards: contiguous (E, B) blocks with B even and odd; and, given the
+    wormhole's ``common`` (E = SHARDS), every copy the sharded phase gives
+    K2, built as the path builds it: each FRI round's fiber regroup and
+    each commit's re-shard."""
     cases = [(f"B={b}", (e, b), _blocks) for b in (1 << 16, (1 << 16) + 1, 7)]
     if common is None:
         return cases
     cfg, lde = common.config, common.lde_size
-    cases += [("four-step 2^22", (e, (1 << NTT_LOG) // e // e), _blocks),
-              ("quotient INTT four-step", (e, lde // e // e), _blocks)]
     size = lde
     for r, a_bits in enumerate(cfg.fri_config.reduction_arities(common.degree_bits)):
         arity, m = 1 << a_bits, size >> a_bits
-        cases += [(f"FRI round {r} four-step", (e, size // e // e), _blocks),
-                  (f"FRI round {r} fiber regroup", (arity // e, e, 2 * m // e), _fibers)]
+        cases.append((f"FRI round {r} fiber regroup", (arity // e, e, 2 * m // e), _fibers))
         size = m
     salts = 4 if cfg.zero_knowledge else 0
     for name, k in (("constants/sigmas", common.num_constants_sigmas_polys),
@@ -421,6 +464,20 @@ def _k2_cases(e: int, common=None) -> list:
                     ("quotient", common.num_quotient_polys + salts)):
         cases.append((f"{name} re-shard", (-(-k // e), lde), _reshard))
     return cases
+
+
+def _fused_calls(xs_blocks, xs_rows, n, inverse):
+    """(mode, kernel call, plain call) of K2's three fused modes on the
+    same shards: (E, bm) blocks for dft and twiddle, (m,) rows for
+    interleave."""
+    from zk_circuits_torch.parallel import exchange_cuda as xc
+
+    return (("dft", lambda: xc.exchange_dft(xs_blocks, inverse),
+             lambda: xc.dft_plain(xs_blocks, inverse)),
+            ("twiddle", lambda: xc.exchange_twiddle(xs_blocks, n, inverse),
+             lambda: xc.twiddle_plain(xs_blocks, n, inverse)),
+            ("interleave", lambda: xc.exchange_interleave(xs_rows, inverse),
+             lambda: xc.interleave_plain(xs_rows, inverse)))
 
 
 def phase_k2_check(state) -> None:
@@ -439,34 +496,64 @@ def phase_k2_check(state) -> None:
                                              for i in range(e)]))
     max_err, cases = 0.0, []
     t0 = time.perf_counter()
+
+    def compare(got, want, what, devices):
+        nonlocal max_err
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        for g, w in zip(got, want, strict=True):
+            a = g.cpu().numpy().view(np.uint64).astype(np.float64)
+            b = w.cpu().numpy().view(np.uint64).astype(np.float64)
+            max_err = max(max_err, float(np.abs(a - b).max()))
+            if not torch.equal(g.cpu(), w.cpu()):
+                raise AssertionError(f"K2 != plain ({what})")
+        cases.append(what)
+
+    def launched(mode, before, devices, what):
+        got = exchange_cuda.launches_by_mode[mode] - before
+        if got != len(set(devices)):
+            raise AssertionError(f"K2 {what}: {got} {mode} launches, want one per card")
+
     for layout, devices_of in layouts:
         for e in (2, 4, 8):
             devices = devices_of(e)
+            # copy: edge values in every row
             for name, shape, view in _k2_cases(e, common if e == SHARDS else None):
                 host = rng.integers(0, 2**64 - 1, (e, *shape), dtype=np.uint64)
                 host[..., : min(shape[-1], 4)] = edge[: min(shape[-1], 4)]   # every row
                 xs = [view(torch.from_numpy(host[s].view(np.int64)).to(d))
                       for s, d in enumerate(devices)]
-                name = f"E={e} {name} {list(xs[0].shape)}"
-                before = exchange_cuda.launches
-                got = exchange_cuda.exchange(xs)
-                if exchange_cuda.launches - before != len(set(devices)):
-                    raise AssertionError(f"K2 {name}: {exchange_cuda.launches - before} "
-                                         "launches, want one per card")
                 want = exchange_cuda.exchange_plain(xs)
-                for d in set(devices):
-                    torch.cuda.synchronize(d)
-                for g, w in zip(got, want):
-                    a = g.cpu().numpy().view(np.uint64).astype(np.float64)
-                    b = w.cpu().numpy().view(np.uint64).astype(np.float64)
-                    max_err = max(max_err, float(np.abs(a - b).max()))
-                    if not torch.equal(g.cpu(), w.cpu()):
-                        raise AssertionError(f"K2 != plain ({layout}, {name})")
+                what = f"{layout}: E={e} copy {name} {list(xs[0].shape)}"
+                before = exchange_cuda.launches_by_mode["copy"]
+                got = exchange_cuda.exchange(xs)
+                launched("copy", before, devices, what)
+                compare(got, want, what, devices)
                 if view is _blocks and not np.array_equal(
                         np.stack([g.cpu().numpy() for g in got]).view(np.uint64),
                         np.swapaxes(host, 0, 1)):
-                    raise AssertionError(f"K2 is not the block transpose ({layout}, {name})")
-                cases.append(f"{layout}: {name}")
+                    raise AssertionError(f"K2 is not the block transpose ({what})")
+            # the fused modes, forward and inverse: bm = 1 and 2^12, and at
+            # E = SHARDS every four-step of the sharded phase
+            sizes = [(f"bm={bm}", e * e * bm) for bm in (1, 1 << 12)]
+            if e == SHARDS:
+                sizes += _four_step_sizes(common)
+            for name, n in sizes:
+                m = n // e
+                host = rng.integers(0, P, (e, m), dtype=np.uint64)
+                host[:, : min(m, 4)] = np.array([0, 1, P - 2, P - 1],
+                                                dtype=np.uint64)[: min(m, 4)]
+                rows = [torch.from_numpy(host[s].view(np.int64)).to(d)
+                        for s, d in enumerate(devices)]
+                blocks = [r.reshape(e, m // e) for r in rows]
+                for inverse in (False, True):
+                    for mode, run, plain in _fused_calls(blocks, rows, n, inverse):
+                        what = (f"{layout}: E={e} {mode}{' inverse' if inverse else ''} "
+                                f"{name} n={n}")
+                        before = exchange_cuda.launches_by_mode[mode]
+                        got = run()
+                        launched(mode, before, devices, what)
+                        compare(got, plain(), what, devices)
     state["k2_max_abs_err"] = max_err
     emit({"phase": "k2_check", "cases": cases, "equal": True,
           "max_abs_err": max_err, "s": time.perf_counter() - t0})
@@ -780,12 +867,15 @@ def phase_sharded(state) -> None:
         """Run a sub-step; K2 must launch in it, and K1 too if it hashes
         leaves."""
         k1_before, k2_before = poseidon_cuda.launches, exchange_cuda.launches
+        by_mode = dict(exchange_cuda.launches_by_mode)
         res, secs = _synced(fn)
         k1 = poseidon_cuda.launches - k1_before
         k2 = exchange_cuda.launches - k2_before
         if k2 <= 0 or (hashes and k1 <= 0):
             raise AssertionError(f"sharded/{step}: {k2} K2 and {k1} K1 launches")
-        steps[step] = {"s": secs, "k2_launches": k2, "k1_launches": k1}
+        steps[step] = {"s": secs, "k2_launches": k2, "k1_launches": k1,
+                       "k2_launches_by_mode": {k: v - by_mode[k] for k, v in
+                                               exchange_cuda.launches_by_mode.items()}}
         return res
 
     n = cd.common.degree
@@ -817,7 +907,7 @@ def phase_sharded(state) -> None:
         singles[name] = _synced(fn)
 
     poseidon_cuda.reset_launches()      # main path starts here
-    exchange_cuda.launches = 0
+    exchange_cuda.reset_launches()
     # each sub-step runs twice and the second run is timed
     # 1. batch-sharded LDE commit at the wormhole wires shape
     for _ in range(2):
@@ -842,7 +932,15 @@ def phase_sharded(state) -> None:
         pw = WormholeProver(circuit_data=cd, targets=targets).commit(inputs).partial_witness
         proofs.append(sub_step(name, lambda: prove_sharded(cd, pw, mesh)))
     launches = exchange_cuda.launches   # main path ends here
+    launches_by_mode = dict(exchange_cuda.launches_by_mode)
     k1_launches = poseidon_cuda.launches
+    cards = len(set(mesh.devices))
+    for name in ("ntt", "intt", "coset_lde"):   # no torch field op between exchanges
+        if steps[name]["k2_launches_by_mode"] != {"copy": 0, "dft": cards,
+                                                  "twiddle": cards, "interleave": cards}:
+            raise AssertionError(f"sharded/{name}: K2 launches by mode "
+                                 f"{steps[name]['k2_launches_by_mode']}, want one "
+                                 "dft, twiddle and interleave per card")
 
     levels_top, single_s = singles["lde_commit"]
     if not np.array_equal(got.cap, gf.to_u64(levels_top)):
@@ -862,6 +960,34 @@ def phase_sharded(state) -> None:
         steps[name].update(points=1 << NTT_LOG, single_s=single_s)
     pw = WormholeProver(circuit_data=cd, targets=targets).commit(inputs).partial_witness
     _, out["profile_warm_proof"] = profiled(lambda: prove_sharded(cd, pw, mesh))
+    # device operations of one 2^22 four-step, fused and as the parent ran
+    # it (K2 copies with eager torch field operations between them), each
+    # with its K2 launches by mode
+    xs = meshm.shard_last(x, mesh)
+    ops, want_modes = {}, {"fused": {"copy": 0, "dft": cards, "twiddle": cards,
+                                     "interleave": cards},
+                           "parent_sequence": {"copy": 3 * cards, "dft": 0, "twiddle": 0,
+                                               "interleave": 0}}
+    for name, fn in (("fused", lambda: ntt_sharded_pallas(xs, mesh)),
+                     ("parent_sequence", lambda: four_step_unfused(xs, mesh, False))):
+        fn()
+        before = dict(exchange_cuda.launches_by_mode)
+        got4, ops[name] = profiled(fn)
+        modes = {k: v - before[k] for k, v in exchange_cuda.launches_by_mode.items()}
+        if modes != want_modes[name]:
+            raise AssertionError(f"the {name} four-step launched K2 {modes}, want "
+                                 f"{want_modes[name]}")
+        ops[name]["k2_launches_by_mode"] = modes
+        if not torch.equal(meshm.gather(got4), singles["ntt"][0]):
+            raise AssertionError(f"the {name} four-step != the single-device NTT")
+    out["four_step_device_ops"] = {k: v["device_ops"] for k, v in ops.items()}
+    out["four_step_device_ops"]["shed"] = ops["parent_sequence"]["device_ops"] - \
+        ops["fused"]["device_ops"]
+    out["four_step_profiles"] = {k: {kk: v[kk] for kk in (
+        "wall_s", "device_busy_s", "device_ops", "exchange_kernel_s", "k2_launches_by_mode")}
+        for k, v in ops.items()}
+    if ops["fused"]["device_ops"] >= ops["parent_sequence"]["device_ops"]:
+        raise AssertionError(f"the fused four-step ran {out['four_step_device_ops']}")
     data = proof_to_bytes(proofs[0])
     if proof_to_bytes(proofs[1]) != data:
         raise AssertionError("warm sharded proof bytes differ from the cold proof")
@@ -872,17 +998,37 @@ def phase_sharded(state) -> None:
     cd.verify(proofs[0])
     _refuses_tampering(cd, proofs[0])
     state["k2_launches"] = launches
+    state["k2_launches_by_mode"] = launches_by_mode
     state["k1_launches_sharded"] = k1_launches
     out.update(steps=steps, sha256=digest, golden=True, verified=True,
                tamper_rejected=True, k2_launches=launches,
                k2_launches_per_proof=steps["prove_warm"]["k2_launches"],
                k2_launches_per_four_step=steps["ntt"]["k2_launches"],
+               k2_launches_by_mode=launches_by_mode,
+               k2_launches_by_mode_per_proof=steps["prove_warm"]["k2_launches_by_mode"],
                k1_launches=k1_launches,
                k1_launches_per_proof=steps["prove_warm"]["k1_launches"],
                cold_proof_s=steps["prove_cold"]["s"],
                warm_proof_s=steps["prove_warm"]["s"],
                ntt_ms=steps["ntt"]["s"] * 1e3)
     emit(out)
+
+
+def four_step_unfused(xs, mesh, inverse):
+    """The four-step as the port ran it before K2's fused modes: a K2 copy
+    for each exchange, the DFT, twiddle, reversal, interleave and n^-1 as
+    eager torch field operations between them (the plain versions' local
+    parts)."""
+    from zk_circuits_torch.ntt import ntt as nttm
+    from zk_circuits_torch.parallel import exchange_cuda as xc
+
+    e = mesh.size
+    m = xs[0].numel()
+    n = e * m
+    y_t = [xc.dft_local(r, inverse) for r in xc.exchange([x.reshape(e, m // e) for x in xs])]
+    z = [xc.twiddle_local(r, d, n, inverse) for d, r in enumerate(xc.exchange(y_t))]
+    big = [xc.interleave_in(nttm.ntt(v), e, inverse) for v in z]
+    return [xc.interleave_out(r, n, inverse) for r in xc.exchange(big)]
 
 
 def sass_functions(text: str) -> dict:
@@ -915,6 +1061,26 @@ def k1_sass_counts() -> dict:
     text = subprocess.run([cuobjdump, "-sass", str(poseidon_cuda.build())],
                           capture_output=True, text=True, timeout=120).stdout
     return sass_round_counts(text)
+
+
+def k2_sass_counts() -> dict:
+    """Per kernel of K2's built library (cuobjdump -sass): its instruction
+    count and its global loads and stores by opcode (width)."""
+    import collections
+
+    from zk_circuits_torch.parallel import exchange_cuda
+
+    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(exchange_cuda.build())],
+                          capture_output=True, text=True, timeout=120).stdout
+    out = {}
+    for name, ins in sass_functions(text).items():
+        ops = collections.Counter(op for _, op, _ in ins)
+        out[name] = {"instructions": len(ins),
+                     **{k: v for k, v in sorted(ops.items()) if k.startswith(("LDG", "STG"))}}
+    if not out:
+        raise AssertionError("no K2 function in the SASS")
+    return out
 
 
 def sass_round_counts(text: str) -> dict:
@@ -1068,62 +1234,134 @@ def phase_k1_time(state) -> None:
         "bound_by": main["bound_by"], "library_ms": None}]
 
 
+def host_us_per_call(fn, calls: int = 100) -> float:
+    """Host microseconds a wrapper call: perf_counter around ``calls``
+    calls (warmed, the card synchronised before and after)."""
+    fn()
+    _sync_all()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    _sync_all()
+    return us
+
+
+def library_fields(k2: dict, lib: dict) -> dict:
+    """The library call's graph_ms beside K2's: its ms and range, the ratio,
+    and whether the two ranges overlap."""
+    return {"library_ms": lib["ms"], "library_min_ms": lib["min_ms"],
+            "library_max_ms": lib["max_ms"], "k2_over_library": k2["ms"] / lib["ms"],
+            "spreads_overlap": k2["min_ms"] <= lib["max_ms"] and lib["min_ms"] <= k2["max_ms"]}
+
+
 def phase_k2_time(state) -> None:
     import numpy as np
     import torch
 
-    from zk_circuits_torch.parallel import exchange_cuda
+    from zk_circuits_torch.parallel import exchange_cuda as xc
 
     rng = np.random.default_rng(9)
     e = SHARDS
     common = state["wormhole"][0].common
     kps = -(-(common.config.num_wires + 4) // e)     # the zk wires commit
-    shapes = (("four_step_2^22", (e, (1 << NTT_LOG) // e // e), _blocks),
-              ("wires_reshard", (kps, common.lde_size), _reshard))
+    arity = 1 << common.config.fri_config.reduction_arities(common.degree_bits)[0]
+    m0 = common.lde_size // arity
+    copies = (("four_step_2^22", (e, (1 << NTT_LOG) // e // e), _blocks),
+              ("wires_reshard", (kps, common.lde_size), _reshard),
+              ("fri_fiber_regroup", (arity // e, e, 2 * m0 // e), _fibers))
     rows_out = []
-    for name, shape, view in shapes:    # all shards on cuda:0
+    for name, shape, view in copies:    # all shards on cuda:0
         host = rng.integers(0, P, (e, *shape), dtype=np.uint64).view(np.int64)
         base = [torch.from_numpy(host[s]).cuda() for s in range(e)]
         # K2_TIMED_CALLS input sets of their own (see graph_ms)
         sets = [[view(b.clone()) for b in base] for _ in range(K2_TIMED_CALLS)]
         per_shard = list(sets[0][0].shape)
-        nbytes = e * sets[0][0].numel() * 8          # the global (E, E, ...) tensor
-        k2 = graph_ms([lambda xs=xs: exchange_cuda.exchange(xs) for xs in sets])
-        plain = graph_ms([lambda xs=xs: exchange_cuda.exchange_plain(xs) for xs in sets])
-        call_ms = cuda_ms(lambda: exchange_cuda.exchange(sets[0]), reps=20)
+        nbytes = 2 * e * sets[0][0].numel() * 8     # the global (E, E, ...) tensor, in and out
+        bound, by = k2_bound_ms(nbytes)
+        plain = graph_ms([lambda xs=xs: xc.exchange_plain(xs) for xs in sets])
         stacked = [torch.stack(xs) for xs in sets]
-        del sets
         lib = graph_ms([lambda t=t: t.transpose(0, 1).contiguous() for t in stacked])
         del stacked
-        bound = k2_bound_ms(nbytes)
-        rows_out.append({"shape": name, "per_shard": per_shard, "shards": e,
-                         "bytes": nbytes, "ms": k2["ms"], "min_ms": k2["min_ms"],
-                         "max_ms": k2["max_ms"], "call_ms": call_ms,
-                         "plain_ms": plain["ms"], "library_ms": lib["ms"],
-                         "library_min_ms": lib["min_ms"], "library_max_ms": lib["max_ms"],
-                         "k2_over_library": k2["ms"] / lib["ms"],
-                         "spreads_overlap": k2["min_ms"] <= lib["max_ms"]
-                         and lib["min_ms"] <= k2["max_ms"],
-                         "bound_ms": bound, "bound_by": "bytes",
-                         "share_of_bound": bound / k2["ms"]})
+        k2 = graph_ms([lambda xs=xs: xc.exchange(xs) for xs in sets])
+        rows_out.append({
+            "mode": "copy", "shape": name, "per_shard": per_shard, "shards": e,
+            "bytes": nbytes, "ms": k2["ms"], "min_ms": k2["min_ms"], "max_ms": k2["max_ms"],
+            "host_us_per_call": host_us_per_call(lambda: xc.exchange(sets[0])),
+            "plain_ms": plain["ms"], **library_fields(k2, lib),
+            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / k2["ms"]})
+        del sets
+    # the fused modes at 2^22 points: kernel, plain version and the
+    # sequence before (a K2 copy and the torch operations the mode absorbs)
+    n = 1 << NTT_LOG
+    m = n // e
+    host = rng.integers(0, P, (e, m), dtype=np.uint64).view(np.int64)
+    base = [torch.from_numpy(host[s]).cuda() for s in range(e)]
+    sets = [[b.clone() for b in base] for _ in range(K2_TIMED_CALLS)]
+    blocks = [[r.reshape(e, m // e) for r in xs] for xs in sets]
+    before_of = {
+        "dft": lambda inv: lambda: [xc.dft_local(r, inv) for r in xc.exchange(blocks[0])],
+        "twiddle": lambda inv: lambda: [xc.twiddle_local(r, d, n, inv)
+                                        for d, r in enumerate(xc.exchange(blocks[0]))],
+        "interleave": lambda inv: lambda: [
+            xc.interleave_out(r, n, inv)
+            for r in xc.exchange([xc.interleave_in(z, e, inv) for z in sets[0]])]}
+    for mode, inverse in (("dft", False), ("twiddle", False), ("interleave", False),
+                          ("interleave", True)):
+        calls = [dict((c[0], c[1]) for c in _fused_calls(b, xs, n, inverse))[mode]
+                 for b, xs in zip(blocks, sets)]
+        plain = dict((c[0], c[2]) for c in _fused_calls(blocks[0], sets[0], n, inverse))[mode]
+        k2 = graph_ms(calls)
+        nbytes, muls = k2_fused_work(mode, n, e, inverse)
+        bound, by = k2_bound_ms(nbytes, muls)
+        library = {"library_ms": None}
+        if mode == "interleave" and not inverse:
+            # one PyTorch call computes the forward interleave on one card:
+            # out_d[i E + t1] = z_t1[d bm + i] is (t1, d, i) -> (d, i, t1)
+            stacked = [torch.stack(xs) for xs in sets]
+
+            def lib_call(t):
+                return t.view(e, e, m // e).permute(1, 2, 0).contiguous()
+
+            got = torch.stack(calls[0]())
+            if not torch.equal(got, lib_call(stacked[0]).view(e, m)):
+                raise AssertionError("the forward interleave != its PyTorch call")
+            library = library_fields(k2, graph_ms([lambda t=t: lib_call(t) for t in stacked]))
+            del stacked, got
+        rows_out.append({
+            "mode": mode, "inverse": inverse, "shape": f"four_step_2^{NTT_LOG}",
+            "per_shard": [m], "shards": e, "bytes": nbytes, "muls32": muls,
+            "ms": k2["ms"], "min_ms": k2["min_ms"], "max_ms": k2["max_ms"],
+            "host_us_per_call": host_us_per_call(calls[0]),
+            "plain_ms": cuda_ms(plain, reps=5), "before_ms": cuda_ms(before_of[mode](inverse), reps=5),
+            **library, "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / k2["ms"]})
+    del sets, blocks
     emit({"phase": "k2_time", "hbm_bytes_per_s": HBM_BYTES_PER_S,
-          "timing": f"ms/plain_ms/library_ms: CUDA events around the replay "
-                    f"of a CUDA graph of {K2_TIMED_CALLS} calls on inputs of "
-                    f"their own, L2 emptied first, per call, median of 8 "
-                    f"replays (min_ms/max_ms: their range); call_ms: CUDA "
-                    f"events around one wrapper call, L2 warm",
-          "shapes": rows_out})
+          "int32_mul_per_s": INT32_MUL_PER_S,
+          "timing": f"ms, library_ms and the copy's plain_ms: CUDA events around "
+                    f"the replay of a CUDA graph of {K2_TIMED_CALLS} calls on inputs "
+                    f"of their own, L2 emptied first, per call, median of 8 replays "
+                    f"(min_ms/max_ms and library_min_ms/library_max_ms: their "
+                    f"range); the fused modes' plain_ms and "
+                    f"before_ms: CUDA events around one call, median of 5 (the "
+                    f"launch gaps of eager torch included); host_us_per_call: "
+                    f"perf_counter around 100 wrapper calls",
+          "rows": rows_out, "sass": k2_sass_counts()})
     over = [r for r in rows_out if r["share_of_bound"] > 1.05]
     if over:
-        raise AssertionError(f"K2 timed below its byte bound: {over}")
-    main = rows_out[0]
+        raise AssertionError(f"K2 timed below its bound: {over}")
+    main = next(r for r in rows_out if r["mode"] == "copy" and r["shape"] == "wires_reshard")
     state["kernels"].append({
         "name": "block_exchange", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": state["k2_launches"],
+        "launches_by_mode": state["k2_launches_by_mode"],
         "launches_by_path": {"sharded": state["k2_launches"]},
         "max_abs_err": state["k2_max_abs_err"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": "bytes", "library_ms": main["library_ms"]})
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "ms_by_mode": {f"{r['mode']}{' inverse' if r.get('inverse') else ''} {r['shape']}":
+                       r["ms"] for r in rows_out}})
 
 
 PHASES = {"card": phase_card, "square": phase_square,

@@ -227,3 +227,76 @@ def test_sharded_ntt_and_proof_on_the_card(cuda):
         pw.set_target(t, 5)
         proofs.append(proof_to_bytes(run(pw)))
     assert proofs[0] == proofs[1]
+
+
+def _fused_shards(e, shape, seed, devices):
+    x = np.random.default_rng(seed).integers(0, P, (e, *shape), dtype=np.uint64)
+    flat = x.reshape(e, -1)
+    flat[:, :4] = np.array([0, 1, P - 2, P - 1], dtype=np.uint64)[: flat.shape[1]]
+    return _mesh_shards(x, devices)
+
+
+@pytest.mark.parametrize("e,bm", [(2, 4096), (4, 3), (4, 1 << 14), (8, 64)])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_block_exchange_fused_modes_match_plain(cuda, e, bm, inverse):
+    """dft, twiddle and interleave (forward and inverse) against their
+    plain versions, one launch each on one card."""
+    from zk_circuits_torch.parallel import exchange_cuda as xc
+
+    m = e * bm
+    if m & (m - 1):
+        pytest.skip("the four-step's shards are powers of two")
+    blocks = _fused_shards(e, (e, bm), e * bm + inverse, [cuda] * e)
+    rows = [b.reshape(m) for b in blocks]
+    for mode, run, plain in (
+            ("dft", lambda: xc.exchange_dft(blocks, inverse), lambda: xc.dft_plain(blocks, inverse)),
+            ("twiddle", lambda: xc.exchange_twiddle(blocks, e * m, inverse),
+             lambda: xc.twiddle_plain(blocks, e * m, inverse)),
+            ("interleave", lambda: xc.exchange_interleave(rows, inverse),
+             lambda: xc.interleave_plain(rows, inverse))):
+        before = xc.launches_by_mode[mode]
+        got = run()
+        assert xc.launches_by_mode[mode] == before + 1, mode
+        want = plain()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w), mode
+
+
+@pytest.mark.parametrize("b", [1, 7, 64, 4097])
+def test_block_exchange_copy_paths(cuda, b):
+    """The copy on one card, contiguous blocks with edge values and B odd,
+    and the strided re-shard view."""
+    from zk_circuits_torch.parallel import exchange_cuda as xc
+
+    e = 4
+    x = np.random.default_rng(b).integers(0, 2**64 - 1, (e, e, b), dtype=np.uint64,
+                                          endpoint=True)
+    x[:, :, :1] = 2**64 - 1
+    xs = _mesh_shards(x, [cuda] * e)
+    got = xc.exchange(xs)
+    torch.cuda.synchronize()
+    assert np.array_equal(np.stack([g.cpu().numpy() for g in got]).view(np.uint64),
+                          np.swapaxes(x, 0, 1))
+    v = np.random.default_rng(b + 1).integers(0, P, (e, 5, e * b), dtype=np.uint64)
+    views = [t.reshape(5, e, b).permute(1, 0, 2) for t in _mesh_shards(v, [cuda] * e)]
+    for g, w in zip(xc.exchange(views), xc.exchange_plain(views), strict=True):
+        assert torch.equal(g, w)
+
+
+def test_sharded_ntt_intt_2_16_on_four_shards(cuda):
+    """The four-step at 2^16 on E=4 against the single-device NTT and
+    INTT: dft, twiddle and interleave once each a transform."""
+    from zk_circuits_torch.ntt import ntt as nttm
+    from zk_circuits_torch.parallel import exchange_cuda as xc, mesh as meshm
+    from zk_circuits_torch.parallel.ntt_exchange import intt_sharded_pallas, ntt_sharded_pallas
+
+    mesh = meshm.make_mesh(4)
+    cards = len(set(mesh.devices))
+    x = gf.from_u64(np.random.default_rng(16).integers(0, P, 1 << 16, dtype=np.uint64), cuda)
+    for fn, single in ((ntt_sharded_pallas, nttm.ntt), (intt_sharded_pallas, nttm.intt)):
+        before = dict(xc.launches_by_mode)
+        got = meshm.gather(fn(meshm.shard_last(x, mesh), mesh))
+        assert {k: xc.launches_by_mode[k] - before[k] for k in before} == {
+            "copy": 0, "dft": cards, "twiddle": cards, "interleave": cards}
+        assert torch.equal(got.to(cuda), single(x))

@@ -1,12 +1,15 @@
-"""The arithmetic the CUDA leaf kernel runs, built for the host.
+"""The arithmetic the CUDA kernels run, built for the host.
 
-csrc/goldilocks.cuh and csrc/poseidon.cuh are __host__ __device__ code;
-here they are compiled with g++ behind a small C shim and checked against
-the numpy golden models (host/gl.py, host/poseidon.py) of both packages,
-so the field and permutation code is tested before any card runs it: both
-forms of the MDS layer, the thread-team permutation (the T threads of a
-team run in turn, arrays in place of the warp shuffles) and the Merkle
-subtree index arithmetic (the tree kernel's blocks run one at a time).
+csrc/goldilocks.cuh, csrc/poseidon.cuh and csrc/block_exchange.cuh are
+__host__ __device__ code; here they are compiled with g++ behind small C
+shims and checked against the numpy golden models (host/gl.py,
+host/poseidon.py) of both packages, so the field, permutation and index
+code is tested before any card runs it.  K1: both forms of the MDS layer,
+the thread-team permutation (the T threads of a team run in turn, arrays
+in place of the warp shuffles) and the Merkle subtree index arithmetic
+(the tree kernel's blocks run one at a time).  K2: the shift-form DFT,
+the twiddle and interleave index maps, and the copy's tile walk (its
+blocks run one at a time).
 """
 
 import ctypes
@@ -308,3 +311,273 @@ def test_batched_subtree_index_arithmetic_matches_merkle_builds(lib, batch, log_
         assert len(got) == len(want)
         for g, w in zip(got, want):
             assert np.array_equal(g, w)
+
+
+# --- K2: the block exchange's index and field code (csrc/block_exchange.cuh) ---
+
+BX_SHIM = r"""
+#include <stddef.h>
+#include "block_exchange.cuh"
+// Every column (element, output) of every destination, as the kernel's
+// threads run them (EC: the shard count as a template argument, or 0 at
+// run time).
+template <int EC>
+static void bx_fused(const BxCall* c) {
+  for (int j = 0; j < c->n_dst; j++) {
+    const int d = c->dst_index[j];
+    const uint64_t* lo = bx_twiddle_table(*c, d);
+    for (long long i = 0; i < c->bm; i++) {
+      if (c->mode == BX_DFT) {
+        bx_dft_column<EC>(*c, j, i);
+      } else if (c->mode == BX_TWIDDLE) {
+        for (int s = 0; s < c->n_src; s++)
+          c->dst[j][s * c->bm + i] = bx_twiddle_apply(*c, lo, s, i, c->src[s][d * c->bm + i]);
+      } else {
+        for (int t1 = 0; t1 < c->n_src; t1++) {
+          const long long o = i * c->n_src + t1;
+          c->dst[j][o] = bx_interleave_value(*c, *bx_interleave_from<EC>(*c, d, o));
+        }
+      }
+    }
+  }
+}
+// The copy's tile walk at tiles of TILE elements, block by block (one block
+// a tile, as the kernel launches): each tile's body in 16-byte units (the
+// kernel's ulonglong2 loads and stores, which need 16-byte aligned ends),
+// head and tail element by element.
+template <int TILE>
+static int bx_copy(const BxCall* c) {
+  const long long n = bx_num_tiles<TILE>(*c);
+  for (long long b = 0; b < n; b++) {
+    const BxTile tile = bx_tile<TILE>(*c, (unsigned)b);
+    if (tile.body) {
+      if (((unsigned long long)(tile.src + tile.head) & 15) ||
+          ((unsigned long long)(tile.dst + tile.head) & 15) || tile.body % 2)
+        return -1;
+      for (long long k = tile.head; k < tile.head + tile.body; k += 2) {
+        tile.dst[k] = tile.src[k];
+        tile.dst[k + 1] = tile.src[k + 1];
+      }
+    }
+    for (long long k = 0; k < tile.head; k++) tile.dst[k] = tile.src[k];
+    for (long long k = tile.head + tile.body; k < tile.len; k++) tile.dst[k] = tile.src[k];
+  }
+  return 0;
+}
+extern "C" {
+long shim_bx_layout(long* out) {
+  out[0] = offsetof(BxCall, table);
+  out[1] = offsetof(BxCall, scale);
+  out[2] = offsetof(BxCall, dst_index);
+  out[3] = offsetof(BxCall, tw_log);
+  out[4] = offsetof(BxCall, wshift);
+  return (long)sizeof(BxCall);
+}
+void shim_mul_pow2(const uint64_t* x, const int* k, uint64_t* out, long n) {
+  for (long i = 0; i < n; i++) out[i] = gl_mul_pow2(x[i], k[i]);
+}
+int shim_bx_fused(const BxCall* c, int ec) {
+  if (c->mode < BX_DFT || c->mode > BX_INTERLEAVE) return -1;
+  switch (ec) {
+    case 0: bx_fused<0>(c); return 0;
+    case 2: bx_fused<2>(c); return 0;
+    case 4: bx_fused<4>(c); return 0;
+    case 8: bx_fused<8>(c); return 0;
+    default: return -1;
+  }
+}
+int shim_bx_copy(const BxCall* c, int tile) {
+  switch (tile) {
+    case 2048: return bx_copy<2048>(c);
+    case 6: return bx_copy<6>(c);
+    case 8: return bx_copy<8>(c);
+    case 2: return bx_copy<2>(c);
+    default: return -2;
+  }
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def bx_lib():
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to build the kernel headers for the host"
+    build = nvcc.BUILD_DIR / f"bx_shim_{os.getpid()}"
+    build.mkdir(parents=True, exist_ok=True)
+    src = build / "bx_shim.cc"
+    src.write_text(BX_SHIM)
+    so = build / "libbxshim.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(nvcc.CSRC),
+                    "-o", str(so), str(src)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.shim_bx_layout.restype = ctypes.c_long
+    lib.shim_bx_fused.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.shim_bx_copy.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    yield lib
+    shutil.rmtree(build, ignore_errors=True)
+
+
+def test_bx_call_mirror_matches_header(bx_lib):
+    """The wrapper's ctypes BxCall has the header's size and offsets."""
+    from zk_circuits_torch.parallel.exchange_cuda import _Call
+
+    offsets = np.zeros(5, dtype=np.int64)
+    size = bx_lib.shim_bx_layout(_ptr(offsets))
+    assert size == ctypes.sizeof(_Call)
+    assert offsets.tolist() == [getattr(_Call, f).offset for f in
+                                ("table", "scale", "dst_index", "tw_log", "wshift")]
+
+
+def test_mul_pow2_matches_host(bx_lib):
+    """x * 2^k for every k < 192 (the DFT's shift form), edge inputs
+    non-canonical ones included, against host/gl.py's product."""
+    x = _edge_and_random(np.random.default_rng(21), 200)
+    xs = np.repeat(x, 192)
+    ks = np.tile(np.arange(192, dtype=np.int32), x.size)
+    out = np.empty_like(xs)
+    bx_lib.shim_mul_pow2(_ptr(xs), _ptr(ks), _ptr(out), ctypes.c_long(xs.size))
+    pows = np.array([pow(2, int(k), P) for k in range(192)], dtype=U64)
+    assert np.array_equal(out, jgl.mul(_ref_mod(xs), pows[ks]))
+
+
+def _bx_call(mode, srcs, dsts, **fields):
+    """A BxCall over numpy sources/destinations (every destination served,
+    j = d)."""
+    from zk_circuits_torch.parallel import exchange_cuda as xc
+
+    c = xc._Call()
+    c.mode, c.n_src, c.n_dst = xc.MODES.index(mode), len(srcs), len(dsts)
+    for s, a in enumerate(srcs):
+        c.src[s] = a.ctypes.data
+    for d, a in enumerate(dsts):
+        c.dst[d], c.dst_index[d] = a.ctypes.data, d
+    for k, v in fields.items():
+        if k == "wshift":
+            ctypes.memmove(c.wshift, v, len(v))
+        else:
+            setattr(c, k, v)
+    return c
+
+
+def _fused_inputs(e, bm, seed, canonical=False):
+    x = np.random.default_rng(seed).integers(0, 2**64 - 1, (e, e * bm), dtype=U64,
+                                             endpoint=True)
+    x[:, :4] = np.array([0, 1, P - 1, 2**64 - 1], dtype=U64)[: min(4, e * bm)]
+    return _ref_mod(x) if canonical else x
+
+
+@pytest.mark.parametrize("e,bm", [(2, 5), (4, 8), (4, 3), (8, 2), (16, 2), (32, 1)])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_dft_mode_matches_host_products(bx_lib, e, bm, inverse):
+    """dft's shift form, as the FFT (E <= 8) and as the direct sum over W, against
+    the DFT of host/gl.py products over the exchanged blocks, inputs with
+    p-1 and 2^64-1 (a non-canonical input counts as its residue)."""
+    from zk_circuits_torch.parallel import exchange_cuda as xc
+    from zk_circuits_tpu.parallel.ntt_sharded import _dft_matrix_e as jdft
+
+    x = _fused_inputs(e, bm, e * 10 + bm + inverse)
+    shifts = xc._dft_shifts(e, inverse)
+    w = jdft(e, inverse)
+    assert np.array_equal(np.array([pow(2, k, P) for k in shifts], dtype=U64).reshape(e, e), w)
+    out = [np.zeros((e, bm), dtype=U64) for _ in range(e)]
+    c = _bx_call("dft", list(x), out, bm=bm, inverse=int(inverse), wshift=shifts)
+    for ec in (0, e) if e <= 8 else (0,):   # the direct sum over W, the FFT
+        for o in out:
+            o[:] = 0
+        assert bx_lib.shim_bx_fused(ctypes.byref(c), ec) == 0
+        xm = _ref_mod(x)
+        for d in range(e):
+            for t1 in range(e):
+                want = np.zeros(bm, dtype=U64)
+                for s in range(e):
+                    want = jgl.add(want, jgl.mul(xm[s, d * bm:(d + 1) * bm], w[s, t1]))
+                assert np.array_equal(out[d][t1], want), (d, t1, ec)
+
+
+@pytest.mark.parametrize("e,m", [(2, 8), (4, 16), (4, 64), (8, 64)])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_twiddle_and_interleave_maps_match_host(bx_lib, e, m, inverse):
+    """twiddle: out_d[s bm + i] = y_s[d, i] * T[d, s bm + i] with T the JAX
+    package's twiddle matrix (the kernel's two-table factor); interleave:
+    out_d[i E + t1] = z_t1[d bm + i], the inverse reversed and times n^-1."""
+    from zk_circuits_torch.parallel import exchange_cuda as xc
+    from zk_circuits_tpu.parallel.ntt_sharded import _twiddle_matrix as jtw
+
+    n, bm = e * m, m // e
+    y = _fused_inputs(e, bm, n + inverse, canonical=True)
+    log, table = xc._twiddle_tables(n, e, inverse, "cpu")
+    tab = table.numpy()
+    out = [np.zeros(m, dtype=U64) for _ in range(e)]
+    c = _bx_call("twiddle", list(y), out, bm=bm, inverse=int(inverse), tw_log=log,
+                 table=tab.ctypes.data)
+    assert bx_lib.shim_bx_fused(ctypes.byref(c), 0) == 0
+    t = jtw(n, e, inverse)
+    for d in range(e):
+        got = np.concatenate([y[s, d * bm:(d + 1) * bm] for s in range(e)])
+        assert np.array_equal(out[d], jgl.mul(got, t[d])), d
+
+    z = _fused_inputs(e, bm, n + 7 + inverse, canonical=True)
+    n_inv = int(jgl.inverse(U64(n)))
+    for ec in (0, e):
+        out = [np.zeros(m, dtype=U64) for _ in range(e)]
+        c = _bx_call("interleave", list(z), out, bm=bm, inverse=int(inverse),
+                     scale=n_inv if inverse else 1)
+        assert bx_lib.shim_bx_fused(ctypes.byref(c), ec) == 0
+        for d in range(e):
+            for i in range(bm):
+                k = d * bm + i
+                src = (m - k) % m if inverse else k
+                want = z[:, src]
+                if inverse:
+                    want = jgl.mul(want, U64(n_inv))
+                assert np.array_equal(out[d][i * e:(i + 1) * e], want), (d, i, ec)
+
+
+def _aligned(n, offset):
+    """n u64 starting ``offset`` elements past a 16-byte boundary."""
+    buf = np.zeros(n + 4, dtype=U64)
+    start = (-(buf.ctypes.data // 8)) % 2 + offset
+    return buf[start:start + n]
+
+
+COPY_LAYOUTS = ["blocks-even", "blocks-odd", "reshard", "fibers", "odd-rows", "offset-source"]
+
+
+@pytest.mark.parametrize("layout", COPY_LAYOUTS)
+@pytest.mark.parametrize("tile", [2048, 6, 8, 2])
+def test_copy_tile_walk_matches_exchange_plain(bx_lib, layout, tile):
+    """The copy's tiles run block by block on the host (bodies in 16-byte
+    units as the kernel moves them, ragged ends element by element) against
+    exchange_plain: contiguous blocks with B even and odd, the strided
+    views of a commit re-shard and a fiber regroup, odd rows, and a source
+    8 bytes off a 16-byte boundary."""
+    import torch
+
+    from zk_circuits_torch.parallel import exchange_cuda as xc
+
+    e = 4
+    rng = np.random.default_rng(COPY_LAYOUTS.index(layout) * 100 + tile)
+    shapes = {"blocks-even": (e, 1, 26), "blocks-odd": (e, 1, 27), "reshard": (3, e * 10),
+              "fibers": (2, e, 6), "odd-rows": (3, e * 7), "offset-source": (e, 1, 20)}
+    shape = shapes[layout]
+    size = int(np.prod(shape))
+    bases = [_aligned(size, 1 if layout == "offset-source" else 0) for _ in range(e)]
+    views = []
+    for b in bases:
+        b[:] = rng.integers(0, 2**64 - 1, size, dtype=U64, endpoint=True)
+        t = torch.from_numpy(b.view(np.int64)).reshape(shape)
+        if layout in ("reshard", "odd-rows"):
+            t = t.reshape(shape[0], e, -1).permute(1, 0, 2)
+        elif layout == "fibers":
+            t = t.permute(1, 0, 2)
+        views.append(t)
+    want = xc.exchange_plain(views)
+    _, rows, row_len = views[0].shape
+    outs = [_aligned(e * rows * row_len, 0) for _ in range(e)]
+    st = views[0].stride()
+    c = _bx_call("copy", [b for b in bases], outs, blk_stride=st[0], row_stride=st[1],
+                 rows=rows, row_len=row_len)
+    assert bx_lib.shim_bx_copy(ctypes.byref(c), tile) == 0
+    for d in range(e):
+        assert np.array_equal(outs[d], want[d].numpy().view(U64).ravel()), d

@@ -119,6 +119,77 @@ def test_exchange_refuses_bad_shards():
         exchange_cuda.exchange([torch.zeros((2, 4), dtype=torch.int32)] * 2)
 
 
+# --- K2's fused modes: plain versions against the unfused composition -------
+
+
+def _edge_blocks(e, shape, seed):
+    """E canonical shards of ``shape`` with 0, 1, p-2 and p-1 in front."""
+    x = np.random.default_rng(seed).integers(0, P, (e, *shape), dtype=U64)
+    flat = x.reshape(e, -1)
+    flat[:, :4] = np.array([0, 1, P - 2, P - 1], dtype=U64)[: flat.shape[1]]
+    return x
+
+
+def _blocks_of(x):
+    return [torch.from_numpy(b.view(np.int64)) for b in x]
+
+
+@pytest.mark.parametrize("e", [2, 4, 8])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_fused_dft_and_twiddle_plain_match_unfused(e, inverse):
+    """dft_plain and twiddle_plain against exchange_plain followed by the
+    size-E DFT and the twiddle multiply in host products, with the JAX
+    package's DFT and twiddle matrices."""
+    bm = 8
+    m, n = e * bm, e * e * bm
+    x = _edge_blocks(e, (e, bm), e + inverse)
+    r = [t.numpy().view(U64) for t in exchange_cuda.exchange_plain(_blocks_of(x))]
+    w = jns._dft_matrix_e(e, inverse)
+    got = exchange_cuda.dft_plain(_blocks_of(x), inverse)
+    for d in range(e):
+        want = np.stack([gl.sum_mod(np.stack([gl.mul(r[d][s], w[s, t1]) for s in range(e)]),
+                                    axis=0) for t1 in range(e)])
+        assert np.array_equal(got[d].numpy().view(U64), want)
+    tw = jns._twiddle_matrix(n, e, inverse)
+    got = exchange_cuda.twiddle_plain(_blocks_of(x), n, inverse)
+    for d in range(e):
+        assert np.array_equal(got[d].numpy().view(U64), gl.mul(r[d].reshape(m), tw[d]))
+    before = exchange_cuda.launches
+    assert all(torch.equal(a, b) for a, b in zip(
+        exchange_cuda.exchange_dft(_blocks_of(x), inverse),
+        exchange_cuda.dft_plain(_blocks_of(x), inverse)))
+    assert exchange_cuda.launches == before   # CPU shards never count
+
+
+@pytest.mark.parametrize("e", [2, 4, 8])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_fused_interleave_plain_matches_unfused(e, inverse):
+    """interleave_plain against the reversal (inverse), exchange_plain,
+    the t1-minor interleave and n^-1 (inverse), written out in numpy."""
+    bm = 8
+    m, n = e * bm, e * e * bm
+    z = _edge_blocks(e, (m,), 40 + e + inverse)
+    zz = np.concatenate([z[:, :1], z[:, 1:][:, ::-1]], axis=1) if inverse else z
+    blocks = [torch.from_numpy(np.ascontiguousarray(b).view(np.int64)).reshape(e, bm)
+              for b in zz]
+    r = [t.numpy().view(U64) for t in exchange_cuda.exchange_plain(blocks)]
+    got = exchange_cuda.interleave_plain(_blocks_of(z), inverse)
+    for d in range(e):
+        want = r[d].T.reshape(m)
+        if inverse:
+            want = gl.mul(want, gl.inverse(U64(n)))
+        assert np.array_equal(got[d].numpy().view(U64), want)
+        assert torch.equal(exchange_cuda.exchange_interleave(_blocks_of(z), inverse)[d],
+                           got[d])
+
+
+def test_fused_modes_refuse_bad_shards():
+    with pytest.raises(ValueError):   # m not a power of two
+        exchange_cuda.exchange_interleave([torch.zeros(12, dtype=torch.int64)] * 2, False)
+    with pytest.raises(ValueError):   # n != E * m
+        exchange_cuda.exchange_twiddle([torch.zeros((2, 4), dtype=torch.int64)] * 2, 64, False)
+
+
 # --- the four-step NTT --------------------------------------------------------
 
 

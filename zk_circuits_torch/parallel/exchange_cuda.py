@@ -5,48 +5,90 @@ a block all-to-all over E shards.  Every shard s hands an ``(E, B)`` or
 ``(E, rows, row_len)`` view ``x_s``; afterwards shard d holds
 ``out_d[s] = x_s[d]`` -- the transpose of the two leading axes of the global
 ``(E, E, ...)`` tensor -- as a contiguous tensor on ``x_d``'s device.
-Bound on the H100: bytes (a pure copy); see the kernel source for what the
-design does about it.
+
+Four modes, one launch per card each (``launches``, and
+``launches_by_mode``):
+
+- ``exchange`` (``copy``): the all-to-all itself (commit re-shards, FRI
+  fiber regroups).
+- ``exchange_dft``: the four-step's exchange 1 and its size-E DFT across
+  the now-local shard axis.
+- ``exchange_twiddle``: exchange 2 and the twiddle multiply.
+- ``exchange_interleave``: exchange 3, the t1-minor interleave and, for
+  the inverse transform, the index reversal and the n^-1 scaling.
+
+Each has its plain PyTorch version here (``exchange_plain``,
+``dft_plain``, ``twiddle_plain``, ``interleave_plain``): the plain
+exchange followed by the torch arithmetic the mode absorbs (``dft_local``,
+``twiddle_local``, ``interleave_in`` / ``interleave_out``).  A CPU tensor
+goes to the plain version; a CUDA tensor goes to the kernel or raises --
+there is no fallback.  Bound on the H100: bytes; see the kernel source.
 
 The TPU kernel's start barrier and DMA semaphores become stream order:
-each destination stream waits on an event recorded on every source's
-current stream before its launch, and every source stream waits on the
-destination's completion event after it, so the caching allocator cannot
-hand a source buffer to new work while a peer still reads it.  Shards on
-one card share one stream and need neither.  Sources on another card are
-read through peer pointers; the wrapper enables peer access and raises if
-the hardware has none.
-
-One launch per device that holds destination shards (one per exchange on
-a one-card mesh); ``launches`` counts them.  A CPU tensor goes to the
-plain version (``exchange_plain``); a CUDA tensor goes to the kernel or
-raises -- there is no fallback.
+across cards each destination stream waits on an event recorded on every
+source's current stream before its launch, and every source stream waits
+on the destination's completion event after it, so the caching allocator
+cannot hand a source buffer to new work while a peer still reads it.
+Shards on one card share one stream and need neither.  Sources on another
+card are read through peer pointers; the wrapper enables peer access and
+raises if the hardware has none.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from ..field import goldilocks as gfd
+from ..host import gl
 from ..utils.nvcc import build_library
+from .ntt_sharded import _dft_matrix_e, _twiddle_matrix
 
 MAX_SHARDS = 32
+MODES = ("copy", "dft", "twiddle", "interleave")
 
-# Launches of the CUDA kernel in this process (the plain version on CPU
-# tensors is not counted).
+# Launches of the CUDA kernel in this process (the plain versions on CPU
+# tensors are not counted): in all, and by mode.
 launches = 0
+launches_by_mode = dict.fromkeys(MODES, 0)
 build_log = ""   # nvcc's output of the last build (ptxas register report)
 _LIB = None
 _PEERS: set = set()
+_TABLES: dict = {}
+
+
+class _Call(ctypes.Structure):
+    """ctypes mirror of csrc/block_exchange.cuh's BxCall."""
+
+    _fields_ = [("src", ctypes.c_void_p * MAX_SHARDS),
+                ("dst", ctypes.c_void_p * MAX_SHARDS),
+                ("table", ctypes.c_void_p),
+                ("blk_stride", ctypes.c_longlong), ("rows", ctypes.c_longlong),
+                ("row_len", ctypes.c_longlong), ("row_stride", ctypes.c_longlong),
+                ("bm", ctypes.c_longlong), ("scale", ctypes.c_ulonglong),
+                ("dst_index", ctypes.c_int * MAX_SHARDS),
+                ("mode", ctypes.c_int), ("n_src", ctypes.c_int), ("n_dst", ctypes.c_int),
+                ("inverse", ctypes.c_int), ("tw_log", ctypes.c_int),
+                ("wshift", ctypes.c_ubyte * (MAX_SHARDS * MAX_SHARDS))]
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    for k in launches_by_mode:
+        launches_by_mode[k] = 0
 
 
 def build() -> Path:
-    """Compile csrc/block_exchange.cu (cached by the hash of its source);
+    """Compile csrc/block_exchange.cu (cached by the hash of its sources);
     returns the library's path."""
     global build_log
-    lib, log = build_library("block_exchange", "block_exchange.cu")
+    lib, log = build_library("block_exchange", "block_exchange.cu",
+                             headers=("block_exchange.cuh", "goldilocks.cuh"))
     if log:
         build_log = log
     return lib
@@ -56,36 +98,51 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.block_exchange.argtypes = [i, p, i, p, p, i, ll, ll, ll, ll, i, p]
-        lib.block_exchange.restype = i
-        lib.block_exchange_enable_peer.argtypes = [i, i]
-        lib.block_exchange_enable_peer.restype = i
+        lib.block_exchange.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.block_exchange.restype = ctypes.c_int
+        lib.block_exchange_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.block_exchange_enable_peer.restype = ctypes.c_int
+        lib.block_exchange_call_size.restype = ctypes.c_int
+        if lib.block_exchange_call_size() != ctypes.sizeof(_Call):
+            raise RuntimeError(f"BxCall is {lib.block_exchange_call_size()} bytes in the "
+                               f"library, {ctypes.sizeof(_Call)} in its ctypes mirror")
         _LIB = lib
     return _LIB
 
 
-def _as_blocks(x: torch.Tensor) -> torch.Tensor:
-    """(E, B) -> (E, 1, B); (E, rows, row_len) as it is."""
-    return x.unsqueeze(1) if x.dim() == 2 else x
+# --- checks -------------------------------------------------------------------
 
 
-def _check(xs: list) -> None:
+def _check(xs: list, dims=(2, 3)) -> None:
     if not xs:
         raise ValueError("no shards")
-    e = len(xs)
-    shape = tuple(xs[0].shape)
-    for x in xs:
-        if x.dtype != torch.int64 or x.dim() not in (2, 3):
-            raise ValueError(f"expected 2-D or 3-D int64 shards, got {x.dtype} "
-                             f"{tuple(x.shape)}")
-        if tuple(x.shape) != shape or shape[0] != e:
-            raise ValueError(f"every shard must be ({e}, ...) of one shape; got "
-                             f"{[tuple(t.shape) for t in xs]}")
-    kinds = {x.device.type for x in xs}
-    if len(kinds) != 1 or kinds - {"cpu", "cuda"}:
+    e, x0 = len(xs), xs[0]
+    shape = x0.shape
+    if x0.dim() not in dims or (x0.dim() > 1 and shape[0] != e) or any(
+            x.dtype != torch.int64 or x.shape != shape for x in xs):
+        raise ValueError(f"expected {e} int64 shards of one shape, "
+                         f"{' or '.join(f'{d}-D' for d in dims)}"
+                         f"{f', ({e}, ...)' if dims != (1,) else ''}; got "
+                         f"{[(t.dtype, tuple(t.shape)) for t in xs]}")
+    cuda = x0.is_cuda
+    if any(x.is_cuda != cuda for x in xs) or not (cuda or x0.device.type == "cpu"):
         raise ValueError(f"shards must all lie on the CPU or all on CUDA: "
                          f"{[str(x.device) for x in xs]}")
+
+
+def _check_fused(xs: list, dims: tuple) -> tuple[int, int]:
+    """The four-step's shards: (E, bm) blocks (dims (2,)) or (m,) rows
+    (dims (1,)), E and m powers of two; returns (E, m)."""
+    _check(xs, dims)
+    e = len(xs)
+    m = xs[0].numel()
+    if e & (e - 1) or m & (m - 1) or m % e:
+        raise ValueError(f"the four-step needs E and m powers of two, E | m; got "
+                         f"E={e}, m={m}")
+    return e, m
+
+
+# --- plain versions -------------------------------------------------------------
 
 
 def exchange_plain(xs: list) -> list:
@@ -96,13 +153,124 @@ def exchange_plain(xs: list) -> list:
             for d in range(e)]
 
 
+def dft_local(r: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The size-E DFT of one shard's exchanged blocks r (E, bm): row t1 =
+    sum_s W[s, t1] r[s]."""
+    e = r.shape[0]
+    w = _dft_matrix_e(e, inverse)
+    rows = []
+    for t1 in range(e):
+        acc = gfd.mul_const(r[0], int(w[0, t1]))
+        for s1 in range(1, e):
+            acc = gfd.add(acc, gfd.mul_const(r[s1], int(w[s1, t1])))
+        rows.append(acc)
+    return torch.stack(rows)
+
+
+def _twiddle_row(n: int, e: int, inverse: bool, d: int, device) -> torch.Tensor:
+    key = ("row", n, e, inverse, d, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = gfd.from_u64(_twiddle_matrix(n, e, inverse)[d], device)
+    return _TABLES[key]
+
+
+def twiddle_local(r: torch.Tensor, d: int, n: int, inverse: bool) -> torch.Tensor:
+    """Shard d's exchanged blocks r (E, bm) as one row of m, times the
+    twiddles T[d, :] = w_n^(+-d k)."""
+    m = r.numel()
+    return gfd.mul(r.reshape(m), _twiddle_row(n, r.shape[0], inverse, d, r.device))
+
+
+def interleave_in(z: torch.Tensor, e: int, inverse: bool) -> torch.Tensor:
+    """Row t1's NTT output z (m,) as the (E, bm) blocks exchange 3 sends;
+    the inverse reverses the index first: NTT_{w^-1}(x)[k] = NTT_w(x)[-k]."""
+    if inverse:
+        z = torch.cat([z[:1], z[1:].flip(0)])
+    return z.reshape(e, -1)
+
+
+def interleave_out(r: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
+    """Exchange 3's blocks r (E, bm) in t1-minor order, scaled by n^-1 for
+    the inverse."""
+    out = r.t().reshape(-1)
+    if inverse:
+        out = gfd.mul_const(out, _n_inverse(n))
+    return out
+
+
+def dft_plain(xs: list, inverse: bool) -> list:
+    return [dft_local(r, inverse) for r in exchange_plain(xs)]
+
+
+def twiddle_plain(xs: list, n: int, inverse: bool) -> list:
+    return [twiddle_local(r, d, n, inverse) for d, r in enumerate(exchange_plain(xs))]
+
+
+def interleave_plain(zs: list, inverse: bool) -> list:
+    e = len(zs)
+    n = e * zs[0].numel()
+    return [interleave_out(r, n, inverse)
+            for r in exchange_plain([interleave_in(z, e, inverse) for z in zs])]
+
+
+# --- the kernel's entry points ----------------------------------------------------
+
+
 def exchange(xs: list) -> list:
     """Block all-to-all of the shards ``xs``: returns ``out`` with
-    ``out[d][s] == xs[s][d]``.  CUDA shards go to the kernel."""
+    ``out[d][s] == xs[s][d]``."""
     _check(xs)
     if xs[0].device.type == "cpu":
         return exchange_plain(xs)
-    return _launch(xs)
+    return _copy(xs)
+
+
+def exchange_dft(xs: list, inverse: bool) -> list:
+    """Exchange 1 of the four-step and the size-E DFT: shard d enters with
+    its (E, bm) blocks and leaves with ``dft_local(out_d)``."""
+    e, m = _check_fused(xs, (2,))
+    if xs[0].device.type == "cpu":
+        return dft_plain(xs, inverse)
+    shifts = _dft_shifts(e, inverse)
+
+    def fill(c):
+        c.bm, c.inverse = m // e, int(inverse)
+        ctypes.memmove(c.wshift, shifts, len(shifts))
+
+    return _launch("dft", xs, (e, m // e), fill)
+
+
+def exchange_twiddle(xs: list, n: int, inverse: bool) -> list:
+    """Exchange 2 of the four-step and the twiddle multiply: shard d
+    enters with its (E, bm) blocks and leaves with
+    ``twiddle_local(out_d, d, n, inverse)`` (m,)."""
+    e, m = _check_fused(xs, (2,))
+    if n != e * m:
+        raise ValueError(f"n={n} is not E*m = {e * m}")
+    if xs[0].device.type == "cpu":
+        return twiddle_plain(xs, n, inverse)
+    log, table = _twiddle_tables(n, e, inverse, xs[0].device)
+
+    def fill(c):
+        c.bm, c.inverse, c.table, c.tw_log = m // e, int(inverse), table.data_ptr(), log
+
+    return _launch("twiddle", xs, (m,), fill)
+
+
+def exchange_interleave(zs: list, inverse: bool) -> list:
+    """Exchange 3 of the four-step: shard t1 enters with its row NTT output
+    (m,) and shard d leaves with ``interleave_out`` of the blocks
+    ``interleave_in`` makes, i.e. out_d[j E + t1] = z_t1[d bm + j] (the
+    inverse: z_t1[-(d bm + j) mod m] / n)."""
+    e, m = _check_fused(zs, (1,))
+    if zs[0].device.type == "cpu":
+        return interleave_plain(zs, inverse)
+    scale = _n_inverse(e * m) if inverse else 1
+
+    def fill(c):
+        c.bm, c.inverse, c.scale = m // e, int(inverse), scale
+
+    return _launch("interleave", zs, (m,), fill)
 
 
 def enable_peer_access(device: int, peer: int) -> None:
@@ -119,51 +287,122 @@ def enable_peer_access(device: int, peer: int) -> None:
     _PEERS.add((device, peer))
 
 
-def _launch(xs: list) -> list:
+# --- launch -------------------------------------------------------------------------
+
+
+def _dft_shifts(e: int, inverse: bool) -> bytes:
+    """W[s, t1] = 2^k as the shift counts k.  The order of 2 mod p is 192,
+    so for E | 64 the E-th roots of unity are the powers of 2^(192/E)."""
+    key = ("dft", e, inverse)
+    if key not in _TABLES:
+        log2 = {pow(2, k, gl.P_INT): k for k in range(192)}
+        w = [int(v) for v in _dft_matrix_e(e, inverse).ravel()]
+        if any(v not in log2 for v in w):
+            raise ValueError(f"the {e}-point DFT matrix has an entry that is no power of two")
+        _TABLES[key] = bytes(log2[v] for v in w)
+    return _TABLES[key]
+
+
+def _n_inverse(n: int) -> int:
+    if ("n^-1", n) not in _TABLES:
+        _TABLES["n^-1", n] = pow(n, gl.P_INT - 2, gl.P_INT)
+    return _TABLES["n^-1", n]
+
+
+def _twiddle_tables(n: int, e: int, inverse: bool, device) -> tuple:
+    """Per destination d: lo[i] = w_d^i (i < L) then hi[h] = w_d^(h L)
+    (h < m / L), w_d = w_n^(+-d), L = 2^log near sqrt(m); returns log and
+    the tables as one (E, L + m / L) tensor on ``device``."""
+    key = ("twiddle", n, e, inverse, str(device))
+    if key not in _TABLES:
+        m = n // e
+        log = m.bit_length() // 2
+        split = 1 << log
+        w = gl.primitive_root_of_unity(n.bit_length() - 1)
+        if inverse:
+            w = pow(w, gl.P_INT - 2, gl.P_INT)
+        rows = []
+        for d in range(e):
+            wd = pow(w, d, gl.P_INT)
+            rows.append(np.concatenate([gl.powers(wd, split),
+                                        gl.powers(pow(wd, split, gl.P_INT), m // split)]))
+        _TABLES[key] = (log, gfd.from_u64(np.stack(rows), device))
+    return _TABLES[key]
+
+
+def _copy(xs: list) -> list:
+    x0 = xs[0]
+    if x0.dim() == 2:   # (E, B) blocks: one row each
+        rows, row_len = 1, x0.shape[1]
+        strides = (x0.stride(0), row_len, 1)
+    else:
+        _, rows, row_len = x0.shape
+        strides = x0.stride()
+    if any(x.stride() != x0.stride() for x in xs) or (row_len > 1 and strides[2] != 1):
+        raise ValueError(f"shards need one stride pattern with contiguous rows: "
+                         f"{[x.stride() for x in xs]}")
+
+    def fill(c):
+        c.blk_stride, c.row_stride, c.rows, c.row_len = strides[0], strides[1], rows, row_len
+
+    return _launch("copy", xs, tuple(x0.shape), fill, skip=rows == 0 or row_len == 0)
+
+
+def _launch(mode: str, srcs: list, out_shape: tuple, fill, skip: bool = False) -> list:
+    """One launch of ``mode`` per card holding destination shards: one
+    output allocation per card, viewed per shard; the call's arguments in
+    one ctypes buffer.  ``fill`` sets the mode's fields."""
     global launches
-    e = len(xs)
+    e = len(srcs)
     if e > MAX_SHARDS:
         raise ValueError(f"at most {MAX_SHARDS} shards, got {e}")
-    views = [_as_blocks(x) for x in xs]
-    strides = views[0].stride()
-    if any(v.stride() != strides for v in views) or (
-            views[0].shape[2] > 1 and strides[2] != 1):
-        raise ValueError(f"shards need one stride pattern with contiguous rows: "
-                         f"{[v.stride() for v in views]}")
-    _, rows, row_len = views[0].shape
-    blk_stride, row_stride = strides[0], strides[1]
-    outs = [torch.empty((e, rows, row_len), dtype=torch.int64, device=x.device)
-            for x in xs]
-    if rows == 0 or row_len == 0:
-        return [o.reshape(xs[d].shape) for d, o in enumerate(outs)]
-    fn = _lib().block_exchange
-    by_device: dict = {}
-    for d, x in enumerate(xs):
-        by_device.setdefault(x.device, []).append(d)
-    src_devices = list(dict.fromkeys(x.device for x in xs))
-    src_ptrs = (ctypes.c_void_p * e)(*[v.data_ptr() for v in views])
-    even = row_len % 2 == 0 and blk_stride % 2 == 0 and (rows == 1 or row_stride % 2 == 0)
+    dev0 = srcs[0].device
+    if all(x.device == dev0 for x in srcs):
+        by_device = {dev0: list(range(e))}
+    else:
+        by_device = {}
+        for d, x in enumerate(srcs):
+            by_device.setdefault(x.device, []).append(d)
+    outs: list = [None] * e
+    bases = {}
     for dev, ds in by_device.items():
+        buf = torch.empty((len(ds), *out_shape), dtype=torch.int64, device=dev)
+        bases[dev] = buf.data_ptr()
+        for d, o in zip(ds, buf.unbind(0)):
+            outs[d] = o
+    if skip:
+        return outs
+    lib = _lib()
+    call = _Call()
+    call.mode, call.n_src = MODES.index(mode), e
+    call.src[:e] = [x.data_ptr() for x in srcs]
+    fill(call)
+    out_bytes = 8 * math.prod(out_shape)
+    multi = len(by_device) > 1
+    for dev, ds in by_device.items():
+        k = len(ds)
+        call.n_dst = k
+        call.dst[:k] = [bases[dev] + j * out_bytes for j in range(k)]
+        call.dst_index[:k] = ds
         dst_stream = torch.cuda.current_stream(dev)
-        waits = [torch.cuda.current_stream(sd) for sd in src_devices]
-        waits = [s for s in waits if s != dst_stream]
-        for s in waits:   # the barrier: sources are written before we read
-            ev = torch.cuda.Event()
-            ev.record(s)
-            dst_stream.wait_event(ev)
-        for sd in src_devices:
-            enable_peer_access(dev.index, sd.index)
-        vec16 = even and all(v.data_ptr() % 16 == 0 for v in views) and all(
-            outs[d].data_ptr() % 16 == 0 for d in ds)
-        dst_ptrs = (ctypes.c_void_p * len(ds))(*[outs[d].data_ptr() for d in ds])
-        dst_idx = (ctypes.c_int * len(ds))(*ds)
-        err = fn(dev.index, src_ptrs, e, dst_ptrs, dst_idx, len(ds), blk_stride,
-                 rows, row_len, row_stride, int(vec16), dst_stream.cuda_stream)
+        waits = []
+        if multi:
+            waits = [s for s in (torch.cuda.current_stream(sd) for sd in by_device)
+                     if s != dst_stream]
+            for s in waits:   # the barrier: sources are written before we read
+                ev = torch.cuda.Event()
+                ev.record(s)
+                dst_stream.wait_event(ev)
+            for sd in by_device:
+                enable_peer_access(dev.index, sd.index)
+        err = lib.block_exchange(dev.index, ctypes.byref(call), dst_stream.cuda_stream)
         if err != 0:
-            raise RuntimeError(f"block_exchange launch failed on {dev}: CUDA error {err}")
+            raise RuntimeError(f"block_exchange ({mode}) launch failed on {dev}: "
+                               f"CUDA error {err}")
         launches += 1
+        launches_by_mode[mode] += 1
         for s in waits:   # sources stay allocated until the reads are done
             ev = torch.cuda.Event()
             ev.record(dst_stream)
             s.wait_event(ev)
-    return [o.reshape(xs[d].shape) for d, o in enumerate(outs)]
+    return outs

@@ -9,26 +9,22 @@ m = n/E) and transformed as
     Z[t1, :]  = NTT_m(z[t1, :])                    (local row NTT)
     X[t1+E*t2] = Z[t1, t2]                         (global transpose)
 
-with A[s1, s0] = x[s1*m + s0].  Every cross-shard move is the block
-all-to-all ``all_to_all_blocks``: three per transform.  On CUDA shards it
-is the hand-written kernel (parallel/exchange_cuda.py, K2); on CPU shards
-its plain version.  The JAX package's lo|hi packing (the exchange moved
-two u32 limbs) is gone: a field element is one int64 here.
+with A[s1, s0] = x[s1*m + s0].  Every cross-shard move is a block
+all-to-all, three per transform, each with the arithmetic around it fused
+in: the DFT into the first, the twiddle into the second, the transpose to
+natural order (and the inverse's reversal and n^-1) into the third.  On
+CUDA shards they are the hand-written kernel's modes (parallel/
+exchange_cuda.py, K2); on CPU shards their plain versions.  The JAX
+package's lo|hi packing (the exchange moved two u32 limbs) is gone: a
+field element is one int64 here.  ``all_to_all_blocks`` is the bare
+exchange (commit re-shards, FRI fiber regroups).
 """
 
 from __future__ import annotations
 
-import numpy as np
-import torch
-
-from ..field import goldilocks as gfd
-from ..host import gl
 from ..ntt import ntt as nttm
 from . import exchange_cuda
 from .mesh import Mesh
-from .ntt_sharded import _dft_matrix_e, _twiddle_matrix
-
-_TABLES: dict = {}
 
 
 def all_to_all_blocks(xs: list) -> list:
@@ -50,45 +46,22 @@ def _check(xs: list, mesh: Mesh) -> tuple[int, int]:
     return e * m, m
 
 
-def _twiddle_row(n: int, e: int, inverse: bool, d: int, device) -> torch.Tensor:
-    key = (n, e, inverse, d, str(device))
-    if key not in _TABLES:
-        _TABLES[key] = gfd.from_u64(_twiddle_matrix(n, e, inverse)[d], device)
-    return _TABLES[key]
-
-
 def _four_step(xs: list, mesh: Mesh, inverse: bool) -> list:
     """Block-sharded coefficient slices in, the same slices of the
-    transform out (natural order).  Same math as the JAX package's
-    ``_four_step_local``, shard by shard."""
+    transform out (natural order; the inverse scaled by n^-1).  Same math
+    as the JAX package's ``_four_step_local``, shard by shard: K2's three
+    fused modes around the local row NTT, with no torch field operation
+    between the exchanges on CUDA shards."""
     n, m = _check(xs, mesh)
     e = mesh.size
-    bm = m // e
-    w = _dft_matrix_e(e, inverse)
-    # exchange 1: shard d gets r[s] = A[s, d-slice]
-    r = all_to_all_blocks([x.reshape(e, bm) for x in xs])
-    # size-E DFT across the now-local shard axis: row t1 = sum_s W[s,t1] r[s]
-    y_t = []
-    for rd in r:
-        rows = []
-        for t1 in range(e):
-            acc = gfd.mul_const(rd[0], int(w[0, t1]))
-            for s1 in range(1, e):
-                acc = gfd.add(acc, gfd.mul_const(rd[s1], int(w[s1, t1])))
-            rows.append(acc)
-        y_t.append(torch.stack(rows))
-    # exchange 2: back to rows, shard d holds y[d, :]
-    r2 = all_to_all_blocks(y_t)
-    big = []
-    for d, rd in enumerate(r2):
-        z = gfd.mul(rd.reshape(m), _twiddle_row(n, e, inverse, d, rd.device))
-        zt = nttm.ntt(z)                                    # Z[d, :]
-        if inverse:   # NTT_{w^-1}(x)[k] = NTT_w(x)[-k mod m]
-            zt = torch.cat([zt[:1], zt[1:].flip(0)])
-        big.append(zt.reshape(e, bm))
-    # exchange 3: r3[t1] = Z[t1, d-slice]; interleave to t1-minor order
-    r3 = all_to_all_blocks(big)
-    return [rd.t().reshape(m) for rd in r3]
+    # exchange 1 + the size-E DFT: shard d holds y^T's rows d*bm..
+    y_t = exchange_cuda.exchange_dft([x.reshape(e, m // e) for x in xs], inverse)
+    # exchange 2 + twiddle: shard d holds z[d, :] = y[d, :] * T[d, :]
+    z = exchange_cuda.exchange_twiddle(y_t, n, inverse)
+    # the local row NTT: Z[d, :]
+    zt = [nttm.ntt(row) for row in z]
+    # exchange 3 + interleave to t1-minor order (the inverse: reversed, / n)
+    return exchange_cuda.exchange_interleave(zt, inverse)
 
 
 def ntt_sharded_pallas(xs: list, mesh: Mesh) -> list:
@@ -98,6 +71,4 @@ def ntt_sharded_pallas(xs: list, mesh: Mesh) -> list:
 
 def intt_sharded_pallas(xs: list, mesh: Mesh) -> list:
     """Distributed inverse NTT (natural order in and out)."""
-    n, _ = _check(xs, mesh)
-    n_inv = int(gl.inverse(np.uint64(n)))
-    return [gfd.mul_const(y, n_inv) for y in _four_step(xs, mesh, inverse=True)]
+    return _four_step(xs, mesh, inverse=True)
