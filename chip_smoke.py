@@ -6,8 +6,8 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. card     -- the card's name and power limit; build the Poseidon kernel
-               (K1) and the block exchange (K2) from csrc/, one nvcc each,
-               both started together, timed.
+               (K1), the block exchange (K2) and the witness schedule (K3)
+               from csrc/, one nvcc each, all started together, timed.
 2. square   -- a one-gate square circuit under both standard configs: the
                proof from device="cuda" must equal the proof from
                device="cpu" byte for byte, and verify.
@@ -16,33 +16,45 @@ Phases, each printing one JSON line; any failure exits non-zero:
                tamper-checked, and its sha256 held to the digest of the JAX
                package's host-path proof of the same inputs (pinned below).
                K1's launches per proof, by mode (sponge / tree / top), must
-               be the count the circuit's trees give.
+               be the count the circuit's trees give; K3's, by kernel, one
+               a schedule batch and one for the cells, and no host witness.
 4. batch    -- the batched prover: prove_batch of B=4 zk wormhole proofs
                (one cold batch, two warm), each proof's sha256 == the pinned
                digest, proof 0 verified and a tampered copy refused; K1's
                launches per batch by mode == those of one proof (tree, top)
-               and the PoW sweeps the found witnesses need; stage times, the
+               and the PoW sweeps the found witnesses need, K3's == those of
+               one proof, no host witness; stage times, the
                second warm batch under torch.profiler and bench.py's JSON
                keys; then the square circuit at B=4 with distinct witnesses
                under a zk config with FRI fold rounds, each proof == a
                sequential prove on the card.
-5. k1_check -- K1 against its plain torch version on the card: the sponge
+5. witness_check -- K3 against its plain torch version on the card and
+               the host witness, equal integers: the zk wormhole's witness
+               alone and at B=4 (the golden seeds, and copies with a few
+               seeds changed where the host witness still accepts them),
+               the circuit of every generator kind at B=3 and a deep
+               arith_ext/Poseidon chain at B=2; K3's launches by kernel;
+               then its time (graph_ms) at B=1 and 4, one entry-point call,
+               its device operations, the plain version's and the host
+               witness's time, and its bound with the launch depth.
+6. k1_check -- K1 against its plain torch version on the card: the sponge
                at every team size at the edges (n below the team, n not a
                multiple of the block's rows, cols 1 to 139, both layouts)
                and at the main path's widths; hash_tree against the plain
                level loop at the three commit shapes and the FRI trees, for
                one proof and for a batch of B=4; the sharded commit's
                per-shard sponge on every card.
-6. profile  -- one more warm wormhole proof under torch.profiler: device
-               busy time and idle share, device operations, top kernels.
-7. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
+7. profile  -- one more warm wormhole proof under torch.profiler: device
+               busy time and idle share, device operations (beside the
+               count with the host witness), top kernels, K3's launches.
+8. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
                card (and spread over the cards when there are several):
                copy with even and odd block sizes and edge values, and at E=4 every fiber regroup and
                commit re-shard of the sharded phase; dft, twiddle and
                interleave, forward and inverse, at bm = 1 and 2^12 and at
                E=4 at every four-step of the sharded phase.  One launch
                per card and mode; equal integers.
-8. sharded  -- the multi-device path on a mesh of E=4 shards, in the order
+9. sharded  -- the multi-device path on a mesh of E=4 shards, in the order
                of the JAX package's multi-chip dryrun: the batch-sharded
                wires commit (cap == the single-device commit's), the
                sharded FRI commit chain at the production shape (caps,
@@ -57,7 +69,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                fused and as the sequence it replaced (K2 copies with eager
                torch field operations between them), each with its K2
                launches by mode.
-9. k1_time  -- K1's device time (graph_ms) at the main path's shapes and
+10. k1_time -- K1's device time (graph_ms) at the main path's shapes and
                the whole wires tree against the 13 launches of the level
                loop, the B=4 batch's wires and FRI trees, beside the plain
                version and the bound; every team
@@ -65,7 +77,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the sharded path's per-shard ones; the permutation's
                multiply and instruction counts from the built library's
                SASS (cuobjdump).  A share of the bound above 1.05 fails.
-10. k2_time -- K2's device time (graph_ms) by mode: copy at the
+11. k2_time -- K2's device time (graph_ms) by mode: copy at the
                four-step's 2^22 exchange shape, the wires re-shard and the
                first FRI fiber regroup, beside its plain version, one
                PyTorch call (transpose + contiguous) and its byte bound;
@@ -85,6 +97,7 @@ The last lines are the card line, the kernels line and
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import statistics
@@ -127,6 +140,17 @@ K1_REPLACES = "zk_circuits_tpu/hash/poseidon_pallas.py:164"
 K1_TIMED_CALLS = 8     # back-to-back calls per K1 timing (graph_ms)
 K2_SOURCE = "zk_circuits_torch/csrc/block_exchange.cu"
 K2_REPLACES = "zk_circuits_tpu/parallel/ntt_exchange.py:52"
+K3_SOURCE = "zk_circuits_torch/csrc/witness.cu"
+K3_REPLACES = "zk_circuits_tpu/iop/witness_device.py:227"
+K3_TIMED_CALLS = 4     # back-to-back witnesses per K3 timing (graph_ms)
+# 64x64 products an op of each kind (8 32-bit multiplies each, as above):
+# arith c0*m0*m1 + c1*ad; arith_ext an extension product (5) and 4 scalings;
+# the Fermat inverse 64 squarings and 63 multiplies; ext_inv its norm (3),
+# an inverse and 2; a Poseidon gate 4 deltas and 118 S-boxes of 4.
+K3_PRODUCTS = {"const": 0, "arith": 3, "arith_ext": 9, "eq_inv": 127, "ext_inv": 132,
+               "base_sum": 0, "random_access": 0, "poseidon": 4 + 118 * 4}
+# a warm wormhole proof's device operations with the host witness (PERF.md)
+DEVICE_OPS_BEFORE = 80945
 SHARDS = 4             # E of the sharded phase
 BATCH = 4              # proofs per prove_batch call (bench.py's ZKT_BENCH_BATCH)
 NTT_LOG = 22           # SCALING.md's size of one sharded polynomial
@@ -235,6 +259,7 @@ def phase_card(state) -> None:
     import torch
 
     from zk_circuits_torch.hash import poseidon_cuda
+    from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.parallel import exchange_cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -247,15 +272,17 @@ def phase_card(state) -> None:
         build()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
-        k1, k2 = pool.map(timed, (poseidon_cuda.build, exchange_cuda.build))
-    ptxas = [ln.strip() for mod in (poseidon_cuda, exchange_cuda)
+    poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's and K3's
+    with ThreadPoolExecutor(3) as pool:   # one nvcc per source, together
+        k1, k2, k3 = pool.map(timed, (poseidon_cuda.build, exchange_cuda.build,
+                                      witness_cuda.build))
+    ptxas = [ln.strip() for mod in (poseidon_cuda, exchange_cuda, witness_cuda)
              for ln in mod.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "card", "nvidia_smi": state["smi"],
           "name": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
-          "k1_build_s": k1, "k2_build_s": k2, "ptxas": ptxas})
+          "k1_build_s": k1, "k2_build_s": k2, "k3_build_s": k3, "ptxas": ptxas})
 
 
 def wormhole_trees(common) -> list:
@@ -576,6 +603,62 @@ def _square_circuit(cfg, device):
     return b.build(device=device), witness
 
 
+def kinds_circuit(b, generator_op) -> list:
+    """Give the CircuitBuilder ``b`` (of either package; ``generator_op``
+    its GeneratorOp) one generator of every kind the witness schedule
+    has: const, arith, base_sum, poseidon and eq_inv (a square, a range
+    check, an equality, a hash), arith_ext and random_access, and ext_inv,
+    which only the recursion gadgets emit, appended as they append it.
+    Returns the targets to seed, in the order of KINDS_SEEDS' values."""
+    x = b.add_virtual_target()
+    y = b.mul(x, x)
+    b.range_check(y, 32)
+    eq = b.is_equal(x, y)
+    b.hash_n_to_hash_no_pad([x, y, eq.target])
+    b.register_public_input(y)
+    a, c = b.add_virtual_target(), b.add_virtual_target()
+    o = b.arithmetic_extension(3, 5, (a, c), (c, a), (a, a))
+    o2 = b.arithmetic_extension(1, 1, o, (a, c), o)
+    inv = (b.add_virtual_target(), b.add_virtual_target())
+    b.generators.append(generator_op("ext_inv", inputs=tuple(o2), outputs=inv))
+    idx = b.add_virtual_target()
+    vals = [b.add_virtual_target() for _ in range(4)]
+    b.register_public_input(b.random_access(idx, vals))
+    b.register_public_inputs(list(o2) + list(inv))
+    return [x, a, c, idx, *vals]
+
+
+# Seed values of kinds_circuit: x (its square below 2^32), the extension
+# pair, the index and the 4-element list; x = 0 takes eq_inv's inverse(0).
+KINDS_SEEDS = ((7, 9, 100, 2, 200, 300, 400, 500), (0, 1, 2, 0, 3, 4, 5, 6),
+               (65535, P - 1, P - 2, 3, P - 1, 1, 0, P - 3))
+
+
+def chain_circuit(b) -> list:
+    """A deep schedule: five alternating arith_ext and Poseidon levels,
+    then eight dependent arith_ext levels (tests/test_witness_device.py's
+    scan-segment circuit).  Returns the two targets to seed."""
+    a, c = b.add_virtual_target(), b.add_virtual_target()
+    h = [a, c] + [b.zero()] * 10
+    for k in range(5):
+        e = b.arithmetic_extension(1 + k, 7, (h[0], h[1]), (h[2], h[3]), (h[4], h[5]))
+        h = b.permute_poseidon([e[0], e[1]] + h[2:])
+    o = (h[0], h[1])
+    for k in range(8):
+        o = b.arithmetic_extension(2 + k, 3 + k, o, (h[2], h[3]), o)
+    b.register_public_inputs(list(o))
+    b.register_public_inputs(h[:4])
+    return [a, c]
+
+
+def seed(witness_cls, targets, values):
+    """A PartialWitness (of ``witness_cls``) setting ``targets`` to ``values``."""
+    pw = witness_cls()
+    for t, v in zip(targets, values, strict=True):
+        pw.set_target(t, v)
+    return pw
+
+
 def _square_proof(cfg, device):
     data, witness = _square_circuit(cfg, device)
     return data, data.prove(witness(3), device=device)
@@ -605,6 +688,7 @@ def phase_wormhole(state) -> None:
     from zk_circuits_torch.api.prover import WormholeProver
     from zk_circuits_torch.circuits.wormhole import golden_fixtures
     from zk_circuits_torch.hash import poseidon_cuda
+    from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.plonk.config import CircuitConfig
     from zk_circuits_torch.utils import profiling
     from zk_circuits_torch.utils.serialization import proof_to_bytes
@@ -623,21 +707,29 @@ def phase_wormhole(state) -> None:
         return proof, time.perf_counter() - t
 
     profiling.reset_timings()
-    poseidon_cuda.reset_launches()      # main path starts here
-    proof, cold_s = one_proof(prover)
-    per_proof = poseidon_cuda.launches
-    by_mode = dict(poseidon_cuda.launches_by_mode)
-    warm = []
-    for _ in range(3):
-        proof_w, dt = one_proof(WormholeProver(circuit_data=cd, targets=targets))
-        warm.append(dt)
-    launches = poseidon_cuda.launches   # main path ends here
+    with host_witness_calls() as host_witnesses:
+        poseidon_cuda.reset_launches()      # main path starts here
+        witness_cuda.reset_launches()
+        proof, cold_s = one_proof(prover)
+        per_proof = poseidon_cuda.launches
+        by_mode = dict(poseidon_cuda.launches_by_mode)
+        k3_per_proof = dict(witness_cuda.launches_by_kernel)
+        warm = []
+        for _ in range(3):
+            proof_w, dt = one_proof(WormholeProver(circuit_data=cd, targets=targets))
+            warm.append(dt)
+        launches = poseidon_cuda.launches   # main path ends here
+        k3_launches = witness_cuda.launches
     if per_proof <= 0 or launches != 4 * per_proof:
         raise AssertionError(f"K1 launches: {per_proof} per proof, {launches} in all")
     want = expected_k1_launches(cd.common)
     if (by_mode["tree"], by_mode["top"]) != (want["tree"], want["top"]) or \
             by_mode["sponge"] < want["sponge_min"]:
         raise AssertionError(f"K1 launches per proof by mode {by_mode}, want {want}")
+    k3_want = expected_k3_launches(cd)
+    if k3_per_proof != k3_want or k3_launches != 4 * sum(k3_want.values()) or host_witnesses:
+        raise AssertionError(f"K3 launches {k3_per_proof} per proof ({k3_launches} in all), "
+                             f"want {k3_want}; {len(host_witnesses)} host witnesses")
 
     data = proof_to_bytes(proof)
     if proof_to_bytes(proof_w) != data:
@@ -655,6 +747,8 @@ def phase_wormhole(state) -> None:
     state["k1_launches"] = launches
     state["k1_launches_per_proof"] = per_proof
     state["k1_launches_by_mode"] = dict(poseidon_cuda.launches_by_mode)
+    state["k3_launches"] = k3_launches
+    state["k3_launches_by_kernel"] = dict(witness_cuda.launches_by_kernel)
     timings = {k: statistics.median(v) for k, v in profiling.get_timings().items()}
     emit({"phase": "wormhole", "config": "standard_recursion_zk_config",
           "degree_bits": cd.common.degree_bits, "proof_bytes": len(data),
@@ -664,7 +758,35 @@ def phase_wormhole(state) -> None:
           "k1_launches_per_proof": per_proof, "k1_launches_per_proof_by_mode": by_mode,
           "k1_launches_per_proof_expected": want, "k1_launches": launches,
           "k1_launches_by_mode": state["k1_launches_by_mode"],
-          "stage_median_s": timings})
+          "k3_launches_per_proof_by_kernel": k3_per_proof, "k3_launches": k3_launches,
+          "host_witnesses": len(host_witnesses), "stage_median_s": timings})
+
+
+@contextlib.contextmanager
+def host_witness_calls():
+    """A list that grows by one for every host witness the prover makes
+    (plonk/prover_batch.py's generate_witness) inside the block."""
+    from zk_circuits_torch.plonk import prover_batch
+
+    real, calls = prover_batch.generate_witness, []
+
+    def counted(*args):
+        calls.append(1)
+        return real(*args)
+
+    prover_batch.generate_witness = counted
+    try:
+        yield calls
+    finally:
+        prover_batch.generate_witness = real
+
+
+def expected_k3_launches(cd) -> dict:
+    """K3's launches a witness, or a batch of witnesses, by kernel: one a
+    schedule batch, and one for the cells."""
+    kinds = [b.kind for b in cd.prover_only.schedule]
+    return {"ops": len(kinds) - kinds.count("poseidon"), "poseidon": kinds.count("poseidon"),
+            "cells": 1}
 
 
 def profiled(fn) -> tuple:
@@ -729,6 +851,7 @@ def phase_batch(state) -> None:
     """The batched prover at B=BATCH (see the module doc)."""
     from zk_circuits_torch.api.prover import WormholeProver
     from zk_circuits_torch.hash import poseidon_cuda
+    from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.plonk.config import CircuitConfig, FriConfig
     from zk_circuits_torch.plonk.prover import prove_batch
     from zk_circuits_torch.utils import profiling
@@ -742,30 +865,40 @@ def phase_batch(state) -> None:
                 .partial_witness for _ in range(BATCH)]
 
     want = expected_k1_launches(cd.common, BATCH)
+    k3_want = expected_k3_launches(cd)
     profiling.reset_timings()
     poseidon_cuda.reset_launches()      # the batch path starts here
-    batch_s, per_batch, prof = [], [], None
+    witness_cuda.reset_launches()
+    batch_s, per_batch, k3_per_batch, prof = [], [], [], None
     for i in range(3):                  # one cold batch, two warm
         pws = witnesses()
         before = dict(poseidon_cuda.launches_by_mode)
-        if i < 2:
-            proofs, dt = _synced(lambda: prove_batch(cd, pws))
-            batch_s.append(dt)
-            timings = {k: list(v) for k, v in profiling.get_timings().items()}
-        else:                           # the last warm batch under the profiler
-            proofs, prof = profiled(lambda: prove_batch(cd, pws))
+        k3_before = dict(witness_cuda.launches_by_kernel)
+        with host_witness_calls() as host_witnesses:
+            if i < 2:
+                proofs, dt = _synced(lambda: prove_batch(cd, pws))
+                batch_s.append(dt)
+                timings = {k: list(v) for k, v in profiling.get_timings().items()}
+            else:                       # the last warm batch under the profiler
+                proofs, prof = profiled(lambda: prove_batch(cd, pws))
         modes = {k: v - before[k] for k, v in poseidon_cuda.launches_by_mode.items()}
         sweeps = max(p.proof.opening_proof.pow_witness for p in proofs) // GRIND_ROWS + 1
         if (modes["tree"], modes["top"], modes["sponge"]) != (want["tree"], want["top"], sweeps):
             raise AssertionError(f"K1 launches per batch by mode {modes}, want {want} "
                                  f"and {sweeps} sweeps")
         per_batch.append(modes)
+        k3 = {k: v - k3_before[k] for k, v in witness_cuda.launches_by_kernel.items()}
+        if k3 != k3_want or host_witnesses:
+            raise AssertionError(f"K3 launches per batch {k3}, want {k3_want}; "
+                                 f"{len(host_witnesses)} host witnesses")
+        k3_per_batch.append(k3)
         digests = [hashlib.sha256(proof_to_bytes(p)).hexdigest() for p in proofs]
         if len(proofs) != BATCH or set(digests) != {GOLDEN_WORMHOLE_ZK_SHA256}:
             raise AssertionError(f"batched wormhole sha256s {digests} != pinned "
                                  f"{GOLDEN_WORMHOLE_ZK_SHA256}")
     launches = poseidon_cuda.launches   # the batch path ends here
     state["k1_launches_batch"] = launches
+    state["k3_launches_batch"] = witness_cuda.launches
     t_verify = time.perf_counter()
     cd.verify(proofs[0])
     _refuses_tampering(cd, proofs[0])
@@ -807,19 +940,196 @@ def phase_batch(state) -> None:
           "warm_proofs_per_s": BATCH / warm_s,
           "single_proofs_per_s": single, "k1_launches_per_batch_by_mode": per_batch,
           "k1_launches_per_batch_expected": want, "k1_launches": launches,
+          "k3_launches_per_batch_by_kernel": k3_per_batch,
+          "k3_launches": state["k3_launches_batch"], "host_witnesses": 0,
+          "device_ops_before": DEVICE_OPS_BEFORE,
           "stage_median_s": stages, "stage_s": timings, "profile_warm_batch": prof,
           "square": square, "wormhole_part_s": wormhole_s, "verify_and_tamper_s": verify_s,
           "square_part_s": time.perf_counter() - t_phase - wormhole_s})
+
+
+def varied_witnesses(cd, pw, count: int, changes: int = 4) -> tuple[list, list]:
+    """``pw`` and ``count`` - 1 copies of it, each with ``changes`` seed
+    values changed: seeded targets alone in their rep that no generator
+    sets, tried in turn, a change kept where the host witness still
+    accepts the copy (it refuses one that breaks an equality the circuit
+    wires in).  The proofs would not verify, which a check of the witness
+    does not need.  Returns the witnesses and, for each copy, the reps
+    whose seeds it changed."""
+    import numpy as np
+
+    from zk_circuits_torch.iop.witness import PartialWitness, WitnessConflict, generate_witness
+
+    po = cd.prover_only
+    produced = set(np.concatenate([np.ravel(b.data["out_reps"]) for b in po.schedule]).tolist())
+    reps = [po.rep_of_target[t] for t in pw.values]
+    free = sorted(t for t, r in zip(pw.values, reps)
+                  if r not in produced and reps.count(r) == 1)
+    rng = np.random.default_rng(5)
+    pws, changed = [pw], []
+    for k in range(1, count):
+        copy, picked = PartialWitness(), []
+        copy.values = dict(pw.values)
+        for t in free[k::max(1, len(free) // 64)]:
+            old = copy.values[t]
+            copy.values[t] = int(rng.integers(0, P, dtype=np.uint64))
+            try:
+                generate_witness(cd, copy)
+            except WitnessConflict:
+                copy.values[t] = old
+                continue
+            picked.append(po.rep_of_target[t])
+            if len(picked) == changes:
+                break
+        if len(picked) < changes:
+            raise AssertionError(f"only {len(picked)} seeds of copy {k} could change")
+        pws.append(copy)
+        changed.append(picked)
+    return pws, changed
+
+
+def k3_work(table, batch: int) -> tuple[int, int]:
+    """(64x64 products, bytes) of the witnesses of ``batch`` proofs over
+    the circuit's WitnessTable: the products of every op (K3_PRODUCTS);
+    the bytes of the table as K3 reads it, the seeded value tables (B, R),
+    and the wire matrices and public inputs written, each once."""
+    products = sum(K3_PRODUCTS[st.kind] * st.m for st in table.steps) * batch
+    read = sum(t.numel() for st in table.steps for t in (st.ins, st.outs, st.consts, st.rows))
+    read += table.cell_pos.numel() + table.cell_rep.numel() + table.pi_reps.numel()
+    out = batch * (table.num_wires * table.n + table.pi_reps.numel())
+    return products, 8 * (read + batch * table.num_reps + out)
+
+
+def k3_bound_ms(products: int, nbytes: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = products * 8 / INT32_MUL_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_witness_check(state) -> None:
+    """K3 against its plain version on the card and the host witness, as
+    integers: the full-width wormhole alone and at B=BATCH (the golden
+    witness and copies with changed seeds), the circuit of every
+    generator kind at B=3 and the deep arith_ext/Poseidon chain at B=2;
+    then K3's time (graph_ms), the plain version's and the host
+    witness's, and K3's bound."""
+    import numpy as np
+    import torch
+
+    from zk_circuits_torch.iop import builder as t_builder
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.iop import witness_device as wdev
+    from zk_circuits_torch.iop.witness import PartialWitness, generate_witness
+    from zk_circuits_torch.plonk.config import CircuitConfig
+
+    cd, targets, inputs = state["wormhole"]
+    from zk_circuits_torch.api.prover import WormholeProver
+
+    golden = WormholeProver(circuit_data=cd, targets=targets).commit(inputs).partial_witness
+    pws, changed = varied_witnesses(cd, golden, BATCH)
+
+    def check(data, pws, what):
+        """K3, its plain version on the card and the host witness of each
+        of ``pws``; returns the plain version's CUDA-event ms."""
+        table = wdev.device_table(data, "cuda")
+        seed_reps, seeds = wdev.seed_batch(data, pws)
+        before = dict(witness_cuda.launches_by_kernel)
+        wires, pis = witness_cuda.run_schedule(table, table.seeded_values(seed_reps, seeds))
+        if {k: v - before[k] for k, v in witness_cuda.launches_by_kernel.items()} != \
+                expected_k3_launches(data):
+            raise AssertionError(f"{what}: K3 launches {witness_cuda.launches_by_kernel}")
+        values = table.seeded_values(seed_reps, seeds)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        plain_w, plain_p = wdev.witness_plain(table, values)
+        b.record()
+        b.synchronize()
+        if not (torch.equal(wires, plain_w) and torch.equal(pis, plain_p)):
+            bad = int((wires != plain_w).sum())
+            raise AssertionError(f"{what}: K3 differs from the plain version ({bad} cells)")
+        for i, pw in enumerate(pws):
+            host_w, host_p = generate_witness(data, pw)
+            if not (np.array_equal(wires[i].cpu().numpy().view(np.uint64), host_w.T)
+                    and np.array_equal(pis[i].cpu().numpy().view(np.uint64), host_p)):
+                raise AssertionError(f"{what}: K3's witness {i} differs from the host's")
+        if len({w.cpu().numpy().tobytes() for w in wires}) != len(pws):
+            raise AssertionError(f"{what}: distinct seeds gave equal wire matrices")
+        return a.elapsed_time(b)
+
+    cases = {"wormhole": check(cd, pws[:1], "wormhole"),
+             f"wormhole_b{BATCH}": check(cd, pws, f"wormhole B={BATCH}")}
+    for name, circuit, seeds in (
+            ("kinds", lambda b: kinds_circuit(b, t_builder.GeneratorOp), KINDS_SEEDS),
+            ("chain", chain_circuit, ((12345, 67890), (1, P - 1)))):
+        b = t_builder.CircuitBuilder(CircuitConfig.standard_recursion_config())
+        small_targets = circuit(b)
+        small = b.build(device="cuda")
+        cases[name] = check(small, [seed(PartialWitness, small_targets, v) for v in seeds], name)
+
+    # time: K3 alone (graph_ms of K3_TIMED_CALLS witnesses, each on a
+    # value table of its own), one entry-point call (seeds sent, K3,
+    # CUDA events), the host witness (perf_counter), device operations
+    table = wdev.device_table(cd, "cuda")
+    rows = {}
+    for batch in (1, BATCH):
+        seed_reps, seeds = wdev.seed_batch(cd, pws[:batch])
+        tables = [table.seeded_values(seed_reps, seeds) for _ in range(K3_TIMED_CALLS)]
+        g = graph_ms([lambda v=v: witness_cuda.run_schedule(table, v) for v in tables])
+        call_ms = cuda_ms(lambda: wdev.generate_witnesses_device(cd, pws[:batch], "cuda"), 10)
+        _, prof = profiled(lambda: wdev.generate_witnesses_device(cd, pws[:batch], "cuda"))
+        work = k3_work(table, batch)
+        bound, by = k3_bound_ms(*work)
+        rows[batch] = {"batch": batch, "ms": g["ms"], "min_ms": g["min_ms"],
+                       "max_ms": g["max_ms"], "call_ms": call_ms,
+                       "plain_ms": cases["wormhole" if batch == 1 else f"wormhole_b{BATCH}"],
+                       "products": work[0], "bytes": work[1],
+                       "bound_ms": bound, "bound_by": by, "share_of_bound": bound / g["ms"],
+                       "device_ops": prof["device_ops"],
+                       "device_busy_ms": prof["device_busy_s"] * 1e3}
+    host_s = []
+    for _ in range(3):
+        t = time.perf_counter()
+        generate_witness(cd, golden)
+        host_s.append(time.perf_counter() - t)
+    depth = sum(expected_k3_launches(cd).values())
+    emit({"phase": "witness_check", "equal_integers": True,
+          "cases_plain_ms": cases, "batch_changed_seed_reps": changed,
+          "timing": f"ms: CUDA events around the replay of a CUDA graph of {K3_TIMED_CALLS} "
+                    f"witnesses on value tables of their own, L2 emptied first, per "
+                    f"witness, median of 8 replays (min_ms/max_ms: their range); "
+                    f"call_ms: CUDA events around one generate_witnesses_device call, "
+                    f"median of 10; plain_ms: CUDA events around one witness_plain "
+                    f"call; host_witness_s: perf_counter around generate_witness",
+          "rows": list(rows.values()), "host_witness_s": statistics.median(host_s),
+          "depth_launches": depth})
+    if any(r["share_of_bound"] > 1.05 for r in rows.values()):
+        raise AssertionError(f"K3 timed below its bound: {rows}")
+    main = rows[1]
+    state.setdefault("kernels", []).append({
+        "name": "witness_schedule", "route": "cuda", "source": K3_SOURCE,
+        "replaces": K3_REPLACES + " (_witness_body, an XLA program; no Pallas kernel)",
+        "launches": state["k3_launches"], "launches_by_kernel": state["k3_launches_by_kernel"],
+        "launches_by_path": {"wormhole": state["k3_launches"],
+                             "batch": state["k3_launches_batch"]},
+        "max_abs_err": 0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "ms_batch": rows[BATCH]["ms"], "host_witness_ms": statistics.median(host_s) * 1e3,
+        "depth_launches": depth})
 
 
 def phase_profile(state) -> None:
     """One more warm wormhole proof under torch.profiler (``profiled``)."""
     from zk_circuits_torch.api.prover import WormholeProver
 
+    from zk_circuits_torch.iop import witness_cuda
+
     cd, targets, inputs = state["wormhole"]
+    before = witness_cuda.launches
     _, prof = profiled(lambda: WormholeProver(circuit_data=cd, targets=targets)
                        .commit(inputs).prove(device="cuda"))
-    emit({"phase": "profile", **prof})
+    emit({"phase": "profile", **prof, "device_ops_before": DEVICE_OPS_BEFORE,
+          "k3_launches": witness_cuda.launches - before})
 
 
 def _synced(fn):
@@ -1222,7 +1532,7 @@ def phase_k1_time(state) -> None:
                     f"plain_ms: one call of the plain version",
           "shapes": rows_out, "candidates_ms": candidates, "sass": sass})
     main = next(r for r in rows_out if r["shape"] == "wires_tree")   # the main path's launch
-    state["kernels"] = [{
+    state.setdefault("kernels", []).insert(0, {
         "name": "poseidon_leaf_hash", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": state["k1_launches"],
         "launches_by_path": {"wormhole": state["k1_launches"],
@@ -1231,7 +1541,7 @@ def phase_k1_time(state) -> None:
         "launches_by_mode": state["k1_launches_by_mode"],
         "max_abs_err": state["k1_max_abs_err"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": None}]
+        "bound_by": main["bound_by"], "library_ms": None})
 
 
 def host_us_per_call(fn, calls: int = 100) -> float:
@@ -1352,7 +1662,7 @@ def phase_k2_time(state) -> None:
     if over:
         raise AssertionError(f"K2 timed below its bound: {over}")
     main = next(r for r in rows_out if r["mode"] == "copy" and r["shape"] == "wires_reshard")
-    state["kernels"].append({
+    state.setdefault("kernels", []).append({
         "name": "block_exchange", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": state["k2_launches"],
         "launches_by_mode": state["k2_launches_by_mode"],
@@ -1365,7 +1675,8 @@ def phase_k2_time(state) -> None:
 
 
 PHASES = {"card": phase_card, "square": phase_square,
-          "wormhole": phase_wormhole, "batch": phase_batch, "k1_check": phase_k1_check,
+          "wormhole": phase_wormhole, "batch": phase_batch,
+          "witness_check": phase_witness_check, "k1_check": phase_k1_check,
           "profile": phase_profile, "k2_check": phase_k2_check,
           "sharded": phase_sharded, "k1_time": phase_k1_time,
           "k2_time": phase_k2_time}

@@ -96,7 +96,7 @@ def test_prove_batch_fri_rounds_in_any_order_and_size():
 
 def test_prove_batch_refuses_a_mesh_and_needs_cuda_by_default():
     data, witness = _square(TORCH, False, FRI_ROUNDS, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 \\(multi-host\\)"):
         prove_batch(data, [witness(3), witness(7)], device="cpu", mesh=object())
     if torch.cuda.is_available():
         return
@@ -104,3 +104,14 @@ def test_prove_batch_refuses_a_mesh_and_needs_cuda_by_default():
         prove_batch(data, [witness(3), witness(7)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         prove_batch(data, [])
+
+
+def test_prove_batch_takes_the_reference_argument_order():
+    """prove_batch(circuit_data, pws, mesh, check_witness) as the JAX
+    package orders them: a positional mesh is a mesh (refused, not taken
+    for check_witness), and the device is a keyword only."""
+    data, witness = _square(TORCH, False, FRI_ROUNDS, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        prove_batch(data, [witness(3), witness(7)], object(), device="cpu")
+    with pytest.raises(TypeError):
+        prove_batch(data, [witness(3)], None, None, "cpu")

@@ -107,6 +107,26 @@ def test_pow_grind_batch_matches_jax(monkeypatch, bits, window):
         assert tfri.check_pow(b, w, bits)
 
 
+@pytest.mark.parametrize("bits", [0, 65, -1])
+def test_pow_bits_outside_1_to_64_are_refused_at_once(bits):
+    """0 bits set a bound of 2^64, which no u64 hash lies below (the grind
+    used to sweep to 2^40), and the JAX package refuses it too."""
+    import time
+
+    bases = _matrices((2, 4), 7)
+    t0 = time.perf_counter()
+    with pytest.raises(ValueError, match="1..64"):
+        tfri.proof_of_work_grind_batch(bases, bits, "cpu")
+    with pytest.raises(ValueError, match="1..64"):
+        tfri.proof_of_work_grind(bases[0], bits, "cpu")
+    with pytest.raises(ValueError, match="1..64"):
+        tfri.check_pow(bases[0], 0, bits)
+    assert time.perf_counter() - t0 < 1.0
+    if bits == 0:
+        with pytest.raises(OverflowError):
+            jfri.proof_of_work_grind_batch(bases, bits)
+
+
 def test_gather_trees_batch_matches_jax():
     """A shared column-major tree (the constants/sigmas oracle) and a
     batched row-major one, B=3, 5 queries each."""

@@ -300,3 +300,86 @@ def test_sharded_ntt_intt_2_16_on_four_shards(cuda):
         assert {k: xc.launches_by_mode[k] - before[k] for k in before} == {
             "copy": 0, "dft": cards, "twiddle": cards, "interleave": cards}
         assert torch.equal(got.to(cuda), single(x))
+
+
+def _k3_circuits(device):
+    """The circuit of every generator kind and the deep chain, built on
+    ``device``, each with a batch of distinct witnesses."""
+    import chip_smoke
+    from zk_circuits_torch.iop import builder as t_builder
+    from zk_circuits_torch.iop.witness import PartialWitness
+    from zk_circuits_torch.plonk.config import CircuitConfig
+
+    out = []
+    for circuit, seeds in ((lambda b: chip_smoke.kinds_circuit(b, t_builder.GeneratorOp),
+                            chip_smoke.KINDS_SEEDS),
+                           (chip_smoke.chain_circuit, ((12345, 67890), (1, P - 1)))):
+        b = t_builder.CircuitBuilder(CircuitConfig.standard_recursion_config())
+        targets = circuit(b)
+        data = b.build(device=device)
+        out.append((data, [chip_smoke.seed(PartialWitness, targets, v) for v in seeds]))
+    return out
+
+
+def test_k3_kernels_match_plain_batch_by_batch(cuda):
+    """witness_ops and witness_poseidon one schedule batch at a time, each
+    on the values the batches before it left, against the plain version of
+    that batch (the value table, and a Poseidon batch's trace columns);
+    then witness_cells against the plain cell scatter and public inputs."""
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.iop import witness_device as wdev
+
+    lib = witness_cuda._lib()
+    for data, pws in _k3_circuits(cuda):
+        table = wdev.device_table(data, cuda)
+        values = table.seeded_values(*wdev.seed_batch(data, pws))
+        b, r = values.shape
+        n, w = table.n, table.num_wires
+        wires = torch.zeros((b, w * n), dtype=torch.int64, device=cuda)
+        stream = torch.cuda.current_stream().cuda_stream
+        for st, (kernel, args) in zip(table.steps, witness_cuda._plan(table), strict=True):
+            want_v, want_w = values.clone(), wires.clone()
+            out = wdev._step_plain(st, want_v, want_w, n).reshape(b, -1)
+            want_v[:, st.outs.reshape(-1)] = out
+            if kernel == "ops":
+                err = lib.k3_ops(*args, values.data_ptr(), r, b, stream)
+            else:
+                err = lib.k3_poseidon(*args, values.data_ptr(), r, wires.data_ptr(), n, w, b,
+                                      stream)
+            torch.cuda.synchronize()
+            assert err == 0
+            assert torch.equal(values, want_v), st.kind
+            assert torch.equal(wires, want_w), st.kind
+        pis = torch.empty((b, table.pi_reps.numel()), dtype=torch.int64, device=cuda)
+        want_w = wires.clone()
+        want_w[:, table.cell_pos] = values[:, table.cell_rep]
+        assert lib.k3_cells(table.cell_pos.numel(), table.cell_pos.data_ptr(),
+                            table.cell_rep.data_ptr(), pis.shape[1], table.pi_reps.data_ptr(),
+                            values.data_ptr(), r, wires.data_ptr(), w * n, pis.data_ptr(), b,
+                            stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(wires, want_w)
+        assert torch.equal(pis, values[:, table.pi_reps])
+
+
+def test_k3_witness_matches_plain_and_host(cuda):
+    """generate_witnesses_device on the card (K3, one launch a batch and
+    one for the cells) against the plain version on the card and the host
+    witness, alone and in a batch."""
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.iop import witness_device as wdev
+    from zk_circuits_torch.iop.witness import generate_witness
+
+    for data, pws in _k3_circuits(cuda):
+        for batch in (pws[:1], pws):
+            before = witness_cuda.launches
+            wires, pis = wdev.generate_witnesses_device(data, batch, cuda)
+            assert witness_cuda.launches - before == len(data.prover_only.schedule) + 1
+            table = wdev.device_table(data, cuda)
+            plain_w, plain_p = wdev.witness_plain(
+                table, table.seeded_values(*wdev.seed_batch(data, batch)))
+            assert torch.equal(wires, plain_w) and torch.equal(pis, plain_p)
+            for i, pw in enumerate(batch):
+                host_w, host_p = generate_witness(data, pw)
+                assert np.array_equal(gf.to_u64(wires[i]), host_w.T)
+                assert np.array_equal(gf.to_u64(pis[i]), host_p)

@@ -581,3 +581,213 @@ def test_copy_tile_walk_matches_exchange_plain(bx_lib, layout, tile):
     assert bx_lib.shim_bx_copy(ctypes.byref(c), tile) == 0
     for d in range(e):
         assert np.array_equal(outs[d], want[d].numpy().view(U64).ravel()), d
+
+
+# ---------------------------------------------------------------------------
+# K3: csrc/witness.cuh behind a shim with witness.cu's C interface, each
+# launch's blocks and threads run in turn on the host
+# ---------------------------------------------------------------------------
+
+K3_SHIM = r"""
+#include "witness.cuh"
+static const uint64_t RC[POSEIDON_WIDTH * POSEIDON_ROUNDS] = POSEIDON_RC_INIT;
+extern "C" {
+void shim_k3_inverse(const uint64_t* a, uint64_t* out, long n) {
+  for (long i = 0; i < n; i++) out[i] = k3_inverse(a[i]);
+}
+void shim_k3_trace(const uint64_t* x, uint64_t* y, uint64_t* trace, long n) {
+  for (long i = 0; i < n; i++) k3_poseidon_trace(x + 13 * i, RC, y + 12 * i, trace + K3_TRACE_COLS * i, 1);
+}
+int k3_ops(int kind, long long m, const int64_t* in, int k_in, const int64_t* out, int k_out,
+           const uint64_t* consts, int nbits, uint64_t* values, long long vstride, int batch,
+           void*) {
+  for (int b = 0; b < batch; b++)
+    for (long long i = 0; i < m; i++)
+      k3_op(kind, m, i, in, k_in, out, k_out, consts, nbits, values + b * vstride);
+  return 0;
+}
+int k3_poseidon(long long m, const int64_t* in, const int64_t* out, const int64_t* rows,
+                uint64_t* values, long long vstride, uint64_t* wires, long long n, int num_wires,
+                int batch, void*) {
+  for (int b = 0; b < batch; b++)
+    for (long long i = 0; i < m; i++)
+      k3_poseidon_gate(i, in, out, rows, values + b * vstride, wires + b * num_wires * n, n, RC);
+  return 0;
+}
+int k3_cells(long long ncells, const int64_t* cell_pos, const int64_t* cell_rep, long long npis,
+             const int64_t* pi_rep, const uint64_t* values, long long vstride, uint64_t* wires,
+             long long wstride, uint64_t* pis, int batch, void*) {
+  for (int b = 0; b < batch; b++)
+    for (long long t = 0; t < ncells + npis; t++)
+      k3_cell(t, ncells, cell_pos, cell_rep, npis, pi_rep, values + b * vstride,
+              wires + b * wstride, pis + b * npis);
+  return 0;
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k3_lib():
+    from zk_circuits_torch.iop import witness_cuda
+
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to build the kernel headers for the host"
+    build = nvcc.BUILD_DIR / f"k3_shim_{os.getpid()}"
+    build.mkdir(parents=True, exist_ok=True)
+    poseidon_cuda.write_constants_header(build)
+    src = build / "k3_shim.cc"
+    src.write_text(K3_SHIM)
+    so = build / "libk3shim.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(nvcc.CSRC),
+                    "-I", str(build), "-o", str(so), str(src)], check=True)
+    lib = witness_cuda.bind(ctypes.CDLL(str(so)))   # the wrapper's declarations
+    yield lib
+    shutil.rmtree(build, ignore_errors=True)
+
+
+def _canonical_edges(rng, n):
+    edge = np.array([0, 1, 2, 7, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P - 2**32],
+                    dtype=U64)
+    return np.concatenate([edge, rng.integers(0, P, n, dtype=U64)])
+
+
+def test_k3_inverse_matches_host(k3_lib):
+    """The Fermat inverse, 0 to 0, against host/gl.py."""
+    a = _canonical_edges(np.random.default_rng(31), 500)
+    out = np.empty_like(a)
+    k3_lib.shim_k3_inverse(_ptr(a), _ptr(out), ctypes.c_long(a.size))
+    assert np.array_equal(out, jgl.inverse(a))
+    assert out[0] == 0 and out[1] == 1 and out[4] == P - 1
+    assert np.array_equal(jgl.mul(out[1:], a[1:]), np.ones(a.size - 1, dtype=U64))
+
+
+def _run_ops(k3_lib, kind, ins, outs, consts, nbits, values):
+    """One k3_ops launch of the ops (ins, outs) over every value table of
+    ``values`` (B, R); returns the updated tables."""
+    from zk_circuits_torch.iop import witness_device as wdev
+
+    ins, outs = np.ascontiguousarray(ins, np.int64), np.ascontiguousarray(outs, np.int64)
+    consts = np.ascontiguousarray(consts, U64)
+    v = values.copy()
+    m = ins.shape[0]
+    assert k3_lib.k3_ops(wdev.KINDS[kind], m, _ptr(ins), ins.shape[1], _ptr(outs),
+                         outs.shape[1], _ptr(consts), nbits, _ptr(v), v.shape[1],
+                         v.shape[0], None) == 0
+    return v
+
+
+@pytest.mark.parametrize("kind", ["const", "arith", "arith_ext", "eq_inv", "ext_inv",
+                                  "base_sum", "random_access"])
+def test_k3_op_kinds_match_host(k3_lib, kind):
+    """Each op kind of k3_ops on two value tables (edge values first)
+    against host/gl.py and host/gle.py: inputs read from reps below 100,
+    outputs written to reps 100 and up."""
+    from zk_circuits_tpu.host import gle as jgle
+
+    rng = np.random.default_rng(list(KINDS_K3).index(kind))
+    m = 40
+    values = np.zeros((2, 100 + m * 64), dtype=U64)
+    values[0, :100] = _canonical_edges(rng, 90)
+    values[1, :100] = rng.integers(0, P, 100, dtype=U64)
+    k_in, k_out, nbits = KINDS_K3[kind]
+    ins = rng.integers(0, 100, (m, k_in))
+    ins[:10] = np.arange(10 * k_in).reshape(10, k_in) % 10      # edge operands
+    outs = 100 + np.arange(m * k_out).reshape(m, k_out)
+    consts = np.zeros(0, U64)
+    if kind == "random_access":
+        values[:, :4] = [0, 1, 2, 3]
+        ins[:, 0] = rng.integers(0, 4, m)
+    if kind in ("arith", "arith_ext"):
+        consts = np.stack([_canonical_edges(rng, m - 10), _canonical_edges(rng, m - 10)])
+    elif kind == "const":
+        consts = rng.integers(0, P, (m, k_out), dtype=U64)
+    got = _run_ops(k3_lib, kind, ins, outs, consts, nbits, values)
+    for b in range(2):
+        g = values[b][ins]
+        if kind == "const":
+            want = consts
+        elif kind == "arith":
+            want = jgl.add(jgl.mul(consts[0], jgl.mul(g[:, 0], g[:, 1])),
+                           jgl.mul(consts[1], g[:, 2]))[:, None]
+        elif kind == "arith_ext":
+            want = jgle.add(jgle.mul_base(jgle.mul(g[:, 0:2], g[:, 2:4]), consts[0]),
+                            jgle.mul_base(g[:, 4:6], consts[1]))
+        elif kind == "eq_inv":
+            want = jgl.inverse(g)
+        elif kind == "ext_inv":
+            want = jgle.inverse(g)
+        elif kind == "base_sum":
+            want = (g >> np.arange(nbits, dtype=U64)) & U64(1)
+        else:
+            idx = g[:, 0].astype(np.int64)
+            want = np.concatenate([g[np.arange(m), 1 + idx][:, None],
+                                   (g[:, :1] >> np.arange(nbits, dtype=U64)) & U64(1)], axis=1)
+        assert np.array_equal(got[b][outs], want), b
+        assert np.array_equal(got[b][:100], values[b][:100])
+
+
+# (inputs, outputs, bits) an op of each kind; base_sum takes all 64 bits
+KINDS_K3 = {"const": (0, 3, 0), "arith": (3, 1, 0), "arith_ext": (6, 2, 0),
+            "eq_inv": (1, 1, 0), "ext_inv": (2, 2, 0), "base_sum": (1, 64, 64),
+            "random_access": (5, 3, 2)}
+
+
+def test_k3_poseidon_trace_matches_host(k3_lib):
+    """The gate trace column by column (deltas, full rounds 1-3, the
+    partial rounds' lane 0, the last four full rounds) and the outputs,
+    with edge inputs and both swap values, against the JAX package's host
+    trace (iop/witness.py::_poseidon_trace)."""
+    from zk_circuits_tpu.iop.witness import _poseidon_trace
+
+    rng = np.random.default_rng(41)
+    inputs = _canonical_edges(rng, 12 * 24 - 10).reshape(24, 12)
+    inputs[-1] = 0
+    inputs[-2] = P - 1
+    for swap in (0, 1):
+        x = np.concatenate([inputs, np.full((24, 1), swap, U64)], axis=1)
+        y = np.empty((24, 12), U64)
+        trace = np.empty((24, 110), U64)
+        k3_lib.shim_k3_trace(_ptr(x), _ptr(y), _ptr(trace), ctypes.c_long(24))
+        outputs, *blocks = _poseidon_trace(inputs, np.full(24, swap, U64))
+        assert np.array_equal(y, outputs), swap
+        assert np.array_equal(trace, np.concatenate(blocks, axis=1)), swap
+
+
+@pytest.mark.parametrize("name", ["kinds", "chain"])
+def test_k3_schedule_matches_host_witness(k3_lib, name):
+    """The launches of witness_cuda.launch_schedule (its argument plan, the
+    device table's layout, the folded cell scatter) through the host
+    build of K3, for a batch of witnesses: each wire matrix and public
+    input vector equal to the host witness's and the plain version's."""
+    import chip_smoke
+    import torch
+
+    from zk_circuits_torch.iop import builder as t_builder
+    from zk_circuits_torch.iop import witness as t_witness
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.iop import witness_device as wdev
+    from zk_circuits_torch.plonk.config import CircuitConfig
+
+    b = t_builder.CircuitBuilder(CircuitConfig.standard_recursion_config())
+    if name == "kinds":
+        targets, seeds = chip_smoke.kinds_circuit(b, t_builder.GeneratorOp), chip_smoke.KINDS_SEEDS
+    else:
+        targets, seeds = chip_smoke.chain_circuit(b), ((12345, 67890), (1, P - 1))
+    data = b.build(device="cpu")
+    pws = [chip_smoke.seed(t_witness.PartialWitness, targets, v) for v in seeds]
+    table = wdev.WitnessTable(data, "cpu")
+    seed_reps, seed_vals = wdev.seed_batch(data, pws)
+    values = table.seeded_values(seed_reps, seed_vals)
+    plain_w, plain_p = wdev.witness_plain(table, values.clone())
+    wires = torch.zeros_like(plain_w)
+    pis = torch.empty_like(plain_p)
+    done = witness_cuda.launch_schedule(k3_lib, table, values, wires, pis, None)
+    assert [k for k, _ in done] == [("poseidon" if s.kind == "poseidon" else "ops")
+                                    for s in table.steps] + ["cells"]
+    assert all(err == 0 for _, err in done)
+    assert torch.equal(wires, plain_w) and torch.equal(pis, plain_p)
+    for i, pw in enumerate(pws):
+        host_w, host_p = t_witness.generate_witness(data, pw)
+        assert np.array_equal(wires[i].numpy().view(U64), host_w.T), i
+        assert np.array_equal(pis[i].numpy().view(U64), host_p), i

@@ -365,3 +365,12 @@ def test_prove_sharded_matches_reference_bytes(zk, fri, e):
     proof = prove_sharded(data, pw, _cpu_mesh(e))
     assert t_bytes(proof) == want
     data.verify(proof)
+
+
+def test_prove_sharded_takes_check_witness_by_keyword_only():
+    """The JAX package's prove_sharded takes the mesh axis fourth; the
+    port's has none, so a fourth positional argument is refused rather
+    than taken for check_witness."""
+    data, pw = _square(t_builder, t_witness, t_config.CircuitConfig(), device="cpu")
+    with pytest.raises(TypeError):
+        prove_sharded(data, pw, _cpu_mesh(2), True)

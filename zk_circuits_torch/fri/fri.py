@@ -83,6 +83,7 @@ def proof_of_work_grind_batch(pow_bases: np.ndarray, pow_bits: int,
     from ..field import goldilocks as gfd
     from ..hash import poseidon_pallas as pp
 
+    _check_pow_bits(pow_bits)
     device = torch.device(device)
     batch = GRIND_BATCH[device.type]
     threshold = gfd._i64(1 << (64 - pow_bits))
@@ -107,7 +108,16 @@ def proof_of_work_grind_batch(pow_bases: np.ndarray, pow_bits: int,
     raise RuntimeError("proof-of-work grind found no witness below 2^40")
 
 
+def _check_pow_bits(pow_bits: int) -> None:
+    """A witness's hash must lie below 2^(64 - pow_bits): 0 bits would set
+    no bound the grind can meet (the JAX package's np.uint64(2^64) raises),
+    more than 64 none at all."""
+    if not 1 <= pow_bits <= 64:
+        raise ValueError(f"proof_of_work_bits must lie in 1..64, got {pow_bits}")
+
+
 def check_pow(pow_base: np.ndarray, witness: int, pow_bits: int) -> bool:
+    _check_pow_bits(pow_bits)
     inp = np.concatenate([pow_base, np.array([witness], dtype=np.uint64)])
     h0 = int(hposeidon.hash_no_pad(inp)[0])
     return h0 < (1 << (64 - pow_bits))

@@ -111,6 +111,8 @@ class ProverOnlyCircuitData:
     schedule: list[ScheduleBatch]
     public_inputs: list[int]
     subgroup: np.ndarray             # (n,) powers of w
+    # the schedule on each device (iop/witness_device.py), built at first use
+    witness_tables: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 @dataclass

@@ -1,11 +1,11 @@
 """The PLONK+FRI prover pipeline on torch tensors.
 
 Torch counterpart of the device branch of the JAX package's
-plonk/prover.py::prove: witness fill (host) -> wire INTT (+ salts) ->
+plonk/prover.py::prove: witness (device) -> wire INTT (+ salts) ->
 LDE + Merkle commit -> Fiat-Shamir challenges -> permutation Z/partial
 products -> fused quotient on the 8n coset -> openings at zeta / g*zeta ->
 FRI opening proof with PoW grinding.  Every bulk stage runs on the chosen
-device; the transcript and the witness generator stay on the host.
+device; the transcript stays on the host.
 
 This module holds the stage bodies, each over optional leading proof
 axes, and the entry points; the one orchestration of the stages, for one
@@ -223,13 +223,14 @@ def prove(circuit_data, pw: PartialWitness, check_witness: bool | None = None,
                               _resolve_check_witness(check_witness), timers="prove")[0]
 
 
-def prove_batch(circuit_data, pws: list, check_witness: bool | None = None,
-                device="cuda", mesh=None) -> list:
+def prove_batch(circuit_data, pws: list, mesh=None, check_witness: bool | None = None,
+                *, device="cuda") -> list:
     """Prove B independent witnesses of ONE circuit on ``device`` ("cuda"
     by default; "cpu" runs the plain torch versions), every bulk stage
     batched over a leading proof axis (plonk/prover_batch.py).  Returns
     one ProofWithPublicInputs a witness, each byte-identical to
     :func:`prove` of that witness.  One witness goes through ``prove``.
+    The arguments before ``device`` are the JAX package's, in its order.
 
     ``mesh`` (the batch axis sharded over cards) is not ported yet."""
     from .. import resolve_device
@@ -237,7 +238,7 @@ def prove_batch(circuit_data, pws: list, check_witness: bool | None = None,
     if mesh is not None:
         raise NotImplementedError(
             "prove_batch(mesh=...) is not ported: the batch axis sharded over "
-            "cards waits in ROADMAP.md, Queue 1 item 3 (multi-host)")
+            "cards waits in ROADMAP.md, Queue 1 (multi-host)")
     device = resolve_device(device)
     check_witness = _resolve_check_witness(check_witness)
     pws = list(pws)

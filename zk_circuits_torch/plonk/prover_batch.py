@@ -10,10 +10,12 @@ work, and K1 builds the B Merkle trees of a commit in one launch.  The
 circuit's constants/sigmas oracle, its coset tables and the salt
 polynomials have no proof axis and are shared.
 
-The witnesses are generated on the host one after another: the generator
-is Python and holds the interpreter lock, so the JAX package's thread
-pool (whose generator has native parts) was slower on the card's host
-in every pair PERF.md records.  Each proof keeps its own host Challenger;
+The witnesses are made on the device (iop/witness_device.py: K3 on the
+card, its plain version on the CPU), the B wire matrices in one pass of
+the schedule, and only the public inputs come back, with the wires cap;
+with ``check_witness`` the host witness runs instead, one proof after
+another, and every gate constraint is re-checked on it, the rule of the
+JAX package's prover.  Each proof keeps its own host Challenger;
 every transcript stage fetches the whole batch's caps (or evaluations)
 with one transfer (utils/fetch.py).  Proof bytes are identical to
 sequential ``prove``.
@@ -28,6 +30,7 @@ from ..fri.fri_device import BatchedCommit, open_and_fri_device_batch
 from ..fri.oracle import _device_commit_fn
 from ..hash.challenger import Challenger
 from ..host import poseidon as hposeidon
+from ..iop import witness_device as wdev
 from ..iop.witness import generate_witness
 from ..utils.fetch import fetch_packed
 from ..utils.profiling import stage_timer
@@ -59,19 +62,24 @@ def prove_batch_device(circuit_data, pws: list, device,
         """B proofs' challenge lists -> (num_challenges, B, 1) on the device."""
         return gfd.from_u64(np.array(per_proof, dtype=np.uint64).T[..., None], device)
 
-    # ---- stage 1: host witnesses, then INTT (+ salts), LDE, Merkle ----
+    def pi_hash(pis):
+        return hposeidon.hash_no_pad(pis) if len(pis) else np.zeros(4, np.uint64)
+
+    # ---- stage 1: witnesses, then INTT (+ salts), LDE, Merkle ----
     with stage_timer(f"{timers}/wires"):
-        wits = [generate_witness(circuit_data, pw) for pw in pws]
-        pis_l = [pis for _, pis in wits]
-        pi_hashes = [hposeidon.hash_no_pad(p) if len(p) else np.zeros(4, np.uint64)
-                     for p in pis_l]
         if check_witness:
-            for (wires, _), pih in zip(wits, pi_hashes):
-                check_constraints_on_h(common, po, wires, pih)
-        values_t = gfd.from_u64(np.stack([w.T for w, _ in wits]), device)   # (B, W, n)
-        w_coeffs = _device_wires_coeffs_fn(values_t, cfg.zero_knowledge)
+            wits = [generate_witness(circuit_data, pw) for pw in pws]
+            for wires, pis in wits:
+                check_constraints_on_h(common, po, wires, pi_hash(pis))
+            values_t = gfd.from_u64(np.stack([w.T for w, _ in wits]), device)
+            pis_dev = gfd.from_u64(np.stack([p for _, p in wits]), device)
+        else:
+            values_t, pis_dev = wdev.generate_witnesses_device(circuit_data, pws, device)
+        w_coeffs = _device_wires_coeffs_fn(values_t, cfg.zero_knowledge)   # (B, W, n) in
         w_vals, w_levels = _device_commit_fn(w_coeffs, cfg.rate_bits, cap_h)
-        (w_caps,) = fetch_packed([w_levels[-1]])
+        w_caps, pis_np = fetch_packed([w_levels[-1], pis_dev])
+    pis_l = [p.copy() for p in pis_np]
+    pi_hashes = [pi_hash(p) for p in pis_l]
 
     chs, betas_l, gammas_l = [], [], []
     for b in range(B):

@@ -22,7 +22,8 @@ cross-shard move written out (there is no partitioner):
   fri/fri_sharded.py; the PoW grind runs through K1 on the first shard;
   query rows and Merkle paths are gathered from the shard that owns them.
 
-The witness and the Fiat-Shamir challenger stay on the host.  Proof bytes
+The witness and the Fiat-Shamir challenger stay on the host, as in the
+JAX package's sharded prover.  Proof bytes
 equal :func:`zk_circuits_torch.plonk.prover.prove`'s.
 """
 
@@ -272,7 +273,7 @@ def _open_and_fri_sharded(common, oracles: list, ch, mesh: Mesh) -> tuple:
     return openings, proof
 
 
-def prove_sharded(circuit_data, pw, mesh: Mesh | None = None,
+def prove_sharded(circuit_data, pw, mesh: Mesh | None = None, *,
                   check_witness: bool | None = None) -> ProofWithPublicInputs:
     """Prove one witness with the pipeline sharded over ``mesh`` (default:
     ``make_mesh()``, every card; it raises without CUDA).
