@@ -16,8 +16,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                tamper-checked, and its sha256 held to the digest of the JAX
                package's host-path proof of the same inputs (pinned below).
                K1's launches per proof, by mode (sponge / tree / top), must
-               be the count the circuit's trees give; K3's, by kernel, one
-               a schedule batch and one for the cells, and no host witness.
+               be the count the circuit's trees give; K3's, by kernel, the
+               plan's (a walk over each run of levels, an ops launch for
+               each wide level, one cells launch), and no host witness.
 4. batch    -- the batched prover: prove_batch of B=4 zk wormhole proofs
                (one cold batch, two warm), each proof's sha256 == the pinned
                digest, proof 0 verified and a tampered copy refused; K1's
@@ -33,10 +34,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                alone and at B=4 (the golden seeds, and copies with a few
                seeds changed where the host witness still accepts them),
                the circuit of every generator kind at B=3 and a deep
-               arith_ext/Poseidon chain at B=2; K3's launches by kernel;
-               then its time (graph_ms) at B=1 and 4, one entry-point call,
-               its device operations, the plain version's and the host
-               witness's time, and its bound with the launch depth.
+               arith_ext/Poseidon chain at B=2, each whole and one level
+               a walk launch against the plain version of that level;
+               K3's launches by kernel; then its time (graph_ms) at B=1
+               and 4, its launches over three level ranges (the wide
+               prefix, the Poseidon-interleaved middle, the arith tail),
+               one entry-point call split into its parts, its device
+               operations, the plain version's and the host witness's
+               time, its byte bound, and its chain cost (the levels at
+               the walk's cost of a one-op level and of a one-gate
+               Poseidon level, each timed on a chain circuit of such
+               levels; the design's candidates are
+               scripts/k3_variants.py's).
 6. k1_check -- K1 against its plain torch version on the card: the sponge
                at every team size at the edges (n below the team, n not a
                multiple of the block's rows, cols 1 to 139, both layouts)
@@ -149,6 +158,7 @@ K3_TIMED_CALLS = 4     # back-to-back witnesses per K3 timing (graph_ms)
 # an inverse and 2; a Poseidon gate 4 deltas and 118 S-boxes of 4.
 K3_PRODUCTS = {"const": 0, "arith": 3, "arith_ext": 9, "eq_inv": 127, "ext_inv": 132,
                "base_sum": 0, "random_access": 0, "poseidon": 4 + 118 * 4}
+K3_CHAIN_DEPTH = 128   # levels of the arith chain circuit that times a narrow level
 # a warm wormhole proof's device operations with the host witness (PERF.md)
 DEVICE_OPS_BEFORE = 80945
 SHARDS = 4             # E of the sharded phase
@@ -782,11 +792,15 @@ def host_witness_calls():
 
 
 def expected_k3_launches(cd) -> dict:
-    """K3's launches a witness, or a batch of witnesses, by kernel: one a
-    schedule batch, and one for the cells."""
-    kinds = [b.kind for b in cd.prover_only.schedule]
-    return {"ops": len(kinds) - kinds.count("poseidon"), "poseidon": kinds.count("poseidon"),
-            "cells": 1}
+    """K3's launches a witness, or a batch of witnesses, by kernel: an ops
+    launch for each level of more than WIDE_OPS ops, a walk over each run
+    of levels between them, and one for the cells."""
+    from zk_circuits_torch.iop import witness_cuda
+
+    sch = cd.prover_only.schedule
+    kernels = [k for k, _, _ in witness_cuda.plan(
+        [(b.kind, len(b.data["out_reps"])) for b in sch], 0, len(sch))]
+    return {"walk": kernels.count("walk"), "ops": kernels.count("ops"), "cells": 1}
 
 
 def profiled(fn) -> tuple:
@@ -1006,13 +1020,74 @@ def k3_bound_ms(products: int, nbytes: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def k3_ranges(cd) -> list:
+    """(name, first, last) of three spans of the schedule's levels: the
+    wide prefix (through the last level of more than WIDE_OPS ops and the
+    Poseidon levels right after it), the Poseidon-interleaved middle
+    (through the last Poseidon level) and the chain of arith levels after
+    that."""
+    from zk_circuits_torch.iop.witness_cuda import WIDE_OPS
+
+    sch = cd.prover_only.schedule
+    kinds = [b.kind for b in sch]
+    a = max(i for i, b in enumerate(sch) if len(b.data["out_reps"]) > WIDE_OPS) + 1
+    while a < len(kinds) and kinds[a] == "poseidon":
+        a += 1
+    z = max(i for i, k in enumerate(kinds) if k == "poseidon") + 1
+    return [("wide_prefix", 0, a), ("poseidon_middle", a, z), ("arith_tail", z, len(kinds))]
+
+
+def arith_chain_circuit(b, depth: int) -> list:
+    """``depth`` dependent arith levels of one op each (a chain of
+    squarings).  Returns the target to seed."""
+    x = b.add_virtual_target()
+    y = x
+    for _ in range(depth):
+        y = b.mul(y, y)
+    b.register_public_input(y)
+    return [x]
+
+
+def poseidon_chain_circuit(b, depth: int) -> list:
+    """``depth`` dependent Poseidon levels of one gate each.  Returns the
+    two targets to seed."""
+    a, c = b.add_virtual_target(), b.add_virtual_target()
+    h = [a, c] + [b.zero()] * 10
+    for _ in range(depth):
+        h = b.permute_poseidon(h)
+    b.register_public_inputs(h[:4])
+    return [a, c]
+
+
+def k3_call(table, values, first=0, last=None, cells=True, lib=None):
+    """One K3 run over ``values`` (levels [first, last), then the cells),
+    uncounted, on the current stream (a graph's capture stream inside
+    graph_ms), through ``lib`` (default: the built witness.cu).  Returns
+    the wire matrix (B, W, n) and the public inputs."""
+    import torch
+
+    from zk_circuits_torch.iop import witness_cuda
+
+    b = values.shape[0]
+    wires = torch.zeros((b, table.num_wires, table.n), dtype=torch.int64, device=values.device)
+    pis = torch.empty((b, table.pi_reps.numel()), dtype=torch.int64, device=values.device)
+    done = witness_cuda.launch_schedule(lib or witness_cuda._lib(), table, values, wires, pis,
+                                        torch.cuda.current_stream().cuda_stream, first, last,
+                                        cells)
+    if any(err for _, err in done):
+        raise RuntimeError(f"K3 launch failed: {done}")
+    return wires, pis
+
+
 def phase_witness_check(state) -> None:
     """K3 against its plain version on the card and the host witness, as
     integers: the full-width wormhole alone and at B=BATCH (the golden
     witness and copies with changed seeds), the circuit of every
-    generator kind at B=3 and the deep arith_ext/Poseidon chain at B=2;
-    then K3's time (graph_ms), the plain version's and the host
-    witness's, and K3's bound."""
+    generator kind at B=3 and the deep arith_ext/Poseidon chain at B=2,
+    each whole and one level a launch; then K3's time (graph_ms), its
+    level ranges, the entry point's parts, the plain version's and the
+    host witness's time, K3's bound, and the schedule's levels at this
+    design's per-level cost on chain circuits."""
     import numpy as np
     import torch
 
@@ -1027,10 +1102,34 @@ def phase_witness_check(state) -> None:
 
     golden = WormholeProver(circuit_data=cd, targets=targets).commit(inputs).partial_witness
     pws, changed = varied_witnesses(cd, golden, BATCH)
+    lib = witness_cuda._lib()
+
+    def by_level(table, seeded, what):
+        """K3 one level a launch (the walk, or a wide level's ops launch)
+        on the values the levels before it left, against the plain version
+        of that level (the value table and a Poseidon level's trace
+        columns)."""
+        values, want_v = seeded.clone(), seeded.clone()
+        b, n = values.shape[0], table.n
+        wires = torch.zeros((b, table.num_wires * n), dtype=torch.int64, device="cuda")
+        want_w = wires.clone()
+        pis = torch.empty((b, table.pi_reps.numel()), dtype=torch.int64, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        for i, st in enumerate(table.steps):
+            out = wdev._step_plain(st, want_v, want_w, n).reshape(b, -1)
+            want_v[:, st.outs.reshape(-1)] = out
+            done = witness_cuda.launch_schedule(lib, table, values, wires, pis, stream, i, i + 1,
+                                                cells=False)
+            kernel = "ops" if st.m > witness_cuda.WIDE_OPS and st.kind != "poseidon" else "walk"
+            if done != [(kernel, 0)] or not (torch.equal(values, want_v)
+                                             and torch.equal(wires, want_w)):
+                raise AssertionError(f"{what}: the walk differs from the plain version at "
+                                     f"level {i} ({st.kind}, {st.m} ops): {done}")
 
     def check(data, pws, what):
         """K3, its plain version on the card and the host witness of each
-        of ``pws``; returns the plain version's CUDA-event ms."""
+        of ``pws``, whole and level by level; returns the plain version's
+        CUDA-event ms."""
         table = wdev.device_table(data, "cuda")
         seed_reps, seeds = wdev.seed_batch(data, pws)
         before = dict(witness_cuda.launches_by_kernel)
@@ -1048,6 +1147,7 @@ def phase_witness_check(state) -> None:
         if not (torch.equal(wires, plain_w) and torch.equal(pis, plain_p)):
             bad = int((wires != plain_w).sum())
             raise AssertionError(f"{what}: K3 differs from the plain version ({bad} cells)")
+        by_level(table, table.seeded_values(seed_reps, seeds), what)
         for i, pw in enumerate(pws):
             host_w, host_p = generate_witness(data, pw)
             if not (np.array_equal(wires[i].cpu().numpy().view(np.uint64), host_w.T)
@@ -1065,44 +1165,104 @@ def phase_witness_check(state) -> None:
         b = t_builder.CircuitBuilder(CircuitConfig.standard_recursion_config())
         small_targets = circuit(b)
         small = b.build(device="cuda")
-        cases[name] = check(small, [seed(PartialWitness, small_targets, v) for v in seeds], name)
+        cases[name] = check(small, [seed(PartialWitness, small_targets, v) for v in seeds],
+                            name)
 
     # time: K3 alone (graph_ms of K3_TIMED_CALLS witnesses, each on a
-    # value table of its own), one entry-point call (seeds sent, K3,
-    # CUDA events), the host witness (perf_counter), device operations
+    # value table of its own), its level ranges, one entry-point call and
+    # its parts, the host witness, device operations (the design's
+    # candidates are timed by scripts/k3_variants.py)
     table = wdev.device_table(cd, "cuda")
-    rows = {}
+    rows, ranges = {}, []
+
+    def timed(batch, **kw):
+        tables = [table.seeded_values(*wdev.seed_batch(cd, pws[:batch]))
+                  for _ in range(K3_TIMED_CALLS)]
+        return graph_ms([lambda v=v: k3_call(table, v, **kw) for v in tables])
+
     for batch in (1, BATCH):
         seed_reps, seeds = wdev.seed_batch(cd, pws[:batch])
         tables = [table.seeded_values(seed_reps, seeds) for _ in range(K3_TIMED_CALLS)]
         g = graph_ms([lambda v=v: witness_cuda.run_schedule(table, v) for v in tables])
         call_ms = cuda_ms(lambda: wdev.generate_witnesses_device(cd, pws[:batch], "cuda"), 10)
+        seed_s = []
+        for _ in range(10):
+            t = time.perf_counter()
+            wdev.seed_batch(cd, pws[:batch])
+            seed_s.append(time.perf_counter() - t)
+        seeded_ms = cuda_ms(lambda: table.seeded_values(seed_reps, seeds), 10)
+        pool = [table.seeded_values(seed_reps, seeds) for _ in range(12)]
+        run_ms = cuda_ms(lambda: witness_cuda.run_schedule(table, pool.pop()), 10)
         _, prof = profiled(lambda: wdev.generate_witnesses_device(cd, pws[:batch], "cuda"))
         work = k3_work(table, batch)
         bound, by = k3_bound_ms(*work)
         rows[batch] = {"batch": batch, "ms": g["ms"], "min_ms": g["min_ms"],
                        "max_ms": g["max_ms"], "call_ms": call_ms,
+                       "call_parts_ms": {"seed_batch": statistics.median(seed_s) * 1e3,
+                                         "seeded_values": seeded_ms, "run_schedule": run_ms},
                        "plain_ms": cases["wormhole" if batch == 1 else f"wormhole_b{BATCH}"],
                        "products": work[0], "bytes": work[1],
                        "bound_ms": bound, "bound_by": by, "share_of_bound": bound / g["ms"],
                        "device_ops": prof["device_ops"],
                        "device_busy_ms": prof["device_busy_s"] * 1e3}
+        for name, first, last in k3_ranges(cd):
+            r = timed(batch, first=first, last=last, cells=False)
+            ranges.append({"batch": batch, "range": name, "levels": [first, last], **r})
+
+    # the chain cost: the schedule's levels at this design's cost of a
+    # one-op arith level and of a one-gate Poseidon level, each timed over
+    # a chain circuit of such levels (B=1); not a bound, since it is the
+    # walk's own per-level cost
+    chain_cost = {}
+    for kind, circuit, nseeds in (("arith", arith_chain_circuit, 1),
+                                  ("poseidon", poseidon_chain_circuit, 2)):
+        depth = K3_CHAIN_DEPTH if kind == "arith" else 24
+        b = t_builder.CircuitBuilder(CircuitConfig.standard_recursion_config())
+        chain_targets = circuit(b, depth)
+        chain = b.build(device="cuda")
+        # (the public inputs' hash adds a Poseidon level after the chain)
+        levels = [i for i, st in enumerate(chain.prover_only.schedule) if st.kind == kind]
+        if len(levels) < depth or levels[-1] - levels[0] + 1 != len(levels) or \
+                any(np.asarray(chain.prover_only.schedule[i].data["out_reps"]).shape[0] != 1
+                    for i in levels):
+            raise AssertionError(f"{kind} chain: levels {levels} are not a run of one op each")
+        chain_table = wdev.device_table(chain, "cuda")
+        chain_pw = seed(PartialWitness, chain_targets, (3, 5)[:nseeds])
+        chain_vals = [chain_table.seeded_values(*wdev.seed_batch(chain, [chain_pw]))
+                      for _ in range(K3_TIMED_CALLS)]
+        g = graph_ms([lambda v=v: k3_call(chain_table, v, levels[0], levels[-1] + 1, False)
+                      for v in chain_vals])
+        chain_cost[kind] = {"levels": len(levels), "ms": g["ms"],
+                            "ms_per_level": g["ms"] / len(levels)}
+    kinds = [b.kind for b in cd.prover_only.schedule]
+    n_pos = kinds.count("poseidon")
+    chain_ms = (len(kinds) - n_pos) * chain_cost["arith"]["ms_per_level"] + \
+        n_pos * chain_cost["poseidon"]["ms_per_level"]
+    for r in rows.values():
+        r["chain_cost_ms"] = chain_ms
+        r["share_of_chain_cost"] = chain_ms / r["ms"]
+
     host_s = []
     for _ in range(3):
         t = time.perf_counter()
         generate_witness(cd, golden)
         host_s.append(time.perf_counter() - t)
-    depth = sum(expected_k3_launches(cd).values())
-    emit({"phase": "witness_check", "equal_integers": True,
+    emit({"phase": "witness_check", "equal_integers": True, "by_level": True,
           "cases_plain_ms": cases, "batch_changed_seed_reps": changed,
+          "wide_ops": witness_cuda.WIDE_OPS,
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {K3_TIMED_CALLS} "
                     f"witnesses on value tables of their own, L2 emptied first, per "
-                    f"witness, median of 8 replays (min_ms/max_ms: their range); "
+                    f"witness, median of 8 replays (min_ms/max_ms: their range), the same "
+                    f"for the ranges and the chain circuits; "
                     f"call_ms: CUDA events around one generate_witnesses_device call, "
-                    f"median of 10; plain_ms: CUDA events around one witness_plain "
-                    f"call; host_witness_s: perf_counter around generate_witness",
-          "rows": list(rows.values()), "host_witness_s": statistics.median(host_s),
-          "depth_launches": depth})
+                    f"median of 10, and its parts: seed_batch (perf_counter), "
+                    f"seeded_values and run_schedule (CUDA events), median of 10 each; "
+                    f"plain_ms: CUDA events around one witness_plain call; "
+                    f"host_witness_s: perf_counter around generate_witness",
+          "rows": list(rows.values()), "ranges": ranges,
+          "chain_cost": {"ms": chain_ms, "levels": len(kinds), "poseidon_levels": n_pos,
+                         **{f"{k}_chain": v for k, v in chain_cost.items()}},
+          "host_witness_s": statistics.median(host_s)})
     if any(r["share_of_bound"] > 1.05 for r in rows.values()):
         raise AssertionError(f"K3 timed below its bound: {rows}")
     main = rows[1]
@@ -1112,10 +1272,10 @@ def phase_witness_check(state) -> None:
         "launches": state["k3_launches"], "launches_by_kernel": state["k3_launches_by_kernel"],
         "launches_by_path": {"wormhole": state["k3_launches"],
                              "batch": state["k3_launches_batch"]},
-        "max_abs_err": 0, "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
-        "ms_batch": rows[BATCH]["ms"], "host_witness_ms": statistics.median(host_s) * 1e3,
-        "depth_launches": depth})
+        "max_abs_err": 0, "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "ms_batch": rows[BATCH]["ms"], "chain_cost_ms": chain_ms,
+        "host_witness_ms": statistics.median(host_s) * 1e3})
 
 
 def phase_profile(state) -> None:

@@ -322,10 +322,10 @@ def _k3_circuits(device):
 
 
 def test_k3_kernels_match_plain_batch_by_batch(cuda):
-    """witness_ops and witness_poseidon one schedule batch at a time, each
-    on the values the batches before it left, against the plain version of
-    that batch (the value table, and a Poseidon batch's trace columns);
-    then witness_cells against the plain cell scatter and public inputs."""
+    """The walk one schedule level a launch (first=i, last=i+1), each on
+    the values the levels before it left, against the plain version of
+    that level (the value table, and a Poseidon level's trace columns);
+    then the cells against the plain cell scatter and public inputs."""
     from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.iop import witness_device as wdev
 
@@ -333,48 +333,46 @@ def test_k3_kernels_match_plain_batch_by_batch(cuda):
     for data, pws in _k3_circuits(cuda):
         table = wdev.device_table(data, cuda)
         values = table.seeded_values(*wdev.seed_batch(data, pws))
-        b, r = values.shape
-        n, w = table.n, table.num_wires
+        b, n, w = values.shape[0], table.n, table.num_wires
         wires = torch.zeros((b, w * n), dtype=torch.int64, device=cuda)
+        pis = torch.empty((b, table.pi_reps.numel()), dtype=torch.int64, device=cuda)
         stream = torch.cuda.current_stream().cuda_stream
-        for st, (kernel, args) in zip(table.steps, witness_cuda._plan(table), strict=True):
+        for i, st in enumerate(table.steps):
             want_v, want_w = values.clone(), wires.clone()
             out = wdev._step_plain(st, want_v, want_w, n).reshape(b, -1)
             want_v[:, st.outs.reshape(-1)] = out
-            if kernel == "ops":
-                err = lib.k3_ops(*args, values.data_ptr(), r, b, stream)
-            else:
-                err = lib.k3_poseidon(*args, values.data_ptr(), r, wires.data_ptr(), n, w, b,
-                                      stream)
+            done = witness_cuda.launch_schedule(lib, table, values, wires, pis, stream,
+                                                i, i + 1, cells=False)
             torch.cuda.synchronize()
-            assert err == 0
+            assert done == [("walk", 0)]
             assert torch.equal(values, want_v), st.kind
             assert torch.equal(wires, want_w), st.kind
-        pis = torch.empty((b, table.pi_reps.numel()), dtype=torch.int64, device=cuda)
         want_w = wires.clone()
         want_w[:, table.cell_pos] = values[:, table.cell_rep]
-        assert lib.k3_cells(table.cell_pos.numel(), table.cell_pos.data_ptr(),
-                            table.cell_rep.data_ptr(), pis.shape[1], table.pi_reps.data_ptr(),
-                            values.data_ptr(), r, wires.data_ptr(), w * n, pis.data_ptr(), b,
-                            stream) == 0
+        n_levels = len(table.steps)
+        done = witness_cuda.launch_schedule(lib, table, values, wires, pis, stream,
+                                            n_levels, n_levels)
         torch.cuda.synchronize()
+        assert done == [("cells", 0)]
         assert torch.equal(wires, want_w)
         assert torch.equal(pis, values[:, table.pi_reps])
 
 
 def test_k3_witness_matches_plain_and_host(cuda):
-    """generate_witnesses_device on the card (K3, one launch a batch and
-    one for the cells) against the plain version on the card and the host
-    witness, alone and in a batch."""
+    """generate_witnesses_device on the card (K3: one walk launch and one
+    cells launch a witness or a batch; these circuits have no level wide
+    enough for an ops launch) against the plain version on the card and
+    the host witness, alone and in a batch."""
     from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.iop import witness_device as wdev
     from zk_circuits_torch.iop.witness import generate_witness
 
     for data, pws in _k3_circuits(cuda):
         for batch in (pws[:1], pws):
-            before = witness_cuda.launches
+            before = dict(witness_cuda.launches_by_kernel)
             wires, pis = wdev.generate_witnesses_device(data, batch, cuda)
-            assert witness_cuda.launches - before == len(data.prover_only.schedule) + 1
+            assert {k: v - before[k] for k, v in witness_cuda.launches_by_kernel.items()} == \
+                {"walk": 1, "ops": 0, "cells": 1}
             table = wdev.device_table(data, cuda)
             plain_w, plain_p = wdev.witness_plain(
                 table, table.seeded_values(*wdev.seed_batch(data, batch)))

@@ -584,34 +584,101 @@ def test_copy_tile_walk_matches_exchange_plain(bx_lib, layout, tile):
 
 
 # ---------------------------------------------------------------------------
-# K3: csrc/witness.cuh behind a shim with witness.cu's C interface, each
-# launch's blocks and threads run in turn on the host
+# K3: csrc/witness.cuh behind a shim with witness.cu's C interface, the
+# walk's blocks run one at a time, a level's threads in turn and a
+# Poseidon level's team threads round by round
 # ---------------------------------------------------------------------------
 
 K3_SHIM = r"""
+#include <vector>
 #include "witness.cuh"
 static const uint64_t RC[POSEIDON_WIDTH * POSEIDON_ROUNDS] = POSEIDON_RC_INIT;
+
+static const int THREADS = 256;  // a walk block (witness.cu, K3_WALK_THREADS)
+
+// A Poseidon level by teams of T of a walk block, numbered as on the card
+// (warp by warp, 32 / T teams a warp): each team's T threads run in turn,
+// round by round, with arrays in place of the warp shuffles.
+template <int T>
+static void walk_poseidon(const K3Level& d, uint64_t* v, uint64_t* w, long long n) {
+  constexpr int L = POSEIDON_WIDTH / T, H = POSEIDON_HALF_FULL, R = POSEIDON_ROUNDS;
+  constexpr int PER_WARP = 32 / T;
+  for (long long g0 = 0; g0 < d.m; g0 += THREADS / 32 * PER_WARP)
+    for (int warp = 0; warp < THREADS / 32; warp++)
+      for (int q = 0; q < PER_WARP; q++) {  // the team of threads tid .. tid + T - 1
+        const int tid = warp * 32 + q * T;
+        const long long g = g0 + k3_team_index(tid, T);
+        const bool act = g < d.m;
+        uint64_t* trace = act ? w + K3_START_DELTA * n + d.rows[g] : w;
+        uint64_t s[T][L], x[T][POSEIDON_WIDTH];
+        for (int j = 0; j < T; j++) k3_gate_start<T>(d, g, j, act, v, s[j], trace, n);
+        for (int r = 0; r < R; r++) {
+          for (int j = 0; j < T; j++) {
+            if (r < H || r >= R - H)
+              k3_gate_round<T, true>(s[j], j, r, RC, act, trace, n);
+            else
+              k3_gate_round<T, false>(s[j], j, r, RC, act, trace, n);
+          }
+          for (int j = 0; j < T; j++) {
+            for (int e = 0; e < L; e++) x[j][e * T] = s[j][e];
+            for (int dd = 1; dd < T; dd++) {
+              int src = (j + dd) % T;  // the shuffle's source thread
+              for (int e = 0; e < L; e++) x[j][dd + e * T] = team_provide<T>(s[src], src, dd, e);
+            }
+          }
+          for (int j = 0; j < T; j++) poseidon_mds_rows<T>(j, x[j], s[j]);
+        }
+        for (int j = 0; j < T; j++) k3_gate_end<T>(d, g, j, act, s[j], v);
+      }
+}
+
+static int team = 4;  // the card's team size; the tests also run the header's others
+
 extern "C" {
+void shim_k3_set_team(int t) { team = t; }
 void shim_k3_inverse(const uint64_t* a, uint64_t* out, long n) {
   for (long i = 0; i < n; i++) out[i] = k3_inverse(a[i]);
 }
-void shim_k3_trace(const uint64_t* x, uint64_t* y, uint64_t* trace, long n) {
-  for (long i = 0; i < n; i++) k3_poseidon_trace(x + 13 * i, RC, y + 12 * i, trace + K3_TRACE_COLS * i, 1);
-}
-int k3_ops(int kind, long long m, const int64_t* in, int k_in, const int64_t* out, int k_out,
-           const uint64_t* consts, int nbits, uint64_t* values, long long vstride, int batch,
-           void*) {
-  for (int b = 0; b < batch; b++)
-    for (long long i = 0; i < m; i++)
-      k3_op(kind, m, i, in, k_in, out, k_out, consts, nbits, values + b * vstride);
+int k3_walk(const int64_t* blob, long long levels, int first, int last, uint64_t* values,
+            long long vstride, uint64_t* wires, long long wstride, long long n, int batch,
+            void*) {
+  if (team != 1 && team != 4 && team != 12) return 1;
+  std::vector<K3Fetch> f(THREADS), fnext(THREADS);
+  const int64_t* recs = blob + levels;
+  for (int b = 0; b < batch; b++) {  // the grid: block b on proof b
+    uint64_t* v = values + b * vstride;
+    uint64_t* w = wires + b * wstride;
+    K3Level d, next;
+    for (int t = 0; t < THREADS; t++)
+      k3_prefetch(blob, recs + first * K3_LEVEL_FIELDS, first, last, t, d, f[t]);
+    for (int l = first; l < last; l++) {
+      for (int t = 0; t < THREADS; t++)  // the next level's rows, before this level's work
+        k3_prefetch(blob, recs + (l + 1) * K3_LEVEL_FIELDS, l + 1, last, t, next, fnext[t]);
+      if (d.kind == K3_POSEIDON) {
+        if (team == 12)
+          walk_poseidon<12>(d, v, w, n);
+        else if (team == 4)
+          walk_poseidon<4>(d, v, w, n);
+        else
+          walk_poseidon<1>(d, v, w, n);
+      } else {
+        for (int t = 0; t < THREADS; t++) k3_level_ops(d, t, THREADS, f[t], v);
+      }
+      d = next;  // the barrier
+      f.swap(fnext);
+    }
+  }
   return 0;
 }
-int k3_poseidon(long long m, const int64_t* in, const int64_t* out, const int64_t* rows,
-                uint64_t* values, long long vstride, uint64_t* wires, long long n, int num_wires,
-                int batch, void*) {
-  for (int b = 0; b < batch; b++)
-    for (long long i = 0; i < m; i++)
-      k3_poseidon_gate(i, in, out, rows, values + b * vstride, wires + b * num_wires * n, n, RC);
+int k3_ops(const int64_t* blob, long long rec, long long m, uint64_t* values, long long vstride,
+           int batch, void*) {
+  const K3Level d = k3_level(blob, blob + rec);
+  for (int b = 0; b < batch; b++)  // the grid's y, then its threads
+    for (long long i = 0; i < m; i++) {
+      K3Fetch f;
+      k3_fetch(d, i, f);
+      k3_apply(d, i, f, values + b * vstride);
+    }
   return 0;
 }
 int k3_cells(long long ncells, const int64_t* cell_pos, const int64_t* cell_rep, long long npis,
@@ -625,6 +692,10 @@ int k3_cells(long long ncells, const int64_t* cell_pos, const int64_t* cell_rep,
 }
 }
 """
+
+# The walk's team of 4 threads a Poseidon gate (csrc/witness.cu), and
+# the header's other team sizes.
+K3_TEAMS = (1, 4, 12)
 
 
 @pytest.fixture(scope="module")
@@ -662,31 +733,49 @@ def test_k3_inverse_matches_host(k3_lib):
     assert np.array_equal(jgl.mul(out[1:], a[1:]), np.ones(a.size - 1, dtype=U64))
 
 
-def _run_ops(k3_lib, kind, ins, outs, consts, nbits, values):
-    """One k3_ops launch of the ops (ins, outs) over every value table of
-    ``values`` (B, R); returns the updated tables."""
+def _level_blob(kind, ins, outs, consts=(), nbits=0, rows=()):
+    """One schedule level as WitnessTable lays it out for the walk: its
+    arrays, then its record (witness_device.LEVEL_FIELDS).  Returns the
+    blob and the record's offset."""
     from zk_circuits_torch.iop import witness_device as wdev
 
-    ins, outs = np.ascontiguousarray(ins, np.int64), np.ascontiguousarray(outs, np.int64)
-    consts = np.ascontiguousarray(consts, U64)
+    parts, offs = [], []
+    for a in (ins, outs, consts, rows):
+        offs.append(sum(p.size for p in parts))
+        parts.append(np.asarray(a).astype(U64).view(np.int64).ravel())
+    ins, outs = np.asarray(ins), np.asarray(outs)
+    record = [wdev.KINDS[kind], ins.shape[0], nbits, ins.shape[1], outs.shape[1], *offs]
+    assert len(record) == len(wdev.LEVEL_FIELDS)
+    blob = np.concatenate([*parts, np.array(record, np.int64)])
+    return np.ascontiguousarray(blob), blob.size - len(record)
+
+
+def _walk(k3_lib, blob, levels_off, nlevels, values, wires, n, team=4):
+    """k3_walk over levels [0, nlevels) of every value table of ``values``
+    (B, R), into ``wires`` (B, W * n), a Poseidon gate on a team of
+    ``team``; returns the updated tables."""
     v = values.copy()
-    m = ins.shape[0]
-    assert k3_lib.k3_ops(wdev.KINDS[kind], m, _ptr(ins), ins.shape[1], _ptr(outs),
-                         outs.shape[1], _ptr(consts), nbits, _ptr(v), v.shape[1],
-                         v.shape[0], None) == 0
+    k3_lib.shim_k3_set_team(team)
+    try:
+        assert k3_lib.k3_walk(_ptr(blob), levels_off, 0, nlevels, _ptr(v), v.shape[1],
+                              _ptr(wires), wires.shape[1], n, v.shape[0], None) == 0
+    finally:
+        k3_lib.shim_k3_set_team(4)
     return v
 
 
 @pytest.mark.parametrize("kind", ["const", "arith", "arith_ext", "eq_inv", "ext_inv",
                                   "base_sum", "random_access"])
 def test_k3_op_kinds_match_host(k3_lib, kind):
-    """Each op kind of k3_ops on two value tables (edge values first)
-    against host/gl.py and host/gle.py: inputs read from reps below 100,
-    outputs written to reps 100 and up."""
+    """The walk over one level of each op kind, on two value tables (edge
+    values first), and the level as one k3_ops launch, against host/gl.py
+    and host/gle.py: inputs read from reps below 100, outputs written to
+    reps 100 and up.  600 ops, so that a walk block of 256 threads runs
+    three passes, the last one part idle."""
     from zk_circuits_tpu.host import gle as jgle
 
     rng = np.random.default_rng(list(KINDS_K3).index(kind))
-    m = 40
+    m = 600
     values = np.zeros((2, 100 + m * 64), dtype=U64)
     values[0, :100] = _canonical_edges(rng, 90)
     values[1, :100] = rng.integers(0, P, 100, dtype=U64)
@@ -702,7 +791,7 @@ def test_k3_op_kinds_match_host(k3_lib, kind):
         consts = np.stack([_canonical_edges(rng, m - 10), _canonical_edges(rng, m - 10)])
     elif kind == "const":
         consts = rng.integers(0, P, (m, k_out), dtype=U64)
-    got = _run_ops(k3_lib, kind, ins, outs, consts, nbits, values)
+    blob, off = _level_blob(kind, ins, outs, consts, nbits)
     for b in range(2):
         g = values[b][ins]
         if kind == "const":
@@ -723,6 +812,11 @@ def test_k3_op_kinds_match_host(k3_lib, kind):
             idx = g[:, 0].astype(np.int64)
             want = np.concatenate([g[np.arange(m), 1 + idx][:, None],
                                    (g[:, :1] >> np.arange(nbits, dtype=U64)) & U64(1)], axis=1)
+        got = _walk(k3_lib, blob, off, 1, values, np.zeros((2, 1), U64), 0)
+        assert np.array_equal(got[b][outs], want), b
+        assert np.array_equal(got[b][:100], values[b][:100])
+        got = values.copy()                  # the same level as one k3_ops launch
+        assert k3_lib.k3_ops(_ptr(blob), off, m, _ptr(got), got.shape[1], 2, None) == 0
         assert np.array_equal(got[b][outs], want), b
         assert np.array_equal(got[b][:100], values[b][:100])
 
@@ -733,39 +827,46 @@ KINDS_K3 = {"const": (0, 3, 0), "arith": (3, 1, 0), "arith_ext": (6, 2, 0),
             "random_access": (5, 3, 2)}
 
 
-def test_k3_poseidon_trace_matches_host(k3_lib):
-    """The gate trace column by column (deltas, full rounds 1-3, the
-    partial rounds' lane 0, the last four full rounds) and the outputs,
-    with edge inputs and both swap values, against the JAX package's host
-    trace (iop/witness.py::_poseidon_trace)."""
+@pytest.mark.parametrize("team", K3_TEAMS)
+def test_k3_poseidon_trace_matches_host(k3_lib, team):
+    """The walk over one Poseidon level, a team of ``team`` threads a
+    gate: each gate's trace column by column (deltas, full rounds 1-3,
+    the partial rounds' lane 0, the last four full rounds) at its row of
+    the wire matrix, and its outputs, with edge inputs and both swap
+    values, against the JAX package's host trace
+    (iop/witness.py::_poseidon_trace).  300 gates in blocks of 256 threads:
+    every team runs more than one pass, the last one part idle."""
     from zk_circuits_tpu.iop.witness import _poseidon_trace
 
-    rng = np.random.default_rng(41)
-    inputs = _canonical_edges(rng, 12 * 24 - 10).reshape(24, 12)
+    rng = np.random.default_rng(41 + team)
+    m = 300
+    inputs = _canonical_edges(rng, 12 * m - 10).reshape(m, 12)
     inputs[-1] = 0
     inputs[-2] = P - 1
-    for swap in (0, 1):
-        x = np.concatenate([inputs, np.full((24, 1), swap, U64)], axis=1)
-        y = np.empty((24, 12), U64)
-        trace = np.empty((24, 110), U64)
-        k3_lib.shim_k3_trace(_ptr(x), _ptr(y), _ptr(trace), ctypes.c_long(24))
-        outputs, *blocks = _poseidon_trace(inputs, np.full(24, swap, U64))
-        assert np.array_equal(y, outputs), swap
-        assert np.array_equal(trace, np.concatenate(blocks, axis=1)), swap
+    swap = (np.arange(m) % 2).astype(U64)
+    values = np.concatenate([inputs, swap[:, None]], axis=1).reshape(1, -1)
+    values = np.concatenate([values, np.zeros((1, 12 * m), U64)], axis=1)
+    ins = np.arange(13 * m).reshape(m, 13)
+    outs = 13 * m + np.arange(12 * m).reshape(m, 12)
+    rows = rng.permutation(m)            # gate i's row of the wire matrix
+    n, num_wires = m, 25 + 110
+    blob, off = _level_blob("poseidon", ins, outs, rows=rows)
+    wires = np.zeros((1, num_wires * n), U64)
+    got = _walk(k3_lib, blob, off, 1, values, wires, n, team)
+    outputs, *blocks = _poseidon_trace(inputs, swap)
+    assert np.array_equal(got[0, 13 * m:].reshape(m, 12), outputs)
+    trace = wires.reshape(num_wires, n)[25:, rows].T
+    assert np.array_equal(trace, np.concatenate(blocks, axis=1))
+    assert not wires.reshape(num_wires, n)[:25].any()
 
 
-@pytest.mark.parametrize("name", ["kinds", "chain"])
-def test_k3_schedule_matches_host_witness(k3_lib, name):
-    """The launches of witness_cuda.launch_schedule (its argument plan, the
-    device table's layout, the folded cell scatter) through the host
-    build of K3, for a batch of witnesses: each wire matrix and public
-    input vector equal to the host witness's and the plain version's."""
+def _k3_small(name):
+    """The kinds or chain circuit built by the port on the CPU, its table
+    and seeded value tables (a batch of distinct witnesses)."""
     import chip_smoke
-    import torch
 
     from zk_circuits_torch.iop import builder as t_builder
     from zk_circuits_torch.iop import witness as t_witness
-    from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.iop import witness_device as wdev
     from zk_circuits_torch.plonk.config import CircuitConfig
 
@@ -777,17 +878,112 @@ def test_k3_schedule_matches_host_witness(k3_lib, name):
     data = b.build(device="cpu")
     pws = [chip_smoke.seed(t_witness.PartialWitness, targets, v) for v in seeds]
     table = wdev.WitnessTable(data, "cpu")
-    seed_reps, seed_vals = wdev.seed_batch(data, pws)
-    values = table.seeded_values(seed_reps, seed_vals)
+    return data, pws, table, table.seeded_values(*wdev.seed_batch(data, pws))
+
+
+def _k3_outputs(table, values):
+    import torch
+
+    b = values.shape[0]
+    return (torch.zeros((b, table.num_wires, table.n), dtype=torch.int64),
+            torch.empty((b, table.pi_reps.numel()), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("name", ["kinds", "chain"])
+def test_k3_schedule_matches_host_witness(k3_lib, name, monkeypatch):
+    """witness_cuda.launch_schedule (one walk over the device table's
+    level records, the folded cell scatter) through the host build of
+    K3, for a batch of witnesses, and with every level but the Poseidon
+    ones split out as k3_ops launches (WIDE_OPS patched to 0; the small
+    circuits' levels are a few ops each): each wire matrix and public
+    input vector equal to the host witness's and the plain version's."""
+    import torch
+
+    from zk_circuits_torch.iop import witness as t_witness
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.iop import witness_device as wdev
+
+    data, pws, table, values = _k3_small(name)
     plain_w, plain_p = wdev.witness_plain(table, values.clone())
-    wires = torch.zeros_like(plain_w)
-    pis = torch.empty_like(plain_p)
-    done = witness_cuda.launch_schedule(k3_lib, table, values, wires, pis, None)
-    assert [k for k, _ in done] == [("poseidon" if s.kind == "poseidon" else "ops")
-                                    for s in table.steps] + ["cells"]
-    assert all(err == 0 for _, err in done)
-    assert torch.equal(wires, plain_w) and torch.equal(pis, plain_p)
+    for wide_ops in (witness_cuda.WIDE_OPS, 0):
+        monkeypatch.setattr(witness_cuda, "WIDE_OPS", wide_ops)
+        table.launch_plans.clear()
+        v = values.clone()
+        wires, pis = _k3_outputs(table, v)
+        done = witness_cuda.launch_schedule(k3_lib, table, v, wires, pis, None)
+        levels = [(st.kind, st.m) for st in table.steps]
+        launches = witness_cuda.plan(levels, 0, len(levels))
+        assert done == [(k, 0) for k, _, _ in launches] + [("cells", 0)]
+        assert ("ops", 0) in done if wide_ops == 0 else len(done) == 2
+        assert torch.equal(wires, plain_w) and torch.equal(pis, plain_p), wide_ops
     for i, pw in enumerate(pws):
         host_w, host_p = t_witness.generate_witness(data, pw)
         assert np.array_equal(wires[i].numpy().view(U64), host_w.T), i
         assert np.array_equal(pis[i].numpy().view(U64), host_p), i
+
+
+def test_k3_walk_split_at_every_level_matches_whole(k3_lib):
+    """The walk over [0, i) and then [i, L) (and the cells) equals the
+    walk over [0, L) at every split i of the chain circuit's schedule; an
+    empty range launches nothing, and a range past the schedule raises."""
+    import torch
+
+    from zk_circuits_torch.iop import witness_cuda
+
+    _, _, table, values = _k3_small("chain")
+    nlevels = len(table.steps)
+    kinds = {st.kind for st in table.steps}
+    assert nlevels > 10 and {"poseidon", "arith_ext"} <= kinds
+    whole_w, whole_p = _k3_outputs(table, values)
+    whole_v = values.clone()
+    witness_cuda.launch_schedule(k3_lib, table, whole_v, whole_w, whole_p, None)
+    for i in range(nlevels + 1):
+        v = values.clone()
+        wires, pis = _k3_outputs(table, v)
+        head = witness_cuda.launch_schedule(k3_lib, table, v, wires, pis, None, 0, i,
+                                            cells=False)
+        tail = witness_cuda.launch_schedule(k3_lib, table, v, wires, pis, None, i)
+        assert [k for k, _ in head + tail] == ["walk"] * (0 < i) + ["walk"] * (i < nlevels) \
+            + ["cells"]
+        assert torch.equal(v, whole_v) and torch.equal(wires, whole_w), i
+        assert torch.equal(pis, whole_p), i
+    with pytest.raises(ValueError, match="outside the schedule"):
+        witness_cuda.launch_schedule(k3_lib, table, values.clone(), wires, pis, None, 0,
+                                     nlevels + 1)
+
+
+def test_k3_plan_splits_out_wide_levels():
+    """A level of more than WIDE_OPS (1024) ops, not a Poseidon level, is
+    an ops launch of its own, and each run of levels between them one
+    walk."""
+    from zk_circuits_torch.iop.witness_cuda import WIDE_OPS, plan
+
+    assert WIDE_OPS == 1024
+    levels = [("base_sum", 3776), ("const", 93), ("arith", 18320), ("poseidon", 2000),
+              ("arith", 80), ("eq_inv", 1025), ("arith", 1024)]
+    assert plan(levels, 0, 7) == [("ops", 0, 1), ("walk", 1, 2), ("ops", 2, 3),
+                                  ("walk", 3, 5), ("ops", 5, 6), ("walk", 6, 7)]
+    assert plan(levels, 1, 5) == [("walk", 1, 2), ("ops", 2, 3), ("walk", 3, 5)]
+    assert plan(levels, 3, 7) == [("walk", 3, 5), ("ops", 5, 6), ("walk", 6, 7)]
+    assert plan(levels, 3, 3) == []
+
+
+@pytest.mark.parametrize("name", ["kinds", "chain"])
+def test_k3_level_records_match_steps(name):
+    """Each level record of the device table holds its Step's kind, op
+    count, bit count, row widths and the blob offsets of its views."""
+    from zk_circuits_torch.iop import witness_device as wdev
+
+    _, _, table, _ = _k3_small(name)
+    assert table.levels.shape == (len(table.steps), len(wdev.LEVEL_FIELDS))
+    assert table.levels.storage_offset() == table.levels_off
+    for rec, st in zip(table.levels.tolist(), table.steps, strict=True):
+        rec = dict(zip(wdev.LEVEL_FIELDS, rec, strict=True))
+        assert (rec["kind"], rec["m"], rec["nbits"]) == (wdev.KINDS[st.kind], st.m, st.nbits)
+        assert (rec["k_in"], rec["k_out"]) == (st.ins.shape[1], st.outs.shape[1])
+        for field in ("ins", "outs", "consts", "rows"):
+            view = getattr(st, field)
+            assert rec[field] == view.storage_offset(), field
+            flat = table.blob[rec[field] : rec[field] + view.numel()]
+            assert flat.data_ptr() == view.data_ptr() or view.numel() == 0
+            assert flat.tolist() == view.reshape(-1).tolist(), field

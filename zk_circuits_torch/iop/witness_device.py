@@ -10,7 +10,10 @@ matrix is made on the device in the layout the wires stage reads, (B, W,
 n) for B proofs.
 
 On the card the schedule runs through the hand-written kernel K3
-(csrc/witness.cu via iop/witness_cuda.py), one launch a schedule batch.
+(csrc/witness.cu via iop/witness_cuda.py): one block a proof walks the
+levels from the level records the table keeps beside its arrays, each
+level of thousands of ops runs as a launch over the whole card between
+the walk's runs, and one launch scatters the cells.
 On the CPU it runs through ``witness_plain``, the eager torch counterpart
 of the JAX package's ``_witness_body`` and ``_poseidon_trace_dev``, which
 loops over the schedule batch by batch; the card check holds K3 to it.
@@ -39,6 +42,9 @@ KINDS = {"const": 0, "arith": 1, "arith_ext": 2, "eq_inv": 3, "ext_inv": 4,
 # The host witness writes no wire outputs of these kinds at their batch
 # (only the routed cells of their outputs, at the end).
 _NO_WIRE_WRITES = {"eq_inv", "ext_inv"}
+# The fields of a level's record in the table (csrc/witness.cuh, K3Level):
+# the blob offsets of its input and output reps, constants and gate rows.
+LEVEL_FIELDS = ("kind", "m", "nbits", "k_in", "k_out", "ins", "outs", "consts", "rows")
 
 
 def supported(circuit_data) -> bool:
@@ -51,24 +57,29 @@ def seed_batch(circuit_data, pws) -> tuple[tuple, np.ndarray]:
     """Check that every PartialWitness seeds the SAME target set (the
     wormhole/voting/recursion APIs always do: fill_targets assigns a fixed
     layout) and stack the seed values: returns (seed_reps sorted, (B, S)
-    u64)."""
+    u64).  The order that sorts a target tuple by rep is kept with the
+    circuit (the last one seen), so a witness that seeds the same targets
+    in the same order costs one conversion and one gather."""
     po = circuit_data.prover_only
     seed_reps = None
     rows = []
     for pw in pws:
-        items = []
-        for t, v in pw.values.items():
-            rep = po.rep_of_target.get(t)
-            if rep is None:
-                raise KeyError(f"target {t} is not part of the circuit")
-            items.append((rep, v))
-        items.sort()
-        reps = tuple(r for r, _ in items)
+        keys = tuple(pw.values)
+        if po.seed_order is None or po.seed_order[0] != keys:
+            reps = []
+            for t in keys:
+                rep = po.rep_of_target.get(t)
+                if rep is None:
+                    raise KeyError(f"target {t} is not part of the circuit")
+                reps.append(rep)
+            order = np.argsort(np.asarray(reps, np.int64), kind="stable")
+            po.seed_order = (keys, tuple(reps[i] for i in order), order)
+        reps, order = po.seed_order[1:]
         if seed_reps is None:
             seed_reps = reps
         elif reps != seed_reps:
             raise ValueError("prove_batch witnesses seed different target sets")
-        rows.append(np.array([v for _, v in items], dtype=np.uint64))
+        rows.append(np.fromiter(pw.values.values(), np.uint64, len(keys))[order])
     return seed_reps, np.stack(rows)
 
 
@@ -90,14 +101,16 @@ class WitnessTable:
     """A circuit's schedule on one device: every index and constant array
     in one int64 tensor, uploaded once.
 
-    ``steps``: the schedule batches in order.  ``cell_pos``/``cell_rep``:
-    every cell of the wire matrix the witness sets from a rep, as col * n
-    + row, for K3's final scatter: each batch's wire outputs (every rep is
-    set once, so a batch's write equals the rep's final value) then the
-    routed cells (``wire_cell_reps``), a cell written twice kept at its
-    last write.  ``route_pos``/``route_rep``: the routed cells alone, for
-    the plain version, which writes the wire outputs at their batch as
-    the host does.  ``pi_reps``: the public inputs' reps."""
+    ``steps``: the schedule batches in order.  ``levels``: their
+    records (L, LEVEL_FIELDS), at ``levels_off`` in the blob.
+    ``cell_pos``/``cell_rep``: every cell of the wire matrix the witness
+    sets from a rep, as col * n + row, for K3's final scatter: each
+    batch's wire outputs (every rep is set once, so a batch's write equals
+    the rep's final value) then the routed cells (``wire_cell_reps``), a
+    cell written twice kept at its last write.  ``route_pos``/``route_rep``:
+    the routed cells alone, for the plain version, which writes the wire
+    outputs at their batch as the host does.  ``pi_reps``: the public
+    inputs' reps."""
 
     def __init__(self, circuit_data, device):
         common, po = circuit_data.common, circuit_data.prover_only
@@ -149,6 +162,11 @@ class WitnessTable:
         pis = np.array([po.rep_of_target[t] for t in po.public_inputs], np.int64)
         tail = [put(all_pos[keep]), put(all_rep[keep]), put(route_pos), put(route[:, 2]),
                 put(pis)]
+        # one record a level (LEVEL_FIELDS), which K3's walk reads in place
+        # of launch arguments
+        records = [(KINDS[kind], m, nbits, ins[1][1], outs[1][1], ins[0], outs[0], consts[0],
+                    rows[0]) for kind, m, nbits, ins, outs, consts, rows, _, _ in layout]
+        self.levels_off, _ = put(np.asarray(records, np.int64).reshape(-1, len(LEVEL_FIELDS)))
         self.blob = torch.from_numpy(np.concatenate(parts)).to(self.device)
 
         def view(entry):
@@ -159,7 +177,8 @@ class WitnessTable:
                       for kind, m, nbits, *entries in layout]
         (self.cell_pos, self.cell_rep, self.route_pos, self.route_rep,
          self.pi_reps) = (view(e) for e in tail)
-        self.k3_plan = None   # iop/witness_cuda.py's launch arguments, at first use
+        self.levels = view((self.levels_off, (len(layout), len(LEVEL_FIELDS))))
+        self.launch_plans: dict = {}   # iop/witness_cuda.py's launches by level range
 
     def seeded_values(self, seed_reps, seeds: np.ndarray) -> torch.Tensor:
         """The (B, R) value table on the device: zeros but the B proofs'

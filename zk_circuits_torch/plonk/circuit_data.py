@@ -113,6 +113,8 @@ class ProverOnlyCircuitData:
     subgroup: np.ndarray             # (n,) powers of w
     # the schedule on each device (iop/witness_device.py), built at first use
     witness_tables: dict = field(default_factory=dict, repr=False, compare=False)
+    # seed_batch's last (targets, reps sorted, the order that sorts them)
+    seed_order: tuple | None = field(default=None, repr=False, compare=False)
 
 
 @dataclass
