@@ -99,6 +99,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
                host time per wrapper call; each kernel's instruction,
                load and store counts from the built library's SASS
                (cuobjdump).  A share of the bound above 1.05 fails.
+12. aggregate -- the reference's default tree aggregation (b=2, d=3: 8
+               leaves) of the wormhole phase's zk proof through the
+               port's WormholeProofAggregator on the card: 3 pushes, 5
+               dummies (the proof is its own dummy), once cold (3 level
+               circuits built) and once warm (the level cache hit).  The
+               root's sha256 == the JAX host path's root (pinned below),
+               cold == warm, verified, tamper-checked, and its 8 leaves'
+               public inputs extract equal to the leaf's.  Every level
+               prove (a batch of 4, a batch of 2, one proof) launches K1 by
+               mode and K3 by kernel as many times as its level circuit
+               gives, with no host witness.  Then the host's part of a
+               level-1 prove (the chunk witnesses, seed_batch), one warm
+               level-1 prove_level under torch.profiler, and K1 (the
+               level-1 wires tree, alone and at B=4) and K3 (the level-1
+               witness at B=4, the level-3 witness alone) at the level
+               circuits' shapes, each held to its plain version and timed
+               as in k1_time and witness_check.
+13. voting  -- the vote circuit of tests/test_voting.py under
+               standard_recursion_config built and proved on the card (cold
+               and warm), sha256 == the JAX host path's (pinned below),
+               verified, tamper-checked, K1's and K3's launches as the
+               circuit gives, no host witness; a vote with the wrong
+               Merkle depth refused by the device witness on the card.
+14. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
+               written to a temporary directory; WormholeProver.new_from_files
+               proves the golden inputs on the card (sha256 == the pinned
+               zk digest) and WormholeVerifier.new_from_files verifies it;
+               then api/example.py's main (the non-zk wormhole): its hex
+               decodes to a proof with the JAX host path's sha256 (pinned
+               below), which a freshly built verifier accepts, whose public
+               inputs are the golden fixture's.
 
 The last lines are the card line, the kernels line and
 {"ok": true, "device": {...}}.  Needs no network; imports no JAX.
@@ -120,6 +151,20 @@ import time
 # use_device=False)); tests/test_torch_wormhole_golden.py re-derives it.
 GOLDEN_WORMHOLE_ZK_SHA256 = (
     "abae70517381a5cdd5f80b799826384523d496154711225438ad35f48aa4ca67")
+# The same under standard_recursion_config, the proof api/example.py
+# writes (tests/test_torch_artifacts.py re-derives it).
+GOLDEN_WORMHOLE_SHA256 = (
+    "d0ebfeac9197a170ed55a0305c57014b4c262e60eb320418f4b079194cf427b3")
+# The vote proof of vote_inputs() under standard_recursion_config from the
+# JAX package's host path (tests/test_torch_voting.py re-derives it).
+GOLDEN_VOTE_SHA256 = (
+    "433bab1c569c31cbea3b9b8264f37e89a880e682c15a1d17fde2aa69af253ac5")
+# The root proof of the JAX package's host-path aggregation of the zk
+# wormhole proof above: TreeAggregationConfig(2, 3), the proof pushed 3
+# times and its own dummy (5 pads).  scripts/golden_digests.py prints it;
+# tests/test_torch_wormhole_golden.py re-derives it (slow: minutes).
+GOLDEN_AGGREGATE_ZK_SHA256 = (
+    "dddb26e8e1c2b44875703e2ed25ce6ecf87a54b2e79b826eda45b2bf29bf0702")
 
 P = 2**64 - 2**32 + 1
 GRIND_ROWS = 1 << 17   # candidates per PoW sweep (fri.GRIND_BATCH["cuda"])
@@ -661,6 +706,29 @@ def chain_circuit(b) -> list:
     return [a, c]
 
 
+def vote_inputs():
+    """The vote of tests/test_voting.py::create_test_inputs (a depth-2
+    tree of four keys, the first one voting yes on proposal 42), made with
+    the port's modules."""
+    import numpy as np
+
+    from zk_circuits_torch.circuits.voting import (
+        VoteCircuitData, VotePrivateInputs, VotePublicInputs, compute_nullifier)
+    from zk_circuits_torch.host import poseidon as hposeidon
+    from zk_circuits_torch.utils import codecs
+
+    keys = [bytes([i] * 32) for i in (1, 2, 3, 4)]
+    leaves = [hposeidon.hash_no_pad(codecs.digest_bytes_to_felts(k)) for k in keys]
+    level1 = [hposeidon.hash_no_pad(np.concatenate([leaves[0], leaves[1]])),
+              hposeidon.hash_no_pad(np.concatenate([leaves[2], leaves[3]]))]
+    root = hposeidon.hash_no_pad(np.concatenate([level1[0], level1[1]]))
+    voter_key = codecs.digest_bytes_to_felts(keys[0])
+    proposal_id = codecs.digest_bytes_to_felts(bytes([42] * 32))
+    return VoteCircuitData(
+        VotePublicInputs(proposal_id, root, True, compute_nullifier(voter_key, proposal_id)),
+        VotePrivateInputs(voter_key, [leaves[1], level1[1]], [False, False], 2))
+
+
 def seed(witness_cls, targets, values):
     """A PartialWitness (of ``witness_cls``) setting ``targets`` to ``values``."""
     pw = witness_cls()
@@ -751,6 +819,7 @@ def phase_wormhole(state) -> None:
     cd.verify(proof)
     _refuses_tampering(cd, proof)
     state["wormhole"] = (cd, targets, inputs)
+    state["wormhole_proof"] = proof
     state["wormhole_warm_proofs_per_s"] = 1.0 / statistics.median(warm)
     state["lde_size"] = cd.common.lde_size
     state["fri_arity"] = 1 << cfg.fri_config.reduction_arity_bits
@@ -1037,6 +1106,17 @@ def k3_ranges(cd) -> list:
     return [("wide_prefix", 0, a), ("poseidon_middle", a, z), ("arith_tail", z, len(kinds))]
 
 
+def k3_chain_ms(cd, ms_per_level: dict) -> tuple[float, int, int]:
+    """The chain cost of ``cd``'s schedule: its levels at the walk's cost
+    of a one-op arith level and of a one-gate Poseidon level
+    (``ms_per_level``, from witness_check's chain circuits); with the
+    number of levels and of Poseidon levels."""
+    kinds = [b.kind for b in cd.prover_only.schedule]
+    n_pos = kinds.count("poseidon")
+    ms = (len(kinds) - n_pos) * ms_per_level["arith"] + n_pos * ms_per_level["poseidon"]
+    return ms, len(kinds), n_pos
+
+
 def arith_chain_circuit(b, depth: int) -> list:
     """``depth`` dependent arith levels of one op each (a chain of
     squarings).  Returns the target to seed."""
@@ -1234,10 +1314,8 @@ def phase_witness_check(state) -> None:
                       for v in chain_vals])
         chain_cost[kind] = {"levels": len(levels), "ms": g["ms"],
                             "ms_per_level": g["ms"] / len(levels)}
-    kinds = [b.kind for b in cd.prover_only.schedule]
-    n_pos = kinds.count("poseidon")
-    chain_ms = (len(kinds) - n_pos) * chain_cost["arith"]["ms_per_level"] + \
-        n_pos * chain_cost["poseidon"]["ms_per_level"]
+    state["k3_ms_per_level"] = {k: v["ms_per_level"] for k, v in chain_cost.items()}
+    chain_ms, levels, n_pos = k3_chain_ms(cd, state["k3_ms_per_level"])
     for r in rows.values():
         r["chain_cost_ms"] = chain_ms
         r["share_of_chain_cost"] = chain_ms / r["ms"]
@@ -1260,7 +1338,7 @@ def phase_witness_check(state) -> None:
                     f"plain_ms: CUDA events around one witness_plain call; "
                     f"host_witness_s: perf_counter around generate_witness",
           "rows": list(rows.values()), "ranges": ranges,
-          "chain_cost": {"ms": chain_ms, "levels": len(kinds), "poseidon_levels": n_pos,
+          "chain_cost": {"ms": chain_ms, "levels": levels, "poseidon_levels": n_pos,
                          **{f"{k}_chain": v for k, v in chain_cost.items()}},
           "host_witness_s": statistics.median(host_s)})
     if any(r["share_of_bound"] > 1.05 for r in rows.values()):
@@ -1598,6 +1676,39 @@ def sass_round_counts(text: str) -> dict:
     return out
 
 
+def k1_inputs(gen, n, cols, layout, count, batch=None) -> list:
+    """``count`` (n, cols) views of their own, each made on the card from
+    the generator ``gen``; (batch, n, cols) views of a batch of proofs'
+    matrices."""
+    import torch
+
+    lead = () if batch is None else (batch,)
+    shape = (*lead, cols, n) if layout == "column-major" else (*lead, n, cols)
+    xs = [torch.randint(0, P >> 1, shape, generator=gen, dtype=torch.int64,
+                        device="cuda") for _ in range(count)]
+    return [x.transpose(-1, -2) if layout == "column-major" else x for x in xs]
+
+
+def k1_row(gen, name, n, cols, layout, fn, plain, work, plain_ms=None, batch=None) -> dict:
+    """K1's timing row of ``fn`` at one shape: graph_ms over K1_TIMED_CALLS
+    inputs, one wrapper call, one call of the plain version, the bound of
+    ``work`` (permutations, bytes) and the share of it."""
+    from zk_circuits_torch.hash import poseidon_cuda as pc
+
+    xs = k1_inputs(gen, n, cols, layout, K1_TIMED_CALLS, batch)
+    g = graph_ms([lambda x=x: fn(x) for x in xs])
+    call_ms = cuda_ms(lambda: fn(xs[0]), reps=10)
+    if plain_ms is None:
+        plain_ms = cuda_ms(lambda: plain(xs[0]), reps=1, warmup=0)
+    bound, by = k1_bound_ms(*work)
+    team, rows = pc.config((batch or 1) * n)
+    return {"shape": name, "n": n, "cols": cols, "layout": layout, "batch": batch or 1,
+            "team_rows": [team, min(rows, n)], "ms": g["ms"], "min_ms": g["min_ms"],
+            "max_ms": g["max_ms"], "call_ms": call_ms, "plain_ms": plain_ms,
+            "perms": work[0], "bytes": work[1], "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / g["ms"]}
+
+
 def phase_k1_time(state) -> None:
     import torch
 
@@ -1608,34 +1719,11 @@ def phase_k1_time(state) -> None:
     cap = cd.common.config.fri_config.cap_height
     trees = {name: (n, cols, layout) for name, n, cols, layout in wormhole_trees(cd.common)}
 
-    def inputs(n, cols, layout, count, batch=None):
-        """``count`` (n, cols) views of their own, each made on the card;
-        (batch, n, cols) views of a batch of proofs' matrices."""
-        lead = () if batch is None else (batch,)
-        shape = (*lead, cols, n) if layout == "column-major" else (*lead, n, cols)
-        xs = [torch.randint(0, P >> 1, shape, generator=gen, dtype=torch.int64,
-                            device="cuda") for _ in range(count)]
-        return [x.transpose(-1, -2) if layout == "column-major" else x for x in xs]
-
-    def row(name, n, cols, layout, fn, plain, work, plain_ms=None, batch=None):
-        xs = inputs(n, cols, layout, K1_TIMED_CALLS, batch)
-        g = graph_ms([lambda x=x: fn(x) for x in xs])
-        call_ms = cuda_ms(lambda: fn(xs[0]), reps=10)
-        if plain_ms is None:
-            plain_ms = cuda_ms(lambda: plain(xs[0]), reps=1, warmup=0)
-        bound, by = k1_bound_ms(*work)
-        team, rows = pc.config((batch or 1) * n)
-        return {"shape": name, "n": n, "cols": cols, "layout": layout, "batch": batch or 1,
-                "team_rows": [team, min(rows, n)], "ms": g["ms"], "min_ms": g["min_ms"],
-                "max_ms": g["max_ms"], "call_ms": call_ms, "plain_ms": plain_ms,
-                "perms": work[0], "bytes": work[1], "bound_ms": bound, "bound_by": by,
-                "share_of_bound": bound / g["ms"]}
-
     shapes = [(name, *trees[name]) for name in ("wires", "zs", "quotient", "fri_tree_0",
                                                 "fri_tree_1")]
     shapes += [("grind", GRIND_ROWS, 5, "row-major"),
                ("compress_2^15", 1 << 15, 8, "row-major")]
-    rows_out = [row(name, n, cols, layout, pc.hash_rows, pc.hash_rows_plain,
+    rows_out = [k1_row(gen, name, n, cols, layout, pc.hash_rows, pc.hash_rows_plain,
                     k1_work(n, cols)) for name, n, cols, layout in shapes]
 
     # the whole wires tree: hash_tree (2 launches) against the level loop of
@@ -1648,15 +1736,15 @@ def phase_k1_time(state) -> None:
             levels.append(pc.hash_rows(levels[-1].reshape(-1, 8)))
         return levels
 
-    rows_out.append(row("wires_tree", n, cols, layout, lambda x: pc.hash_tree(x, cap),
+    rows_out.append(k1_row(gen, "wires_tree", n, cols, layout, lambda x: pc.hash_tree(x, cap),
                         lambda x: pc.hash_tree_plain(x, cap), k1_work(n, cols, cap)))
-    rows_out.append(row("wires_tree_level_loop", n, cols, layout, level_loop, None,
+    rows_out.append(k1_row(gen, "wires_tree_level_loop", n, cols, layout, level_loop, None,
                         k1_work(n, cols, cap), plain_ms=rows_out[-1]["plain_ms"]))
     # the trees of a batch of BATCH proofs, one launch (and a top launch)
     # for all of them; the bound is BATCH times one tree's
     for name in ("wires", "fri_tree_0", "fri_tree_1"):
         n, cols, layout = trees[name]
-        rows_out.append(row(f"{name}_tree_batch", n, cols, layout,
+        rows_out.append(k1_row(gen, f"{name}_tree_batch", n, cols, layout,
                             lambda x: pc.hash_tree(x, cap), lambda x: pc.hash_tree_plain(x, cap),
                             tuple(BATCH * v for v in k1_work(n, cols, cap)), batch=BATCH))
     over = [r for r in rows_out if r["share_of_bound"] > 1.05]
@@ -1673,7 +1761,7 @@ def phase_k1_time(state) -> None:
                       ("shard_fri_tree_0", fri_n // SHARDS, fri_cols, "row-major")]
     candidates = {}
     for name, n, cols, layout in shapes + sharded_shapes:
-        xs = inputs(n, cols, layout, 4)
+        xs = k1_inputs(gen, n, cols, layout, 4)
         got = {}
         for team in pc.TEAMS:
             for rows in (32, 64, 128, 256):
@@ -1834,12 +1922,383 @@ def phase_k2_time(state) -> None:
                        r["ms"] for r in rows_out}})
 
 
+AGG_CONFIG = (2, 3)     # the aggregate phase's tree: the reference's default, 8 leaves
+AGG_PUSHES = 3          # proofs pushed; aggregate() pads the rest with the dummy
+
+
+@contextlib.contextmanager
+def level_prove_records():
+    """Inside the block, LevelCircuit.prove_level and prove_chunk append
+    to the yielded list one entry a level prove: the level circuit, its
+    inputs, its proofs' count, host seconds (synced), K1's launches by
+    mode and K3's by kernel in the call, the host witnesses made and the
+    PoW sweeps its proofs' witnesses need."""
+    from zk_circuits_torch.aggregation import tree as treem
+    from zk_circuits_torch.hash import poseidon_cuda
+    from zk_circuits_torch.iop import witness_cuda
+
+    records: list = []
+
+    def counted(real):
+        def run(self, proofs, inner_vo, *args, **kw):
+            k1 = dict(poseidon_cuda.launches_by_mode)
+            k3 = dict(witness_cuda.launches_by_kernel)
+            with host_witness_calls() as host_witnesses:
+                out, secs = _synced(lambda: real(self, proofs, inner_vo, *args, **kw))
+            outs = out if isinstance(out, list) else [out]
+            records.append({
+                "level": self, "inputs": (list(proofs), inner_vo), "batch": len(outs),
+                "s": secs, "host_witnesses": len(host_witnesses),
+                "k1": {k: v - k1[k] for k, v in poseidon_cuda.launches_by_mode.items()},
+                "k3": {k: v - k3[k] for k, v in witness_cuda.launches_by_kernel.items()},
+                "sweeps": max(p.proof.opening_proof.pow_witness for p in outs) // GRIND_ROWS + 1})
+            return out
+        return run
+
+    real = treem.LevelCircuit.prove_level, treem.LevelCircuit.prove_chunk
+    treem.LevelCircuit.prove_level = counted(real[0])
+    treem.LevelCircuit.prove_chunk = counted(real[1])
+    try:
+        yield records
+    finally:
+        treem.LevelCircuit.prove_level, treem.LevelCircuit.prove_chunk = real
+
+
+def k3_level_row(state, name: str, data, pws: list) -> dict:
+    """K3's timing row at a level circuit's witness of ``pws``: graph_ms,
+    its launches, the plain version's ms (and its result equal to K3's),
+    the bound, the levels, the Poseidon levels and the chain cost."""
+    import torch
+
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.iop import witness_device as wdev
+
+    table = wdev.device_table(data, "cuda")
+    seed_reps, seeds = wdev.seed_batch(data, pws)
+    wires, pis = witness_cuda.run_schedule(table, table.seeded_values(seed_reps, seeds))
+    values = table.seeded_values(seed_reps, seeds)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    plain_w, plain_p = wdev.witness_plain(table, values)
+    b.record()
+    b.synchronize()
+    if not (torch.equal(wires, plain_w) and torch.equal(pis, plain_p)):
+        raise AssertionError(f"{name}: K3 differs from the plain version "
+                             f"({int((wires != plain_w).sum())} cells)")
+    tables = [table.seeded_values(seed_reps, seeds) for _ in range(K3_TIMED_CALLS)]
+    g = graph_ms([lambda v=v: witness_cuda.run_schedule(table, v) for v in tables])
+    products, nbytes = k3_work(table, len(pws))
+    bound, by = k3_bound_ms(products, nbytes)
+    chain_ms, levels, n_pos = k3_chain_ms(data, state["k3_ms_per_level"])
+    launches = expected_k3_launches(data)
+    return {"shape": name, "batch": len(pws), "n": table.n, "num_reps": table.num_reps,
+            "ms": g["ms"], "min_ms": g["min_ms"], "max_ms": g["max_ms"],
+            "plain_ms": a.elapsed_time(b), "products": products, "bytes": nbytes,
+            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / g["ms"],
+            "launches": sum(launches.values()), "launches_by_kernel": launches,
+            "levels": levels, "poseidon_levels": n_pos, "chain_cost_ms": chain_ms,
+            "share_of_chain_cost": chain_ms / g["ms"]}
+
+
+def phase_aggregate(state) -> None:
+    """The reference's default aggregation of the zk wormhole proof on the
+    card (see the module doc)."""
+    import numpy as np
+    import torch
+
+    from zk_circuits_torch.aggregation import tree as treem
+    from zk_circuits_torch.aggregation.aggregator import WormholeProofAggregator
+    from zk_circuits_torch.circuits.wormhole.inputs import PublicCircuitInputs
+    from zk_circuits_torch.hash import poseidon_cuda as pc
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.iop import witness_device as wdev
+    from zk_circuits_torch.utils import profiling
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    cd = state["wormhole"][0]
+    leaf = state["wormhole_proof"]
+    public = PublicCircuitInputs.try_from_slice(np.asarray(leaf.public_inputs))
+    leaves = AGG_CONFIG[0] ** AGG_CONFIG[1]
+
+    def aggregate():
+        agg = WormholeProofAggregator(cd.common, cd.verifier_only,
+                                      treem.TreeAggregationConfig(*AGG_CONFIG),
+                                      dummy_loader=lambda: leaf, device="cuda")
+        for _ in range(AGG_PUSHES):
+            agg.push(leaf)
+        root, secs = _synced(agg.aggregate)
+        return agg, root, secs
+
+    with level_prove_records() as records:
+        profiling.reset_timings()
+        pc.reset_launches()                 # the aggregate path starts here
+        witness_cuda.reset_launches()
+        agg, root, cold_s = aggregate()
+        _, warm_root, warm_s = aggregate()
+        k1_launches = pc.launches           # the aggregate path ends here
+        k1_by_mode = dict(pc.launches_by_mode)
+        k3_launches = witness_cuda.launches
+    level_prove_s = profiling.get_timings()["agg/level_prove"]
+
+    data = proof_to_bytes(root)
+    if proof_to_bytes(warm_root) != data:
+        raise AssertionError("aggregate: the warm root differs from the cold root")
+    digest = hashlib.sha256(data).hexdigest()
+    if digest != GOLDEN_AGGREGATE_ZK_SHA256:
+        raise AssertionError(f"aggregate root sha256 {digest} != pinned "
+                             f"{GOLDEN_AGGREGATE_ZK_SHA256}")
+    root_cd = agg.root_circuit_data
+    root_cd.verify(root)
+    _refuses_tampering(root_cd, root)
+    extracted = agg.extract_leaf_public_inputs()
+    if len(extracted) != leaves or any(x != public for x in extracted):
+        raise AssertionError(f"aggregate: {len(extracted)} leaves extracted, not {leaves} "
+                             f"equal to the leaf's public inputs")
+
+    # every level prove: K1 by mode, K3 by kernel, no host witness
+    depth = AGG_CONFIG[1]
+    if [r["batch"] for r in records] != [leaves // AGG_CONFIG[0] ** (i + 1)
+                                         for i in range(depth)] * 2:
+        raise AssertionError(f"aggregate: level proves of {[r['batch'] for r in records]}")
+    proves = []
+    for i, r in enumerate(records):
+        lc = r["level"]
+        want = expected_k1_launches(lc.circuit_data.common, r["batch"])
+        k3_want = expected_k3_launches(lc.circuit_data)
+        k1 = r["k1"]
+        if (k1["tree"], k1["top"], k1["sponge"]) != (want["tree"], want["top"], r["sweeps"]) \
+                or r["k3"] != k3_want or r["host_witnesses"]:
+            raise AssertionError(f"aggregate level {i % depth + 1}: K1 {k1} (want {want}, "
+                                 f"{r['sweeps']} sweeps), K3 {r['k3']} (want {k3_want}), "
+                                 f"{r['host_witnesses']} host witnesses")
+        proves.append({"run": "cold" if i < depth else "warm", "level": i % depth + 1,
+                       "batch": r["batch"], "s": r["s"], "agg_level_prove_s": level_prove_s[i],
+                       "k1_launches_by_mode": k1, "k1_expected": want, "sweeps": r["sweeps"],
+                       "k3_launches_by_kernel": r["k3"], "k3_expected": k3_want,
+                       "host_witnesses": 0})
+    levels = [r["level"] for r in records[:depth]]
+    circuits = []
+    for i, lc in enumerate(levels):
+        common, po = lc.circuit_data.common, lc.circuit_data.prover_only
+        kinds = [b.kind for b in po.schedule]
+        circuits.append({"level": i + 1, "inner_degree_bits": lc.inner_common.degree_bits,
+                         "gate_rows": lc.num_gate_rows, "degree_bits": common.degree_bits,
+                         "lde_size": common.lde_size, "build_s": lc.build_seconds,
+                         "schedule_levels": len(kinds),
+                         "poseidon_levels": kinds.count("poseidon"), "num_reps": po.num_reps,
+                         "public_inputs": common.num_public_inputs})
+
+    # the host's part of a level-1 prove: the chunk witnesses (the inner
+    # proofs set into targets) and seed_batch, cold (the seed order not
+    # kept yet) and warm
+    lc1 = levels[0]
+    proofs, inner_vo = records[0]["inputs"]
+    pws, chunk_witness_s = _synced(lambda: [lc1._chunk_witness(proofs[i : i + AGG_CONFIG[0]],
+                                                               inner_vo)
+                                            for i in range(0, len(proofs), AGG_CONFIG[0])])
+    lc1.circuit_data.prover_only.seed_order = None
+    _, seed_cold_s = _synced(lambda: wdev.seed_batch(lc1.circuit_data, pws))
+    seed_warm_s = []
+    for _ in range(3):
+        seed_warm_s.append(_synced(lambda: wdev.seed_batch(lc1.circuit_data, pws))[1])
+    # the device witness's conflict check over the level-1 batch's filled
+    # value table, and its share of one K3 run there
+    table1 = wdev.device_table(lc1.circuit_data, "cuda")
+    seed_reps, seeds = wdev.seed_batch(lc1.circuit_data, pws)
+    watch = table1.check_seeds(seed_reps, seeds)
+    filled = table1.seeded_values(seed_reps, seeds)
+    seeded = filled[:, watch]
+    k3_call(table1, filled)
+    counts = wdev.count_conflicts(table1, filled, watch, seeded)
+    if counts is None or counts.any():
+        raise AssertionError(f"aggregate: level-1 conflict counts {counts}")
+    conflict_check = {"shadow_slots": table1.shadow.numel(), "seeded_written": watch.numel(),
+                      "ms": cuda_ms(lambda: wdev.count_conflicts(table1, filled, watch, seeded),
+                                    10),
+                      "k3_ms": cuda_ms(lambda: k3_call(table1, table1.seeded_values(
+                          seed_reps, seeds)), 10)}
+    del filled, seeded
+    # one warm level-1 prove_level under the profiler
+    _, prof = profiled(lambda: lc1.prove_level(proofs, inner_vo))
+
+    # K1 and K3 at the level circuits' shapes, each against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    c1 = lc1.circuit_data.common
+    cap = c1.config.fri_config.cap_height
+    n, cols, layout = next(t[1:] for t in wormhole_trees(c1) if t[0] == "wires")
+    k1_rows = []
+    for batch in (None, BATCH):
+        x = k1_inputs(gen, n, cols, layout, 1, batch)[0]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = pc.hash_tree_plain(x, cap)
+        b.record()
+        b.synchronize()
+        got = pc.hash_tree(x, cap)
+        if len(got) != len(want) or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"level-1 wires tree (batch {batch}): K1 != hash_tree_plain")
+        del x, got, want
+        work = k1_work(n, cols, cap)
+        k1_rows.append(k1_row(gen, "level1_wires_tree" + ("_batch" if batch else ""), n, cols,
+                              layout, lambda x: pc.hash_tree(x, cap), None,
+                              tuple((batch or 1) * v for v in work),
+                              plain_ms=a.elapsed_time(b), batch=batch))
+        k1_rows[-1]["launches"] = expected_k1_launches(c1, batch or 1)
+    last = records[depth - 1]
+    k3_rows = [k3_level_row(state, f"level1_witness_b{BATCH}", lc1.circuit_data, pws),
+               k3_level_row(state, "level3_witness_b1", levels[-1].circuit_data,
+                            [levels[-1]._chunk_witness(*last["inputs"])])]
+    for row in k1_rows + k3_rows:
+        if row["share_of_bound"] > 1.05:
+            raise AssertionError(f"timed below its bound: {row}")
+    for k in state.get("kernels", []):
+        if k["name"] in ("poseidon_leaf_hash", "witness_schedule"):
+            k["launches_by_path"]["aggregate"] = (k1_launches if k["name"] ==
+                                                  "poseidon_leaf_hash" else k3_launches)
+    state["aggregate_launches"] = {"k1": k1_launches, "k3": k3_launches}
+    emit({"phase": "aggregate", "config": "standard_recursion_zk_config",
+          "tree": {"branching_factor": AGG_CONFIG[0], "depth": depth, "leaves": leaves,
+                   "pushed": AGG_PUSHES},
+          "sha256": digest, "golden": True, "verified": True, "tamper_rejected": True,
+          "leaves_extracted": len(extracted), "root_proof_bytes": len(data),
+          "level_circuits": circuits, "cold_aggregate_s": cold_s, "warm_aggregate_s": warm_s,
+          "level_proves": proves, "k1_launches": k1_launches, "k1_launches_by_mode": k1_by_mode,
+          "k3_launches": k3_launches, "host_witnesses": 0,
+          "level1_host": {"chunk_witnesses_s": chunk_witness_s, "seed_batch_cold_s": seed_cold_s,
+                          "seed_batch_warm_s": statistics.median(seed_warm_s)},
+          "level1_conflict_check": conflict_check,
+          "profile_warm_level1_prove": prof,
+          "timing": "ms: graph_ms as in k1_time and witness_check; plain_ms: CUDA events "
+                    "around one call of the plain version, on the inputs K1's and K3's "
+                    "results are held to; level1_conflict_check: CUDA events, median of "
+                    "10 (k3_ms with the seeded table made in the timed span); seconds: "
+                    "perf_counter, ending in a synchronise",
+          "k1_level_rows": k1_rows, "k3_level_rows": k3_rows})
+    del agg, records, pws, proofs
+    torch.cuda.empty_cache()
+
+
+def phase_voting(state) -> None:
+    """The vote circuit of tests/test_voting.py on the card (see the module doc)."""
+    from zk_circuits_torch.circuits.voting import VoteCircuitData, VoteTargets
+    from zk_circuits_torch.hash import poseidon_cuda
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.iop.builder import CircuitBuilder
+    from zk_circuits_torch.iop.witness import PartialWitness, WitnessConflict
+    from zk_circuits_torch.plonk.config import CircuitConfig
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
+    targets = VoteTargets.new(builder)
+    VoteCircuitData.circuit(targets, builder)
+    data, build_s = _synced(lambda: builder.build(device="cuda"))
+    pw = PartialWitness()
+    vote_inputs().fill_targets(pw, targets)
+    runs = []
+    for _ in range(2):                      # cold, warm
+        k1 = dict(poseidon_cuda.launches_by_mode)
+        k3 = dict(witness_cuda.launches_by_kernel)
+        with host_witness_calls() as host_witnesses:
+            proof, secs = _synced(lambda: data.prove(pw, device="cuda"))
+        runs.append({"s": secs, "sha256": hashlib.sha256(proof_to_bytes(proof)).hexdigest(),
+                     "k1": {k: v - k1[k] for k, v in poseidon_cuda.launches_by_mode.items()},
+                     "k3": {k: v - k3[k] for k, v in witness_cuda.launches_by_kernel.items()},
+                     "host_witnesses": len(host_witnesses),
+                     "sweeps": proof.proof.opening_proof.pow_witness // GRIND_ROWS + 1})
+    want, k3_want = expected_k1_launches(data.common), expected_k3_launches(data)
+    for r in runs:
+        if r["sha256"] != GOLDEN_VOTE_SHA256:
+            raise AssertionError(f"vote proof sha256 {r['sha256']} != pinned {GOLDEN_VOTE_SHA256}")
+        k1 = r["k1"]
+        if (k1["tree"], k1["top"], k1["sponge"]) != (want["tree"], want["top"], r["sweeps"]) \
+                or r["k3"] != k3_want or r["host_witnesses"]:
+            raise AssertionError(f"vote: K1 {k1} (want {want}), K3 {r['k3']} (want {k3_want}), "
+                                 f"{r['host_witnesses']} host witnesses")
+    data.verify(proof)
+    _refuses_tampering(data, proof)
+    invalid = vote_inputs()
+    invalid.private_inputs.actual_merkle_depth = 1      # tests/test_voting.py's invalid proof
+    invalid_pw = PartialWitness()
+    invalid.fill_targets(invalid_pw, targets)
+    with host_witness_calls() as host_witnesses:
+        try:
+            data.prove(invalid_pw, device="cuda")
+        except WitnessConflict:
+            pass
+        else:
+            raise AssertionError("vote: an invalid vote was proved on the card")
+    if host_witnesses:
+        raise AssertionError(f"vote: {len(host_witnesses)} host witnesses for the invalid vote")
+    emit({"phase": "voting", "config": "standard_recursion_config",
+          "degree_bits": data.common.degree_bits, "sha256": GOLDEN_VOTE_SHA256, "golden": True,
+          "verified": True, "tamper_rejected": True, "invalid_vote_refused": True,
+          "public_inputs": len(proof.public_inputs),
+          "build_s": build_s, "cold_s": runs[0]["s"], "warm_s": runs[1]["s"],
+          "k1_launches_by_mode": runs[1]["k1"], "k3_launches_by_kernel": runs[1]["k3"],
+          "host_witnesses": 0})
+
+
+def phase_api(state) -> None:
+    """The artifact files and the example on the card (see the module doc)."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from zk_circuits_torch.api import artifacts, example
+    from zk_circuits_torch.api.prover import WormholeProver
+    from zk_circuits_torch.api.verifier import WormholeVerifier
+    from zk_circuits_torch.circuits.wormhole.inputs import PublicCircuitInputs
+    from zk_circuits_torch.plonk.config import CircuitConfig
+    from zk_circuits_torch.utils.serialization import proof_from_bytes, proof_to_bytes
+
+    cd, targets, inputs = state["wormhole"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _, write_s = _synced(lambda: artifacts.write_circuit_binaries(tmp, cd, targets))
+        sizes = {p.name: p.stat().st_size for p in tmp.iterdir()}
+        prover, load_s = _synced(lambda: WormholeProver.new_from_files(
+            tmp / "prover.bin", tmp / "common.bin", device="cuda"))
+        proof, prove_s = _synced(lambda: prover.commit(inputs).prove(device="cuda"))
+        digest = hashlib.sha256(proof_to_bytes(proof)).hexdigest()
+        if digest != GOLDEN_WORMHOLE_ZK_SHA256:
+            raise AssertionError(f"api: proof from the loaded prover.bin sha256 {digest} != "
+                                 f"pinned {GOLDEN_WORMHOLE_ZK_SHA256}")
+        WormholeVerifier.new_from_files(tmp / "verifier.bin", tmp / "common.bin").verify(proof)
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _, example_s = _synced(lambda: example.main(str(tmp / "proof.hex")))
+        blob = bytes.fromhex((tmp / "proof.hex").read_text())
+    example_proof = proof_from_bytes(blob)
+    example_digest = hashlib.sha256(blob).hexdigest()
+    if example_digest != GOLDEN_WORMHOLE_SHA256:
+        raise AssertionError(f"api: example proof sha256 {example_digest} != pinned "
+                             f"{GOLDEN_WORMHOLE_SHA256}")
+    verifier, verifier_build_s = _synced(lambda: WormholeVerifier(
+        CircuitConfig.standard_recursion_config(), device="cuda"))
+    verifier.verify(example_proof)
+    got = PublicCircuitInputs.try_from_slice(np.asarray(example_proof.public_inputs))
+    if got != inputs.public:
+        raise AssertionError(f"api: example public inputs {got} != {inputs.public}")
+    emit({"phase": "api", "artifact_bytes": sizes, "write_s": write_s, "load_s": load_s,
+          "prove_s": prove_s, "sha256": digest, "golden": True, "verified_from_files": True,
+          "example_s": example_s, "example_sha256": example_digest, "example_golden": True,
+          "example_verified": True, "example_public_inputs_equal": True,
+          "verifier_build_s": verifier_build_s,
+          "example_stdout": out.getvalue().splitlines()})
+
+
 PHASES = {"card": phase_card, "square": phase_square,
           "wormhole": phase_wormhole, "batch": phase_batch,
           "witness_check": phase_witness_check, "k1_check": phase_k1_check,
           "profile": phase_profile, "k2_check": phase_k2_check,
           "sharded": phase_sharded, "k1_time": phase_k1_time,
-          "k2_time": phase_k2_time}
+          "k2_time": phase_k2_time, "aggregate": phase_aggregate,
+          "voting": phase_voting, "api": phase_api}
 
 
 def main() -> int:

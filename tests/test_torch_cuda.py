@@ -381,3 +381,69 @@ def test_k3_witness_matches_plain_and_host(cuda):
                 host_w, host_p = generate_witness(data, pw)
                 assert np.array_equal(gf.to_u64(wires[i]), host_w.T)
                 assert np.array_equal(gf.to_u64(pis[i]), host_p)
+
+
+@pytest.fixture(scope="module")
+def level_circuit():
+    """The level circuit over two proofs of the zk square circuit (a cheap
+    FRI config: 2 query rounds, 1 PoW bit), built on the card, and the
+    witnesses of two chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from zk_circuits_torch.aggregation.tree import LevelCircuit
+    from zk_circuits_torch.iop.builder import CircuitBuilder
+    from zk_circuits_torch.iop.witness import PartialWitness
+    from zk_circuits_torch.plonk.config import CircuitConfig, FriConfig
+
+    b = CircuitBuilder(CircuitConfig(zero_knowledge=True, fri_config=FriConfig(
+        num_query_rounds=2, proof_of_work_bits=1)))
+    x = b.add_virtual_target()
+    b.register_public_input(b.square(x))
+    inner = b.build(device="cuda")
+
+    def proof(v):
+        pw = PartialWitness()
+        pw.set_target(x, v)
+        return inner.prove(pw, device="cuda")
+
+    proofs = [proof(v) for v in (3, 5, 7, 11)]
+    level = LevelCircuit(inner.common, 2, device="cuda")
+    pws = [level._chunk_witness(proofs[i : i + 2], inner.verifier_only) for i in (0, 2)]
+    return level, pws
+
+
+def test_k3_level_witness_matches_plain_and_host(cuda, level_circuit):
+    """One level-1 witness at B=2 by K3 (the recursion schedule: thousands
+    of arith_ext, random_access and Poseidon levels) against the plain
+    version on the card and the host witness."""
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.iop import witness_device as wdev
+    from zk_circuits_torch.iop.witness import generate_witness
+
+    level, pws = level_circuit
+    data = level.circuit_data
+    before = witness_cuda.launches
+    wires, pis = wdev.generate_witnesses_device(data, pws, cuda)
+    assert witness_cuda.launches > before
+    table = wdev.device_table(data, cuda)
+    plain_w, plain_p = wdev.witness_plain(table, table.seeded_values(*wdev.seed_batch(data, pws)))
+    assert torch.equal(wires, plain_w) and torch.equal(pis, plain_p)
+    for i, pw in enumerate(pws):
+        host_w, host_p = generate_witness(data, pw)
+        assert np.array_equal(gf.to_u64(wires[i]), host_w.T)
+        assert np.array_equal(gf.to_u64(pis[i]), host_p)
+
+
+def test_k1_level_wires_tree_matches_plain(cuda, level_circuit):
+    """K1's tree at the level circuit's wires shape (its LDE rows x 139
+    columns, column-major, as the wires commit hands it over) against the
+    plain level loop."""
+    level, _ = level_circuit
+    common = level.circuit_data.common
+    cap = common.config.fri_config.cap_height
+    x = torch.randint(0, P >> 1, (common.config.num_wires + 4, common.lde_size),
+                      dtype=torch.int64, device=cuda).t()
+    got = poseidon_cuda.hash_tree(x, cap)
+    want = poseidon_cuda.hash_tree_plain(x, cap)
+    assert len(got) == len(want)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

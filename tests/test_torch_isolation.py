@@ -53,3 +53,56 @@ def test_chip_smoke_refuses_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def _square_bins(out_dir):
+    """common.bin, verifier.bin and prover.bin of a one-gate circuit built
+    on the CPU."""
+    from zk_circuits_torch.api import artifacts
+    from zk_circuits_torch.iop.builder import CircuitBuilder
+    from zk_circuits_torch.plonk.config import CircuitConfig
+
+    b = CircuitBuilder(CircuitConfig.standard_recursion_config())
+    b.register_public_input(b.square(b.add_virtual_target()))
+    data = b.build(device="cpu")
+    artifacts.write_circuit_binaries(out_dir, data, targets=None)
+    (out_dir / "prover.bin").write_bytes(artifacts.prover_data_to_bytes(data, None))
+    return data
+
+
+def test_recursion_and_api_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """Aggregation, the level circuits, the artifact loaders, the example
+    and the vote circuit's builder take ``device="cuda"`` by default and
+    raise at once without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-CUDA error path is moot")
+    from zk_circuits_torch.aggregation import aggregator, tree
+    from zk_circuits_torch.api import example
+    from zk_circuits_torch.api.prover import WormholeProver
+    from zk_circuits_torch.api.verifier import WormholeVerifier
+    from zk_circuits_torch.circuits.voting import VoteCircuitData, VoteTargets
+    from zk_circuits_torch.iop.builder import CircuitBuilder
+    from zk_circuits_torch.plonk.config import CircuitConfig
+
+    data = _square_bins(tmp_path)
+    monkeypatch.setattr(aggregator, "_DUMMY_CACHE_DIR", tmp_path / "dummies")
+    vote = CircuitBuilder(CircuitConfig.standard_recursion_config())
+    VoteCircuitData.circuit(VoteTargets.new(vote), vote)
+    calls = [
+        lambda: tree.LevelCircuit(data.common, 2),
+        lambda: tree.LevelCircuit.cached(data.common, 2),
+        lambda: tree.aggregate_to_tree([None, None], data.common, data.verifier_only,
+                                       tree.TreeAggregationConfig(2, 1)),
+        lambda: aggregator.WormholeProofAggregator(data.common, data.verifier_only),
+        lambda: aggregator.load_dummy_proof(zk=True),
+        lambda: WormholeProver.new_from_files(tmp_path / "prover.bin", tmp_path / "common.bin"),
+        lambda: WormholeVerifier(),
+        lambda: example.main(str(tmp_path / "proof.hex")),
+        lambda: vote.build(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "proof.hex").exists()
+    # the verifier's loader needs no device
+    WormholeVerifier.new_from_files(tmp_path / "verifier.bin", tmp_path / "common.bin")

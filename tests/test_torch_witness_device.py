@@ -121,6 +121,49 @@ def test_seed_batch_refuses_foreign_targets_and_differing_sets(circuits):
             seed_batch(data, [foreign])
 
 
+def _conflicts_circuit(b) -> list:
+    """x*x and x+x joined to each other and to the seed z, the seeds p
+    and q joined, y and p public: for x = 2, z = 4, p = q the witness is
+    valid, and each other seed set breaks one rule of the host witness.
+    Returns the targets x, z, p, q."""
+    x, z, p, q = (b.add_virtual_target() for _ in range(4))
+    y = b.mul(x, x)
+    b.connect(y, b.add(x, x))
+    b.connect(y, z)
+    b.connect(p, q)
+    b.register_public_input(y)
+    b.register_public_input(p)
+    return [x, z, p, q]
+
+
+@pytest.mark.parametrize("values, error", [
+    ((3, 9, 5, 5), "set twice"),     # two ops of one batch write 9 and 6
+    ((2, 5, 5, 5), "set twice"),     # an op writes 4 over the seed 5
+    ((2, 4, 5, 6), "set twice"),     # two seeds of one rep
+    ((2, 4), "not set"),             # p and q read, never written, not seeded
+], ids=["two_ops", "op_over_seed", "two_seeds", "unset"])
+def test_device_witness_refuses_what_the_host_refuses(values, error):
+    """The device witness raises where the host witness does, and the
+    default prove with it; a valid seed set of the same circuit passes
+    and equals the host witness (its second write goes to a shadow slot)."""
+    data, targets = _build(TORCH, _conflicts_circuit, device="cpu")
+    table = wdev.device_table(data, "cpu")
+    assert table.shadow.numel() and table.num_reps > data.prover_only.num_reps
+
+    def pw(vals):
+        return chip_smoke.seed(TORCH.W.PartialWitness, targets[:len(vals)], vals)
+
+    wires, pis = wdev.generate_witness_device(data, pw((2, 4, 5, 5)), "cpu")
+    host_wires, host_pis = TORCH.W.generate_witness(data, pw((2, 4, 5, 5)))
+    assert np.array_equal(wires.numpy().view(np.uint64), host_wires.T)
+    assert pis.tolist() == host_pis.tolist() == [4, 5]
+    for witness in (lambda w: TORCH.W.generate_witness(data, w),
+                    lambda w: wdev.generate_witness_device(data, w, "cpu"),
+                    lambda w: prove_batch(data, [w, w], device="cpu")):
+        with pytest.raises(ValueError, match=error):
+            witness(pw(values))
+
+
 FRI_ROUNDS = dict(proof_of_work_bits=2, num_query_rounds=3, reduction_arity_bits=2,
                   final_poly_bits=1)
 

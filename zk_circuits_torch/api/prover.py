@@ -1,7 +1,8 @@
 """WormholeProver — the user-facing proving API.
 
 Port of wormhole/prover/src/lib.rs: construct (fresh build
-on ``device`` or from given circuit data), ``commit(inputs)`` converts the inputs into
+on ``device``, from given circuit data, or from the artifacts that
+api/artifacts.py writes), ``commit(inputs)`` converts the inputs into
 the four fragment structs and fills their targets (commit-once semantics),
 ``prove()`` produces the proof."""
 
@@ -31,6 +32,14 @@ class WormholeProver:
         self.targets = targets
         self.partial_witness = PartialWitness()
         self._committed = False
+
+    @staticmethod
+    def new_from_files(prover_path, common_path, device="cuda") -> "WormholeProver":
+        """The prover of the circuit whose prover.bin and common.bin are at
+        these paths, its device state made on ``device``."""
+        from .artifacts import load_prover
+
+        return load_prover(prover_path, common_path, device)
 
     def commit(self, inputs: CircuitInputs) -> "WormholeProver":
         """Fill all fragment targets from the inputs (consumes the targets —

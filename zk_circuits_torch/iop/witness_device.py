@@ -21,9 +21,16 @@ The JAX module's scan segments (``_compile_segments``, ``_pack_*``) only
 keep its XLA program small; eager torch has no program to keep small, so
 they are not ported.
 
-Like the JAX device program, neither version checks for conflicting
-assignments or unset values (the host witness raises on both): the
-prover takes the host witness when ``check_witness`` is on.
+The host witness raises on conflicting assignments and unset values;
+the JAX device program checks neither.  Here the seeds are checked on the
+host (every rep an op reads and no op writes is seeded, two seeds of one
+rep agree), and the writes that the host would hold to an earlier value
+are checked on the device after the schedule: a rep's second and later
+writes go to extra slots of the value table (``shadow``), compared with
+the rep's value, and the seeded reps that an op also writes are compared
+with their seeds.  ``witnesses_and_conflicts`` leaves the count on the
+device for the prover's next fetch; ``generate_witnesses_device`` raises
+``WitnessConflict`` itself.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 
 from ..field import goldilocks as gfd
 from ..iop.gates import PoseidonGate
+from ..iop.witness import WitnessConflict
 
 # Generator kinds of the schedule and their codes in csrc/witness.cuh.
 KINDS = {"const": 0, "arith": 1, "arith_ext": 2, "eq_inv": 3, "ext_inv": 4,
@@ -110,14 +118,15 @@ class WitnessTable:
     cell written twice kept at its last write.  ``route_pos``/``route_rep``:
     the routed cells alone, for the plain version, which writes the wire
     outputs at their batch as the host does.  ``pi_reps``: the public
-    inputs' reps."""
+    inputs' reps.  ``shadow``/``shadow_rep``: the slots past the circuit's
+    reps that take a rep's second and later writes in schedule order, and
+    that rep; ``num_reps`` counts both."""
 
     def __init__(self, circuit_data, device):
         common, po = circuit_data.common, circuit_data.prover_only
         n = common.degree
         self.device = torch.device(device)
         self.n, self.num_wires = n, common.config.num_wires
-        self.num_reps = po.num_reps
         parts: list[np.ndarray] = []
         size = 0
 
@@ -129,6 +138,8 @@ class WitnessTable:
             return size - a.size, a.shape
 
         layout, cells = [], []
+        written = np.zeros(po.num_reps, bool)
+        shadow_rep, reads, slots = [], [], po.num_reps
         for batch in po.schedule:
             kind, d = batch.kind, batch.data
             if kind not in KINDS:
@@ -137,6 +148,16 @@ class WitnessTable:
             m = outs.shape[0]
             outs = outs.reshape(m, -1)
             ins = np.asarray(d.get("in_reps", np.zeros((m, 0))), np.int64).reshape(m, -1)
+            reads.append(ins.ravel())
+            flat = outs.ravel().copy()
+            again = np.ones(flat.size, bool)
+            again[np.unique(flat, return_index=True)[1]] = False
+            again |= written[flat]
+            written[flat] = True
+            shadow_rep.append(flat[again])
+            flat[again] = slots + np.arange(again.sum())
+            slots += again.sum()
+            outs = flat.reshape(m, -1)
             if kind in ("arith", "arith_ext"):
                 consts = gfd.from_u64(np.stack([d["c0"], d["c1"]])).numpy()
             elif kind == "const":
@@ -160,8 +181,16 @@ class WitnessTable:
         _, first = np.unique(all_pos[::-1], return_index=True)
         keep = np.sort(all_pos.size - 1 - first)
         pis = np.array([po.rep_of_target[t] for t in po.public_inputs], np.int64)
+        self.num_reps = int(slots)
         tail = [put(all_pos[keep]), put(all_rep[keep]), put(route_pos), put(route[:, 2]),
-                put(pis)]
+                put(pis), put(np.arange(po.num_reps, slots)),
+                put(np.concatenate(shadow_rep + [np.zeros(0, np.int64)]))]
+        # for the seeds' check: the reps some op writes, and the reps an op
+        # or a routed cell reads that no op writes
+        self.written = written
+        reads = np.concatenate(reads + [route[:, 2]])
+        self.must_seed = np.unique(reads[~written[reads]])
+        self._seeds_checked = None
         # one record a level (LEVEL_FIELDS), which K3's walk reads in place
         # of launch arguments
         records = [(KINDS[kind], m, nbits, ins[1][1], outs[1][1], ins[0], outs[0], consts[0],
@@ -175,8 +204,8 @@ class WitnessTable:
 
         self.steps = [Step(kind, m, nbits, *(view(e) for e in entries))
                       for kind, m, nbits, *entries in layout]
-        (self.cell_pos, self.cell_rep, self.route_pos, self.route_rep,
-         self.pi_reps) = (view(e) for e in tail)
+        (self.cell_pos, self.cell_rep, self.route_pos, self.route_rep, self.pi_reps,
+         self.shadow, self.shadow_rep) = (view(e) for e in tail)
         self.levels = view((self.levels_off, (len(layout), len(LEVEL_FIELDS))))
         self.launch_plans: dict = {}   # iop/witness_cuda.py's launches by level range
 
@@ -191,6 +220,26 @@ class WitnessTable:
         values = torch.zeros((b, self.num_reps), dtype=torch.int64, device=self.device)
         values[:, sent[:s]] = sent[s:].view(b, s)
         return values
+
+    def check_seeds(self, seed_reps, seeds: np.ndarray) -> torch.Tensor:
+        """Raise as the host witness would on the seeds (B, S) at the
+        sorted ``seed_reps``: a rep read and never written that no seed
+        sets, two seeds of one rep that differ.  Returns the seeded reps
+        that an op also writes, on the device, whose values the schedule
+        must leave as seeded."""
+        if self._seeds_checked is None or self._seeds_checked[0] is not seed_reps:
+            reps = np.asarray(seed_reps, np.int64)
+            missing = np.setdiff1d(self.must_seed, reps)
+            if missing.size:
+                raise ValueError(f"witness value not set for rep {int(missing[0])}")
+            twice = np.flatnonzero(np.diff(reps) == 0)
+            watch = torch.from_numpy(np.unique(reps[self.written[reps]])).to(self.device)
+            self._seeds_checked = (seed_reps, twice, watch)
+        _, twice, watch = self._seeds_checked
+        if twice.size and (seeds[:, twice] != seeds[:, twice + 1]).any():
+            raise WitnessConflict("Partition was set twice with different values "
+                                  f"(rep {int(seed_reps[twice[0]])}, two seeds)")
+        return watch
 
 
 def device_table(circuit_data, device) -> WitnessTable:
@@ -303,19 +352,60 @@ def witness_plain(table: WitnessTable, values: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def generate_witnesses_device(circuit_data, pws, device):
+def witnesses_and_conflicts(circuit_data, pws, device):
     """The witnesses of ``pws`` (one circuit, the same seeded targets) on
     ``device``: the wire matrices (B, W, n) and public inputs (B, P),
-    int64 tensors there.  CUDA runs K3, the CPU the plain version."""
+    int64 tensors there, and each proof's count of writes that the host
+    witness would refuse, (B,) int64 there, or None where the circuit and
+    the seeds write no rep twice.  CUDA runs K3, the CPU the plain
+    version."""
     device = torch.device(device)
     seed_reps, seeds = seed_batch(circuit_data, pws)
     table = device_table(circuit_data, device)
+    watch = table.check_seeds(seed_reps, seeds)
     values = table.seeded_values(seed_reps, seeds)
+    seeded = values[:, watch]
     if device.type == "cpu":
-        return witness_plain(table, values)
-    from . import witness_cuda
+        wires, pis = witness_plain(table, values)
+    else:
+        from . import witness_cuda
 
-    return witness_cuda.run_schedule(table, values)
+        wires, pis = witness_cuda.run_schedule(table, values)
+    return wires, pis, count_conflicts(table, values, watch, seeded)
+
+
+def count_conflicts(table: WitnessTable, values: torch.Tensor, watch: torch.Tensor,
+                    seeded: torch.Tensor) -> torch.Tensor | None:
+    """Each proof's count (B,) of writes the host witness would refuse in
+    the filled value table (B, R): the reps ``watch`` no longer holding
+    their seeds ``seeded`` (B, len(watch)), the shadow slots differing from
+    their rep.  None where there is nothing to compare."""
+    counts = None
+    if watch.numel():
+        counts = (values[:, watch] != seeded).sum(1)
+    if table.shadow.numel():
+        again = (values[:, table.shadow] != values[:, table.shadow_rep]).sum(1)
+        counts = again if counts is None else counts + again
+    return counts
+
+
+def raise_conflicts(counts: np.ndarray) -> None:
+    """Raise WitnessConflict, the host witness's error, for the first proof
+    whose count from ``witnesses_and_conflicts`` is not 0."""
+    bad = np.flatnonzero(counts)
+    if bad.size:
+        raise WitnessConflict("Partition was set twice with different values "
+                              f"(proof {int(bad[0])}: {int(counts[bad[0]])} writes)")
+
+
+def generate_witnesses_device(circuit_data, pws, device):
+    """The witnesses of ``pws`` on ``device``, wire matrices (B, W, n) and
+    public inputs (B, P) as ``witnesses_and_conflicts`` makes them; raises
+    WitnessConflict where the host witness would."""
+    wires, pis, conflicts = witnesses_and_conflicts(circuit_data, pws, device)
+    if conflicts is not None:
+        raise_conflicts(conflicts.cpu().numpy())
+    return wires, pis
 
 
 def generate_witness_device(circuit_data, pw, device, fetch_pis: bool = True):

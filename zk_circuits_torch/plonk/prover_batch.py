@@ -12,7 +12,9 @@ polynomials have no proof axis and are shared.
 
 The witnesses are made on the device (iop/witness_device.py: K3 on the
 card, its plain version on the CPU), the B wire matrices in one pass of
-the schedule, and only the public inputs come back, with the wires cap;
+the schedule, and only the public inputs come back, with the wires cap
+and the count of conflicting writes (a witness the host would refuse
+raises there);
 with ``check_witness`` the host witness runs instead, one proof after
 another, and every gate constraint is re-checked on it, the rule of the
 JAX package's prover.  Each proof keeps its own host Challenger;
@@ -67,6 +69,7 @@ def prove_batch_device(circuit_data, pws: list, device,
 
     # ---- stage 1: witnesses, then INTT (+ salts), LDE, Merkle ----
     with stage_timer(f"{timers}/wires"):
+        conflicts = None
         if check_witness:
             wits = [generate_witness(circuit_data, pw) for pw in pws]
             for wires, pis in wits:
@@ -74,10 +77,14 @@ def prove_batch_device(circuit_data, pws: list, device,
             values_t = gfd.from_u64(np.stack([w.T for w, _ in wits]), device)
             pis_dev = gfd.from_u64(np.stack([p for _, p in wits]), device)
         else:
-            values_t, pis_dev = wdev.generate_witnesses_device(circuit_data, pws, device)
+            values_t, pis_dev, conflicts = wdev.witnesses_and_conflicts(circuit_data, pws,
+                                                                        device)
         w_coeffs = _device_wires_coeffs_fn(values_t, cfg.zero_knowledge)   # (B, W, n) in
         w_vals, w_levels = _device_commit_fn(w_coeffs, cfg.rate_bits, cap_h)
-        w_caps, pis_np = fetch_packed([w_levels[-1], pis_dev])
+        w_caps, pis_np, *counts = fetch_packed(
+            [w_levels[-1], pis_dev] + ([] if conflicts is None else [conflicts]))
+    if counts:
+        wdev.raise_conflicts(counts[0])
     pis_l = [p.copy() for p in pis_np]
     pi_hashes = [pi_hash(p) for p in pis_l]
 
