@@ -116,13 +116,49 @@ Phases, each printing one JSON line; any failure exits non-zero:
                witness at B=4, the level-3 witness alone) at the level
                circuits' shapes, each held to its plain version and timed
                as in k1_time and witness_check.
-13. voting  -- the vote circuit of tests/test_voting.py under
+13. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
+               over make_mesh(4) (shard i on cuda:(i % cards); the four
+               shards prove in turn, on one card or on four), cold and
+               warm, beside an unsharded batch of 8 cold
+               and warm in the same run: each proof's sha256 == the pinned
+               digest, one verified and a tampered copy refused, no host
+               witness; K1's and K3's launches by card == the shards on
+               that card times a sub-batch of 2's counts (K1 by mode ==
+               4 times them); the unsharded batch is the first of 8 (the
+               batch phase left nothing to build); one more mesh batch under
+               utils/profiling.device_trace (torch.profiler, a Chrome
+               trace written under ZKT_PROFILE_DIR), each card's busy
+               time and idle share.
+14. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
+               with its cached level circuits (none built again), once
+               on one card and twice (first, warm) on several:
+               level 1's 4 chunks split one a shard, level 2 (B=2, not a
+               multiple of 4) unsharded by the JAX package's rule, level
+               3 one proof; root sha256 == the pinned root, verified,
+               leaves extracted; K1/K3 launches a level prove as its
+               split gives; seconds per level beside the aggregate
+               phase's warm unsharded ones.
+15. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
+               shards and the gloo backend (printed): with 4 cards or
+               more each process owns 2 cards, else both share cuda:0
+               (NCCL refuses two ranks on one card, and its
+               communicators hung on a four-card machine, PERF.md).
+               The four-step NTT at 2^22 points over ("dcn", "ici") equal
+               to the host NTT on every process's shards, its INTT back
+               to the input, the batch LDE over "dcn" equal to the host
+               LDE; K2's launches counted per process (3 a four-step per
+               card); beside the same four-step over make_mesh(4) in this
+               process.
+    With four cards or more, k1_time also times the wires tree on each
+    card alone and on all at once, and k2_time each K2 mode at 2^22
+    points with its shards on four cards (NVLink peers).
+16. voting  -- the vote circuit of tests/test_voting.py under
                standard_recursion_config built and proved on the card (cold
                and warm), sha256 == the JAX host path's (pinned below),
                verified, tamper-checked, K1's and K3's launches as the
                circuit gives, no host witness; a vote with the wrong
                Merkle depth refused by the device witness on the card.
-14. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
+17. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
                written to a temporary directory; WormholeProver.new_from_files
                proves the golden inputs on the card (sha256 == the pinned
                zk digest) and WormholeVerifier.new_from_files verifies it;
@@ -1709,6 +1745,42 @@ def k1_row(gen, name, n, cols, layout, fn, plain, work, plain_ms=None, batch=Non
             "share_of_bound": bound / g["ms"]}
 
 
+def k1_cards(cap: int, wires: tuple):
+    """With several cards: the wires tree on each card alone (CUDA events
+    on that card around one call, median of 10; not graph_ms, whose
+    capture stream torch.cuda.graph keeps on the card it first ran on),
+    and K1_TIMED_CALLS calls on every card at once (host clock around
+    them, ending in a synchronise of every card, per call); None on one
+    card."""
+    import torch
+
+    from zk_circuits_torch.hash import poseidon_cuda as pc
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        return None
+    n, cols, layout = wires
+    alone, inputs = {}, {}
+    for c in range(cards):
+        with torch.cuda.device(c):
+            gen = torch.Generator(device=f"cuda:{c}").manual_seed(70 + c)
+            inputs[c] = k1_inputs(gen, n, cols, layout, K1_TIMED_CALLS)
+            alone[f"cuda:{c}"] = cuda_ms(lambda x=inputs[c][0]: pc.hash_tree(x, cap), 10)
+
+    def every_card():
+        for c in range(cards):
+            with torch.cuda.device(c):
+                for x in inputs[c]:
+                    pc.hash_tree(x, cap)
+
+    every_card()
+    _sync_all()
+    together = [_synced(every_card)[1] * 1e3 / K1_TIMED_CALLS for _ in range(5)]
+    return {"shape": "wires_tree", "n": n, "cols": cols, "alone_ms": alone,
+            "every_card_at_once_ms_per_call": statistics.median(together),
+            "every_card_at_once_range": [min(together), max(together)]}
+
+
 def phase_k1_time(state) -> None:
     import torch
 
@@ -1771,7 +1843,8 @@ def phase_k1_time(state) -> None:
                     [lambda x=x: pc.hash_rows(x, team, rows) for x in xs], replays=3)["ms"]
         candidates[f"{name} {n} x {cols}"] = dict(sorted(got.items(), key=lambda kv: kv[1]))
     sass = k1_sass_counts()
-    emit({"phase": "k1_time", "muls_per_permutation": MULS_PER_PERM,
+    emit({"phase": "k1_time", "cards": k1_cards(cap, trees["wires"]),
+          "muls_per_permutation": MULS_PER_PERM,
           "int32_mul_per_s": INT32_MUL_PER_S, "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "timing": f"ms: CUDA events around the replay of a CUDA graph of "
                     f"{K1_TIMED_CALLS} calls on inputs of their own, L2 emptied "
@@ -1811,6 +1884,61 @@ def library_fields(k2: dict, lib: dict) -> dict:
     return {"library_ms": lib["ms"], "library_min_ms": lib["min_ms"],
             "library_max_ms": lib["max_ms"], "k2_over_library": k2["ms"] / lib["ms"],
             "spreads_overlap": k2["min_ms"] <= lib["max_ms"] and lib["min_ms"] <= k2["max_ms"]}
+
+
+NVLINK_BYTES_PER_S = 450e9   # one direction of an H100 SXM's NVLink (data sheet: 900 GB/s both)
+
+
+def k2_cards(rng):
+    """With SHARDS cards or more: K2's modes at the four-step's 2^22
+    points with shard i on cuda:i (make_mesh), sources on other cards
+    read over NVLink: CUDA events on cuda:0 around one call (every card's
+    launch waits on cuda:0's stream and cuda:0's stream on every launch),
+    median of 10, beside the plain version across the cards; each result
+    equal to the plain version's.  The bound: the larger of the bytes
+    over the cards' HBM and the bytes each card reads from peers over
+    its NVLink.  None with fewer cards."""
+    import numpy as np
+    import torch
+
+    from zk_circuits_torch.parallel import exchange_cuda as xc
+    from zk_circuits_torch.parallel import mesh as meshm
+
+    if torch.cuda.device_count() < SHARDS:
+        return None
+    e, n = SHARDS, 1 << NTT_LOG
+    m = n // e
+    mesh = meshm.make_mesh(e)
+    host = rng.integers(0, P, (e, m), dtype=np.uint64).view(np.int64)
+    rows = [torch.from_numpy(host[s]).to(d) for s, d in enumerate(mesh.devices)]
+    blocks = [r.reshape(e, m // e) for r in rows]
+    cases = {"copy": (lambda: xc.exchange(blocks), lambda: xc.exchange_plain(blocks)),
+             "dft": (lambda: xc.exchange_dft(blocks, False),
+                     lambda: xc.dft_plain(blocks, False)),
+             "twiddle": (lambda: xc.exchange_twiddle(blocks, n, False),
+                         lambda: xc.twiddle_plain(blocks, n, False)),
+             "interleave": (lambda: xc.exchange_interleave(rows, False),
+                            lambda: xc.interleave_plain(rows, False)),
+             "interleave inverse": (lambda: xc.exchange_interleave(rows, True),
+                                    lambda: xc.interleave_plain(rows, True))}
+    out = []
+    for mode, (kernel, plain) in cases.items():
+        got, want = kernel(), plain()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K2 {mode} across {e} cards != its plain version")
+        del got, want
+        with torch.cuda.device(0):
+            ms = cuda_ms(kernel, reps=10)
+            plain_ms = cuda_ms(plain, reps=5)
+        nbytes = 2 * 8 * n
+        peer = 8 * n * (e - 1) // e // e        # read by each card from its peers
+        bound = max(nbytes / (e * HBM_BYTES_PER_S), peer / NVLINK_BYTES_PER_S) * 1e3
+        out.append({"mode": mode, "shape": f"four_step_2^{NTT_LOG}", "cards": e,
+                    "mesh": [str(d) for d in mesh.devices], "ms": ms, "plain_ms": plain_ms,
+                    "bytes": nbytes, "peer_bytes_per_card": peer, "bound_ms": bound,
+                    "bound_by": "nvlink" if peer / NVLINK_BYTES_PER_S > nbytes / (
+                        e * HBM_BYTES_PER_S) else "bytes", "share_of_bound": bound / ms})
+    return out
 
 
 def phase_k2_time(state) -> None:
@@ -1895,7 +2023,7 @@ def phase_k2_time(state) -> None:
             **library, "bound_ms": bound, "bound_by": by,
             "share_of_bound": bound / k2["ms"]})
     del sets, blocks
-    emit({"phase": "k2_time", "hbm_bytes_per_s": HBM_BYTES_PER_S,
+    emit({"phase": "k2_time", "cards": k2_cards(rng), "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "int32_mul_per_s": INT32_MUL_PER_S,
           "timing": f"ms, library_ms and the copy's plain_ms: CUDA events around "
                     f"the replay of a CUDA graph of {K2_TIMED_CALLS} calls on inputs "
@@ -1951,7 +2079,9 @@ def level_prove_records():
                 "s": secs, "host_witnesses": len(host_witnesses),
                 "k1": {k: v - k1[k] for k, v in poseidon_cuda.launches_by_mode.items()},
                 "k3": {k: v - k3[k] for k, v in witness_cuda.launches_by_kernel.items()},
-                "sweeps": max(p.proof.opening_proof.pow_witness for p in outs) // GRIND_ROWS + 1})
+                "sweeps": max(p.proof.opening_proof.pow_witness for p in outs) // GRIND_ROWS + 1,
+                "pow_sweeps": [p.proof.opening_proof.pow_witness // GRIND_ROWS + 1
+                               for p in outs]})
             return out
         return run
 
@@ -2158,6 +2288,8 @@ def phase_aggregate(state) -> None:
             k["launches_by_path"]["aggregate"] = (k1_launches if k["name"] ==
                                                   "poseidon_leaf_hash" else k3_launches)
     state["aggregate_launches"] = {"k1": k1_launches, "k3": k3_launches}
+    state["aggregate_warm_s"] = warm_s
+    state["aggregate_warm_level_s"] = {p["level"]: p["s"] for p in proves if p["run"] == "warm"}
     emit({"phase": "aggregate", "config": "standard_recursion_zk_config",
           "tree": {"branching_factor": AGG_CONFIG[0], "depth": depth, "leaves": leaves,
                    "pushed": AGG_PUSHES},
@@ -2178,6 +2310,286 @@ def phase_aggregate(state) -> None:
           "k1_level_rows": k1_rows, "k3_level_rows": k3_rows})
     del agg, records, pws, proofs
     torch.cuda.empty_cache()
+
+
+MESH_BATCH = 8          # proofs of the batch_mesh phase, over a mesh of SHARDS shards
+
+
+def card_busy(prof, wall: float) -> dict:
+    """Each card's device busy seconds (CUDA kernels and copies) and idle
+    share over ``wall`` seconds, from a torch.profiler run's raw events."""
+    busy: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA" and \
+                not getattr(e, "is_hidden_event", lambda: False)():
+            key = f"cuda:{e.device_index()}"
+            busy[key] = busy.get(key, 0.0) + e.duration_ns() / 1e9
+    if not busy:
+        raise AssertionError("the trace recorded no device time")
+    return {card: {"busy_s": s, "idle_share": 1.0 - s / wall} for card, s in sorted(busy.items())}
+
+
+def by_card(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def phase_batch_mesh(state) -> None:
+    """prove_batch of MESH_BATCH zk wormhole proofs over make_mesh(SHARDS)
+    beside the unsharded batch (see the module doc)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from zk_circuits_torch.api.prover import WormholeProver
+    from zk_circuits_torch.hash import poseidon_cuda as pc
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.parallel import mesh as meshm
+    from zk_circuits_torch.plonk.prover import prove_batch
+    from zk_circuits_torch.utils import profiling
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    cd, targets, inputs = state["wormhole"]
+    mesh = meshm.make_mesh(SHARDS)
+    sub = MESH_BATCH // SHARDS
+    shards_on = {}
+    for d in mesh.devices:
+        shards_on[str(d)] = shards_on.get(str(d), 0) + 1
+    k1_sub = expected_k1_launches(cd.common, sub)
+    k3_sub = sum(expected_k3_launches(cd).values())
+
+    def witnesses():
+        return [WormholeProver(circuit_data=cd, targets=targets).commit(inputs)
+                .partial_witness for _ in range(MESH_BATCH)]
+
+    def run(m):
+        pws = witnesses()
+        k1, k3 = dict(pc.launches_by_device), dict(witness_cuda.launches_by_device)
+        k1_mode = dict(pc.launches_by_mode)
+        with host_witness_calls() as host_witnesses:
+            proofs, secs = _synced(lambda: prove_batch(cd, pws, mesh=m))
+        digests = {hashlib.sha256(proof_to_bytes(p)).hexdigest() for p in proofs}
+        if len(proofs) != MESH_BATCH or digests != {GOLDEN_WORMHOLE_ZK_SHA256}:
+            raise AssertionError(f"batch_mesh: sha256s {digests} != pinned")
+        if host_witnesses:
+            raise AssertionError(f"batch_mesh: {len(host_witnesses)} host witnesses")
+        return proofs, secs, {"k1_by_card": by_card(k1, pc.launches_by_device),
+                              "k3_by_card": by_card(k3, witness_cuda.launches_by_device),
+                              "k1_by_mode": {k: v - k1_mode[k]
+                                             for k, v in pc.launches_by_mode.items()}}
+
+    pc.reset_launches()                 # the mesh batch path starts here
+    witness_cuda.reset_launches()
+    runs = {}
+    for name in ("mesh_cold", "mesh_warm"):
+        proofs, secs, launches = run(mesh)
+        sweeps = proofs[0].proof.opening_proof.pow_witness // GRIND_ROWS + 1
+        k1_want = {card: n * (k1_sub["tree"] + k1_sub["top"] + sweeps)
+                   for card, n in shards_on.items()}
+        k3_want = {card: n * k3_sub for card, n in shards_on.items()}
+        mode_want = {"tree": SHARDS * k1_sub["tree"], "top": SHARDS * k1_sub["top"],
+                     "sponge": SHARDS * sweeps}
+        if launches["k1_by_card"] != k1_want or launches["k3_by_card"] != k3_want or \
+                launches["k1_by_mode"] != mode_want:
+            raise AssertionError(f"batch_mesh {name}: launches {launches}, want K1 {k1_want} "
+                                 f"({mode_want}), K3 {k3_want}")
+        runs[name] = {"s": secs, **launches, "k1_expected_by_card": k1_want,
+                      "k3_expected_by_card": k3_want}
+    k1_path, k3_path = pc.launches, witness_cuda.launches   # the mesh batch path ends here
+    _, secs, launches = run(None)       # the first batch of 8: nothing left to build
+    runs["unsharded"] = {"s": secs, **launches}
+    cd.verify(proofs[0])
+    _refuses_tampering(cd, proofs[0])
+
+    # one more mesh batch under device_trace (torch.profiler, CPU and CUDA)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["ZKT_PROFILE_DIR"] = tmp
+        try:
+            pws = witnesses()
+            t0 = time.perf_counter()
+            with profiling.device_trace("batch_mesh") as prof:
+                prove_batch(cd, pws, mesh=mesh)
+                _sync_all()
+                wall = time.perf_counter() - t0
+            traced_s = time.perf_counter() - t0
+        finally:
+            del os.environ["ZKT_PROFILE_DIR"]
+        trace_files = sorted(str(p.relative_to(tmp)) for p in
+                             __import__("pathlib").Path(tmp).rglob("*.json"))
+        trace_bytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in trace_files)
+    if not trace_files:
+        raise AssertionError("batch_mesh: device_trace wrote no trace")
+    cards = card_busy(prof, wall)
+    del prof
+    for k in state.get("kernels", []):
+        if k["name"] == "poseidon_leaf_hash":
+            k["launches_by_path"]["batch_mesh"] = k1_path
+        if k["name"] == "witness_schedule":
+            k["launches_by_path"]["batch_mesh"] = k3_path
+    emit({"phase": "batch_mesh", "batch": MESH_BATCH, "shards": SHARDS,
+          "mesh": [str(d) for d in mesh.devices], "sub_batch": sub,
+          "sha256": GOLDEN_WORMHOLE_ZK_SHA256, "golden": True, "verified": True,
+          "tamper_rejected": True, "host_witnesses": 0, "runs": runs,
+          "mesh_warm_over_unsharded": runs["mesh_warm"]["s"] / runs["unsharded"]["s"],
+          "k1_launches": k1_path, "k3_launches": k3_path,
+          "trace": {"files": trace_files, "bytes": trace_bytes, "traced_s": traced_s,
+                    "wall_s": wall, "cards": cards},
+          "timing": "s: perf_counter around prove_batch, ending in a synchronise of every "
+                    "card; trace: device_trace (torch.profiler, CPU and CUDA activities) "
+                    "around one more mesh batch, busy_s the sum of each card's kernel and "
+                    "copy durations, idle_share 1 - busy_s / wall_s"})
+    torch.cuda.empty_cache()
+
+
+def phase_aggregate_mesh(state) -> None:
+    """The aggregate phase's tree over make_mesh(SHARDS) (see the module doc)."""
+    import numpy as np
+
+    from zk_circuits_torch.aggregation import tree as treem
+    from zk_circuits_torch.aggregation.aggregator import WormholeProofAggregator
+    from zk_circuits_torch.circuits.wormhole.inputs import PublicCircuitInputs
+    from zk_circuits_torch.hash import poseidon_cuda as pc
+    from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.parallel import mesh as meshm
+    from zk_circuits_torch.plonk import prover_batch
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    cd = state["wormhole"][0]
+    leaf = state["wormhole_proof"]
+    mesh = meshm.make_mesh(SHARDS)
+    n_cached = len(treem._LEVEL_CACHE)
+    splits = []
+    real = prover_batch.prove_batch_mesh
+
+    def spy(data, pws, m, check_witness=False):
+        splits.append((len(pws), m.size))
+        return real(data, pws, m, check_witness)
+
+    prover_batch.prove_batch_mesh = spy
+    cards = len(set(mesh.devices))
+    runs = []
+    try:
+        with level_prove_records() as records:
+            pc.reset_launches()             # the mesh aggregate path starts here
+            witness_cuda.reset_launches()
+            for _ in range(2 if cards > 1 else 1):   # first, and warm where cards were new
+                agg = WormholeProofAggregator(cd.common, cd.verifier_only,
+                                              treem.TreeAggregationConfig(*AGG_CONFIG),
+                                              mesh=mesh, dummy_loader=lambda: leaf,
+                                              device="cuda")
+                for _ in range(AGG_PUSHES):
+                    agg.push(leaf)
+                root, secs = _synced(agg.aggregate)
+                runs.append((root, secs))
+            k1_path, k3_path = pc.launches, witness_cuda.launches   # ... ends here
+    finally:
+        prover_batch.prove_batch_mesh = real
+    depth = AGG_CONFIG[1]
+    leaves = AGG_CONFIG[0] ** depth
+    if len(treem._LEVEL_CACHE) != n_cached:
+        raise AssertionError("aggregate_mesh: a level circuit was built again")
+    if splits != [(leaves // AGG_CONFIG[0], SHARDS)] * len(runs):
+        raise AssertionError(f"aggregate_mesh: mesh splits {splits}, want level 1's "
+                             f"{leaves // AGG_CONFIG[0]} chunks over {SHARDS} shards, twice")
+    data = proof_to_bytes(runs[0][0])
+    digest = hashlib.sha256(data).hexdigest()
+    if digest != GOLDEN_AGGREGATE_ZK_SHA256 or proof_to_bytes(runs[-1][0]) != data:
+        raise AssertionError(f"aggregate_mesh root sha256 {digest} != pinned "
+                             f"{GOLDEN_AGGREGATE_ZK_SHA256}")
+    agg.root_circuit_data.verify(runs[-1][0])
+    public = PublicCircuitInputs.try_from_slice(np.asarray(leaf.public_inputs))
+    if agg.extract_leaf_public_inputs() != [public] * leaves:
+        raise AssertionError("aggregate_mesh: the leaves do not extract")
+    levels = []
+    for i, r in enumerate(records):
+        common = r["level"].circuit_data.common
+        sharded = r["batch"] % SHARDS == 0 and r["batch"] > 1
+        per = r["batch"] // SHARDS if sharded else r["batch"]
+        k1_want = expected_k1_launches(common, per)
+        calls = SHARDS if sharded else 1
+        k3_want = {k: calls * v for k, v in expected_k3_launches(r["level"].circuit_data).items()}
+        k1 = r["k1"]
+        sweeps = sum(max(r["pow_sweeps"][j:j + per]) for j in range(0, r["batch"], per))
+        if (k1["tree"], k1["top"], k1["sponge"]) != (calls * k1_want["tree"],
+                                                     calls * k1_want["top"], sweeps) \
+                or r["k3"] != k3_want or r["host_witnesses"]:
+            raise AssertionError(f"aggregate_mesh level {i % depth + 1}: K1 {k1}, K3 {r['k3']} "
+                                 f"(want {calls} x {k1_want}, {sweeps} sweeps; {k3_want})")
+        levels.append({"run": "first" if i < depth else "warm", "level": i % depth + 1,
+                       "batch": r["batch"], "sharded": sharded, "s": r["s"],
+                       "k1_launches_by_mode": k1, "k3_launches_by_kernel": r["k3"]})
+    unsharded = state.get("aggregate_warm_level_s", {})
+    for k in state.get("kernels", []):
+        if k["name"] == "poseidon_leaf_hash":
+            k["launches_by_path"]["aggregate_mesh"] = k1_path
+        if k["name"] == "witness_schedule":
+            k["launches_by_path"]["aggregate_mesh"] = k3_path
+    emit({"phase": "aggregate_mesh", "shards": SHARDS, "mesh": [str(d) for d in mesh.devices],
+          "tree": {"branching_factor": AGG_CONFIG[0], "depth": depth, "leaves": leaves},
+          "sha256": digest, "golden": True, "verified": True, "leaves_extracted": leaves,
+          "aggregate_s": [r[1] for r in runs],
+          "unsharded_warm_aggregate_s": state.get("aggregate_warm_s"),
+          "level_proves": levels, "unsharded_warm_level_s": unsharded,
+          "mesh_splits": splits, "k1_launches": k1_path, "k3_launches": k3_path,
+          "timing": "s: perf_counter, ending in a synchronise of every card; the "
+                    "unsharded figures are the aggregate phase's warm run"})
+
+
+def phase_multihost(state) -> None:
+    """scripts/torch_multihost_sim.py with 2 processes on the card(s) (see
+    the module doc), beside the four-step over make_mesh(SHARDS) in this
+    process."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from zk_circuits_torch.field import goldilocks as gf
+    from zk_circuits_torch.parallel import mesh as meshm
+    from zk_circuits_torch.parallel.ntt_sharded import ntt_sharded
+
+    # gloo on any card count: with 4 cards the script gives each process 2
+    # of its own; NCCL's communicators hung on a four-card machine (PERF.md)
+    procs, local, backend = 2, SHARDS // 2, "gloo"
+    cards = torch.cuda.device_count()
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "torch_multihost_sim.py")
+    cmd = [sys.executable, script, "--procs", str(procs), "--local-shards", str(local),
+           "--log2n", str(NTT_LOG), "--device", "cuda", "--backend", backend,
+           "--timeout", "240"]
+    res_proc, secs = _synced(lambda: subprocess.run(cmd, capture_output=True, text=True,
+                                                    timeout=300))
+    if res_proc.returncode != 0:
+        raise AssertionError(f"multihost: rc {res_proc.returncode}\n"
+                             f"{res_proc.stdout[-3000:]}\n{res_proc.stderr[-3000:]}")
+    res = json.loads([ln for ln in res_proc.stdout.splitlines() if ln.startswith("{")][-1])
+    if not (res["ok"] and res["ntt_equal_host"] and res["intt_of_ntt_equal_input"]
+            and res["lde_dcn_equal_host"] and res["backend"] == backend):
+        raise AssertionError(f"multihost: {res}")
+    per_card = local if cards >= procs * local else 1
+    want = 3 * 3 * per_card             # 3 four-steps (NTT cold, warm, INTT), 3 exchanges
+    if [p["launches"] for p in res["k2_by_process"]] != [want] * procs:
+        raise AssertionError(f"multihost: K2 launches {res['k2_by_process']}, want {want} "
+                             f"a process")
+    # the same four-step in this process over SHARDS shards of make_mesh
+    mesh = meshm.make_mesh(SHARDS)
+    x = gf.from_u64(np.random.default_rng(7).integers(0, P, 1 << NTT_LOG, dtype=np.uint64),
+                    "cuda")
+    xs = meshm.shard_last(x, mesh)
+    ntt_sharded(xs, mesh)
+    _sync_all()
+    one_process = [_synced(lambda: ntt_sharded(xs, mesh))[1] for _ in range(3)]
+    del x, xs
+    for k in state.get("kernels", []):
+        if k["name"] == "block_exchange":
+            k["launches_by_path"]["multihost"] = sum(p["launches"] for p in res["k2_by_process"])
+    emit({"phase": "multihost", "procs": procs, "local_shards": local, "backend": backend,
+          "cards_a_process": per_card,
+          "log2n": NTT_LOG, "sim": res, "sim_wall_s": secs,
+          "one_process_ntt_warm_s": statistics.median(one_process),
+          "timing": "ntt_*_s: perf_counter between barriers of every process, ending in "
+                    "a synchronise of its cards; one_process_ntt_warm_s: the four-step over "
+                    "make_mesh(4) in this process, median of 3, ending in a synchronise"})
 
 
 def phase_voting(state) -> None:
@@ -2298,7 +2710,8 @@ PHASES = {"card": phase_card, "square": phase_square,
           "profile": phase_profile, "k2_check": phase_k2_check,
           "sharded": phase_sharded, "k1_time": phase_k1_time,
           "k2_time": phase_k2_time, "aggregate": phase_aggregate,
-          "voting": phase_voting, "api": phase_api}
+          "batch_mesh": phase_batch_mesh, "aggregate_mesh": phase_aggregate_mesh,
+          "multihost": phase_multihost, "voting": phase_voting, "api": phase_api}
 
 
 def main() -> int:

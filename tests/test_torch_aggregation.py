@@ -9,15 +9,18 @@ first level a batch of two chunks through ``prove_batch``, the second a
 ``prove_chunk``) of one pushed proof padded by the loader, and a repeat
 aggregation at depth 1 that builds no circuit.  The inner circuit is the
 zk square circuit of tests/test_torch_recursion.py under its cheap FRI
-config.  ``mesh=`` raises NotImplementedError (the batch over several
-cards is not ported).
+config.  The JAX root is its aggregate over ``make_mesh(4)``, held to
+the digest that tests/test_torch_mesh_aggregate.py holds the port's
+aggregate over a mesh of 2 CPU shards to.
 """
 
+import hashlib
 import types
 
 import numpy as np
 import pytest
 import torch
+from test_torch_mesh_aggregate import JAX_MESH_ROOT_SHA256
 from test_torch_recursion import JAX, TORCH, square
 
 from zk_circuits_torch.aggregation import tree as t_tree
@@ -26,6 +29,7 @@ from zk_circuits_torch.circuits.wormhole.inputs import LEAF_PI_LEN, PublicCircui
 from zk_circuits_torch.utils.serialization import proof_to_bytes as t_bytes
 from zk_circuits_tpu.aggregation import tree as j_tree
 from zk_circuits_tpu.aggregation.aggregator import WormholeProofAggregator as JAggregator
+from zk_circuits_tpu.parallel.mesh import make_mesh as j_make_mesh
 from zk_circuits_tpu.utils.serialization import proof_to_bytes as j_bytes
 
 
@@ -64,8 +68,9 @@ def _aggregator(sq, config, **kw):
 @pytest.fixture(scope="module")
 def tree(sq):
     """One pushed proof padded to 4 leaves by the loader and folded by a
-    2-level tree, by both packages: (port aggregator, loader calls, JAX
-    root)."""
+    2-level tree, by both packages (the JAX package's over its mesh of 4
+    virtual devices, where level 1's 2 chunks run unsharded by its rule):
+    (port aggregator, loader calls, JAX root)."""
     calls = []
 
     def loader():
@@ -76,7 +81,8 @@ def tree(sq):
     agg.push(sq.prove(2))
     agg.aggregate()
     j_agg = JAggregator(sq.j_data.common, sq.j_data.verifier_only,
-                        j_tree.TreeAggregationConfig(2, 2), dummy_loader=lambda: sq.j_prove(1))
+                        j_tree.TreeAggregationConfig(2, 2), mesh=j_make_mesh(4),
+                        dummy_loader=lambda: sq.j_prove(1))
     j_agg.push(sq.j_prove(2))
     return agg, calls, j_agg.aggregate()
 
@@ -135,6 +141,7 @@ def test_two_level_tree_pads_via_loader_and_matches_jax(tree):
     assert calls == [1]
     assert agg.root_proof.public_inputs.tolist() == [4, 1, 1, 1]
     assert t_bytes(agg.root_proof) == j_bytes(j_root)
+    assert hashlib.sha256(j_bytes(j_root)).hexdigest() == JAX_MESH_ROOT_SHA256
     agg.root_circuit_data.verify(agg.root_proof)
 
 
@@ -162,20 +169,3 @@ def test_level_circuit_cache_reused_and_chunk_matches_jax(sq, tree, monkeypatch)
                                          sq.j_data.verifier_only,
                                          j_tree.TreeAggregationConfig(2, 1))
     assert t_bytes(root) == j_bytes(j_root)
-
-
-def test_mesh_is_not_ported(sq, tree):
-    """The level's batch over a mesh of cards waits for the multi-host
-    port: prove_level, aggregate_to_tree and the aggregator raise before
-    proving (the level circuits are cached by the tree above)."""
-    leaves = [sq.prove(v) for v in (2, 3, 4, 5)]
-    cfg = t_tree.TreeAggregationConfig(2, 2)
-    mesh = ["cpu", "cpu"]
-    with pytest.raises(NotImplementedError):
-        t_tree.aggregate_to_tree(leaves, sq.data.common, sq.data.verifier_only, cfg,
-                                 mesh=mesh, device="cpu")
-    agg = _aggregator(sq, cfg, mesh=mesh)
-    for p in leaves:
-        agg.push(p)
-    with pytest.raises(NotImplementedError):
-        agg.aggregate()

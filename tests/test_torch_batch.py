@@ -95,9 +95,14 @@ def test_prove_batch_fri_rounds_in_any_order_and_size():
 
 
 def test_prove_batch_refuses_a_mesh_and_needs_cuda_by_default():
+    """A mesh decides where the batch runs: a device of another type than
+    its shards' is refused.  Without a mesh or a device, the batch needs
+    CUDA."""
+    from zk_circuits_torch.parallel.mesh import make_mesh
+
     data, witness = _square(TORCH, False, FRI_ROUNDS, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 \\(multi-host\\)"):
-        prove_batch(data, [witness(3), witness(7)], device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="contradicts the mesh"):
+        prove_batch(data, [witness(3), witness(7)], mesh=make_mesh(2, device="cpu"))
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -106,12 +111,27 @@ def test_prove_batch_refuses_a_mesh_and_needs_cuda_by_default():
         prove_batch(data, [])
 
 
-def test_prove_batch_takes_the_reference_argument_order():
+def test_prove_batch_takes_the_reference_argument_order(monkeypatch):
     """prove_batch(circuit_data, pws, mesh, check_witness) as the JAX
-    package orders them: a positional mesh is a mesh (refused, not taken
-    for check_witness), and the device is a keyword only."""
+    package orders them: a positional mesh is a mesh (its two shards
+    prove a witness each, with check_witness off, not taken for
+    check_witness), and the device is a keyword only."""
+    from zk_circuits_torch.parallel.mesh import make_mesh
+    from zk_circuits_torch.plonk import prover_batch
+
     data, witness = _square(TORCH, False, FRI_ROUNDS, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        prove_batch(data, [witness(3), witness(7)], object(), device="cpu")
+    splits = []
+    real = prover_batch.prove_batch_mesh
+
+    def spy(cd, pws, mesh, check_witness=False):
+        splits.append((len(pws), mesh.size, check_witness))
+        return real(cd, pws, mesh, check_witness)
+
+    monkeypatch.setattr(prover_batch, "prove_batch_mesh", spy)
+    proofs = prove_batch(data, [witness(3), witness(7)], make_mesh(2, device="cpu"),
+                         device="cpu")
+    assert splits == [(2, 2, False)]
+    want = _reference_bytes(False, FRI_ROUNDS, (3, 7))
+    assert [t_bytes(p) for p in proofs] == [want[3], want[7]]
     with pytest.raises(TypeError):
         prove_batch(data, [witness(3)], None, None, "cpu")

@@ -1,5 +1,7 @@
-"""The port stands alone: importing it (and chip_smoke.py) loads neither
-JAX nor the JAX package, and its entry points never fall back to the CPU."""
+"""The port stands alone: importing it (and chip_smoke.py, and
+scripts/torch_multihost_sim.py and torch_four_cards.py) loads neither
+JAX nor the JAX package,
+and its entry points never fall back to the CPU."""
 
 import os
 import subprocess
@@ -12,12 +14,15 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import zk_circuits_torch, chip_smoke
 mods = [m.name for m in pkgutil.walk_packages(zk_circuits_torch.__path__,
                                               "zk_circuits_torch.")]
 for m in mods:
     importlib.import_module(m)
+for script in ("scripts/torch_multihost_sim.py", "scripts/torch_four_cards.py"):
+    spec = importlib.util.spec_from_file_location("script", script)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "zk_circuits_tpu")))
 print(len(mods), bad)

@@ -12,7 +12,10 @@ once and reused for all chunks of that level (they share shape), and a
 level's chunks are proved as one batch (``prove_batch``).  Here the level
 circuit is built on ``device`` (its constants/sigmas commitment lives
 there) and the batch is proved there: on the card, K3 makes the B
-witnesses and K1 hashes every Merkle tree of the B proofs.
+witnesses and K1 hashes every Merkle tree of the B proofs.  With a
+``mesh``, each level's batch is split over the mesh's shards when its
+size is a multiple of theirs (``prove_batch``'s rule), each card proving
+its chunks with its own copy of the level circuit's prover data.
 """
 
 from __future__ import annotations
@@ -137,10 +140,9 @@ class LevelCircuit:
 
     def prove_level(self, proofs: list, inner_verifier_only, mesh=None) -> list:
         """Prove ALL chunks of this level at once: one witness per chunk,
-        then one batched prove on the level's device (replaces the
-        reference's rayon par_chunks fan-out, tree.rs:92-103).  ``mesh``
-        (the batch over several cards) is not ported: ``prove_batch``
-        raises NotImplementedError for it."""
+        then one batched prove on the level's device, or split over the
+        shards of ``mesh`` (replaces the reference's rayon par_chunks
+        fan-out, tree.rs:92-103, with a fan-out over cards)."""
         from ..plonk.prover import prove_batch
 
         b = self.branching_factor
@@ -157,8 +159,9 @@ def aggregate_to_tree(proofs: list, inner_common, inner_verifier_only,
 
     All proofs must come from the same inner circuit.  len(proofs) must be
     b^d (pad with dummy proofs first — aggregator.py).  Every level circuit
-    is built and proved on ``device``; a ``mesh`` raises NotImplementedError
-    at the first level of more than one chunk (``LevelCircuit.prove_level``)."""
+    is built on ``device``; with ``mesh``, each level's chunks are proved as
+    one batch split over the mesh's shards (``prove_batch``'s rule), else
+    on ``device``."""
     import time as _time
 
     from ..utils import profiling

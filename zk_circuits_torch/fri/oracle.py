@@ -47,6 +47,8 @@ class PolynomialBatch:
     coeffs_dev: Any = None   # tensor (num_polys, n)
     values_dev: Any = None   # tensor (num_polys, 8n), column-major leaves
     _cap: np.ndarray | None = field(default=None, repr=False)
+    # this batch on other devices (ensure_device), one copy a device
+    _copies: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -100,15 +102,19 @@ class PolynomialBatch:
         return gfd.to_u64(rows), np.zeros((len(indices), 0, 4), np.uint64)
 
     def ensure_device(self, device) -> "PolynomialBatch":
-        """This batch with its tensors on ``device`` (moved if needed)."""
+        """This batch with its tensors on ``device``: itself, or its copy
+        there, made at the first call for that device and kept."""
         device = torch.device(device)
         if self.values_dev.device == device:
             return self
-        return PolynomialBatch(
-            self.coeffs, self.rate_bits, self.blinding, self.cap_height,
-            levels_dev=[lv.to(device) for lv in self.levels_dev],
-            coeffs_dev=self.coeffs_dev.to(device),
-            values_dev=self.values_dev.to(device), _cap=self._cap)
+        key = str(device)
+        if key not in self._copies:
+            self._copies[key] = PolynomialBatch(
+                self.coeffs, self.rate_bits, self.blinding, self.cap_height,
+                levels_dev=[lv.to(device) for lv in self.levels_dev],
+                coeffs_dev=self.coeffs_dev.to(device),
+                values_dev=self.values_dev.to(device), _cap=self._cap)
+        return self._copies[key]
 
     @staticmethod
     def from_coeffs(coeffs: np.ndarray, rate_bits: int, cap_height: int,

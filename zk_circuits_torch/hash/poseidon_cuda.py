@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from pathlib import Path
 
 import torch
@@ -43,18 +44,22 @@ MAX_ROWS = 256                # rows per block
 TREE_TEAM = 4                 # threads per node above the first tree levels
 
 # Launches of the CUDA kernels in this process (the plain version on CPU
-# tensors is not counted): ``launches`` in all, and by mode.
+# tensors is not counted): ``launches`` in all, by mode and by card.
 launches = 0
 launches_by_mode = {"sponge": 0, "tree": 0, "top": 0}
+launches_by_device: dict = {}
 build_log = ""   # nvcc's output of the last build (ptxas register report)
 _LIB = None
+_LOCK = threading.Lock()   # the build and the counters, shared by threads
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
-    for k in launches_by_mode:
-        launches_by_mode[k] = 0
+    with _LOCK:
+        launches = 0
+        for k in launches_by_mode:
+            launches_by_mode[k] = 0
+        launches_by_device.clear()
 
 
 def config(n: int) -> tuple[int, int]:
@@ -180,15 +185,18 @@ def build() -> Path:
 
 
 def _lib():
+    """The built library, built and loaded once (under a lock: callers on
+    several threads may ask at once)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        lib.k1_sponge.argtypes = [p, p, ll, i, ll, ll, i, i, i, i, i, ll, ll, p]
-        lib.k1_sponge.restype = i
-        lib.k1_top.argtypes = [p, ll, i, i, i, i, ll, p]
-        lib.k1_top.restype = i
-        _LIB = lib
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+            lib.k1_sponge.argtypes = [p, p, ll, i, ll, ll, i, i, i, i, i, ll, ll, p]
+            lib.k1_sponge.restype = i
+            lib.k1_top.argtypes = [p, ll, i, i, i, i, ll, p]
+            lib.k1_top.restype = i
+            _LIB = lib
     return _LIB
 
 
@@ -220,10 +228,12 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _count(mode: str) -> None:
+def _count(mode: str, device) -> None:
     global launches
-    launches += 1
-    launches_by_mode[mode] += 1
+    with _LOCK:
+        launches += 1
+        launches_by_mode[mode] += 1
+        launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + 1
 
 
 def _batch(x: torch.Tensor, out: torch.Tensor) -> tuple[int, int, int]:
@@ -243,7 +253,7 @@ def _sponge(x, out, team, rows, levels, mode) -> None:
                                in_bstride, out_bstride, _stream(x))
     if err != 0:
         raise RuntimeError(f"k1_sponge launch failed: error {err}")
-    _count(mode)
+    _count(mode, x.device)
 
 
 def hash_rows_plain(x: torch.Tensor) -> torch.Tensor:
@@ -325,5 +335,5 @@ def hash_tree(x: torch.Tensor, cap_height: int) -> list:
                                 plan["top_threads"], batch, out_bstride, _stream(x))
         if err != 0:
             raise RuntimeError(f"k1_top launch failed: error {err}")
-        _count("top")
+        _count("top", x.device)
     return list(torch.split(out, plan["sizes"], dim=-2))

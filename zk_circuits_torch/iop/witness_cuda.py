@@ -25,6 +25,7 @@ plain C interface loaded with ctypes.  The plain version is
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -36,18 +37,22 @@ HEADERS = ("goldilocks.cuh", "poseidon.cuh", "witness.cuh")
 MAX_BATCH = 65535     # proofs per launch (the grid's y extent of ops and cells)
 WIDE_OPS = 1024       # a level of more ops runs as an ``ops`` launch over the card
 
-# Launches of the CUDA kernels in this process, in all and by kernel.
+# Launches of the CUDA kernels in this process, in all, by kernel and by card.
 launches = 0
 launches_by_kernel = {"walk": 0, "ops": 0, "cells": 0}
+launches_by_device: dict = {}
 build_log = ""   # nvcc's output of the last build (ptxas register report)
 _LIB = None
+_LOCK = threading.Lock()   # the build and the counters, shared by threads
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
-    for k in launches_by_kernel:
-        launches_by_kernel[k] = 0
+    with _LOCK:
+        launches = 0
+        for k in launches_by_kernel:
+            launches_by_kernel[k] = 0
+        launches_by_device.clear()
 
 
 def build():
@@ -73,9 +78,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _lib():
+    """The built library, built and loaded once (under a lock: callers on
+    several threads may ask at once)."""
     global _LIB
-    if _LIB is None:
-        _LIB = bind(ctypes.CDLL(str(build())))
+    with _LOCK:
+        if _LIB is None:
+            _LIB = bind(ctypes.CDLL(str(build())))
     return _LIB
 
 
@@ -141,7 +149,6 @@ def run_schedule(table: WitnessTable, values: torch.Tensor):
     """K3 over the seeded value table ``values`` (B, R) on the card (filled
     in place): returns the wire matrix (B, W, n) and the public inputs (B,
     P), as ``witness_device.witness_plain`` does."""
-    global launches
     if values.device.type != "cuda" or values.device != table.blob.device:
         raise ValueError(f"K3 runs on the table's card ({table.blob.device}), "
                          f"got values on {values.device}")
@@ -157,6 +164,13 @@ def run_schedule(table: WitnessTable, values: torch.Tensor):
         for kernel, err in launch_schedule(_lib(), table, values, wires, pis, stream):
             if err != 0:
                 raise RuntimeError(f"k3_{kernel} launch failed: error {err}")
-            launches += 1
-            launches_by_kernel[kernel] += 1
+            _count(kernel, values.device)
     return wires, pis
+
+
+def _count(kernel: str, device) -> None:
+    global launches
+    with _LOCK:
+        launches += 1
+        launches_by_kernel[kernel] += 1
+        launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + 1

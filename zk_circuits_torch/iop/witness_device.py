@@ -73,7 +73,8 @@ def seed_batch(circuit_data, pws) -> tuple[tuple, np.ndarray]:
     rows = []
     for pw in pws:
         keys = tuple(pw.values)
-        if po.seed_order is None or po.seed_order[0] != keys:
+        kept = po.seed_order     # read once: provers on other threads share it
+        if kept is None or kept[0] != keys:
             reps = []
             for t in keys:
                 rep = po.rep_of_target.get(t)
@@ -81,8 +82,8 @@ def seed_batch(circuit_data, pws) -> tuple[tuple, np.ndarray]:
                     raise KeyError(f"target {t} is not part of the circuit")
                 reps.append(rep)
             order = np.argsort(np.asarray(reps, np.int64), kind="stable")
-            po.seed_order = (keys, tuple(reps[i] for i in order), order)
-        reps, order = po.seed_order[1:]
+            kept = po.seed_order = (keys, tuple(reps[i] for i in order), order)
+        reps, order = kept[1:]
         if seed_reps is None:
             seed_reps = reps
         elif reps != seed_reps:

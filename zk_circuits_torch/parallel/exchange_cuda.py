@@ -7,7 +7,7 @@ a block all-to-all over E shards.  Every shard s hands an ``(E, B)`` or
 ``(E, E, ...)`` tensor -- as a contiguous tensor on ``x_d``'s device.
 
 Four modes, one launch per card each (``launches``, and
-``launches_by_mode``):
+``launches_by_mode`` and ``launches_by_device``):
 
 - ``exchange`` (``copy``): the all-to-all itself (commit re-shards, FRI
   fiber regroups).
@@ -17,7 +17,11 @@ Four modes, one launch per card each (``launches``, and
 - ``exchange_interleave``: exchange 3, the t1-minor interleave and, for
   the inverse transform, the index reversal and the n^-1 scaling.
 
-Each has its plain PyTorch version here (``exchange_plain``,
+Every mode takes ``dst``, the destination shards to fill (their
+indices and devices; by default every source's own): in a mesh that
+spans processes, parallel/ntt_exchange.py stages the blocks of the other
+processes' shards locally and asks for its own shards only.  Each has
+its plain PyTorch version here (``exchange_plain``,
 ``dft_plain``, ``twiddle_plain``, ``interleave_plain``): the plain
 exchange followed by the torch arithmetic the mode absorbs (``dft_local``,
 ``twiddle_local``, ``interleave_in`` / ``interleave_out``).  A CPU tensor
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -52,11 +57,13 @@ MAX_SHARDS = 32
 MODES = ("copy", "dft", "twiddle", "interleave")
 
 # Launches of the CUDA kernel in this process (the plain versions on CPU
-# tensors are not counted): in all, and by mode.
+# tensors are not counted): in all, by mode and by card.
 launches = 0
 launches_by_mode = dict.fromkeys(MODES, 0)
+launches_by_device: dict = {}
 build_log = ""   # nvcc's output of the last build (ptxas register report)
 _LIB = None
+_LOCK = threading.Lock()   # the build and the counters, shared by threads
 _PEERS: set = set()
 _TABLES: dict = {}
 
@@ -78,9 +85,19 @@ class _Call(ctypes.Structure):
 
 def reset_launches() -> None:
     global launches
-    launches = 0
-    for k in launches_by_mode:
-        launches_by_mode[k] = 0
+    with _LOCK:
+        launches = 0
+        for k in launches_by_mode:
+            launches_by_mode[k] = 0
+        launches_by_device.clear()
+
+
+def _count(mode: str, device) -> None:
+    global launches
+    with _LOCK:
+        launches += 1
+        launches_by_mode[mode] += 1
+        launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + 1
 
 
 def build() -> Path:
@@ -95,18 +112,21 @@ def build() -> Path:
 
 
 def _lib():
+    """The built library, built and loaded once (under a lock: callers on
+    several threads may ask at once)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.block_exchange.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.block_exchange.restype = ctypes.c_int
-        lib.block_exchange_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.block_exchange_enable_peer.restype = ctypes.c_int
-        lib.block_exchange_call_size.restype = ctypes.c_int
-        if lib.block_exchange_call_size() != ctypes.sizeof(_Call):
-            raise RuntimeError(f"BxCall is {lib.block_exchange_call_size()} bytes in the "
-                               f"library, {ctypes.sizeof(_Call)} in its ctypes mirror")
-        _LIB = lib
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.block_exchange.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            lib.block_exchange.restype = ctypes.c_int
+            lib.block_exchange_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.block_exchange_enable_peer.restype = ctypes.c_int
+            lib.block_exchange_call_size.restype = ctypes.c_int
+            if lib.block_exchange_call_size() != ctypes.sizeof(_Call):
+                raise RuntimeError(f"BxCall is {lib.block_exchange_call_size()} bytes in "
+                                   f"the library, {ctypes.sizeof(_Call)} in its ctypes mirror")
+            _LIB = lib
     return _LIB
 
 
@@ -145,12 +165,21 @@ def _check_fused(xs: list, dims: tuple) -> tuple[int, int]:
 # --- plain versions -------------------------------------------------------------
 
 
-def exchange_plain(xs: list) -> list:
+def _dst(xs: list, dst) -> list:
+    """The destinations (index, device) to fill: by default every
+    source's own."""
+    if dst is None:
+        return [(d, x.device) for d, x in enumerate(xs)]
+    dst = [(int(d), torch.device(dev)) for d, dev in dst]
+    if not dst or any(not 0 <= d < len(xs) for d, _ in dst):
+        raise ValueError(f"destinations {dst} outside the {len(xs)} shards")
+    return dst
+
+
+def exchange_plain(xs: list, dst=None) -> list:
     """The plain PyTorch version: out_d = stack_s(x_s[d] moved to d)."""
     _check(xs)
-    e = len(xs)
-    return [torch.stack([xs[s][d].to(xs[d].device) for s in range(e)])
-            for d in range(e)]
+    return [torch.stack([x[d].to(dev) for x in xs]) for d, dev in _dst(xs, dst)]
 
 
 def dft_local(r: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -198,49 +227,50 @@ def interleave_out(r: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
     return out
 
 
-def dft_plain(xs: list, inverse: bool) -> list:
-    return [dft_local(r, inverse) for r in exchange_plain(xs)]
+def dft_plain(xs: list, inverse: bool, dst=None) -> list:
+    return [dft_local(r, inverse) for r in exchange_plain(xs, dst)]
 
 
-def twiddle_plain(xs: list, n: int, inverse: bool) -> list:
-    return [twiddle_local(r, d, n, inverse) for d, r in enumerate(exchange_plain(xs))]
+def twiddle_plain(xs: list, n: int, inverse: bool, dst=None) -> list:
+    dst = _dst(xs, dst)
+    return [twiddle_local(r, d, n, inverse) for (d, _), r in zip(dst, exchange_plain(xs, dst))]
 
 
-def interleave_plain(zs: list, inverse: bool) -> list:
+def interleave_plain(zs: list, inverse: bool, dst=None) -> list:
     e = len(zs)
     n = e * zs[0].numel()
     return [interleave_out(r, n, inverse)
-            for r in exchange_plain([interleave_in(z, e, inverse) for z in zs])]
+            for r in exchange_plain([interleave_in(z, e, inverse) for z in zs], dst)]
 
 
 # --- the kernel's entry points ----------------------------------------------------
 
 
-def exchange(xs: list) -> list:
+def exchange(xs: list, dst=None) -> list:
     """Block all-to-all of the shards ``xs``: returns ``out`` with
-    ``out[d][s] == xs[s][d]``."""
+    ``out[d][s] == xs[s][d]`` (one entry for each of ``dst``)."""
     _check(xs)
     if xs[0].device.type == "cpu":
-        return exchange_plain(xs)
-    return _copy(xs)
+        return exchange_plain(xs, dst)
+    return _copy(xs, _dst(xs, dst))
 
 
-def exchange_dft(xs: list, inverse: bool) -> list:
+def exchange_dft(xs: list, inverse: bool, dst=None) -> list:
     """Exchange 1 of the four-step and the size-E DFT: shard d enters with
     its (E, bm) blocks and leaves with ``dft_local(out_d)``."""
     e, m = _check_fused(xs, (2,))
     if xs[0].device.type == "cpu":
-        return dft_plain(xs, inverse)
+        return dft_plain(xs, inverse, dst)
     shifts = _dft_shifts(e, inverse)
 
     def fill(c):
         c.bm, c.inverse = m // e, int(inverse)
         ctypes.memmove(c.wshift, shifts, len(shifts))
 
-    return _launch("dft", xs, (e, m // e), fill)
+    return _launch("dft", xs, (e, m // e), fill, _dst(xs, dst))
 
 
-def exchange_twiddle(xs: list, n: int, inverse: bool) -> list:
+def exchange_twiddle(xs: list, n: int, inverse: bool, dst=None) -> list:
     """Exchange 2 of the four-step and the twiddle multiply: shard d
     enters with its (E, bm) blocks and leaves with
     ``twiddle_local(out_d, d, n, inverse)`` (m,)."""
@@ -248,29 +278,29 @@ def exchange_twiddle(xs: list, n: int, inverse: bool) -> list:
     if n != e * m:
         raise ValueError(f"n={n} is not E*m = {e * m}")
     if xs[0].device.type == "cpu":
-        return twiddle_plain(xs, n, inverse)
+        return twiddle_plain(xs, n, inverse, dst)
     log, table = _twiddle_tables(n, e, inverse, xs[0].device)
 
     def fill(c):
         c.bm, c.inverse, c.table, c.tw_log = m // e, int(inverse), table.data_ptr(), log
 
-    return _launch("twiddle", xs, (m,), fill)
+    return _launch("twiddle", xs, (m,), fill, _dst(xs, dst))
 
 
-def exchange_interleave(zs: list, inverse: bool) -> list:
+def exchange_interleave(zs: list, inverse: bool, dst=None) -> list:
     """Exchange 3 of the four-step: shard t1 enters with its row NTT output
     (m,) and shard d leaves with ``interleave_out`` of the blocks
     ``interleave_in`` makes, i.e. out_d[j E + t1] = z_t1[d bm + j] (the
     inverse: z_t1[-(d bm + j) mod m] / n)."""
     e, m = _check_fused(zs, (1,))
     if zs[0].device.type == "cpu":
-        return interleave_plain(zs, inverse)
+        return interleave_plain(zs, inverse, dst)
     scale = _n_inverse(e * m) if inverse else 1
 
     def fill(c):
         c.bm, c.inverse, c.scale = m // e, int(inverse), scale
 
-    return _launch("interleave", zs, (m,), fill)
+    return _launch("interleave", zs, (m,), fill, _dst(zs, dst))
 
 
 def enable_peer_access(device: int, peer: int) -> None:
@@ -330,7 +360,7 @@ def _twiddle_tables(n: int, e: int, inverse: bool, device) -> tuple:
     return _TABLES[key]
 
 
-def _copy(xs: list) -> list:
+def _copy(xs: list, dst: list) -> list:
     x0 = xs[0]
     if x0.dim() == 2:   # (E, B) blocks: one row each
         rows, row_len = 1, x0.shape[1]
@@ -345,31 +375,27 @@ def _copy(xs: list) -> list:
     def fill(c):
         c.blk_stride, c.row_stride, c.rows, c.row_len = strides[0], strides[1], rows, row_len
 
-    return _launch("copy", xs, tuple(x0.shape), fill, skip=rows == 0 or row_len == 0)
+    return _launch("copy", xs, tuple(x0.shape), fill, dst, skip=rows == 0 or row_len == 0)
 
 
-def _launch(mode: str, srcs: list, out_shape: tuple, fill, skip: bool = False) -> list:
-    """One launch of ``mode`` per card holding destination shards: one
-    output allocation per card, viewed per shard; the call's arguments in
-    one ctypes buffer.  ``fill`` sets the mode's fields."""
-    global launches
+def _launch(mode: str, srcs: list, out_shape: tuple, fill, dst: list,
+            skip: bool = False) -> list:
+    """One launch of ``mode`` per card holding destinations ``dst``: one
+    output allocation per card, viewed per destination; the call's
+    arguments in one ctypes buffer.  ``fill`` sets the mode's fields."""
     e = len(srcs)
     if e > MAX_SHARDS:
         raise ValueError(f"at most {MAX_SHARDS} shards, got {e}")
-    dev0 = srcs[0].device
-    if all(x.device == dev0 for x in srcs):
-        by_device = {dev0: list(range(e))}
-    else:
-        by_device = {}
-        for d, x in enumerate(srcs):
-            by_device.setdefault(x.device, []).append(d)
-    outs: list = [None] * e
+    by_device: dict = {}
+    for j, (d, dev) in enumerate(dst):
+        by_device.setdefault(dev, []).append((j, d))
+    outs: list = [None] * len(dst)
     bases = {}
-    for dev, ds in by_device.items():
-        buf = torch.empty((len(ds), *out_shape), dtype=torch.int64, device=dev)
+    for dev, js in by_device.items():
+        buf = torch.empty((len(js), *out_shape), dtype=torch.int64, device=dev)
         bases[dev] = buf.data_ptr()
-        for d, o in zip(ds, buf.unbind(0)):
-            outs[d] = o
+        for (j, _), o in zip(js, buf.unbind(0)):
+            outs[j] = o
     if skip:
         return outs
     lib = _lib()
@@ -378,29 +404,28 @@ def _launch(mode: str, srcs: list, out_shape: tuple, fill, skip: bool = False) -
     call.src[:e] = [x.data_ptr() for x in srcs]
     fill(call)
     out_bytes = 8 * math.prod(out_shape)
-    multi = len(by_device) > 1
-    for dev, ds in by_device.items():
-        k = len(ds)
+    cards = list(dict.fromkeys([*by_device, *(x.device for x in srcs)]))
+    for dev, js in by_device.items():
+        k = len(js)
         call.n_dst = k
-        call.dst[:k] = [bases[dev] + j * out_bytes for j in range(k)]
-        call.dst_index[:k] = ds
+        call.dst[:k] = [bases[dev] + i * out_bytes for i in range(k)]
+        call.dst_index[:k] = [d for _, d in js]
         dst_stream = torch.cuda.current_stream(dev)
         waits = []
-        if multi:
-            waits = [s for s in (torch.cuda.current_stream(sd) for sd in by_device)
+        if len(cards) > 1:
+            waits = [s for s in (torch.cuda.current_stream(c) for c in cards)
                      if s != dst_stream]
             for s in waits:   # the barrier: sources are written before we read
                 ev = torch.cuda.Event()
                 ev.record(s)
                 dst_stream.wait_event(ev)
-            for sd in by_device:
-                enable_peer_access(dev.index, sd.index)
+            for c in cards:
+                enable_peer_access(dev.index, c.index)
         err = lib.block_exchange(dev.index, ctypes.byref(call), dst_stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"block_exchange ({mode}) launch failed on {dev}: "
                                f"CUDA error {err}")
-        launches += 1
-        launches_by_mode[mode] += 1
+        _count(mode, dev)
         for s in waits:   # sources stay allocated until the reads are done
             ev = torch.cuda.Event()
             ev.record(dst_stream)

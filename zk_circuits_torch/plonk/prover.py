@@ -228,24 +228,34 @@ def prove_batch(circuit_data, pws: list, mesh=None, check_witness: bool | None =
     """Prove B independent witnesses of ONE circuit on ``device`` ("cuda"
     by default; "cpu" runs the plain torch versions), every bulk stage
     batched over a leading proof axis (plonk/prover_batch.py).  Returns
-    one ProofWithPublicInputs a witness, each byte-identical to
-    :func:`prove` of that witness.  One witness goes through ``prove``.
-    The arguments before ``device`` are the JAX package's, in its order.
+    one ProofWithPublicInputs a witness, in the order of ``pws``, each
+    byte-identical to :func:`prove` of that witness.  The arguments
+    before ``device`` are the JAX package's, in its order.
 
-    ``mesh`` (the batch axis sharded over cards) is not ported yet."""
+    ``mesh`` (parallel/mesh.py) splits the batch axis over its shards
+    when B is a multiple of the mesh size, the JAX package's rule
+    (its prover_batch.py ``_shard``): shard i proves witnesses
+    i*B/E .. (i+1)*B/E on its device (``prove_batch_mesh``; over a mesh
+    that spans processes every process calls this with the same
+    witnesses and proves its own shards).  Otherwise the whole batch runs
+    unsharded on this process's first shard's device.  Given a mesh, its
+    devices decide where the work runs; a ``device`` of another type
+    raises ValueError."""
     from .. import resolve_device
+    from .prover_batch import prove_batch_device, prove_batch_mesh
 
     if mesh is not None:
-        raise NotImplementedError(
-            "prove_batch(mesh=...) is not ported: the batch axis sharded over "
-            "cards waits in ROADMAP.md, Queue 1 (multi-host)")
+        if torch.device(device).type != mesh.first.type:
+            raise ValueError(f"device {device!r} contradicts the mesh's devices "
+                             f"{[str(d) for d in mesh.devices]}")
+        device = mesh.first
     device = resolve_device(device)
     check_witness = _resolve_check_witness(check_witness)
     pws = list(pws)
     if not pws:
         return []
+    if mesh is not None and len(pws) % mesh.size == 0:
+        return prove_batch_mesh(circuit_data, pws, mesh, check_witness)
     if len(pws) == 1:
         return [prove(circuit_data, pws[0], check_witness=check_witness, device=device)]
-    from .prover_batch import prove_batch_device
-
     return prove_batch_device(circuit_data, pws, device, check_witness)

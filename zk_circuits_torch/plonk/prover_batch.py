@@ -21,11 +21,28 @@ JAX package's prover.  Each proof keeps its own host Challenger;
 every transcript stage fetches the whole batch's caps (or evaluations)
 with one transfer (utils/fetch.py).  Proof bytes are identical to
 sequential ``prove``.
+
+``prove_batch_mesh`` splits a batch over the shards of a mesh, the
+counterpart of the reference aggregator's rayon fan-out (tree.rs:92-103)
+and of the JAX package's batch axis sharded over chips: each shard's
+sub-batch goes through ``prove_batch_device`` on its device.  A process
+proves its shards in turn from one thread; cards prove at once when each
+is owned by a process of its own (parallel/distributed.py), whose proofs
+the others receive in one all-gather.  (One host thread a card in one
+process was 3.1-3.6x slower than proving the shards in turn on four
+H100s, scripts/torch_four_cards.py: the workers contend for the
+interpreter lock at each of a sub-batch's ~81k torch operations.)  Each card keeps its own copies of the
+circuit's prover data: the constants/sigmas commitment
+(``PolynomialBatch.ensure_device``), the K3 ``WitnessTable``
+(``witness_device.device_table``) and the coset tables.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import torch
 
 from ..field import goldilocks as gfd
 from ..fri.fri_device import BatchedCommit, open_and_fri_device_batch
@@ -137,3 +154,35 @@ def prove_batch_device(circuit_data, pws: list, device,
               quotient_cap=q_caps[b].copy(), openings=openings,
               opening_proof=opening_proof),
         pis_l[b]) for b, (openings, opening_proof) in enumerate(results)]
+
+
+def prove_batch_mesh(circuit_data, pws: list, mesh, check_witness: bool = False) -> list:
+    """Prove the B witnesses ``pws`` (B a multiple of the mesh size E)
+    over the mesh's shards: shard i proves witnesses i*B/E .. (i+1)*B/E on
+    its device, this process's shards in turn.  Over a mesh that spans
+    processes each process proves its own shards and the others' proofs
+    arrive in one ``all_gather_object`` of their bytes.  Returns the
+    proofs in the order of ``pws``."""
+    e = mesh.size
+    if len(pws) % e:
+        raise ValueError(f"a batch of {len(pws)} does not split over {e} shards")
+    per = len(pws) // e
+    mine = {}
+    for i in mesh.local:
+        dev = mesh.devices[i]
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            mine[i] = prove_batch_device(circuit_data, pws[i * per:(i + 1) * per], dev,
+                                         check_witness)
+    if mesh.spans_processes:
+        import torch.distributed as dist
+
+        from ..utils.serialization import proof_from_bytes, proof_to_bytes
+
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, {i: [proof_to_bytes(q) for q in proofs]
+                                       for i, proofs in mine.items()})
+        for blobs in every:
+            for i, got in blobs.items():
+                if i not in mine:
+                    mine[i] = [proof_from_bytes(b, circuit_data.common) for b in got]
+    return [q for i in range(e) for q in mine[i]]

@@ -276,13 +276,16 @@ def _open_and_fri_sharded(common, oracles: list, ch, mesh: Mesh) -> tuple:
 def prove_sharded(circuit_data, pw, mesh: Mesh | None = None, *,
                   check_witness: bool | None = None) -> ProofWithPublicInputs:
     """Prove one witness with the pipeline sharded over ``mesh`` (default:
-    ``make_mesh()``, every card; it raises without CUDA).
+    ``make_mesh()``, every card; it raises without CUDA), a mesh of one
+    process.
 
     Byte-identical to :func:`zk_circuits_torch.plonk.prover.prove`."""
     from .prover import _resolve_check_witness, _zs_coeffs_body
     from .vanishing import check_constraints_on_h
 
     mesh = make_mesh() if mesh is None else mesh
+    if mesh.spans_processes:
+        raise ValueError("prove_sharded takes a mesh of one process")
     common = circuit_data.common
     po = circuit_data.prover_only
     cfg = common.config
