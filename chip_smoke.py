@@ -139,10 +139,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                split gives; seconds per level beside the aggregate
                phase's warm unsharded ones.
 15. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
-               shards and the gloo backend (printed): with 4 cards or
-               more each process owns 2 cards, else both share cuda:0
-               (NCCL refuses two ranks on one card, and its
-               communicators hung on a four-card machine, PERF.md).
+               shards: with 4 cards or more each process owns 2 cards
+               and the backend is nccl, else both share cuda:0 under
+               gloo (NCCL refuses two ranks on one card); the backend
+               is printed.
                The four-step NTT at 2^22 points over ("dcn", "ici") equal
                to the host NTT on every process's shards, its INTT back
                to the input, the batch LDE over "dcn" equal to the host
@@ -245,6 +245,7 @@ DEVICE_OPS_BEFORE = 80945
 SHARDS = 4             # E of the sharded phase
 BATCH = 4              # proofs per prove_batch call (bench.py's ZKT_BENCH_BATCH)
 NTT_LOG = 22           # SCALING.md's size of one sharded polynomial
+SIM_TIMEOUT = 240      # seconds the multihost phase gives its processes
 K2_TIMED_CALLS = 32    # back-to-back calls per K2 timing (graph_ms)
 
 
@@ -2548,17 +2549,17 @@ def phase_multihost(state) -> None:
     from zk_circuits_torch.parallel import mesh as meshm
     from zk_circuits_torch.parallel.ntt_sharded import ntt_sharded
 
-    # gloo on any card count: with 4 cards the script gives each process 2
-    # of its own; NCCL's communicators hung on a four-card machine (PERF.md)
-    procs, local, backend = 2, SHARDS // 2, "gloo"
+    procs, local = 2, SHARDS // 2
     cards = torch.cuda.device_count()
+    # processes that own their cards take nccl; sharing cuda:0, gloo
+    backend = "nccl" if cards >= procs * local else "gloo"
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
                           "torch_multihost_sim.py")
     cmd = [sys.executable, script, "--procs", str(procs), "--local-shards", str(local),
            "--log2n", str(NTT_LOG), "--device", "cuda", "--backend", backend,
-           "--timeout", "240"]
+           "--timeout", str(SIM_TIMEOUT)]
     res_proc, secs = _synced(lambda: subprocess.run(cmd, capture_output=True, text=True,
-                                                    timeout=300))
+                                                    timeout=SIM_TIMEOUT + 60))
     if res_proc.returncode != 0:
         raise AssertionError(f"multihost: rc {res_proc.returncode}\n"
                              f"{res_proc.stdout[-3000:]}\n{res_proc.stderr[-3000:]}")

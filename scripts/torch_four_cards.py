@@ -1,20 +1,28 @@
 """The torch port across four cards: what chip_smoke's one-card run
 cannot show.
 
-    python scripts/torch_four_cards.py [--log-dir DIR]
+    python scripts/torch_four_cards.py [--phases a,b,...] [--log-dir DIR]
 
-On a machine with four cards it runs chip_smoke's card, wormhole and
-batch_mesh phases (the mesh batch of 8 over make_mesh(4), the shards in
-turn), then, in turns in one process, the same warm batch with the
-shards in turn and with one host thread a card (``threaded``, the
-design the port measured and dropped), K1 and K2 across the cards
-(chip_smoke's ``k1_cards``, ``k2_cards``), and
-scripts/torch_multihost_sim.py: the 2^22-point four-step over 2
-processes of 2 cards under nccl (with NCCL's shared-memory and then
-peer-to-peer transports turned off if it fails) and under gloo, and the
-zk wormhole batch of 8 over 4 processes of a card each.  Every phase
-prints one JSON line; each simulation's whole output goes to --log-dir
-(a new temporary directory by default).
+On a machine with four cards it runs chip_smoke's card and wormhole
+phases (what the others need), then the phases asked for, by default
+all of them, in this order:
+
+- batch_mesh: chip_smoke's, the mesh batch of 8 over make_mesh(4) (one
+  process, the shards in turn) beside the unsharded batch of 8;
+- k1_k2_cards: K1 and K2 across the cards (chip_smoke's ``k1_cards``,
+  ``k2_cards``);
+- aggregate: chip_smoke's b=2, d=3 zk aggregate unsharded (first and
+  warm), then its aggregate_mesh phase, the same tree over make_mesh(4)
+  in this process;
+- multihost: chip_smoke's, the 2^22-point four-step over 2 processes of
+  2 cards each under nccl;
+- sim_batch: scripts/torch_multihost_sim.py over 4 processes of a card
+  each under nccl, the 2^22-point four-step and the zk wormhole batch of
+  8 (each process proving its card's 2), beside the batch unsharded on
+  process 0's card; run only when every phase before it passed.
+
+Every phase prints one JSON line; the simulation's whole output goes to
+--log-dir (a new temporary directory by default).
 """
 
 import argparse
@@ -29,86 +37,66 @@ import traceback
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+PHASES = ("batch_mesh", "k1_k2_cards", "aggregate", "multihost", "sim_batch")
 
 
-def threaded(circuit_data, pws, mesh, check_witness=False):
-    """prove_batch_mesh as one host thread a distinct card, each running
-    its shards' sub-batches in turn."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import torch
-
-    from zk_circuits_torch.plonk import prover_batch
-
-    per = len(pws) // mesh.size
-    by_card, results = {}, [None] * mesh.size
-    for i, dev in enumerate(mesh.devices):
-        by_card.setdefault(dev, []).append(i)
-
-    def work(dev, shards):
-        with torch.cuda.device(dev):
-            for i in shards:
-                results[i] = prover_batch.prove_batch_device(
-                    circuit_data, pws[i * per:(i + 1) * per], dev, check_witness)
-
-    with ThreadPoolExecutor(len(by_card)) as pool:
-        for f in [pool.submit(work, d, s) for d, s in by_card.items()]:
-            f.result()
-    return [p for r in results for p in r]
-
-
-def threads_compare(cs, state) -> None:
-    """One warm mesh batch of 8 each way, in turns: in turn, threads, in
-    turn, threads."""
-    from zk_circuits_torch.api.prover import WormholeProver
-    from zk_circuits_torch.parallel import mesh as meshm
-    from zk_circuits_torch.plonk import prover_batch
-    from zk_circuits_torch.plonk.prover import prove_batch
+def aggregate(cs, state) -> None:
+    """chip_smoke's aggregate tree unsharded on cuda:0, first (building the
+    level circuits) and warm, seconds a level; then chip_smoke's
+    aggregate_mesh phase: the same tree over make_mesh(4) in this process
+    with those level circuits."""
+    from zk_circuits_torch.aggregation import tree as treem
+    from zk_circuits_torch.aggregation.aggregator import WormholeProofAggregator
     from zk_circuits_torch.utils.serialization import proof_to_bytes
 
-    cd, targets, inputs = state["wormhole"]
-    mesh = meshm.make_mesh(4)
-    in_turn = prover_batch.prove_batch_mesh
+    cd = state["wormhole"][0]
+    leaf = state["wormhole_proof"]
     runs = []
-    for label, impl in (("in_turn", in_turn), ("threads", threaded), ("in_turn", in_turn),
-                        ("threads", threaded)):
-        pws = [WormholeProver(circuit_data=cd, targets=targets).commit(inputs).partial_witness
-               for _ in range(8)]
-        prover_batch.prove_batch_mesh = impl
-        try:
-            proofs, secs = cs._synced(lambda: prove_batch(cd, pws, mesh=mesh))
-        finally:
-            prover_batch.prove_batch_mesh = in_turn
-        digests = {hashlib.sha256(proof_to_bytes(p)).hexdigest() for p in proofs}
-        if digests != {cs.GOLDEN_WORMHOLE_ZK_SHA256}:
-            raise AssertionError(f"{label}: sha256s {digests}")
-        runs.append({"impl": label, "s": secs})
-    cs.emit({"phase": "threads_compare", "runs": runs})
+    for run in ("first", "warm"):
+        agg = WormholeProofAggregator(cd.common, cd.verifier_only,
+                                      treem.TreeAggregationConfig(*cs.AGG_CONFIG),
+                                      dummy_loader=lambda: leaf, device="cuda")
+        for _ in range(cs.AGG_PUSHES):
+            agg.push(leaf)
+        with cs.level_prove_records() as records:
+            root, secs = cs._synced(agg.aggregate)
+        digest = hashlib.sha256(proof_to_bytes(root)).hexdigest()
+        if digest != cs.GOLDEN_AGGREGATE_ZK_SHA256:
+            raise AssertionError(f"aggregate ({run}): root sha256 {digest}")
+        runs.append({"run": run, "s": secs,
+                     "level_s": {i + 1: r["s"] for i, r in enumerate(records)}})
+    state["aggregate_warm_s"] = runs[-1]["s"]
+    state["aggregate_warm_level_s"] = runs[-1]["level_s"]
+    cs.emit({"phase": "aggregate_unsharded", "runs": runs,
+             "timing": "s: perf_counter, ending in a synchronise"})
+    cs.PHASES["aggregate_mesh"](state)
 
 
-def sim(cs, log_dir, tag, args, env_extra, timeout) -> int:
-    """One scripts/torch_multihost_sim.py run; its result line and the
-    head of its errors printed, its whole output kept in log_dir."""
+def sim(cs, log_dir, tag, args, timeout) -> dict | None:
+    """One scripts/torch_multihost_sim.py run; its result line (None if
+    it failed) and the head of its errors printed, its whole output kept
+    in log_dir."""
     cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_multihost_sim.py"), *args]
     t = time.perf_counter()
     try:
-        p = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
-                           env=dict(os.environ, **env_extra))
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
         rc, out, err = p.returncode, p.stdout, p.stderr
     except subprocess.TimeoutExpired as e:
         rc, out, err = "timeout", str(e.stdout), str(e.stderr)
     with open(os.path.join(log_dir, f"sim_{tag}.log"), "w") as f:
         f.write(f"rc={rc}\n--- stdout\n{out}\n--- stderr\n{err}\n")
     line = [ln for ln in (out or "").splitlines() if ln.startswith("{")]
-    cs.emit({"phase": f"sim_{tag}", "rc": rc, "s": time.perf_counter() - t, "env": env_extra,
-             "result": json.loads(line[-1]) if line else None,
+    result = json.loads(line[-1]) if rc == 0 and line else None
+    cs.emit({"phase": f"sim_{tag}", "rc": rc, "s": time.perf_counter() - t, "result": result,
              "stderr_head": (err or "")[:1500]})
-    return 0 if rc == 0 else 1
+    return result
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-dir", default=None)
+    ap.add_argument("--phases", default=None,
+                    help=f"comma-separated, of {','.join(PHASES)} (default: all)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -134,9 +122,11 @@ def main() -> int:
             failed += 1
         return time.perf_counter() - t
 
+    phases = args.phases.split(",") if args.phases else list(PHASES)
+    if set(phases) - set(PHASES):
+        raise SystemExit(f"phases are {PHASES}, got {phases}")
     phase_s = {name: run(name, lambda name=name: cs.PHASES[name](state))
-               for name in ("card", "wormhole", "batch_mesh")}
-    phase_s["threads_compare"] = run("threads_compare", lambda: threads_compare(cs, state))
+               for name in ("card", "wormhole")}
 
     def cards():
         cd = state["wormhole"][0]
@@ -145,20 +135,25 @@ def main() -> int:
         cs.emit({"phase": "k1_cards", "cards": cs.k1_cards(cap, trees["wires"])})
         cs.emit({"phase": "k2_cards", "cards": cs.k2_cards(np.random.default_rng(9))})
 
-    phase_s["k1_k2_cards"] = run("k1_k2_cards", cards)
+    steps = {"batch_mesh": lambda: cs.PHASES["batch_mesh"](state), "k1_k2_cards": cards,
+             "aggregate": lambda: aggregate(cs, state)}
+    for name in phases:
+        if name in steps:
+            phase_s[name] = run(name, steps[name])
     torch.cuda.empty_cache()
-    ntt = ["--procs", "2", "--local-shards", "2", "--log2n", "22", "--device", "cuda",
-           "--timeout", "45"]
-    for tag, extra in (("nccl", {}), ("nccl_noshm", {"NCCL_SHM_DISABLE": "1"}),
-                       ("nccl_nop2p", {"NCCL_P2P_DISABLE": "1"})):
-        if not sim(cs, log_dir, tag, ntt + ["--backend", "nccl"],
-                   {"NCCL_DEBUG": "INFO", **extra}, 55):
-            break
-    failed += sim(cs, log_dir, "gloo", ntt + ["--backend", "gloo"], {}, 90)
-    failed += sim(cs, log_dir, "batch", ["--procs", "4", "--local-shards", "1", "--log2n", "20",
-                                         "--device", "cuda", "--backend", "gloo", "--batch",
-                                         "8", "--circuit", "wormhole", "--timeout", "200"],
-                  {}, 220)
+    if "multihost" in phases:
+        cs.SIM_TIMEOUT = 90
+        phase_s["multihost"] = run("multihost", lambda: cs.PHASES["multihost"](state))
+    if "sim_batch" in phases and not failed:    # an nccl hang would hold all four cards
+        t = time.perf_counter()
+        res = sim(cs, log_dir, "batch",
+                  ["--procs", "4", "--local-shards", "1", "--log2n", "22", "--device", "cuda",
+                   "--backend", "nccl", "--batch", "8", "--circuit", "wormhole",
+                   "--timeout", "240"], 260)
+        phase_s["sim_batch"] = time.perf_counter() - t
+        if res is None or res["backend"] != "nccl" or \
+                set(res["batch"]["sha256"]) != {cs.GOLDEN_WORMHOLE_ZK_SHA256}:
+            failed += 1
     cs.emit({"phase_s": phase_s, "log_dir": log_dir})
     print(state.get("smi"), flush=True)
     return 1 if failed else 0

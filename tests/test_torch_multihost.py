@@ -103,3 +103,27 @@ def test_two_process_simulation():
     assert res["ntt_equal_host"] and res["intt_of_ntt_equal_input"] and res["lde_dcn_equal_host"]
     batch = res["batch"]
     assert batch["equal_unsharded"] and len(set(batch["sha256"])) == 4
+
+
+def test_initialize_binds_nccl_to_the_current_card(monkeypatch):
+    """Under nccl the group is bound to the process's current card, so no
+    collective guesses a card from the rank (a guess that put a rank's
+    barrier and its exchanges on two cards, two communicators, and hung);
+    under gloo no card is named."""
+    import torch
+    import torch.distributed as dist
+
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "get_backend", lambda: calls[-1][0])
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    tdist.initialize("localhost:1234", 2, 1, backend="nccl")
+    tdist.initialize("localhost:1234", 2, 1, backend="gloo")
+    tcp = dict(init_method="tcp://localhost:1234", world_size=2, rank=1)
+    assert calls == [("nccl", dict(tcp, device_id=torch.device("cuda", 1))), ("gloo", tcp)]
+    with pytest.raises(ValueError, match="name the backend"):
+        tdist.initialize("localhost:1234", 2, 1)
+

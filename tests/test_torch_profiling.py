@@ -3,8 +3,8 @@
 ``dump_timings`` writes the JAX version's JSON (per stage: total_s,
 count, mean_s); ``device_trace`` writes a torch.profiler Chrome trace
 under ``$ZKT_PROFILE_DIR/<label>`` and is inert without it; a stage
-timer's nesting depth is its own thread's (the mesh batch proves on one
-worker thread per card).
+timer's nesting depth is its own thread's (a caller may prove on several
+threads at once).
 """
 
 import json

@@ -1,4 +1,4 @@
-"""What the mesh batch's worker threads share, on the CPU.
+"""What provers on several threads of one process share, on the CPU.
 
 The three kernel wrappers (K1 ``hash/poseidon_cuda.py``, K2
 ``parallel/exchange_cuda.py``, K3 ``iop/witness_cuda.py``) build their

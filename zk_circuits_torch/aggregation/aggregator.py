@@ -68,7 +68,7 @@ class WormholeProofAggregator:
         self.inner_common = inner_common
         self.inner_verifier_only = inner_verifier_only
         self.config = config or TreeAggregationConfig.default()
-        self.mesh = mesh  # batch-prove each level's chunks across the mesh's cards
+        self.mesh = mesh  # prove each level's chunks split over the mesh's shards
         self.device = resolve_device(device)
         # Padding source when the buffer is short of b^d proofs — the
         # reference auto-pads from its embedded dummy (util.rs:11-29);

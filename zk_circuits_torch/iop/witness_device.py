@@ -73,7 +73,7 @@ def seed_batch(circuit_data, pws) -> tuple[tuple, np.ndarray]:
     rows = []
     for pw in pws:
         keys = tuple(pw.values)
-        kept = po.seed_order     # read once: provers on other threads share it
+        kept = po.seed_order     # read once: another thread may replace it
         if kept is None or kept[0] != keys:
             reps = []
             for t in keys:

@@ -35,7 +35,9 @@ def initialize(coordinator_address: str | None = None,
     world size ``num_processes`` and this process's rank ``process_id``
     when they are given, else torchrun's environment (``env://``).
     ``backend`` ("nccl" or "gloo") must be named; the backend in use is
-    printed."""
+    printed.  Under nccl the group is bound to the process's current card
+    (``torch.cuda.set_device`` first), and every collective of the port
+    runs on that card."""
     import torch.distributed as dist
 
     if backend not in BACKENDS:
@@ -44,13 +46,20 @@ def initialize(coordinator_address: str | None = None,
                          f"share a card; got {backend!r}")
     given = (coordinator_address, num_processes, process_id)
     if all(v is not None for v in given):
-        dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                                world_size=num_processes, rank=process_id)
+        kw = dict(init_method=f"tcp://{coordinator_address}", world_size=num_processes,
+                  rank=process_id)
     elif any(v is not None for v in given):
         raise ValueError("give coordinator_address, num_processes and process_id "
                          "together, or none of them (torchrun's environment)")
     else:
-        dist.init_process_group(backend, init_method="env://")
+        kw = dict(init_method="env://")
+    if backend == "nccl":
+        # bind the group to this process's current card: left unbound, the
+        # first barrier guesses the card from the rank (rank % cards), and a
+        # collective on another card then opens a second communicator that
+        # the other ranks never join
+        kw["device_id"] = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(backend, **kw)
     print(f"[zkt] process {dist.get_rank()} of {dist.get_world_size()}: "
           f"torch.distributed backend {dist.get_backend()}", flush=True)
 
@@ -99,10 +108,14 @@ def all_to_all(send: list, recv_sizes: list, device) -> list:
     """One ``all_to_all_single``: ``send[q]`` (int64, empty for this
     process) goes to process q, and process p sends ``recv_sizes[p]``
     elements here; returns them, 1-D, on ``device``.  Under gloo, CUDA
-    tensors cross through host memory."""
+    tensors cross through host memory; under nccl, through the card the
+    group is bound to."""
     import torch.distributed as dist
 
-    stage = torch.device("cpu") if dist.get_backend() == "gloo" else device
+    if dist.get_backend() == "gloo":
+        stage = torch.device("cpu")
+    else:                           # the card the group is bound to
+        stage = torch.device("cuda", torch.cuda.current_device())
     inp = torch.cat([t.reshape(-1).to(stage) for t in send])
     out = torch.empty(sum(recv_sizes), dtype=torch.int64, device=stage)
     dist.all_to_all_single(out, inp, list(recv_sizes), [t.numel() for t in send])

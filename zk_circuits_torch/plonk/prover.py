@@ -235,9 +235,11 @@ def prove_batch(circuit_data, pws: list, mesh=None, check_witness: bool | None =
     ``mesh`` (parallel/mesh.py) splits the batch axis over its shards
     when B is a multiple of the mesh size, the JAX package's rule
     (its prover_batch.py ``_shard``): shard i proves witnesses
-    i*B/E .. (i+1)*B/E on its device (``prove_batch_mesh``; over a mesh
-    that spans processes every process calls this with the same
-    witnesses and proves its own shards).  Otherwise the whole batch runs
+    i*B/E .. (i+1)*B/E on its device (``prove_batch_mesh``: one process
+    proves its shards one after another, slower than the batch
+    unsharded; over a mesh that spans processes every process calls
+    this with the same witnesses and proves its own shards, and the
+    cards prove at once).  Otherwise the whole batch runs
     unsharded on this process's first shard's device.  Given a mesh, its
     devices decide where the work runs; a ``device`` of another type
     raises ValueError."""

@@ -25,13 +25,15 @@ sequential ``prove``.
 ``prove_batch_mesh`` splits a batch over the shards of a mesh, the
 counterpart of the reference aggregator's rayon fan-out (tree.rs:92-103)
 and of the JAX package's batch axis sharded over chips: each shard's
-sub-batch goes through ``prove_batch_device`` on its device.  A process
-proves its shards in turn from one thread; cards prove at once when each
-is owned by a process of its own (parallel/distributed.py), whose proofs
-the others receive in one all-gather.  (One host thread a card in one
-process was 3.1-3.6x slower than proving the shards in turn on four
-H100s, scripts/torch_four_cards.py: the workers contend for the
-interpreter lock at each of a sub-batch's ~81k torch operations.)  Each card keeps its own copies of the
+sub-batch goes through ``prove_batch_device`` on its device.  One
+process proves its shards one after another from one thread, every
+sub-batch waiting on its transcript fetches, so in one process a mesh
+batch is slower than the same batch unsharded, on one card and on
+four (8 zk wormhole proofs over make_mesh(4): 1.16-1.62x the unsharded
+batch's seconds on one card, 1.52x on four; NVIDIA H100 80GB HBM3,
+700.00 W, PERF.md).  Cards prove at once only when each is owned by a
+process of its own (parallel/distributed.py, a mesh that spans
+processes), whose proofs the others receive in one all-gather.  Each card keeps its own copies of the
 circuit's prover data: the constants/sigmas commitment
 (``PolynomialBatch.ensure_device``), the K3 ``WitnessTable``
 (``witness_device.device_table``) and the coset tables.

@@ -2,7 +2,7 @@
 
 ``stage_timer(name)`` -- nested wall-clock stage timers.  With
 ``ZKT_TIMING=1`` each stage prints one line, indented by its nesting
-depth in the thread that runs it (provers may run on several threads);
+depth in the thread that runs it (a caller may prove on several threads);
 timings are always collected into ``get_timings()``
 for programmatic use (bench harnesses) and ``dump_timings`` writes them
 as JSON.  A stage that ends on a host fetch (every transcript stage)
