@@ -1,7 +1,7 @@
 """Derive the sha256 digests that chip_smoke.py pins, from the JAX
 package's host path (numpy and the native C++ library, on the CPU).
 
-    JAX_PLATFORMS=cpu python scripts/golden_digests.py [--no-aggregate]
+    JAX_PLATFORMS=cpu python scripts/golden_digests.py [--no-aggregate] [--test-pins]
 
 Prints one JSON line: the digest of each proof, and the seconds each took.
 
@@ -17,6 +17,12 @@ Prints one JSON line: the digest of each proof, and the seconds each took.
   the dummy (several minutes; left out with ``--no-aggregate``).
 
 tests/test_torch_wormhole_golden.py re-derives each one the same way.
+
+With ``--test-pins`` it also prints the pins of the port's recursion and
+aggregation tests (tests/test_torch_jax_pins.py derives and checks them in
+tier-1): the JAX level circuit over two square proofs (gate rows, degree,
+common.bin and verifier.bin sha256), its chunk proof, and the 2-level mesh
+root and depth-1 root of tests/test_torch_aggregation.py.
 """
 
 import hashlib
@@ -87,13 +93,20 @@ def main() -> None:
 
     out = {}
     jobs = [("GOLDEN_WORMHOLE_SHA256",
-             lambda: wormhole_proof(CircuitConfig.standard_recursion_config())[0]),
-            ("GOLDEN_VOTE_SHA256", vote_proof)]
+             lambda: _digest(wormhole_proof(CircuitConfig.standard_recursion_config())[0])),
+            ("GOLDEN_VOTE_SHA256", lambda: _digest(vote_proof()))]
     if "--no-aggregate" not in sys.argv[1:]:
-        jobs.append(("GOLDEN_AGGREGATE_ZK_SHA256", aggregate_root))
+        jobs.append(("GOLDEN_AGGREGATE_ZK_SHA256", lambda: _digest(aggregate_root())))
+    if "--test-pins" in sys.argv[1:]:
+        from test_torch_jax_pins import JaxSquare
+
+        sq = JaxSquare()
+        jobs += [("JAX_LEVEL", sq.level_pins), ("JAX_CHUNK_SHA256", sq.chunk_sha256),
+                 ("JAX_MESH_ROOT_SHA256", sq.mesh_root_sha256),
+                 ("JAX_CHUNK_ROOT_SHA256", sq.chunk_root_sha256)]
     for name, job in jobs:
         t = time.perf_counter()
-        out[name] = _digest(job())
+        out[name] = job()
         out[f"{name}_s"] = time.perf_counter() - t
         print(json.dumps({name: out[name], "s": out[f"{name}_s"]}), flush=True)
     print(json.dumps(out))

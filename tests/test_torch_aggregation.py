@@ -9,9 +9,11 @@ first level a batch of two chunks through ``prove_batch``, the second a
 ``prove_chunk``) of one pushed proof padded by the loader, and a repeat
 aggregation at depth 1 that builds no circuit.  The inner circuit is the
 zk square circuit of tests/test_torch_recursion.py under its cheap FRI
-config.  The JAX root is its aggregate over ``make_mesh(4)``, held to
-the digest that tests/test_torch_mesh_aggregate.py holds the port's
-aggregate over a mesh of 2 CPU shards to.
+config.  The JAX roots are pinned by sha256: the 2-level root is the JAX
+package's aggregate over ``make_mesh(4)``, the digest that
+tests/test_torch_mesh_aggregate.py holds the port's aggregate over a mesh
+of 2 CPU shards to; tests/test_torch_jax_pins.py (and
+scripts/golden_digests.py) re-derive both from the frozen JAX package.
 """
 
 import hashlib
@@ -28,36 +30,35 @@ from zk_circuits_torch.aggregation.aggregator import WormholeProofAggregator
 from zk_circuits_torch.circuits.wormhole.inputs import LEAF_PI_LEN, PublicCircuitInputs
 from zk_circuits_torch.utils.serialization import proof_to_bytes as t_bytes
 from zk_circuits_tpu.aggregation import tree as j_tree
-from zk_circuits_tpu.aggregation.aggregator import WormholeProofAggregator as JAggregator
-from zk_circuits_tpu.parallel.mesh import make_mesh as j_make_mesh
 from zk_circuits_tpu.utils.serialization import proof_to_bytes as j_bytes
+
+# sha256 of the JAX host path's depth-1 root of square(JAX) proofs of 6 and
+# 7: aggregate_to_tree(..., TreeAggregationConfig(2, 1)).
+JAX_CHUNK_ROOT_SHA256 = "73a4dcd14a7c92e9f4ca5a5f5798b3e67a8b7356049c44aa95311ff438777642"
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _threads():
-    """Four torch threads for the plain-version proofs of 2^12 level
-    circuits (about 35 s a proof)."""
+    """One torch thread, for the reason tests/test_torch_recursion.py's
+    fixture gives."""
     before = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
 def sq():
-    """The square circuit of both packages and a prover of each; the
-    port's proof of a value equals the JAX package's."""
+    """The port's square circuit and a prover; its proof of a value equals
+    the JAX package's."""
     t_data, t_wit = square(TORCH, device="cpu")
     j_data, j_wit = square(JAX)
 
     def prove(v):
         return t_data.prove(t_wit(v), device="cpu")
 
-    def j_prove(v):
-        return j_data.prove(j_wit(v), use_device=False)
-
-    assert t_bytes(prove(2)) == j_bytes(j_prove(2))
-    return types.SimpleNamespace(data=t_data, j_data=j_data, prove=prove, j_prove=j_prove)
+    assert t_bytes(prove(2)) == j_bytes(j_data.prove(j_wit(2), use_device=False))
+    return types.SimpleNamespace(data=t_data, prove=prove)
 
 
 def _aggregator(sq, config, **kw):
@@ -68,9 +69,9 @@ def _aggregator(sq, config, **kw):
 @pytest.fixture(scope="module")
 def tree(sq):
     """One pushed proof padded to 4 leaves by the loader and folded by a
-    2-level tree, by both packages (the JAX package's over its mesh of 4
-    virtual devices, where level 1's 2 chunks run unsharded by its rule):
-    (port aggregator, loader calls, JAX root)."""
+    2-level tree by the port (the JAX package's root, pinned, folds the
+    same leaves over its mesh of 4 virtual devices, where level 1's 2
+    chunks run unsharded by its rule): (port aggregator, loader calls)."""
     calls = []
 
     def loader():
@@ -80,11 +81,7 @@ def tree(sq):
     agg = _aggregator(sq, t_tree.TreeAggregationConfig(2, 2), dummy_loader=loader)
     agg.push(sq.prove(2))
     agg.aggregate()
-    j_agg = JAggregator(sq.j_data.common, sq.j_data.verifier_only,
-                        j_tree.TreeAggregationConfig(2, 2), mesh=j_make_mesh(4),
-                        dummy_loader=lambda: sq.j_prove(1))
-    j_agg.push(sq.j_prove(2))
-    return agg, calls, j_agg.aggregate()
+    return agg, calls
 
 
 def test_tree_aggregation_config():
@@ -137,18 +134,18 @@ def test_extract_leaf_public_inputs_splits_the_root(sq):
 
 
 def test_two_level_tree_pads_via_loader_and_matches_jax(tree):
-    agg, calls, j_root = tree
+    agg, calls = tree
     assert calls == [1]
     assert agg.root_proof.public_inputs.tolist() == [4, 1, 1, 1]
-    assert t_bytes(agg.root_proof) == j_bytes(j_root)
-    assert hashlib.sha256(j_bytes(j_root)).hexdigest() == JAX_MESH_ROOT_SHA256
+    assert hashlib.sha256(t_bytes(agg.root_proof)).hexdigest() == JAX_MESH_ROOT_SHA256
     agg.root_circuit_data.verify(agg.root_proof)
 
 
 def test_level_circuit_cache_reused_and_chunk_matches_jax(sq, tree, monkeypatch):
     """A second aggregation of the same inner circuit builds no circuit
     (the reference rebuilds per chunk, tree.rs:111-127); its root, one
-    prove_chunk of the cached level circuit, equals the JAX package's."""
+    prove_chunk of the cached level circuit, equals the JAX package's
+    (pinned)."""
     builds = []
     real_init = t_tree.LevelCircuit.__init__
 
@@ -165,7 +162,4 @@ def test_level_circuit_cache_reused_and_chunk_matches_jax(sq, tree, monkeypatch)
     assert len(t_tree._LEVEL_CACHE) == n_cached
     assert root.public_inputs.tolist() == [36, 49]
     root_data.verify(root)
-    j_root, _ = j_tree.aggregate_to_tree([sq.j_prove(6), sq.j_prove(7)], sq.j_data.common,
-                                         sq.j_data.verifier_only,
-                                         j_tree.TreeAggregationConfig(2, 1))
-    assert t_bytes(root) == j_bytes(j_root)
+    assert hashlib.sha256(t_bytes(root)).hexdigest() == JAX_CHUNK_ROOT_SHA256

@@ -32,8 +32,10 @@ from zk_circuits_tpu.utils.serialization import proof_to_bytes as j_bytes
 
 @pytest.fixture(scope="module", autouse=True)
 def _threads():
+    """One torch thread, for the reason tests/test_torch_recursion.py's
+    fixture gives."""
     before = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 

@@ -6,9 +6,10 @@ level 1's two chunks split one a shard (``prove_batch_mesh``), level 2
 one ``prove_chunk``.  Its root must be byte-equal to the JAX package's
 aggregate of the same leaves over ``make_mesh(4)`` (its level 1, B=2,
 unsharded by its rule), pinned below by sha256;
-tests/test_torch_aggregation.py derives that root with the JAX package
-in its tree fixture, holds it to the pin and to the port's unsharded
-aggregate.  A file of its own, so that it runs beside that one.
+tests/test_torch_jax_pins.py derives that root with the JAX package and
+holds it to the pin, and tests/test_torch_aggregation.py holds the port's
+unsharded aggregate to it.  A file of its own, so that it runs beside
+that one.
 """
 
 import hashlib
@@ -30,10 +31,10 @@ JAX_MESH_ROOT_SHA256 = "1d0bea4f21125babbf0b0b52e30b98bd7797f9596325e73813f2b4ba
 
 @pytest.fixture(scope="module", autouse=True)
 def _threads():
-    """Four torch threads for the plain-version proofs of 2^12 level
-    circuits (about 35 s a proof)."""
+    """One torch thread, for the reason tests/test_torch_recursion.py's
+    fixture gives."""
     before = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 

@@ -30,10 +30,10 @@ VALUES = (3, 7, 11, 255, 2, 5, 6, 9)
 
 @pytest.fixture(scope="module", autouse=True)
 def _threads():
-    """Four torch threads for the plain sponge's PoW sweeps (2^14
-    candidates a proof)."""
+    """One torch thread, for the reason tests/test_torch_recursion.py's
+    fixture gives."""
     before = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 

@@ -42,8 +42,10 @@ CHEAP_FRI = dict(num_query_rounds=2, proof_of_work_bits=1)
 
 @pytest.fixture(scope="module", autouse=True)
 def _threads():
+    """One torch thread, for the reason tests/test_torch_recursion.py's
+    fixture gives."""
     before = torch.get_num_threads()
-    torch.set_num_threads(4)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 

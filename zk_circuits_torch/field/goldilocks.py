@@ -107,19 +107,28 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 
 
 def mul128(a: torch.Tensor, b: torch.Tensor):
-    """Exact 64x64 -> 128 product of any u64 patterns: (lo, hi)."""
+    """Exact 64x64 -> 128 product of any u64 patterns: (lo, hi).
+
+    The low word is the wrapping int64 product.  The high word adds the
+    32-bit halves' partial products, and the carry out of the middle
+    column, a sum below 3 * 2^32, fits in int64 without a compare."""
     a0, a1 = a & MASK32, lsr(a, 32)
     b0, b1 = b & MASK32, lsr(b, 32)
-    ll = a0 * b0
     lh = a0 * b1
     hl = a1 * b0
-    hh = a1 * b1
-    mid = lh + hl
-    mid_carry = ult(mid, lh).to(torch.int64)
-    lo = ll + (mid << 32)
-    c1 = ult(lo, ll).to(torch.int64)
-    hi = hh + lsr(mid, 32) + (mid_carry << 32) + c1
-    return lo, hi
+    mid = lsr(a0 * b0, 32) + (lh & MASK32) + (hl & MASK32)
+    hi = a1 * b1 + lsr(lh, 32) + lsr(hl, 32) + (mid >> 32)
+    return a * b, hi
+
+
+def square128(a: torch.Tensor):
+    """Exact 128-bit square of any u64 patterns: (lo, hi), with the one
+    cross product of mul128 doubled."""
+    a0, a1 = a & MASK32, lsr(a, 32)
+    lh = a0 * a1
+    mid = lsr(a0 * a0, 32) + ((lh & MASK32) << 1)
+    hi = a1 * a1 + (lsr(lh, 32) << 1) + (mid >> 32)
+    return a * a, hi
 
 
 def reduce128_nc(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -142,7 +151,7 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def square(a: torch.Tensor) -> torch.Tensor:
-    return mul(a, a)
+    return reduce128(*square128(a))
 
 
 def mul_const(a: torch.Tensor, c: int) -> torch.Tensor:

@@ -60,9 +60,11 @@ def eval_ext_poly(coeffs: np.ndarray, x: np.ndarray) -> np.ndarray:
 
 
 # Candidates hashed per sweep: one leaf-kernel launch of (2^17, 5) rows on
-# the card; the plain CPU sponge sweeps smaller windows (same result: the
-# windows run from 0 upward and the first hit of the first window that has
-# one is the smallest passing witness).
+# the card; the plain CPU sponge sweeps smaller windows, at most 2^14 and
+# about four expected witnesses wide (4 << pow_bits, at least 64), so that
+# a cheap config does not hash 2^14 candidates to find a witness near 2^2
+# (same result: the windows run from 0 upward and the first hit of the
+# first window that has one is the smallest passing witness).
 GRIND_BATCH = {"cuda": 1 << 17, "cpu": 1 << 14}
 
 
@@ -86,6 +88,8 @@ def proof_of_work_grind_batch(pow_bases: np.ndarray, pow_bits: int,
     _check_pow_bits(pow_bits)
     device = torch.device(device)
     batch = GRIND_BATCH[device.type]
+    if device.type == "cpu":
+        batch = min(batch, max(64, 4 << pow_bits))
     threshold = gfd._i64(1 << (64 - pow_bits))
     bases = gfd.from_u64(np.asarray(pow_bases, dtype=np.uint64).reshape(-1, 4), device)
     ramp = torch.arange(batch, dtype=torch.int64, device=device)

@@ -6,9 +6,9 @@ the tests hold it against zk_circuits_torch.host.poseidon and the JAX
 sponge, and the chip smoke run holds the CUDA kernel against it.
 
 The MDS layer splits every lane into 32-bit halves, so the circulant
-multiply-accumulate with the small coefficients is exact in int64
-(sums < 12 * 49 * 2^32 < 2^42); the 2^32-weighted recombination is then
-one 128-bit reduction.
+multiply-accumulate with the small coefficients is exact as a float64
+matmul (sums < 264 * 2^32 < 2^53); the 2^32-weighted recombination is
+then one 128-bit reduction.
 """
 
 from __future__ import annotations
@@ -39,33 +39,43 @@ _TABLES: dict = {}
 
 
 def _tables(device):
-    """Round constants (30, 12) and MDS columns (12 inputs, 12 outputs) on
-    ``device``, built once per device (module import stays tensor-free)."""
+    """Round constants (30, 12) and the MDS matrix as float64 (12 inputs,
+    12 outputs) on ``device``, built once per device (module import stays
+    tensor-free)."""
     key = str(device)
     if key not in _TABLES:
         _TABLES[key] = (gf.from_u64(_RC_NP, device),
-                        torch.from_numpy(_MDS_NP.T.copy()).to(device))
+                        torch.from_numpy(_MDS_NP.T.astype(np.float64)).to(device))
     return _TABLES[key]
 
 
 def _sbox(x: torch.Tensor) -> torch.Tensor:
-    x2 = gf.square(x)
-    x3 = gf.mul(x2, x)
-    x6 = gf.square(x3)
-    return gf.mul(x6, x)
+    """x^7 of any u64 patterns, reduced mod p but not canonicalised: a u64
+    that may lie in [p, 2^64), which the MDS layer takes as it is."""
+    x2 = gf.reduce128_nc(*gf.square128(x))
+    x3 = gf.reduce128_nc(*gf.mul128(x2, x))
+    x6 = gf.reduce128_nc(*gf.square128(x3))
+    return gf.reduce128_nc(*gf.mul128(x6, x))
+
+
+def _add_rc(state: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
+    """state + rc (mod p) of canonical operands, not canonicalised: the
+    S-box and the MDS layer take any u64."""
+    s = state + rc
+    return torch.where(gf.ult(s, rc), s + gf.EPS, s)
 
 
 def mds_layer(state: torch.Tensor) -> torch.Tensor:
-    """Exact MDS multiply of (..., 12) canonical states."""
+    """Exact MDS multiply of (..., 12) states (any u64 patterns).
+
+    The 32-bit halves of every lane go through one float64 matmul: each
+    product and partial sum is an integer below 264 * 2^32 < 2^53, so the
+    float64 result is exact whatever order the BLAS sums in."""
     mds_t = _tables(state.device)[1]
-    lo = state & gf.MASK32
-    hi = gf.lsr(state, 32)
-    s_lo = torch.zeros_like(state)
-    s_hi = torch.zeros_like(state)
-    for i in range(WIDTH):
-        s_lo = s_lo + lo[..., i : i + 1] * mds_t[i]
-        s_hi = s_hi + hi[..., i : i + 1] * mds_t[i]
-    # value = s_lo + s_hi * 2^32, below 2^75
+    halves = torch.stack([state & gf.MASK32, gf.lsr(state, 32)], dim=-2)
+    sums = (halves.to(torch.float64) @ mds_t).to(torch.int64)
+    s_lo, s_hi = sums[..., 0, :], sums[..., 1, :]
+    # value = s_lo + s_hi * 2^32, below 2^74
     x_lo = s_lo + ((s_hi & gf.MASK32) << 32)
     carry = gf.ult(x_lo, s_lo).to(torch.int64)
     x_hi = gf.lsr(s_hi, 32) + carry
@@ -78,13 +88,13 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     rc = _tables(state.device)[0]
     h, p = HALF_N_FULL_ROUNDS, N_PARTIAL_ROUNDS
     for r in range(h):
-        state = mds_layer(_sbox(gf.add(state, rc[r])))
+        state = mds_layer(_sbox(_add_rc(state, rc[r])))
     for r in range(h, h + p):
-        state = gf.add(state, rc[r])
+        state = _add_rc(state, rc[r])
         state = torch.cat([_sbox(state[..., :1]), state[..., 1:]], dim=-1)
         state = mds_layer(state)
     for r in range(h + p, 2 * h + p):
-        state = mds_layer(_sbox(gf.add(state, rc[r])))
+        state = mds_layer(_sbox(_add_rc(state, rc[r])))
     return state
 
 
