@@ -166,6 +166,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                decodes to a proof with the JAX host path's sha256 (pinned
                below), which a freshly built verifier accepts, whose public
                inputs are the golden fixture's.
+18. compat  -- the reference-format layer (zk_circuits_torch/compat, host
+               numpy): its import runs the fast-Poseidon self-check; K1's
+               hash_rows of 4096 seeded rows of 8 felts (one permutation
+               each, state = row || 0^4) on the card equals its plain
+               version, and on 64 of them lanes 0-3 of the reference
+               engine's fast permutation (compat.poseidon_fast); the
+               emulated reference wormhole layout (build_wormhole_layout)
+               has the JAX package's degree, gate list and selector groups,
+               and its polys' sha256 is the JAX package's (pinned below).
+               Its K1 launch is a cross-check, counted apart under
+               launches_by_path["compat"].
 
 The last lines are the card line, the kernels line and
 {"ok": true, "device": {...}}.  Needs no network; imports no JAX.
@@ -201,6 +212,17 @@ GOLDEN_VOTE_SHA256 = (
 # tests/test_torch_wormhole_golden.py re-derives it (slow: minutes).
 GOLDEN_AGGREGATE_ZK_SHA256 = (
     "dddb26e8e1c2b44875703e2ed25ce6ecf87a54b2e79b826eda45b2bf29bf0702")
+# sha256 of the emulated reference wormhole layout's polys (compat/:
+# build_wormhole_layout(True)'s selector, constant and sigma polys stacked,
+# (84, 2^13) little-endian u64) from the JAX package;
+# scripts/golden_digests.py prints it and tests/test_torch_compat.py
+# re-derives it.  Its degree, gate list and selector groups are the JAX
+# package's: 2^13 (the reference's is 2^14), these gates, these groups.
+GOLDEN_COMPAT_LAYOUT_SHA256 = (
+    "e9d4db5ab53d4d2fb80ca25dcedca9bb15db5de0e034d2b553912f9310edc3f5")
+COMPAT_DEGREE_BITS = 13
+COMPAT_GATE_LIST = ("Noop", "Constant", "PublicInput", "BaseSum", "Arithmetic", "Poseidon")
+COMPAT_SELECTOR_GROUPS = ((0, 5), (5, 6))
 
 P = 2**64 - 2**32 + 1
 GRIND_ROWS = 1 << 17   # candidates per PoW sweep (fri.GRIND_BATCH["cuda"])
@@ -2705,6 +2727,67 @@ def phase_api(state) -> None:
           "example_stdout": out.getvalue().splitlines()})
 
 
+COMPAT_ROWS = 4096      # rows K1 hashes in the compat phase, one permutation each
+COMPAT_SAMPLE = 64      # of them, those also held to the fast permutation
+
+
+def phase_compat(state) -> None:
+    """The reference-format layer on the card's machine (see the module doc)."""
+    import numpy as np
+
+    from zk_circuits_torch.field import goldilocks as gf
+    from zk_circuits_torch.hash import poseidon_cuda
+
+    t = time.perf_counter()
+    from zk_circuits_torch.compat import poseidon_fast, refcircuit   # fast-Poseidon self-check
+    import_s = time.perf_counter() - t
+
+    # K1 against its plain version and against the reference engine's fast
+    # permutation: a row of 8 felts is one permutation of row || 0^4.
+    rng = np.random.default_rng(2610)
+    rows = rng.integers(0, P, size=(COMPAT_ROWS, 8), dtype=np.uint64)
+    rows[0], rows[1] = 0, P - 1
+    x = gf.from_u64(rows, "cuda")
+    before = poseidon_cuda.launches
+    got = gf.to_u64(poseidon_cuda.hash_rows(x))
+    launches = poseidon_cuda.launches - before
+    plain = gf.to_u64(poseidon_cuda.hash_rows_plain(x))
+    if launches != 1 or not np.array_equal(got, plain):
+        raise AssertionError(f"compat: K1 != plain on {COMPAT_ROWS} rows ({launches} launches)")
+    sample = np.r_[0, 1, rng.choice(np.arange(2, COMPAT_ROWS), COMPAT_SAMPLE - 2, replace=False)]
+    t = time.perf_counter()
+    fast = [poseidon_fast.fast_permute(poseidon_fast.HOST_ALG,
+                                       [int(v) for v in rows[i]] + [0] * 4)[:4] for i in sample]
+    fast_s = time.perf_counter() - t
+    if [[int(v) for v in got[i]] for i in sample] != fast:
+        raise AssertionError("compat: K1 != fast_permute lanes 0-3")
+
+    # the emulated reference layout, held to the JAX package's digest
+    layout, build_s = _synced(lambda: refcircuit.build_wormhole_layout(True))
+    sigma, sigma_s = _synced(layout.sigma_polys)
+    polys = np.concatenate([layout.selector_polys(), layout.constant_polys(), sigma])
+    digest = hashlib.sha256(np.ascontiguousarray(polys, dtype="<u8").tobytes()).hexdigest()
+    shape = (layout.degree_bits, tuple(layout.gate_list), tuple(layout.selector_groups))
+    if shape != (COMPAT_DEGREE_BITS, COMPAT_GATE_LIST, COMPAT_SELECTOR_GROUPS):
+        raise AssertionError(f"compat: layout {shape} is not the JAX package's")
+    if digest != GOLDEN_COMPAT_LAYOUT_SHA256:
+        raise AssertionError(f"compat: layout sha256 {digest} != pinned "
+                             f"{GOLDEN_COMPAT_LAYOUT_SHA256}")
+    for k in state.get("kernels", []):
+        if k["name"] == "poseidon_leaf_hash":
+            k["launches_by_path"]["compat"] = launches
+    emit({"phase": "compat", "nvidia_smi": state["smi"], "import_s": import_s,
+          "k1_rows": COMPAT_ROWS, "k1_equal_plain": True, "k1_launches": launches,
+          "fast_permute_rows": len(sample), "fast_permute_s": fast_s,
+          "k1_equal_fast_permute": True, "degree_bits": layout.degree_bits,
+          "gate_list": layout.gate_list, "selector_groups": layout.selector_groups,
+          "virtual_targets": layout.builder.n_virtual,
+          "copy_constraints": len(layout.builder.copy_constraints),
+          "build_s": build_s, "sigma_s": sigma_s, "sha256": digest, "golden": True,
+          "timing": "seconds of perf_counter on the host (the layer is host numpy); "
+                    "import_s includes the fast-Poseidon derivation and self-check"})
+
+
 PHASES = {"card": phase_card, "square": phase_square,
           "wormhole": phase_wormhole, "batch": phase_batch,
           "witness_check": phase_witness_check, "k1_check": phase_k1_check,
@@ -2712,7 +2795,8 @@ PHASES = {"card": phase_card, "square": phase_square,
           "sharded": phase_sharded, "k1_time": phase_k1_time,
           "k2_time": phase_k2_time, "aggregate": phase_aggregate,
           "batch_mesh": phase_batch_mesh, "aggregate_mesh": phase_aggregate_mesh,
-          "multihost": phase_multihost, "voting": phase_voting, "api": phase_api}
+          "multihost": phase_multihost, "voting": phase_voting, "api": phase_api,
+          "compat": phase_compat}
 
 
 def main() -> int:

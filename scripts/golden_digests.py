@@ -1,7 +1,7 @@
 """Derive the sha256 digests that chip_smoke.py pins, from the JAX
 package's host path (numpy and the native C++ library, on the CPU).
 
-    JAX_PLATFORMS=cpu python scripts/golden_digests.py [--no-aggregate] [--test-pins]
+    JAX_PLATFORMS=cpu python scripts/golden_digests.py [--no-aggregate]
 
 Prints one JSON line: the digest of each proof, and the seconds each took.
 
@@ -14,15 +14,19 @@ Prints one JSON line: the digest of each proof, and the seconds each took.
 - ``GOLDEN_AGGREGATE_ZK_SHA256``: the root proof of the default tree
   aggregation (branching factor 2, depth 3: 8 leaves) of the zk wormhole
   proof of the golden inputs, pushed 3 times and padded with itself as
-  the dummy (several minutes; left out with ``--no-aggregate``).
+  the dummy (several minutes; left out with ``--no-aggregate``);
+- ``GOLDEN_COMPAT_LAYOUT_SHA256``: the emulated reference wormhole layout
+  of ``compat/refcircuit.build_wormhole_layout(True)``: its selector,
+  constant and sigma polys stacked, (84, 2^13) little-endian u64.
 
-tests/test_torch_wormhole_golden.py re-derives each one the same way.
+tests/test_torch_wormhole_golden.py re-derives each proof digest the same
+way, tests/test_torch_compat.py the layout's.
 
-With ``--test-pins`` it also prints the pins of the port's recursion and
-aggregation tests (tests/test_torch_jax_pins.py derives and checks them in
-tier-1): the JAX level circuit over two square proofs (gate rows, degree,
-common.bin and verifier.bin sha256), its chunk proof, and the 2-level mesh
-root and depth-1 root of tests/test_torch_aggregation.py.
+It also prints the pins of the port's recursion and aggregation tests
+(tests/test_torch_jax_pins.py derives and checks them in tier-1): the JAX
+level circuit over two square proofs (gate rows, degree, common.bin and
+verifier.bin sha256), its chunk proof, and the 2-level mesh root and
+depth-1 root of tests/test_torch_aggregation.py.
 """
 
 import hashlib
@@ -88,22 +92,34 @@ def aggregate_root():
     return agg.aggregate()
 
 
+def compat_layout_digest() -> str:
+    """sha256 of the JAX package's emulated reference wormhole layout."""
+    import numpy as np
+
+    from zk_circuits_tpu.compat.refcircuit import build_wormhole_layout
+
+    layout = build_wormhole_layout(True)
+    polys = np.concatenate([layout.selector_polys(), layout.constant_polys(),
+                            layout.sigma_polys()])
+    return hashlib.sha256(np.ascontiguousarray(polys, dtype="<u8").tobytes()).hexdigest()
+
+
 def main() -> None:
     from zk_circuits_tpu.plonk.config import CircuitConfig
 
     out = {}
     jobs = [("GOLDEN_WORMHOLE_SHA256",
              lambda: _digest(wormhole_proof(CircuitConfig.standard_recursion_config())[0])),
-            ("GOLDEN_VOTE_SHA256", lambda: _digest(vote_proof()))]
+            ("GOLDEN_VOTE_SHA256", lambda: _digest(vote_proof())),
+            ("GOLDEN_COMPAT_LAYOUT_SHA256", compat_layout_digest)]
+    from test_torch_jax_pins import JaxSquare
+
+    sq = JaxSquare()
+    jobs += [("JAX_LEVEL", sq.level_pins), ("JAX_CHUNK_SHA256", sq.chunk_sha256),
+             ("JAX_MESH_ROOT_SHA256", sq.mesh_root_sha256),
+             ("JAX_CHUNK_ROOT_SHA256", sq.chunk_root_sha256)]
     if "--no-aggregate" not in sys.argv[1:]:
         jobs.append(("GOLDEN_AGGREGATE_ZK_SHA256", lambda: _digest(aggregate_root())))
-    if "--test-pins" in sys.argv[1:]:
-        from test_torch_jax_pins import JaxSquare
-
-        sq = JaxSquare()
-        jobs += [("JAX_LEVEL", sq.level_pins), ("JAX_CHUNK_SHA256", sq.chunk_sha256),
-                 ("JAX_MESH_ROOT_SHA256", sq.mesh_root_sha256),
-                 ("JAX_CHUNK_ROOT_SHA256", sq.chunk_root_sha256)]
     for name, job in jobs:
         t = time.perf_counter()
         out[name] = job()

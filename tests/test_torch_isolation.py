@@ -18,6 +18,7 @@ import importlib, importlib.util, pkgutil, sys
 import zk_circuits_torch, chip_smoke
 mods = [m.name for m in pkgutil.walk_packages(zk_circuits_torch.__path__,
                                               "zk_circuits_torch.")]
+assert "zk_circuits_torch.compat.verifier" in mods, mods
 for m in mods:
     importlib.import_module(m)
 for script in ("scripts/torch_multihost_sim.py", "scripts/torch_four_cards.py"):
