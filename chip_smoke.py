@@ -177,6 +177,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and its polys' sha256 is the JAX package's (pinned below).
                Its K1 launch is a cross-check, counted apart under
                launches_by_path["compat"].
+19. native  -- the host runtime (zk_circuits_torch.native: g++ builds
+               csrc/host_native.cpp in the card phase, beside the nvcc
+               builds; its seconds and library name): every function
+               equal to its numpy plain version at the circuit's sizes
+               (leaves of 2^13 x 135, host_intt and host_ntt of 80 x 2^13,
+               4096 permutations, the field operations with edge values);
+               the microseconds of one single-state permutation, native
+               and plain; then 3 warm wormhole proofs and 2 warm batches
+               of 4 with the native calls counted (the proofs must
+               permute natively), and each one's openings+fri stage
+               beside the sum of its fri/* timers (the remainder is the
+               host transcript).
 
 The last lines are the card line, the kernels line and
 {"ok": true, "device": {...}}.  Needs no network; imports no JAX.
@@ -372,6 +384,7 @@ def phase_card(state) -> None:
 
     import torch
 
+    from zk_circuits_torch import native
     from zk_circuits_torch.hash import poseidon_cuda
     from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.parallel import exchange_cuda
@@ -386,17 +399,22 @@ def phase_card(state) -> None:
         build()
         return time.perf_counter() - t
 
-    poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's and K3's
-    with ThreadPoolExecutor(3) as pool:   # one nvcc per source, together
-        k1, k2, k3 = pool.map(timed, (poseidon_cuda.build, exchange_cuda.build,
-                                      witness_cuda.build))
+    poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's, K3's, native's
+    # one nvcc per source and g++ for the host runtime, all started together
+    with ThreadPoolExecutor(4) as pool:
+        k1, k2, k3, host = pool.map(timed, (poseidon_cuda.build, exchange_cuda.build,
+                                            witness_cuda.build, native.build))
+    native.available()
+    state["native_build"] = {"build_s": host, "library": native.build().name,
+                             "compiler_output": native.build_log}
     ptxas = [ln.strip() for mod in (poseidon_cuda, exchange_cuda, witness_cuda)
              for ln in mod.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "card", "nvidia_smi": state["smi"],
           "name": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
-          "k1_build_s": k1, "k2_build_s": k2, "k3_build_s": k3, "ptxas": ptxas})
+          "k1_build_s": k1, "k2_build_s": k2, "k3_build_s": k3, "native_build_s": host,
+          "ptxas": ptxas})
 
 
 def wormhole_trees(common) -> list:
@@ -2788,6 +2806,124 @@ def phase_compat(state) -> None:
                     "import_s includes the fast-Poseidon derivation and self-check"})
 
 
+NATIVE_LEAVES = (1 << 13, 135)   # wires-shaped leaves: 2^13 rows of 135 felts
+NATIVE_POLYS = (80, 1 << 13)     # host_intt of the circuit build's polys
+NATIVE_STATES = 4096             # states of the batched permutation
+
+
+def transcript_split(timings: dict, stage: str, tag: str) -> dict:
+    """``stage`` (the openings+fri timer) against the sum of its ``fri/*``
+    timers, by their medians: the remainder is the host transcript and
+    the rest the timers do not cover."""
+    fri = {k: statistics.median(v) for k, v in timings.items()
+           if k.startswith("fri/") and k.endswith(tag)}
+    whole = statistics.median(timings[stage])
+    return {"stage": stage, "stage_s": whole, "fri_timers_s": fri,
+            "fri_sum_s": sum(fri.values()), "remainder_s": whole - sum(fri.values())}
+
+
+def phase_native(state) -> None:
+    """The host runtime (zk_circuits_torch.native, csrc/host_native.cpp,
+    built by g++ in the card phase) on the card's host: every function
+    held to its numpy plain version at the circuit's sizes, one
+    permutation's time native and plain, and the transcript's share of a
+    warm proof's and a warm batch's openings+fri stage."""
+    import numpy as np
+    import torch
+
+    from zk_circuits_torch import native
+    from zk_circuits_torch.api.prover import WormholeProver
+    from zk_circuits_torch.host import gl
+    from zk_circuits_torch.host import poseidon as hposeidon
+    from zk_circuits_torch.ntt import ntt as nttm
+    from zk_circuits_torch.plonk.prover import prove_batch
+    from zk_circuits_torch.utils import profiling
+
+    rng = np.random.default_rng(2611)
+    edge = np.array([0, 1, P - 1, P - 2, 2**32 - 1, 2**64 - 1], dtype=np.uint64)
+    checks, seconds = {}, {}
+
+    def held(name, fast, plain):
+        t = time.perf_counter()
+        got = fast()
+        t1 = time.perf_counter()
+        want = plain()
+        seconds[name] = {"native_s": t1 - t, "plain_s": time.perf_counter() - t1}
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"native: {name} differs from its plain version")
+        checks[name] = list(got.shape)
+
+    rows, cols = NATIVE_LEAVES
+    leaves = rng.integers(0, P, (rows, cols), dtype=np.uint64)
+    leaves[0], leaves[1, :edge.size] = P - 1, edge
+    held("hash_leaves", lambda: native.hash_leaves(leaves, or_noop=True),
+         lambda: hposeidon.batch_hash_no_pad_plain(leaves))
+    short = leaves[:, :20]
+    held("hash_no_pad_batch", lambda: hposeidon.batch_hash_no_pad(short),
+         lambda: hposeidon.batch_hash_no_pad_plain(short))
+    digests = native.hash_leaves(leaves)
+    held("compress_level", lambda: native.compress_level(digests),
+         lambda: hposeidon.permute_plain(np.concatenate(
+             [digests[0::2], digests[1::2], np.zeros((rows // 2, 4), np.uint64)], 1))[:, :4])
+    states = rng.integers(0, P, (NATIVE_STATES, 12), dtype=np.uint64)
+    states[:edge.size] = edge[:, None]
+    held("poseidon_permute", lambda: hposeidon.permute(states),
+         lambda: hposeidon.permute_plain(states))
+    polys = rng.integers(0, P, NATIVE_POLYS, dtype=np.uint64)
+    held("host_intt", lambda: nttm.host_intt(polys), lambda: nttm.host_intt_plain(polys))
+    held("host_ntt", lambda: nttm.host_ntt(polys), lambda: nttm.host_ntt_plain(polys))
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    few = polys[:8]
+    held("coset_lde", lambda: native.coset_lde(few, 3, shift),
+         lambda: nttm.host_ntt_plain(gl._mul_np(
+             np.pad(few, ((0, 0), (0, 7 * few.shape[1]))),
+             gl._powers_np(shift, 8 * few.shape[1]))))
+    flat_a, flat_b = polys.ravel(), np.roll(polys.ravel(), 1)
+    flat_a[:edge.size], flat_b[:edge.size] = edge, edge[::-1]
+    for op in ("add", "sub", "mul"):
+        held(f"gl_{op}", lambda: getattr(gl, op)(flat_a, flat_b),
+             lambda: getattr(gl, f"_{op}_np")(flat_a, flat_b))
+    base = int(rng.integers(2, P, dtype=np.uint64))
+    held("gl_powers", lambda: gl.powers(base, polys.size), lambda: gl._powers_np(base, polys.size))
+    held("gl_inv", lambda: native.gl_inv(flat_a[:4096]), lambda: gl.inverse(flat_a[:4096]))
+
+    # one permutation of one state, the challenger's call
+    one = states[7].copy()
+    reps = {"native": 2000, "plain": 20}
+    per_call = {}
+    for name, fn in (("native", hposeidon.permute), ("plain", hposeidon.permute_plain)):
+        t = time.perf_counter()
+        for _ in range(reps[name]):
+            fn(one)
+        per_call[name] = (time.perf_counter() - t) / reps[name] * 1e6
+
+    # warm proofs and batches with the runtime: the transcript's share
+    cd, targets, inputs = state["wormhole"]
+
+    def pw():
+        return WormholeProver(circuit_data=cd, targets=targets).commit(inputs).partial_witness
+
+    profiling.reset_timings()
+    native.reset_calls()            # the proof path starts here
+    single_s = [_synced(lambda: cd.prove(pw(), device="cuda"))[1] for _ in range(3)]
+    single_calls = dict(native.calls)   # the proof path ends here
+    single = transcript_split(profiling.get_timings(), "prove/openings+fri", "")
+    profiling.reset_timings()
+    batch_s = [_synced(lambda: prove_batch(cd, [pw() for _ in range(BATCH)]))[1]
+               for _ in range(2)]
+    batch = transcript_split(profiling.get_timings(), "batch/openings+fri", "(batch)")
+    if not single_calls.get("poseidon_permute"):
+        raise AssertionError(f"native: the proofs made no native permutation ({single_calls})")
+    emit({"phase": "native", "nvidia_smi": state["smi"], **state["native_build"],
+          "threads": torch.get_num_threads(), "equal_plain": checks, "check_s": seconds,
+          "permute_one_state_us": per_call, "permute_calls": reps,
+          "calls_in_3_proofs": single_calls, "warm_single_s": single_s,
+          "warm_batch_s": batch_s, "batch_size": BATCH,
+          "single": single, "batch": batch,
+          "timing": "seconds of perf_counter on the host; the stage times are "
+                    "medians over the 3 warm proofs and the 2 warm batches"})
+
+
 PHASES = {"card": phase_card, "square": phase_square,
           "wormhole": phase_wormhole, "batch": phase_batch,
           "witness_check": phase_witness_check, "k1_check": phase_k1_check,
@@ -2796,7 +2932,7 @@ PHASES = {"card": phase_card, "square": phase_square,
           "k2_time": phase_k2_time, "aggregate": phase_aggregate,
           "batch_mesh": phase_batch_mesh, "aggregate_mesh": phase_aggregate_mesh,
           "multihost": phase_multihost, "voting": phase_voting, "api": phase_api,
-          "compat": phase_compat}
+          "compat": phase_compat, "native": phase_native}
 
 
 def main() -> int:

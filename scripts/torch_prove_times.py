@@ -1,6 +1,9 @@
 """Host-clock times of warm zk wormhole proofs with the torch port on one
-GPU: five single proofs and three batches of four, after one of each to
-warm up, with the stage timers' medians; one JSON line.
+GPU: the cold build of the circuit (with every kernel and the host
+runtime built before it), then five single proofs and three batches of
+four, after one of each to warm up, with the stage timers' medians and
+each openings+fri stage beside the sum of its fri/* timers (the
+remainder is the host transcript); one JSON line.
 
     python scripts/torch_prove_times.py [CHECKOUT]
 
@@ -8,6 +11,8 @@ CHECKOUT is the root of the checkout whose ``zk_circuits_torch`` is
 timed (default: this one), so that two commits can be compared on one
 card in turns: unpack the other commit with ``git archive`` into a
 git-ignored directory and run old, new, new, old on one card in a row.
+A checkout without the host runtime (``zk_circuits_torch.native``) is
+timed without it.
 """
 
 import json
@@ -26,8 +31,33 @@ from zk_circuits_torch.plonk.prover import prove_batch  # noqa: E402
 from zk_circuits_torch.utils import profiling  # noqa: E402
 
 
+def _medians(prefixes: tuple) -> dict:
+    return {k: statistics.median(v) for k, v in profiling.get_timings().items()
+            if k.split("/")[0] in prefixes}
+
+
+def _remainder(stages: dict, stage: str, tag: str) -> float:
+    """The openings+fri stage less its fri/* timers (medians)."""
+    return stages[stage] - sum(v for k, v in stages.items()
+                               if k.startswith("fri/") and k.endswith(tag))
+
+
 def main() -> None:
+    from zk_circuits_torch.hash import poseidon_cuda
+    from zk_circuits_torch.iop import witness_cuda
+
+    poseidon_cuda.build()
+    witness_cuda.build()
+    try:
+        from zk_circuits_torch import native
+    except ImportError:
+        native = None
+    if native is not None:
+        native.available()
+    t0 = time.perf_counter()
     prover = WormholeProver(CircuitConfig.standard_recursion_zk_config(), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     cd, targets = prover.circuit_data, prover.targets
     inputs = golden_fixtures.test_inputs()
 
@@ -44,13 +74,18 @@ def main() -> None:
     timed(lambda: prove_batch(cd, [pw() for _ in range(4)]))
     profiling.reset_timings()
     single = [timed(lambda: cd.prove(pw(), device="cuda")) for _ in range(5)]
+    single_stages = _medians(("prove", "fri"))
+    profiling.reset_timings()
     batch = [timed(lambda: prove_batch(cd, [pw() for _ in range(4)])) for _ in range(3)]
-    stages = {k: statistics.median(v) for k, v in profiling.get_timings().items()
-              if k.split("/")[0] in ("prove", "batch")}
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "single_s": single,
-                      "batch_s": batch, "single_median_s": statistics.median(single),
-                      "batch_median_s": statistics.median(batch), "stages": stages}),
-          flush=True)
+    batch_stages = _medians(("batch", "fri"))
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "native": native is not None,
+        "build_s": build_s, "single_s": single, "batch_s": batch,
+        "single_median_s": statistics.median(single),
+        "batch_median_s": statistics.median(batch),
+        "single_transcript_s": _remainder(single_stages, "prove/openings+fri", ""),
+        "batch_transcript_s": _remainder(batch_stages, "batch/openings+fri", "(batch)"),
+        "stages": {**single_stages, **batch_stages}}), flush=True)
 
 
 if __name__ == "__main__":

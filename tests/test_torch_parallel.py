@@ -374,3 +374,35 @@ def test_prove_sharded_takes_check_witness_by_keyword_only():
     data, pw = _square(t_builder, t_witness, t_config.CircuitConfig(), device="cpu")
     with pytest.raises(TypeError):
         prove_sharded(data, pw, _cpu_mesh(2), True)
+
+
+def test_sharded_entry_points_take_the_axis_in_the_reference_position():
+    """prove_sharded(cd, pw, mesh, "x") and fri_commit_sharded(..., ch,
+    mesh, "x"), the JAX package's argument order, give the bytes of the
+    keyword form on a 4-shard mesh."""
+    mesh = _cpu_mesh(4)
+    data, pw = _square(t_builder, t_witness, t_config.CircuitConfig(
+        fri_config=t_config.FriConfig(proof_of_work_bits=2, num_query_rounds=3)), device="cpu")
+    assert t_bytes(prove_sharded(data, pw, mesh, "x")) == \
+        t_bytes(prove_sharded(data, pw, mesh=mesh, axis="x"))
+    kw = dict(rate_bits=3, cap_height=2, reduction_arity_bits=2, final_poly_bits=3,
+              num_query_rounds=4)
+    coeffs = np.random.default_rng(12).integers(0, P, (1 << 9, 2), dtype=U64)
+    positional = fri_commit_sharded(coeffs, 9, t_config.FriConfig(**kw), TChallenger(),
+                                    mesh, "x")
+    keyword = fri_commit_sharded(coeffs, 9, t_config.FriConfig(**kw), TChallenger(),
+                                 mesh=mesh, axis="x")
+    caps, betas, final = positional
+    assert len(caps) == len(keyword[0]) >= 2
+    for got, want in zip(caps + betas + [final], keyword[0] + keyword[1] + [keyword[2]]):
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("axis", [True, 3, ["x"], (), ("x", 1)])
+def test_sharded_entry_points_refuse_an_axis_that_is_no_name(axis):
+    mesh = _cpu_mesh(2)
+    with pytest.raises(TypeError, match="axis"):
+        prove_sharded(None, None, mesh, axis)
+    with pytest.raises(TypeError, match="axis"):
+        fri_commit_sharded(np.zeros((8, 2), U64), 3, t_config.FriConfig(), TChallenger(),
+                           mesh, axis)

@@ -29,7 +29,7 @@ import torch
 from ..field import goldilocks as gfd
 from ..hash import merkle as merklem
 from ..host import gl
-from ..parallel.mesh import Mesh, gather, make_mesh, shard_last
+from ..parallel.mesh import Mesh, axis_mesh, gather, make_mesh, shard_last
 from ..parallel.ntt_exchange import all_to_all_blocks
 from ..parallel.ntt_sharded import coset_ntt_pieces
 from .fri_device import _fold_dev
@@ -97,13 +97,15 @@ def commit_phase_sharded(p0: list, p1: list, fri_config, degree_bits: int, ch,
 
 
 def fri_commit_sharded(coeffs_ext: np.ndarray, degree_bits: int, fri_config,
-                       challenger, mesh: Mesh | None = None,
+                       challenger, mesh: Mesh | None = None, axis="x",
                        coset_shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR):
-    """Sharded FRI commit phase for one (n, 2) ext coefficient vector.
+    """Sharded FRI commit phase for one (n, 2) ext coefficient vector,
+    split over ``axis`` of a one-process mesh (a name, or a tuple of names
+    covering every axis; anything else raises TypeError).
 
     Returns (caps, betas, final_poly), bit-exact with the host commit
     phase.  The mesh defaults to every card (``make_mesh()``)."""
-    mesh = make_mesh() if mesh is None else mesh
+    mesh = axis_mesh(make_mesh() if mesh is None else mesh, axis)
     coeffs_ext = np.asarray(coeffs_ext, dtype=np.uint64)
     p0, p1 = (shard_last(gfd.from_u64(np.ascontiguousarray(coeffs_ext[:, c]),
                                       mesh.first), mesh) for c in (0, 1))

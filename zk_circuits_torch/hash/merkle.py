@@ -4,7 +4,8 @@ Semantics match the reference engine's MerkleTree/MerkleCap: leaf digest =
 hash_or_noop(leaf vector), internal nodes = compress(left, right), and the
 ``cap`` is the set of 2^cap_height subtree roots.  A proof for leaf i is the
 sibling digest path up to the cap (verified against
-cap[i >> (height - cap_height)]).
+cap[i >> (height - cap_height)]).  ``MerkleTree.build`` hashes on the host
+in the host runtime (zk_circuits_torch.native).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from ..host import poseidon as hposeidon
 from . import poseidon_cuda
 from . import poseidon_pallas as pp
@@ -41,11 +43,10 @@ class MerkleTree:
                 leaf_digests = np.zeros((n, 4), dtype=np.uint64)
                 leaf_digests[:, : leaves.shape[1]] = leaves
             else:
-                leaf_digests = hposeidon.batch_hash_no_pad(leaves)
+                leaf_digests = native.hash_leaves(leaves, or_noop=False)
         levels = [leaf_digests]
         while levels[-1].shape[0] > (1 << cap_height):
-            cur = levels[-1]
-            levels.append(hposeidon.compress(cur[0::2], cur[1::2]))
+            levels.append(native.compress_level(levels[-1]))
         return MerkleTree(leaves, cap_height, levels)
 
     def prove(self, index: int) -> list[np.ndarray]:

@@ -4,7 +4,11 @@ Semantics match the reference engine's ``qp-plonky2-field`` GoldilocksField
 (p = 2^64 - 2^32 + 1) with *canonical* representation: every array this
 module returns holds values in [0, p).  Used for circuit building, witness
 generation and the Fiat-Shamir transcript; the torch field layer
-(zk_circuits_torch.field.goldilocks) is tested against it.
+(zk_circuits_torch.field.goldilocks) is tested against it.  ``add``,
+``sub``, ``mul`` and ``powers`` of 2^13 elements or more run in the host
+runtime (zk_circuits_torch.native); the numpy bodies, ``_add_np`` and so
+on, serve smaller arrays and the tests.  Both are exact for any u64
+input.
 
 Reference behavior: canonical/noncanonical conversions per
 common/src/utils.rs:93-102 (32-bit limb checks) and the
@@ -14,6 +18,8 @@ external qp-plonky2-field crate (Cargo.lock).
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 # Unsigned wraparound is intentional throughout this module.  np.seterr is
 # thread-local, so the import-time setting does NOT cover worker threads
@@ -52,20 +58,48 @@ def asfelt(x) -> np.ndarray:
     return np.where(a >= P, a - P, a)
 
 
-@_ignore_overflow
+# numpy's u64 limb emulation costs ~15 vector operations an element; the
+# host runtime (native/, csrc/host_native.cpp) is one multiply and a
+# reduction.  Arrays of this many elements or more go there.
+_NATIVE_MUL_MIN = 1 << 13
+
+
+def _native_size(a, b) -> bool:
+    return max(np.size(a), np.size(b)) >= _NATIVE_MUL_MIN
+
+
 def add(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    if _native_size(a, b):
+        return native.gl_add(a, b)
+    return _add_np(a, b)
+
+
+def sub(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    if _native_size(a, b):
+        return native.gl_sub(a, b)
+    return _sub_np(a, b)
+
+
+@_ignore_overflow
+def _add_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     s = a + b  # wraps mod 2^64
     over = s < a
     # true sum >= 2^64  =>  subtract p (== add epsilon mod 2^64)
-    s = np.where(over, s + EPSILON, s)
-    return np.where(s >= P, s - P, s)
+    s2 = np.where(over, s + EPSILON, s)
+    # a second wrap, possible only when both inputs lie above p
+    s2 = np.where(over & (s2 < EPSILON), s2 + EPSILON, s2)
+    return np.where(s2 >= P, s2 - P, s2)
 
 
 @_ignore_overflow
-def sub(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+def _sub_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     d = a - b
     under = a < b
-    return np.where(under, d + P, d)
+    # true difference < 0  =>  add p (== subtract epsilon mod 2^64), twice
+    # when d wrapped below epsilon (possible only for inputs above p)
+    d2 = np.where(under, d - EPSILON, d)
+    d2 = np.where(under & (d < EPSILON), d2 - EPSILON, d2)
+    return np.where(d2 >= P, d2 - P, d2)
 
 
 def neg(a: np.ndarray) -> np.ndarray:
@@ -87,8 +121,14 @@ def _reduce128(x_lo: np.ndarray, x_hi: np.ndarray) -> np.ndarray:
     return np.where(t2 >= P, t2 - P, t2)
 
 
-@_ignore_overflow
 def mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    if _native_size(a, b):
+        return native.gl_mul(a, b)
+    return _mul_np(a, b)
+
+
+@_ignore_overflow
+def _mul_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     a0 = a & MASK32
     a1 = a >> _U32
     b0 = b & MASK32
@@ -180,9 +220,14 @@ def sum_mod(a: np.ndarray, axis: int = -1) -> np.ndarray:
 
 
 def powers(base: int, n: int) -> np.ndarray:
-    """[1, base, base^2, ..., base^(n-1)] as canonical u64.
+    """[1, base, base^2, ..., base^(n-1)] as canonical u64."""
+    if n >= _NATIVE_MUL_MIN:
+        return native.gl_powers(int(base) % P_INT, n)
+    return _powers_np(base, n)
 
-    Log-doubling: after k entries are filled, the next k are
+
+def _powers_np(base: int, n: int) -> np.ndarray:
+    """Log-doubling: after k entries are filled, the next k are
     out[:k] * base^k — log2(n) vectorized multiplies, not an n-step loop."""
     b = int(base) % P_INT
     out = np.empty(n, dtype=np.uint64)
@@ -193,7 +238,7 @@ def powers(base: int, n: int) -> np.ndarray:
     bk = b  # base^k
     while k < n:
         m = min(k, n - k)
-        out[k : k + m] = mul(out[:m], np.uint64(bk))
+        out[k : k + m] = _mul_np(out[:m], np.uint64(bk))
         bk = (bk * bk) % P_INT
         k *= 2
     return out

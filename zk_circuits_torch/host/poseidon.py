@@ -6,15 +6,19 @@ e.g. wormhole/circuit/src/unspendable_account.rs:38-63 and
 voting/src/lib.rs:277-283.
 
 All entry points accept a leading batch dimension: ``state`` has shape
-(..., 12).  Witness generation and Merkle golden checks run through here;
-the torch sponge (zk_circuits_torch.hash.poseidon) and the CUDA leaf
-kernel are tested against this model.
+(..., 12).  The permutation runs in the host runtime
+(zk_circuits_torch.native); ``permute_plain`` and
+``batch_hash_no_pad_plain`` are the numpy bodies, which the tests hold it
+to.  Witness generation and Merkle golden checks run through here; the
+torch sponge (zk_circuits_torch.hash.poseidon) and the CUDA leaf kernel
+are tested against this model.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..hash.constants import (
     ALL_ROUND_CONSTANTS,
     HALF_N_FULL_ROUNDS,
@@ -36,11 +40,11 @@ for _r in range(WIDTH):
 _MDS_T = _MDS.T.copy()
 
 
-def _sbox(x: np.ndarray) -> np.ndarray:
-    x2 = gl.mul(x, x)
-    x3 = gl.mul(x2, x)
-    x6 = gl.mul(x3, x3)
-    return gl.mul(x6, x)
+def _sbox(x: np.ndarray, mul=gl.mul) -> np.ndarray:
+    x2 = mul(x, x)
+    x3 = mul(x2, x)
+    x6 = mul(x3, x3)
+    return mul(x6, x)
 
 
 def _mds_layer(state: np.ndarray) -> np.ndarray:
@@ -60,23 +64,32 @@ def _mds_layer(state: np.ndarray) -> np.ndarray:
 
 
 def permute(state: np.ndarray) -> np.ndarray:
-    """Full Poseidon permutation on shape (..., 12) canonical u64 arrays."""
+    """Full Poseidon permutation on shape (..., 12) u64 arrays, in the host
+    runtime (zk_circuits_torch.native): the numpy body costs milliseconds
+    a permutation, and the Fiat-Shamir challenger runs 100+ of them one
+    after another in every proof."""
+    return native.poseidon_permute(state)
+
+
+def permute_plain(state: np.ndarray) -> np.ndarray:
+    """The permutation in numpy alone (the field's ``_np`` bodies), for
+    the tests."""
     state = np.asarray(state, dtype=np.uint64)
     rc = 0
     for _ in range(HALF_N_FULL_ROUNDS):
-        state = gl.add(state, _RC[rc])
-        state = _sbox(state)
+        state = gl._add_np(state, _RC[rc])
+        state = _sbox(state, gl._mul_np)
         state = _mds_layer(state)
         rc += 1
     for _ in range(N_PARTIAL_ROUNDS):
-        state = gl.add(state, _RC[rc])
-        state0 = _sbox(state[..., 0])
+        state = gl._add_np(state, _RC[rc])
+        state0 = _sbox(state[..., 0], gl._mul_np)
         state = np.concatenate([state0[..., None], state[..., 1:]], axis=-1)
         state = _mds_layer(state)
         rc += 1
     for _ in range(HALF_N_FULL_ROUNDS):
-        state = gl.add(state, _RC[rc])
-        state = _sbox(state)
+        state = gl._add_np(state, _RC[rc])
+        state = _sbox(state, gl._mul_np)
         state = _mds_layer(state)
         rc += 1
     return state
@@ -127,12 +140,24 @@ def compress(left: np.ndarray, right: np.ndarray) -> np.ndarray:
 
 
 def batch_hash_no_pad(inputs: np.ndarray) -> np.ndarray:
-    """hash_no_pad over a batch: inputs (batch, n) -> (batch, 4)."""
+    """hash_no_pad over a batch: inputs (batch, n) -> (batch, 4); a batch
+    of more than 8 in one call of the host runtime."""
     inputs = np.asarray(inputs, dtype=np.uint64)
+    if inputs.shape[0] > 8:
+        return native.hash_no_pad_batch(inputs)
+    return _sponge(inputs, permute)
+
+
+def batch_hash_no_pad_plain(inputs: np.ndarray) -> np.ndarray:
+    """``batch_hash_no_pad`` in numpy alone, for the tests."""
+    return _sponge(np.asarray(inputs, dtype=np.uint64), permute_plain)
+
+
+def _sponge(inputs: np.ndarray, perm) -> np.ndarray:
     batch, n = inputs.shape
     state = np.zeros((batch, WIDTH), dtype=np.uint64)
     for i in range(0, n, RATE):
         chunk = inputs[:, i : i + RATE]
         state[:, : chunk.shape[1]] = chunk
-        state = permute(state)
+        state = perm(state)
     return state[:, :4]

@@ -61,34 +61,50 @@ def supported(circuit_data) -> bool:
     return all(b.kind in KINDS for b in circuit_data.prover_only.schedule)
 
 
+def _seed_order(po, pw) -> tuple[tuple, np.ndarray]:
+    """The reps of the targets ``pw`` seeds, sorted, and the order that
+    sorts its values so.  The order of the last target tuple seen is kept
+    with the circuit, so a witness that seeds the same targets in the same
+    order costs one comparison."""
+    keys = tuple(pw.values)
+    kept = po.seed_order     # read once: another thread may replace it
+    if kept is None or kept[0] != keys:
+        reps = []
+        for t in keys:
+            rep = po.rep_of_target.get(t)
+            if rep is None:
+                raise KeyError(f"target {t} is not part of the circuit")
+            reps.append(rep)
+        order = np.argsort(np.asarray(reps, np.int64), kind="stable")
+        kept = po.seed_order = (keys, tuple(reps[i] for i in order), order)
+    return kept[1], kept[2]
+
+
+def seed_groups(circuit_data, pws) -> list[list[int]]:
+    """The indices of ``pws`` grouped by the set of targets each seeds,
+    the groups in the order of their first witness: each group is one
+    ``seed_batch``."""
+    groups: dict = {}
+    for i, pw in enumerate(pws):
+        groups.setdefault(_seed_order(circuit_data.prover_only, pw)[0], []).append(i)
+    return list(groups.values())
+
+
 def seed_batch(circuit_data, pws) -> tuple[tuple, np.ndarray]:
     """Check that every PartialWitness seeds the SAME target set (the
     wormhole/voting/recursion APIs always do: fill_targets assigns a fixed
-    layout) and stack the seed values: returns (seed_reps sorted, (B, S)
-    u64).  The order that sorts a target tuple by rep is kept with the
-    circuit (the last one seen), so a witness that seeds the same targets
-    in the same order costs one conversion and one gather."""
+    layout; ``seed_groups`` splits a batch that does not) and stack the
+    seed values: returns (seed_reps sorted, (B, S) u64)."""
     po = circuit_data.prover_only
     seed_reps = None
     rows = []
     for pw in pws:
-        keys = tuple(pw.values)
-        kept = po.seed_order     # read once: another thread may replace it
-        if kept is None or kept[0] != keys:
-            reps = []
-            for t in keys:
-                rep = po.rep_of_target.get(t)
-                if rep is None:
-                    raise KeyError(f"target {t} is not part of the circuit")
-                reps.append(rep)
-            order = np.argsort(np.asarray(reps, np.int64), kind="stable")
-            kept = po.seed_order = (keys, tuple(reps[i] for i in order), order)
-        reps, order = kept[1:]
+        reps, order = _seed_order(po, pw)
         if seed_reps is None:
             seed_reps = reps
         elif reps != seed_reps:
             raise ValueError("prove_batch witnesses seed different target sets")
-        rows.append(np.fromiter(pw.values.values(), np.uint64, len(keys))[order])
+        rows.append(np.fromiter(pw.values.values(), np.uint64, len(order))[order])
     return seed_reps, np.stack(rows)
 
 

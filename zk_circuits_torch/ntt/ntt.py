@@ -7,7 +7,9 @@ evaluates on the coset ``shift * <w>`` after zero-padding by the rate
 (rate_bits=3 for the standard configs, cf. SURVEY.md §0).
 
 Two implementations, bit-identical:
-- host_*: numpy golden model (zk_circuits_torch.host.gl).
+- host_*: numpy arrays, in the host runtime (zk_circuits_torch.native);
+  ``host_ntt_plain``/``host_intt_plain`` are the numpy golden model
+  (zk_circuits_torch.host.gl) the tests hold it to.
 - tensor functions: torch int64 tensors on any device, a radix-2 stage
   loop of whole-tensor butterflies.
 
@@ -21,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import native
 from ..field import goldilocks as gfd
 from ..host import gl
 
@@ -49,34 +52,48 @@ def _host_stage_twiddles(n: int) -> tuple:
 
 
 def host_ntt(coeffs: np.ndarray) -> np.ndarray:
-    """values[i] = p(w^i); operates along the last axis (power-of-two len)."""
+    """values[i] = p(w^i); operates along the last axis (power-of-two len),
+    in the host runtime (zk_circuits_torch.native)."""
+    return native.ntt(coeffs)
+
+
+def host_intt(values: np.ndarray) -> np.ndarray:
+    """The inverse of ``host_ntt``, in the host runtime."""
+    return native.ntt(values, inverse=True)
+
+
+def host_ntt_plain(coeffs: np.ndarray) -> np.ndarray:
+    """``host_ntt`` in numpy alone (the field's ``_np`` bodies), for the
+    tests: bit-reversal, then one vectorized butterfly stage per bit."""
     coeffs = np.asarray(coeffs, dtype=np.uint64)
     n = coeffs.shape[-1]
     if n == 1:
         return coeffs.copy()
     assert n & (n - 1) == 0
     x = coeffs[..., _bit_reverse_indices(n)]
-    for s, tw in enumerate(_host_stage_twiddles(n)):
+    for s in range(n.bit_length() - 1):
         half = 1 << s
+        tw = gl._powers_np(gl.primitive_root_of_unity(s + 1), half)
         shape = x.shape[:-1] + (n // (2 * half), 2, half)
         x = x.reshape(shape)
         a = x[..., 0, :]
-        b = gl.mul(x[..., 1, :], tw)
-        x = np.concatenate([gl.add(a, b)[..., None, :], gl.sub(a, b)[..., None, :]], axis=-2)
+        b = gl._mul_np(x[..., 1, :], tw)
+        x = np.concatenate([gl._add_np(a, b)[..., None, :], gl._sub_np(a, b)[..., None, :]],
+                           axis=-2)
         x = x.reshape(x.shape[:-3] + (n,))
     return x
 
 
-def host_intt(values: np.ndarray) -> np.ndarray:
+def host_intt_plain(values: np.ndarray) -> np.ndarray:
+    """``host_intt`` in numpy alone, for the tests."""
     values = np.asarray(values, dtype=np.uint64)
     n = values.shape[-1]
     if n == 1:
         return values.copy()
     # INTT(x)[k] = (1/n) * NTT(x)[-k mod n]
-    y = host_ntt(values)
+    y = host_ntt_plain(values)
     y = np.concatenate([y[..., :1], y[..., :0:-1]], axis=-1)
-    n_inv = gl.inverse(np.uint64(n))
-    return gl.mul(y, n_inv)
+    return gl._mul_np(y, gl.inverse(np.uint64(n)))
 
 
 def host_coset_ntt(coeffs: np.ndarray, shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> np.ndarray:

@@ -113,6 +113,16 @@ def flatten(mesh: Mesh, axis=None) -> tuple[Mesh, tuple]:
     return Mesh(tuple(devices)), blocks
 
 
+def axis_mesh(mesh: Mesh, axis) -> Mesh:
+    """The one-process ``mesh`` as the 1-D mesh over ``axis`` (a name, or a
+    tuple of names covering every axis): shard b holds block b.  An
+    ``axis`` that is neither raises TypeError."""
+    if not (isinstance(axis, str) or (isinstance(axis, tuple) and axis
+                                      and all(isinstance(a, str) for a in axis))):
+        raise TypeError(f"axis must be a mesh axis name or a tuple of names, got {axis!r}")
+    return flatten(mesh, axis)[0]
+
+
 def _axis_size(mesh: Mesh, axis=None) -> int:
     """The number of blocks along one axis name or a tuple of names
     (every axis by default)."""

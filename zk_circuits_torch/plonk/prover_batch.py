@@ -62,7 +62,9 @@ def prove_batch_device(circuit_data, pws: list, device,
                        check_witness: bool = False, timers: str = "batch") -> list:
     """Prove the B witnesses ``pws`` of one circuit on ``device`` (a
     torch.device); returns one ProofWithPublicInputs a witness, each
-    byte-identical to the proof of that witness alone.
+    byte-identical to the proof of that witness alone.  Witnesses that
+    seed different sets of targets are proved as one batch a set
+    (``witness_device.seed_groups``), in the order of ``pws``.
 
     ``timers`` names the stage timers: ``batch/wires`` and so on, with
     ``fri/...(batch)`` inside, as the JAX package's batched prover names
@@ -78,6 +80,16 @@ def prove_batch_device(circuit_data, pws: list, device,
     B = len(pws)
     if B == 0:
         return []
+    if not check_witness and B > 1:
+        groups = wdev.seed_groups(circuit_data, pws)
+        if len(groups) > 1:     # one device witness a set of seeded targets
+            proofs = [None] * B
+            for group in groups:
+                got = prove_batch_device(circuit_data, [pws[i] for i in group], device,
+                                         timers=timers)
+                for i, proof in zip(group, got):
+                    proofs[i] = proof
+            return proofs
 
     def challenges(per_proof: list):
         """B proofs' challenge lists -> (num_challenges, B, 1) on the device."""

@@ -46,7 +46,7 @@ from ..hash.challenger import Challenger
 from ..host import gl, gle, poseidon as hposeidon
 from ..iop.witness import generate_witness
 from ..ntt import ntt as nttm
-from ..parallel.mesh import Mesh, gather, make_mesh, reshard, shard_last
+from ..parallel.mesh import Mesh, axis_mesh, gather, make_mesh, reshard, shard_last
 from ..parallel.ntt_exchange import all_to_all_blocks
 from ..parallel.ntt_sharded import intt_sharded, lde_batch_sharded
 from .proof import Proof, ProofWithPublicInputs
@@ -273,11 +273,13 @@ def _open_and_fri_sharded(common, oracles: list, ch, mesh: Mesh) -> tuple:
     return openings, proof
 
 
-def prove_sharded(circuit_data, pw, mesh: Mesh | None = None, *,
+def prove_sharded(circuit_data, pw, mesh: Mesh | None = None, axis="x",
                   check_witness: bool | None = None) -> ProofWithPublicInputs:
     """Prove one witness with the pipeline sharded over ``mesh`` (default:
     ``make_mesh()``, every card; it raises without CUDA), a mesh of one
-    process.
+    process, split over ``axis`` (a name, or a tuple of names covering
+    every axis of the mesh; anything else raises TypeError).  The
+    arguments are the JAX package's, in its order.
 
     Byte-identical to :func:`zk_circuits_torch.plonk.prover.prove`."""
     from .prover import _resolve_check_witness, _zs_coeffs_body
@@ -286,6 +288,7 @@ def prove_sharded(circuit_data, pw, mesh: Mesh | None = None, *,
     mesh = make_mesh() if mesh is None else mesh
     if mesh.spans_processes:
         raise ValueError("prove_sharded takes a mesh of one process")
+    mesh = axis_mesh(mesh, axis)
     common = circuit_data.common
     po = circuit_data.prover_only
     cfg = common.config
