@@ -6,8 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. card     -- the card's name and power limit; build the Poseidon kernel
-               (K1), the block exchange (K2) and the witness schedule (K3)
-               from csrc/, one nvcc each, all started together, timed.
+               (K1), the block exchange (K2), the witness schedule (K3)
+               and the NTT (K4) from csrc/, one nvcc each, all started
+               together, timed.
 2. square   -- a one-gate square circuit under both standard configs: the
                proof from device="cuda" must equal the proof from
                device="cpu" byte for byte, and verify.
@@ -18,13 +19,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                K1's launches per proof, by mode (sponge / tree / top), must
                be the count the circuit's trees give; K3's, by kernel, the
                plan's (a walk over each run of levels, an ops launch for
-               each wide level, one cells launch), and no host witness.
+               each wide level, one cells launch), and no host witness;
+               K4's, by mode, those of the proof's transforms (two a
+               four-step, one a row-path call: expected_k4_launches), and
+               no call of the NTT's plain stage loop on the card.
 4. batch    -- the batched prover: prove_batch of B=4 zk wormhole proofs
                (one cold batch, two warm), each proof's sha256 == the pinned
                digest, proof 0 verified and a tampered copy refused; K1's
                launches per batch by mode == those of one proof (tree, top)
                and the PoW sweeps the found witnesses need, K3's == those of
-               one proof, no host witness; stage times, the
+               one proof, no host witness, K4's == those of one proof
+               and no plain NTT on the card; stage times, the
                second warm batch under torch.profiler and bench.py's JSON
                keys; then the square circuit at B=4 with distinct witnesses
                under a zk config with FRI fold rounds, each proof == a
@@ -53,17 +58,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                level loop at the three commit shapes and the FRI trees, for
                one proof and for a batch of B=4; the sharded commit's
                per-shard sponge on every card.
-7. profile  -- one more warm wormhole proof under torch.profiler: device
-               busy time and idle share, device operations (beside the
-               count with the host witness), top kernels, K3's launches.
-8. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
+7. k4_check -- K4 against its plain torch version (ntt/ntt.py's stage
+               loop) on the card, equal integers: every transform of a
+               proof (the wires INTT, the zs NTT and INTT, the three LDEs
+               with their salt polys, the quotient's coset INTT, FRI's
+               padded coset NTT of each fold round), the B=4 wires LDE and
+               quotient coset INTT, a level circuit's 2^14 -> 2^17 wires
+               LDE, the sharded path's 2^20-point row NTT and the
+               2^22-point NTT; rows of 0, 1 and p - 1 in every mode on both
+               paths; the four-step at 2^13 where the row path runs; and
+               ntt_mxu/intt_mxu.
+8. profile  -- one more warm wormhole proof under torch.profiler: device
+               busy time and idle share, device operations beside
+               DEVICE_OPS_BEFORE (a record, not a gate), top kernels, K3's
+               and K4's launches.
+9. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
                card (and spread over the cards when there are several):
                copy with even and odd block sizes and edge values, and at E=4 every fiber regroup and
                commit re-shard of the sharded phase; dft, twiddle and
                interleave, forward and inverse, at bm = 1 and 2^12 and at
                E=4 at every four-step of the sharded phase.  One launch
                per card and mode; equal integers.
-9. sharded  -- the multi-device path on a mesh of E=4 shards, in the order
+10. sharded  -- the multi-device path on a mesh of E=4 shards, in the order
                of the JAX package's multi-chip dryrun: the batch-sharded
                wires commit (cap == the single-device commit's), the
                sharded FRI commit chain at the production shape (caps,
@@ -73,12 +89,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                launch per card each, no copy), and prove_sharded of the zk
                wormhole (cold and warm; sha256 == the pinned digest,
                verified, tamper-checked).  K2's launch counter must rise in
-               every sub-step, K1's in every sub-step that hashes leaves.
+               every sub-step, K1's in every sub-step that hashes leaves;
+               each four-step's row NTTs are one K4 four-step a shard, and
+               K4's launches by mode are printed per sub-step.
                Then the device operations of one profiled 2^22 four-step,
                fused and as the sequence it replaced (K2 copies with eager
                torch field operations between them), each with its K2
                launches by mode.
-10. k1_time -- K1's device time (graph_ms) at the main path's shapes and
+11. k1_time -- K1's device time (graph_ms) at the main path's shapes and
                the whole wires tree against the 13 launches of the level
                loop, the B=4 batch's wires and FRI trees, beside the plain
                version and the bound; every team
@@ -86,7 +104,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the sharded path's per-shard ones; the permutation's
                multiply and instruction counts from the built library's
                SASS (cuobjdump).  A share of the bound above 1.05 fails.
-11. k2_time -- K2's device time (graph_ms) by mode: copy at the
+12. k2_time -- K2's device time (graph_ms) by mode: copy at the
                four-step's 2^22 exchange shape, the wires re-shard and the
                first FRI fiber regroup, beside its plain version, one
                PyTorch call (transpose + contiguous) and its byte bound;
@@ -99,7 +117,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                host time per wrapper call; each kernel's instruction,
                load and store counts from the built library's SASS
                (cuobjdump).  A share of the bound above 1.05 fails.
-12. aggregate -- the reference's default tree aggregation (b=2, d=3: 8
+13. k4_time -- K4's device time (graph_ms) at the main path's shapes
+               (the wires LDE, the kernels line's figure; the B=4 wires
+               LDE; the wires INTT; the zs NTT; the quotient's coset INTT
+               and LDE; FRI's first coset NTT; a level circuit's 2^17
+               wires LDE; the sharded path's 2^20-point row NTT) beside
+               its plain version, its bound (bytes or the butterflies'
+               multiplies: k4_work) and the host time a wrapper call; no
+               PyTorch call computes a Goldilocks NTT, so no library time.
+               A share of the bound above 1.05 fails.
+14. aggregate -- the reference's default tree aggregation (b=2, d=3: 8
                leaves) of the wormhole phase's zk proof through the
                port's WormholeProofAggregator on the card: 3 pushes, 5
                dummies (the proof is its own dummy), once cold (3 level
@@ -116,7 +143,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                witness at B=4, the level-3 witness alone) at the level
                circuits' shapes, each held to its plain version and timed
                as in k1_time and witness_check.
-13. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
+15. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
                over make_mesh(4) (shard i on cuda:(i % cards); the four
                shards prove in turn, on one card or on four), cold and
                warm, beside an unsharded batch of 8 cold
@@ -129,7 +156,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                utils/profiling.device_trace (torch.profiler, a Chrome
                trace written under ZKT_PROFILE_DIR), each card's busy
                time and idle share.
-14. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
+16. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
                with its cached level circuits (none built again), once
                on one card and twice (first, warm) on several:
                level 1's 4 chunks split one a shard, level 2 (B=2, not a
@@ -138,7 +165,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                leaves extracted; K1/K3 launches a level prove as its
                split gives; seconds per level beside the aggregate
                phase's warm unsharded ones.
-15. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
+17. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
                shards: with 4 cards or more each process owns 2 cards
                and the backend is nccl, else both share cuda:0 under
                gloo (NCCL refuses two ranks on one card); the backend
@@ -152,13 +179,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     With four cards or more, k1_time also times the wires tree on each
     card alone and on all at once, and k2_time each K2 mode at 2^22
     points with its shards on four cards (NVLink peers).
-16. voting  -- the vote circuit of tests/test_voting.py under
+18. voting  -- the vote circuit of tests/test_voting.py under
                standard_recursion_config built and proved on the card (cold
                and warm), sha256 == the JAX host path's (pinned below),
                verified, tamper-checked, K1's and K3's launches as the
                circuit gives, no host witness; a vote with the wrong
                Merkle depth refused by the device witness on the card.
-17. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
+19. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
                written to a temporary directory; WormholeProver.new_from_files
                proves the golden inputs on the card (sha256 == the pinned
                zk digest) and WormholeVerifier.new_from_files verifies it;
@@ -166,7 +193,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                decodes to a proof with the JAX host path's sha256 (pinned
                below), which a freshly built verifier accepts, whose public
                inputs are the golden fixture's.
-18. compat  -- the reference-format layer (zk_circuits_torch/compat, host
+20. compat  -- the reference-format layer (zk_circuits_torch/compat, host
                numpy): its import runs the fast-Poseidon self-check; K1's
                hash_rows of 4096 seeded rows of 8 felts (one permutation
                each, state = row || 0^4) on the card equals its plain
@@ -177,7 +204,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and its polys' sha256 is the JAX package's (pinned below).
                Its K1 launch is a cross-check, counted apart under
                launches_by_path["compat"].
-19. native  -- the host runtime (zk_circuits_torch.native: g++ builds
+21. native  -- the host runtime (zk_circuits_torch.native: g++ builds
                csrc/host_native.cpp in the card phase, beside the nvcc
                builds; its seconds and library name): every function
                equal to its numpy plain version at the circuit's sizes
@@ -267,6 +294,10 @@ K2_REPLACES = "zk_circuits_tpu/parallel/ntt_exchange.py:52"
 K3_SOURCE = "zk_circuits_torch/csrc/witness.cu"
 K3_REPLACES = "zk_circuits_tpu/iop/witness_device.py:227"
 K3_TIMED_CALLS = 4     # back-to-back witnesses per K3 timing (graph_ms)
+K4_SOURCE = "zk_circuits_torch/csrc/ntt.cu"
+K4_REPLACES = "zk_circuits_tpu/ntt/ntt_mxu.py:167"
+K4_TIMED_CALLS = 8     # back-to-back calls per K4 timing (graph_ms)
+K4_MULS_PER_PRODUCT = 8   # 32-bit multiplies of a 64x64 product
 # 64x64 products an op of each kind (8 32-bit multiplies each, as above):
 # arith c0*m0*m1 + c1*ad; arith_ext an extension product (5) and 4 scalings;
 # the Fermat inverse 64 squarings and 63 multiplies; ext_inv its norm (3),
@@ -275,7 +306,7 @@ K3_PRODUCTS = {"const": 0, "arith": 3, "arith_ext": 9, "eq_inv": 127, "ext_inv":
                "base_sum": 0, "random_access": 0, "poseidon": 4 + 118 * 4}
 K3_CHAIN_DEPTH = 128   # levels of the arith chain circuit that times a narrow level
 # a warm wormhole proof's device operations with the host witness (PERF.md)
-DEVICE_OPS_BEFORE = 80945
+DEVICE_OPS_BEFORE = 75940   # a warm proof's device operations before K4 (PERF.md)
 SHARDS = 4             # E of the sharded phase
 BATCH = 4              # proofs per prove_batch call (bench.py's ZKT_BENCH_BATCH)
 NTT_LOG = 22           # SCALING.md's size of one sharded polynomial
@@ -387,6 +418,7 @@ def phase_card(state) -> None:
     from zk_circuits_torch import native
     from zk_circuits_torch.hash import poseidon_cuda
     from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.ntt import ntt_cuda
     from zk_circuits_torch.parallel import exchange_cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -401,19 +433,21 @@ def phase_card(state) -> None:
 
     poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's, K3's, native's
     # one nvcc per source and g++ for the host runtime, all started together
-    with ThreadPoolExecutor(4) as pool:
-        k1, k2, k3, host = pool.map(timed, (poseidon_cuda.build, exchange_cuda.build,
-                                            witness_cuda.build, native.build))
+    with ThreadPoolExecutor(5) as pool:
+        k1, k2, k3, k4, host = pool.map(timed, (poseidon_cuda.build, exchange_cuda.build,
+                                                witness_cuda.build, ntt_cuda.build,
+                                                native.build))
     native.available()
     state["native_build"] = {"build_s": host, "library": native.build().name,
                              "compiler_output": native.build_log}
-    ptxas = [ln.strip() for mod in (poseidon_cuda, exchange_cuda, witness_cuda)
+    ptxas = [ln.strip() for mod in (poseidon_cuda, exchange_cuda, witness_cuda, ntt_cuda)
              for ln in mod.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "card", "nvidia_smi": state["smi"],
           "name": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
-          "k1_build_s": k1, "k2_build_s": k2, "k3_build_s": k3, "native_build_s": host,
+          "k1_build_s": k1, "k2_build_s": k2, "k3_build_s": k3, "k4_build_s": k4,
+          "native_build_s": host,
           "ptxas": ptxas})
 
 
@@ -844,6 +878,7 @@ def phase_wormhole(state) -> None:
     from zk_circuits_torch.circuits.wormhole import golden_fixtures
     from zk_circuits_torch.hash import poseidon_cuda
     from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.ntt import ntt_cuda
     from zk_circuits_torch.plonk.config import CircuitConfig
     from zk_circuits_torch.utils import profiling
     from zk_circuits_torch.utils.serialization import proof_to_bytes
@@ -862,19 +897,22 @@ def phase_wormhole(state) -> None:
         return proof, time.perf_counter() - t
 
     profiling.reset_timings()
-    with host_witness_calls() as host_witnesses:
+    with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts:
         poseidon_cuda.reset_launches()      # main path starts here
         witness_cuda.reset_launches()
+        ntt_cuda.reset_launches()
         proof, cold_s = one_proof(prover)
         per_proof = poseidon_cuda.launches
         by_mode = dict(poseidon_cuda.launches_by_mode)
         k3_per_proof = dict(witness_cuda.launches_by_kernel)
+        k4_per_proof = dict(ntt_cuda.launches_by_mode)
         warm = []
         for _ in range(3):
             proof_w, dt = one_proof(WormholeProver(circuit_data=cd, targets=targets))
             warm.append(dt)
         launches = poseidon_cuda.launches   # main path ends here
         k3_launches = witness_cuda.launches
+        k4_launches = ntt_cuda.launches
     if per_proof <= 0 or launches != 4 * per_proof:
         raise AssertionError(f"K1 launches: {per_proof} per proof, {launches} in all")
     want = expected_k1_launches(cd.common)
@@ -885,6 +923,10 @@ def phase_wormhole(state) -> None:
     if k3_per_proof != k3_want or k3_launches != 4 * sum(k3_want.values()) or host_witnesses:
         raise AssertionError(f"K3 launches {k3_per_proof} per proof ({k3_launches} in all), "
                              f"want {k3_want}; {len(host_witnesses)} host witnesses")
+    k4_want = expected_k4_launches(cd.common)
+    if k4_per_proof != k4_want or k4_launches != 4 * sum(k4_want.values()) or plain_ntts:
+        raise AssertionError(f"K4 launches {k4_per_proof} per proof ({k4_launches} in all), "
+                             f"want {k4_want}; plain NTTs on the card: {plain_ntts}")
 
     data = proof_to_bytes(proof)
     if proof_to_bytes(proof_w) != data:
@@ -905,6 +947,8 @@ def phase_wormhole(state) -> None:
     state["k1_launches_by_mode"] = dict(poseidon_cuda.launches_by_mode)
     state["k3_launches"] = k3_launches
     state["k3_launches_by_kernel"] = dict(witness_cuda.launches_by_kernel)
+    state["k4_launches"] = k4_launches
+    state["k4_launches_by_mode"] = dict(ntt_cuda.launches_by_mode)
     timings = {k: statistics.median(v) for k, v in profiling.get_timings().items()}
     emit({"phase": "wormhole", "config": "standard_recursion_zk_config",
           "degree_bits": cd.common.degree_bits, "proof_bytes": len(data),
@@ -915,6 +959,9 @@ def phase_wormhole(state) -> None:
           "k1_launches_per_proof_expected": want, "k1_launches": launches,
           "k1_launches_by_mode": state["k1_launches_by_mode"],
           "k3_launches_per_proof_by_kernel": k3_per_proof, "k3_launches": k3_launches,
+          "k4_launches_per_proof_by_mode": k4_per_proof, "k4_launches": k4_launches,
+          "k4_launches_by_mode": state["k4_launches_by_mode"], "plain_ntts_on_card": 0,
+          "k4_copies": ntt_cuda.copies,
           "host_witnesses": len(host_witnesses), "stage_median_s": timings})
 
 
@@ -947,6 +994,52 @@ def expected_k3_launches(cd) -> dict:
     kernels = [k for k, _, _ in witness_cuda.plan(
         [(b.kind, len(b.data["out_reps"])) for b in sch], 0, len(sch))]
     return {"walk": kernels.count("walk"), "ops": kernels.count("ops"), "cells": 1}
+
+
+def expected_k4_launches(common) -> dict:
+    """K4's launches a proof, or a batch of proofs (a call serves the
+    batch's rows), by mode: two a call of more than 2^13 points (the
+    four-step), one below.  The wires INTT, the zs stage's NTT and INTT,
+    the three commits' LDEs, the quotient's coset INTT a challenge, and
+    FRI's coset NTT of each codeword's two components a fold round."""
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    def k(n):
+        return 2 if ntt_cuda.plan(n) else 1
+
+    n, lde, cfg = common.degree, common.lde_size, common.config
+    sizes, size = [], lde
+    for a_bits in cfg.fri_config.reduction_arities(common.degree_bits):
+        sizes.append(size)
+        size >>= a_bits
+    return {"ntt": k(n), "intt": 2 * k(n), "coset_ntt": sum(2 * k(s) for s in sizes),
+            "coset_intt": cfg.num_challenges * k(lde), "lde": 3 * k(lde)}
+
+
+@contextlib.contextmanager
+def plain_ntts_on_card():
+    """A list that grows by the name of every call of ntt/ntt.py's plain
+    stage loop (``*_plain``) on a CUDA tensor inside the block: on the
+    card every transform must take K4."""
+    from zk_circuits_torch.ntt import ntt as nttm
+
+    names = ("ntt_plain", "intt_plain", "coset_ntt_plain", "coset_intt_plain", "lde_plain")
+    real, calls = {k: getattr(nttm, k) for k in names}, []
+
+    def counted(name, fn):
+        def call(x, *args, **kwargs):
+            if x.is_cuda:
+                calls.append(name)
+            return fn(x, *args, **kwargs)
+        return call
+
+    for k, fn in real.items():
+        setattr(nttm, k, counted(k, fn))
+    try:
+        yield calls
+    finally:
+        for k, fn in real.items():
+            setattr(nttm, k, fn)
 
 
 def profiled(fn) -> tuple:
@@ -982,6 +1075,7 @@ def profiled(fn) -> tuple:
         "leaf_kernel_s": sum(v[0] for k, v in by_name.items() if "k1_" in k),
         "exchange_kernel_s": sum(v[0] for k, v in by_name.items()
                                  if "block_exchange" in k),
+        "ntt_kernel_s": sum(v[0] for k, v in by_name.items() if "k4_" in k),
         "top_device_ops": [{"name": k[:100], "s": v[0], "count": v[1]}
                            for k, v in top]}
 
@@ -1012,6 +1106,7 @@ def phase_batch(state) -> None:
     from zk_circuits_torch.api.prover import WormholeProver
     from zk_circuits_torch.hash import poseidon_cuda
     from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.ntt import ntt_cuda
     from zk_circuits_torch.plonk.config import CircuitConfig, FriConfig
     from zk_circuits_torch.plonk.prover import prove_batch
     from zk_circuits_torch.utils import profiling
@@ -1026,15 +1121,18 @@ def phase_batch(state) -> None:
 
     want = expected_k1_launches(cd.common, BATCH)
     k3_want = expected_k3_launches(cd)
+    k4_want = expected_k4_launches(cd.common)
     profiling.reset_timings()
     poseidon_cuda.reset_launches()      # the batch path starts here
     witness_cuda.reset_launches()
-    batch_s, per_batch, k3_per_batch, prof = [], [], [], None
+    ntt_cuda.reset_launches()
+    batch_s, per_batch, k3_per_batch, k4_per_batch, prof = [], [], [], [], None
     for i in range(3):                  # one cold batch, two warm
         pws = witnesses()
         before = dict(poseidon_cuda.launches_by_mode)
         k3_before = dict(witness_cuda.launches_by_kernel)
-        with host_witness_calls() as host_witnesses:
+        k4_before = dict(ntt_cuda.launches_by_mode)
+        with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts:
             if i < 2:
                 proofs, dt = _synced(lambda: prove_batch(cd, pws))
                 batch_s.append(dt)
@@ -1052,6 +1150,11 @@ def phase_batch(state) -> None:
             raise AssertionError(f"K3 launches per batch {k3}, want {k3_want}; "
                                  f"{len(host_witnesses)} host witnesses")
         k3_per_batch.append(k3)
+        k4 = {k: v - k4_before[k] for k, v in ntt_cuda.launches_by_mode.items()}
+        if k4 != k4_want or plain_ntts:
+            raise AssertionError(f"K4 launches per batch {k4}, want {k4_want}; plain NTTs "
+                                 f"on the card: {plain_ntts}")
+        k4_per_batch.append(k4)
         digests = [hashlib.sha256(proof_to_bytes(p)).hexdigest() for p in proofs]
         if len(proofs) != BATCH or set(digests) != {GOLDEN_WORMHOLE_ZK_SHA256}:
             raise AssertionError(f"batched wormhole sha256s {digests} != pinned "
@@ -1059,6 +1162,8 @@ def phase_batch(state) -> None:
     launches = poseidon_cuda.launches   # the batch path ends here
     state["k1_launches_batch"] = launches
     state["k3_launches_batch"] = witness_cuda.launches
+    state["k4_launches_batch"] = ntt_cuda.launches
+    k4_copies = ntt_cuda.copies         # inputs K4 copied to one row stride, 3 batches
     t_verify = time.perf_counter()
     cd.verify(proofs[0])
     _refuses_tampering(cd, proofs[0])
@@ -1101,7 +1206,10 @@ def phase_batch(state) -> None:
           "single_proofs_per_s": single, "k1_launches_per_batch_by_mode": per_batch,
           "k1_launches_per_batch_expected": want, "k1_launches": launches,
           "k3_launches_per_batch_by_kernel": k3_per_batch,
-          "k3_launches": state["k3_launches_batch"], "host_witnesses": 0,
+          "k3_launches": state["k3_launches_batch"],
+          "k4_launches_per_batch_by_mode": k4_per_batch,
+          "k4_launches": state["k4_launches_batch"], "k4_copies": k4_copies,
+          "host_witnesses": 0,
           "device_ops_before": DEVICE_OPS_BEFORE,
           "stage_median_s": stages, "stage_s": timings, "profile_warm_batch": prof,
           "square": square, "wormhole_part_s": wormhole_s, "verify_and_tamper_s": verify_s,
@@ -1436,15 +1544,19 @@ def phase_witness_check(state) -> None:
 def phase_profile(state) -> None:
     """One more warm wormhole proof under torch.profiler (``profiled``)."""
     from zk_circuits_torch.api.prover import WormholeProver
-
     from zk_circuits_torch.iop import witness_cuda
+    from zk_circuits_torch.ntt import ntt_cuda
 
     cd, targets, inputs = state["wormhole"]
-    before = witness_cuda.launches
+    before, k4_before = witness_cuda.launches, dict(ntt_cuda.launches_by_mode)
     _, prof = profiled(lambda: WormholeProver(circuit_data=cd, targets=targets)
                        .commit(inputs).prove(device="cuda"))
+    state["device_ops"] = prof["device_ops"]
     emit({"phase": "profile", **prof, "device_ops_before": DEVICE_OPS_BEFORE,
-          "k3_launches": witness_cuda.launches - before})
+          "device_ops_shed": DEVICE_OPS_BEFORE - prof["device_ops"],
+          "k3_launches": witness_cuda.launches - before,
+          "k4_launches_by_mode": {k: v - k4_before[k]
+                                  for k, v in ntt_cuda.launches_by_mode.items()}})
 
 
 def _synced(fn):
@@ -1470,6 +1582,7 @@ def phase_sharded(state) -> None:
     from zk_circuits_torch.hash import poseidon_cuda
     from zk_circuits_torch.hash.challenger import Challenger
     from zk_circuits_torch.ntt import ntt as nttm
+    from zk_circuits_torch.ntt import ntt_cuda
     from zk_circuits_torch.parallel import exchange_cuda, mesh as meshm
     from zk_circuits_torch.parallel.ntt_exchange import (intt_sharded_pallas,
                                                          ntt_sharded_pallas)
@@ -1493,6 +1606,7 @@ def phase_sharded(state) -> None:
         leaves."""
         k1_before, k2_before = poseidon_cuda.launches, exchange_cuda.launches
         by_mode = dict(exchange_cuda.launches_by_mode)
+        k4_before = dict(ntt_cuda.launches_by_mode)
         res, secs = _synced(fn)
         k1 = poseidon_cuda.launches - k1_before
         k2 = exchange_cuda.launches - k2_before
@@ -1500,7 +1614,9 @@ def phase_sharded(state) -> None:
             raise AssertionError(f"sharded/{step}: {k2} K2 and {k1} K1 launches")
         steps[step] = {"s": secs, "k2_launches": k2, "k1_launches": k1,
                        "k2_launches_by_mode": {k: v - by_mode[k] for k, v in
-                                               exchange_cuda.launches_by_mode.items()}}
+                                               exchange_cuda.launches_by_mode.items()},
+                       "k4_launches_by_mode": {k: v - k4_before[k] for k, v in
+                                               ntt_cuda.launches_by_mode.items()}}
         return res
 
     n = cd.common.degree
@@ -1533,6 +1649,7 @@ def phase_sharded(state) -> None:
 
     poseidon_cuda.reset_launches()      # main path starts here
     exchange_cuda.reset_launches()
+    ntt_cuda.reset_launches()
     # each sub-step runs twice and the second run is timed
     # 1. batch-sharded LDE commit at the wormhole wires shape
     for _ in range(2):
@@ -1559,6 +1676,13 @@ def phase_sharded(state) -> None:
     launches = exchange_cuda.launches   # main path ends here
     launches_by_mode = dict(exchange_cuda.launches_by_mode)
     k1_launches = poseidon_cuda.launches
+    state["k4_launches_sharded"] = ntt_cuda.launches
+    k4_by_mode = dict(ntt_cuda.launches_by_mode)
+    for name in ("ntt", "intt", "coset_lde"):   # each card's row NTT: one K4 four-step
+        if steps[name]["k4_launches_by_mode"]["ntt"] != 2 * SHARDS:
+            raise AssertionError(f"sharded/{name}: K4 launches by mode "
+                                 f"{steps[name]['k4_launches_by_mode']}, want a four-step "
+                                 f"(2 launches) a shard")
     cards = len(set(mesh.devices))
     for name in ("ntt", "intt", "coset_lde"):   # no torch field op between exchanges
         if steps[name]["k2_launches_by_mode"] != {"copy": 0, "dft": cards,
@@ -1633,6 +1757,8 @@ def phase_sharded(state) -> None:
                k2_launches_by_mode_per_proof=steps["prove_warm"]["k2_launches_by_mode"],
                k1_launches=k1_launches,
                k1_launches_per_proof=steps["prove_warm"]["k1_launches"],
+               k4_launches=state["k4_launches_sharded"], k4_launches_by_mode=k4_by_mode,
+               k4_launches_by_mode_per_proof=steps["prove_warm"]["k4_launches_by_mode"],
                cold_proof_s=steps["prove_cold"]["s"],
                warm_proof_s=steps["prove_warm"]["s"],
                ntt_ms=steps["ntt"]["s"] * 1e3)
@@ -2089,6 +2215,200 @@ def phase_k2_time(state) -> None:
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "ms_by_mode": {f"{r['mode']}{' inverse' if r.get('inverse') else ''} {r['shape']}":
                        r["ms"] for r in rows_out}})
+
+
+def k4_cases(common) -> list:
+    """(name, mode, input shape, keyword arguments) of the transforms K4
+    serves: one proof's (the wires INTT, NTT and INTT of the zs stage, the
+    three commits' LDEs with their salt polys, the quotient's coset INTT a
+    challenge, FRI's padded coset NTT of each fold round), a batch of
+    BATCH's, a level circuit's wires LDE (degree 2^14) and the sharded
+    path's 2^20-point row NTT and its 2^22-point single-device
+    reference."""
+    cfg, n, lde = common.config, common.degree, common.lde_size
+    rate, salts = cfg.rate_bits, 4 if cfg.zero_knowledge else 0
+    zs = common.num_zs_partial_products_polys
+    cases = [("wires_intt", "intt", (cfg.num_wires, n), {}),
+             ("wires_lde", "lde", (cfg.num_wires + salts, n), {"rate_bits": rate}),
+             ("zs_ntt", "ntt", (cfg.num_routed_wires, n), {}),
+             ("zs_intt", "intt", (zs, n), {}),
+             ("zs_lde", "lde", (zs + salts, n), {"rate_bits": rate}),
+             ("quotient_coset_intt", "coset_intt", (lde,), {}),
+             ("quotient_lde", "lde", (common.num_quotient_polys + salts, n),
+              {"rate_bits": rate})]
+    size, m = lde, n
+    for r, a_bits in enumerate(cfg.fri_config.reduction_arities(common.degree_bits)):
+        cases.append((f"fri_coset_ntt_{r}", "coset_ntt", (m,), {"size": size}))
+        size, m = size >> a_bits, m >> a_bits
+    cases += [("batch_wires_lde", "lde", (BATCH, cfg.num_wires + salts, n), {"rate_bits": rate}),
+              ("batch_quotient_coset_intt", "coset_intt", (BATCH, lde), {}),
+              ("level_wires_lde", "lde", (cfg.num_wires + salts, 2 * n), {"rate_bits": rate}),
+              ("sharded_row_ntt", "ntt", (1 << (NTT_LOG - 2),), {}),
+              ("ntt_2_22", "ntt", (1 << NTT_LOG,), {})]
+    return cases
+
+
+def k4_plain(mode: str, x, **kw):
+    """ntt/ntt.py's plain version of one K4 mode (its stage loop)."""
+    from zk_circuits_torch.ntt import ntt as nttm
+
+    if mode == "lde":
+        return nttm.lde_plain(x, kw["rate_bits"])
+    if mode == "coset_ntt":
+        return nttm.coset_ntt_plain(x, size=kw.get("size"))
+    return getattr(nttm, f"{mode}_plain")(x)
+
+
+def k4_inputs(rng, shape, count: int = 1) -> list:
+    """``count`` canonical int64 tensors of ``shape`` on the card, made on
+    the card from ``rng``'s seed; 0, 1 and p - 1 lead the first row."""
+    import torch
+
+    from zk_circuits_torch.field import goldilocks as gf
+
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 62)))
+    out = []
+    for _ in range(count):
+        x = gf.canon(torch.randint(-(1 << 63), (1 << 63) - 1, shape, generator=gen,
+                                   device="cuda", dtype=torch.int64))
+        x.view(-1, shape[-1])[0, :3] = torch.tensor([0, 1, P - 1 - (1 << 64)], device="cuda")
+        out.append(x)
+    return out
+
+
+def k4_work(mode: str, shape: tuple, n: int) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) that one K4 call's function needs: its
+    input read once and its output written once (K4's own tables are not
+    the function's); in each stage, a product a butterfly whose twiddle is
+    not 1, where over an input zero-padded from n_in to n points (lde, a
+    padded coset_ntt) the first log2(n / n_in) stages, loaded bit-reversed,
+    only copy, so a row needs (n/2) log2(n_in) - (n_in - 1) products; and
+    the mode's scalings: shift^i on the inputs but the first, n^-1 on the
+    inverse's outputs (for the coset INTT one table of n^-1 shift^-m).
+    8 multiplies a 64x64 product."""
+    rows, n_in = 1, shape[-1]
+    for d in shape[:-1]:
+        rows *= d
+    nbytes = 8 * rows * (n_in + n)
+    products = rows * ((n // 2) * (n_in.bit_length() - 1) - (n_in - 1))
+    if mode in ("coset_ntt", "lde"):
+        products += rows * (n_in - 1)
+    if mode in ("intt", "coset_intt"):
+        products += rows * n
+    return nbytes, products * K4_MULS_PER_PRODUCT
+
+
+def k4_bound_ms(nbytes: int, muls: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = muls / INT32_MUL_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_k4_check(state) -> None:
+    """K4 against its plain version (ntt/ntt.py's stage loop) on the card,
+    equal integers: every shape and mode the main path gives it, a batch
+    of BATCH, a level circuit's LDE, the sharded path's rows, rows of 0, 1
+    and p - 1, both paths at 2^13, and ntt_mxu/intt_mxu."""
+    import numpy as np
+    import torch
+
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_torch.ntt import ntt_mxu as mxu
+
+    cd, _, _ = state["wormhole"]
+    rng = np.random.default_rng(2031)
+    before = ntt_cuda.launches
+    checked = []
+
+    def check(name, mode, x, **kw):
+        got = ntt_cuda.transform(x, mode, **kw)
+        want = k4_plain(mode, x, **{k: v for k, v in kw.items() if k != "log_n1"})
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"k4_check/{name}: K4 {mode} {tuple(x.shape)} != its plain "
+                                 f"version")
+        checked.append({"name": name, "mode": mode, "shape": list(x.shape),
+                        "points": got.shape[-1], "log_n1": kw.get("log_n1",
+                                                                  ntt_cuda.plan(got.shape[-1]))})
+
+    for name, mode, shape, kw in k4_cases(cd.common):
+        check(name, mode, k4_inputs(rng, shape)[0], **kw)
+    n = cd.common.degree
+    for value in (0, 1, P - 1):                    # constant rows, both paths
+        for size in (32, 1 << 16):
+            x = torch.full((3, size), value - (1 << 64) if value >= 1 << 63 else value,
+                           dtype=torch.int64, device="cuda")
+            for mode in ntt_cuda.MODES:
+                check(f"constant_{value}_{size}", mode, x,
+                      **({"rate_bits": 1} if mode == "lde" else {}))
+    x = k4_inputs(rng, (5, n))[0]
+    for mode in ("ntt", "intt"):                    # the four-step where the row path runs
+        check(f"four_step_{n}", mode, x, log_n1=(n.bit_length() - 1) // 2)
+    for size in (64, 1 << 16):
+        x = k4_inputs(rng, (2, size))[0]
+        if not (torch.equal(mxu.ntt_mxu(x), k4_plain("ntt", x)) and
+                torch.equal(mxu.intt_mxu(x), k4_plain("intt", x))):
+            raise AssertionError(f"k4_check: ntt_mxu/intt_mxu at {size} != the plain version")
+        checked.append({"name": f"ntt_mxu_{size}", "mode": "ntt, intt", "shape": [2, size]})
+    state["k4_max_abs_err"] = 0
+    emit({"phase": "k4_check", "equal_integers": True, "cases": checked,
+          "launches": ntt_cuda.launches - before, "copies": ntt_cuda.copies})
+
+
+def phase_k4_time(state) -> None:
+    """K4's device time at the main path's shapes (see the module doc)."""
+    import numpy as np
+
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    cd, _, _ = state["wormhole"]
+    rng = np.random.default_rng(2032)
+    timed = ("wires_lde", "batch_wires_lde", "wires_intt", "zs_ntt", "quotient_coset_intt",
+             "quotient_lde", "fri_coset_ntt_0", "level_wires_lde", "sharded_row_ntt")
+    rows_out = []
+    for name, mode, shape, kw in k4_cases(cd.common):
+        if name not in timed:
+            continue
+        xs = k4_inputs(rng, shape, K4_TIMED_CALLS)
+        g = graph_ms([lambda x=x: ntt_cuda.transform(x, mode, **kw) for x in xs])
+        n = shape[-1] << kw["rate_bits"] if mode == "lde" else kw.get("size", shape[-1])
+        nbytes, muls = k4_work(mode, shape, n)
+        bound, by = k4_bound_ms(nbytes, muls)
+        plain_ms = cuda_ms(lambda: k4_plain(mode, xs[0], **kw), reps=3, warmup=1)
+        rows_out.append({"shape": name, "mode": mode, "input": list(shape), "points": n,
+                         "launches_per_call": 2 if ntt_cuda.plan(n) else 1,
+                         "factors": list(ntt_cuda.split(n)) if ntt_cuda.plan(n) else None,
+                         **g, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                         "bytes": nbytes, "muls": muls, "share_of_bound": bound / g["ms"],
+                         "library_ms": None,
+                         "host_us_per_call": host_us_per_call(
+                             lambda: ntt_cuda.transform(xs[0], mode, **kw))})
+        del xs
+    emit({"phase": "k4_time", "int32_mul_per_s": INT32_MUL_PER_S,
+          "hbm_bytes_per_s": HBM_BYTES_PER_S,
+          "timing": f"ms: CUDA events around the replay of a CUDA graph of {K4_TIMED_CALLS} "
+                    f"calls on inputs of their own, L2 emptied first, per call, median of 8 "
+                    f"replays (min_ms/max_ms: their range); plain_ms: CUDA events around one "
+                    f"call of the plain version (ntt/ntt.py's stage loop), median of 3; "
+                    f"host_us_per_call: perf_counter around 100 wrapper calls; library_ms: "
+                    f"none, no PyTorch call computes a Goldilocks NTT",
+          "rows": rows_out})
+    over = [r for r in rows_out if r["share_of_bound"] > 1.05]
+    if over:
+        raise AssertionError(f"K4 timed below its bound: {over}")
+    main = next(r for r in rows_out if r["shape"] == "wires_lde")   # the kernels line's figure
+    state.setdefault("kernels", []).append({
+        "name": "goldilocks_ntt", "route": "cuda", "source": K4_SOURCE,
+        "replaces": K4_REPLACES + " (ntt_mxu, with _gf_dot_matrix at :122; reached through "
+                                  "ntt/ntt.py:172 _use_mxu and :198 ntt; no Pallas kernel)",
+        "launches": state["k4_launches"], "launches_by_mode": state["k4_launches_by_mode"],
+        "launches_by_path": {"wormhole": state["k4_launches"],
+                             "batch": state["k4_launches_batch"],
+                             "sharded": state["k4_launches_sharded"]},
+        "max_abs_err": state["k4_max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "ms_by_shape": {r["shape"]: r["ms"] for r in rows_out}})
 
 
 AGG_CONFIG = (2, 3)     # the aggregate phase's tree: the reference's default, 8 leaves
@@ -2927,9 +3247,10 @@ def phase_native(state) -> None:
 PHASES = {"card": phase_card, "square": phase_square,
           "wormhole": phase_wormhole, "batch": phase_batch,
           "witness_check": phase_witness_check, "k1_check": phase_k1_check,
-          "profile": phase_profile, "k2_check": phase_k2_check,
-          "sharded": phase_sharded, "k1_time": phase_k1_time,
-          "k2_time": phase_k2_time, "aggregate": phase_aggregate,
+          "k4_check": phase_k4_check, "profile": phase_profile,
+          "k2_check": phase_k2_check, "sharded": phase_sharded,
+          "k1_time": phase_k1_time, "k2_time": phase_k2_time,
+          "k4_time": phase_k4_time, "aggregate": phase_aggregate,
           "batch_mesh": phase_batch_mesh, "aggregate_mesh": phase_aggregate_mesh,
           "multihost": phase_multihost, "voting": phase_voting, "api": phase_api,
           "compat": phase_compat, "native": phase_native}

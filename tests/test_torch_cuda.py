@@ -447,3 +447,46 @@ def test_k1_level_wires_tree_matches_plain(cuda, level_circuit):
     want = poseidon_cuda.hash_tree_plain(x, cap)
     assert len(got) == len(want)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("log_n", [1, 6, 13, 14, 16, 20])
+def test_k4_every_mode_matches_plain(cuda, log_n):
+    """ntt/ntt.py's transforms on a CUDA tensor launch K4 (one launch on
+    the row path, two for the four-step) and give the plain stage loop's
+    integers."""
+    from zk_circuits_torch.ntt import ntt as nttm
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    n = 1 << log_n
+    x = np.random.default_rng(log_n).integers(0, P, (3, n), dtype=np.uint64)
+    x[0, : min(n, 3)] = [0, 1, P - 1][: min(n, 3)]
+    t = gf.from_u64(x, cuda)
+    cases = [(nttm.ntt, nttm.ntt_plain, n), (nttm.intt, nttm.intt_plain, n),
+             (nttm.coset_ntt, nttm.coset_ntt_plain, n),
+             (nttm.coset_intt, nttm.coset_intt_plain, n),
+             (lambda v: nttm.lde(v, 3), lambda v: nttm.lde_plain(v, 3), n << 3),
+             (lambda v: nttm.coset_ntt(v, size=2 * n),
+              lambda v: nttm.coset_ntt_plain(v, size=2 * n), 2 * n)]
+    for fn, plain, points in cases:
+        before = ntt_cuda.launches
+        got = fn(t)
+        torch.cuda.synchronize()
+        assert ntt_cuda.launches == before + (2 if ntt_cuda.plan(points) else 1)
+        assert torch.equal(got, plain(t)), (log_n, points)
+
+
+def test_ntt_mxu_on_the_card(cuda):
+    """ntt_mxu/intt_mxu on a CUDA tensor are ntt.ntt/ntt.intt, one K4 call
+    each on the path K4 plans for the size (the row path to 2^13 points,
+    the four-step above), and equal the plain stage loop."""
+    from zk_circuits_torch.ntt import ntt as nttm
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_torch.ntt import ntt_mxu as mxu
+
+    for n in (8, 128, 256, 1 << 14, 1 << 16):
+        t = gf.from_u64(np.random.default_rng(n).integers(0, P, (2, 3, n), dtype=np.uint64),
+                        cuda)
+        before = ntt_cuda.launches
+        assert torch.equal(mxu.ntt_mxu(t), nttm.ntt_plain(t))
+        assert torch.equal(mxu.intt_mxu(t), nttm.intt_plain(t))
+        assert ntt_cuda.launches == before + 2 * (2 if ntt_cuda.plan(n) else 1)

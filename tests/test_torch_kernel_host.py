@@ -9,7 +9,10 @@ the thread-team permutation (the T threads of a team run in turn, arrays
 in place of the warp shuffles) and the Merkle subtree index arithmetic
 (the tree kernel's blocks run one at a time).  K2: the shift-form DFT,
 the twiddle and interleave index maps, and the copy's tile walk (its
-blocks run one at a time).
+blocks run one at a time).  K3: the witness walk (see K3_SHIM).  K4
+(csrc/ntt.cuh behind ntt.cu's C interface): the row path's blocks and
+both four-step passes tile by tile, every mode, through the wrapper's
+``ntt_cuda.transform``, against both packages' host NTTs.
 """
 
 import ctypes
@@ -987,3 +990,235 @@ def test_k3_level_records_match_steps(name):
             flat = table.blob[rec[field] : rec[field] + view.numel()]
             assert flat.data_ptr() == view.data_ptr() or view.numel() == 0
             assert flat.tolist() == view.reshape(-1).tolist(), field
+
+
+# ---------------------------------------------------------------------------
+# K4: the NTT kernel (csrc/ntt.cuh behind ntt.cu's C interface)
+# ---------------------------------------------------------------------------
+
+K4_SHIM = r"""
+#include <vector>
+#include "ntt.cuh"
+
+// One pass of a call: its blocks one at a time, each block's threads in
+// turn between the barriers, over a shared-memory buffer of the size the
+// launch asks for, with a guard band after it that must stay untouched.
+static int run_pass(const K4Call& c, int pass) {
+  const long long elems = k4_smem_elems(c, pass), guard = 64;
+  if (elems > K4_SMEM_MAX_ELEMS) return 701;   // more than the launch's opt-in
+  std::vector<uint64_t> sm(elems + guard, 0x5A5A5A5A5A5A5A5AULL);
+  for (long long b = 0; b < k4_blocks(c, pass); b++) {
+    const K4Tile t = k4_tile(c, pass, b);
+    for (int tid = 0; tid < K4_THREADS; tid++) k4_load(c, pass, t, sm.data(), tid, K4_THREADS);
+    for (int s = 0; s < t.log_len; s++)
+      for (int tid = 0; tid < K4_THREADS; tid++) k4_stage(c, t, sm.data(), s, tid, K4_THREADS);
+    for (int tid = 0; tid < K4_THREADS; tid++) k4_store(c, pass, t, sm.data(), tid, K4_THREADS);
+    for (long long i = elems; i < elems + guard; i++)
+      if (sm[i] != 0x5A5A5A5A5A5A5A5AULL) return 700;   // out of the block's shared memory
+  }
+  return 0;
+}
+
+extern "C" {
+int k4_ntt(int, const K4Call* call, void*) {
+  const K4Call& c = *call;
+  if (!k4_valid(c)) return 1;   // cudaErrorInvalidValue
+  if (c.rows == 0) return 0;
+  if (c.log_n1 == 0) return run_pass(c, K4_PASS_ROW);
+  const int err = run_pass(c, K4_PASS_A);
+  return err ? err : run_pass(c, K4_PASS_B);
+}
+int k4_call_size(void) { return (int)sizeof(K4Call); }
+// The four-step's twiddle w_n^(j1 k2) for every (j1, k2) of (n1, n2).
+void shim_k4_twiddles(const K4Call* c, long long n1, long long n2, uint64_t* out) {
+  for (long long j1 = 0; j1 < n1; j1++)
+    for (long long k2 = 0; k2 < n2; k2++) out[j1 * n2 + k2] = k4_twiddle(*c, j1 * k2);
+}
+}
+"""
+
+K4_MODES = ("ntt", "intt", "coset_ntt", "coset_intt", "lde1", "lde2", "lde3")
+
+
+@pytest.fixture(scope="module")
+def k4_lib():
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to build the kernel headers for the host"
+    build = nvcc.BUILD_DIR / f"k4_shim_{os.getpid()}"
+    build.mkdir(parents=True, exist_ok=True)
+    src = build / "k4_shim.cc"
+    src.write_text(K4_SHIM)
+    so = build / "libk4shim.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(nvcc.CSRC),
+                    "-o", str(so), str(src)], check=True)
+    lib = ntt_cuda.bind(ctypes.CDLL(str(so)))   # the wrapper's declarations and mirror check
+    lib.shim_k4_twiddles.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                                     ctypes.c_void_p]
+    yield lib
+    shutil.rmtree(build, ignore_errors=True)
+
+
+def _k4_inputs(rng, lead, n):
+    """Canonical (*lead, n) inputs: random, with 0, 1 and p - 1 in the
+    first row and a row of p - 1 (when there are two rows or more)."""
+    x = rng.integers(0, P, (*lead, n), dtype=U64).reshape(-1, n)
+    x[0, : min(n, 3)] = np.array([0, 1, P - 1], dtype=U64)[: min(n, 3)]
+    if x.shape[0] > 1:
+        x[-1] = P - 1
+    return x.reshape(*lead, n)
+
+
+def _k4_run(k4_lib, mode, x, log_n1=None):
+    """K4's result on the host shim for one of K4_MODES, through the
+    wrapper's ``transform``, and the JAX package's host result."""
+    import torch
+
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_tpu.ntt import ntt as jntt
+
+    t = torch.from_numpy(np.ascontiguousarray(x).view(np.int64))
+    if mode.startswith("lde"):
+        rate = int(mode[3:])
+        got = ntt_cuda.transform(t, "lde", rate_bits=rate, log_n1=log_n1, lib=k4_lib)
+        want = jntt.host_lde(x, rate)
+    else:
+        got = ntt_cuda.transform(t, mode, log_n1=log_n1, lib=k4_lib)
+        want = getattr(jntt, f"host_{mode}")(x)
+    return got.numpy().view(U64), want
+
+
+def _k4_check(k4_lib, mode, x, log_n1=None):
+    from zk_circuits_torch.ntt import ntt as tntt
+
+    got, want = _k4_run(k4_lib, mode, x, log_n1)
+    assert np.array_equal(got, want), (mode, x.shape, log_n1)
+    if mode == "ntt":
+        assert np.array_equal(got, tntt.host_ntt_plain(x))
+    if mode == "intt":
+        assert np.array_equal(got, tntt.host_intt_plain(x))
+
+
+@pytest.mark.parametrize("log_n", range(0, 14))
+def test_k4_row_path_every_mode_matches_host(k4_lib, log_n):
+    """The row path at n = 2^log_n (the LDE's larger outputs take the
+    four-step), a tile of several whole rows or one, every mode, over
+    leading axes (2, 3)."""
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    n = 1 << log_n
+    assert ntt_cuda.plan(n) == 0
+    x = _k4_inputs(np.random.default_rng(400 + log_n), (2, 3), n)
+    for mode in K4_MODES:
+        _k4_check(k4_lib, mode, x)
+
+
+@pytest.mark.parametrize("log_n", [9, 14, 16])
+@pytest.mark.parametrize("factors", ["k4", "jax_split"])
+def test_k4_four_step_every_mode_matches_host(k4_lib, log_n, factors, monkeypatch):
+    """Both four-step passes, tile by tile, with the row path's threshold
+    patched down so that 2^9 takes them too: K4's own factors
+    (``ntt_cuda.split``) and the JAX package's ``ntt_mxu._split``."""
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_tpu.ntt import ntt_mxu as jmxu
+
+    monkeypatch.setattr(ntt_cuda, "ROW_MAX_LOG", 4)
+    n = 1 << log_n
+    log_n1 = None if factors == "k4" else jmxu._split(n)[0].bit_length() - 1
+    lead = (2,) if log_n == 16 else (2, 3)
+    x = _k4_inputs(np.random.default_rng(500 + log_n), lead, n)
+    modes = K4_MODES if log_n < 16 else ("ntt", "intt", "coset_ntt", "coset_intt")
+    for mode in modes:
+        _k4_check(k4_lib, mode, x, log_n1)
+    if log_n < 16:   # an LDE whose output (2^17, 2^19) takes the four-step
+        _k4_check(k4_lib, "lde3", x[:1])
+
+
+@pytest.mark.parametrize("value", [0, 1, P - 1])
+def test_k4_constant_rows_match_host(k4_lib, value):
+    """Rows of one value (0, 1, p - 1) on both paths, every mode."""
+    for n, log_n1 in ((32, 0), (1024, 5)):
+        x = np.full((3, n), value, dtype=U64)
+        for mode in K4_MODES:
+            _k4_check(k4_lib, mode, x, log_n1)
+
+
+def test_k4_padded_coset_ntt_matches_host(k4_lib):
+    """``coset_ntt`` zero-padded to a larger size (FRI's extension coset
+    NTT: N - 1 coefficients to N points), on both paths."""
+    import torch
+
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_tpu.ntt import ntt as jntt
+
+    rng = np.random.default_rng(61)
+    for n_in, size in ((1023, 1024), (5, 1 << 14), (4095, 1 << 16)):
+        x = _k4_inputs(rng, (2,), n_in)
+        got = ntt_cuda.transform(torch.from_numpy(x.view(np.int64)), "coset_ntt",
+                                 size=size, lib=k4_lib)
+        padded = np.zeros((2, size), dtype=U64)
+        padded[:, :n_in] = x
+        assert np.array_equal(got.numpy().view(U64), jntt.host_coset_ntt(padded)), (n_in, size)
+
+
+def test_k4_split_and_twiddles_match_jax(k4_lib):
+    """The port's ``ntt_mxu._split`` and ``_twiddle_table`` are the JAX
+    package's; the kernel's four-step twiddle w_n^(j1 k2) equals
+    ``_twiddle_table`` at ``_split``'s factors and at K4's; K4's factors
+    fit a tile up to 2^26."""
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_torch.ntt import ntt_mxu as tmxu
+    from zk_circuits_tpu.ntt import ntt_mxu as jmxu
+
+    for log_n in range(1, 27):
+        n = 1 << log_n
+        if log_n >= 8:
+            assert tmxu._split(n) == jmxu._split(n)
+        n1, n2 = ntt_cuda.split(n)
+        assert n1 * n2 == n and n1 <= n2 <= 2 * n1 and n2 <= 1 << 13
+    for n1, n2 in (jmxu._split(1 << 9), jmxu._split(1 << 14), ntt_cuda.split(1 << 16)):
+        lo, hi = jmxu._twiddle_table(n1, n2)
+        want = lo.astype(U64) | (hi.astype(U64) << U64(32))
+        assert np.array_equal(tmxu._twiddle_table(n1, n2), want)
+        n = n1 * n2
+        tw = ntt_cuda.stage_table(n)
+        for s in range(n.bit_length() - 1):   # stage s: w_{2^(s+1)}^j from slot 2^s - 1
+            seg = tw[(1 << s) - 1: (2 << s) - 1]
+            assert np.array_equal(seg, jgl.powers(jgl.primitive_root_of_unity(s + 1), 1 << s))
+        call = ntt_cuda._Call(tw=tw.ctypes.data, log_n=n.bit_length() - 1)
+        got = np.empty((n1, n2), dtype=U64)
+        k4_lib.shim_k4_twiddles(ctypes.byref(call), n1, n2, _ptr(got))
+        assert np.array_equal(got, want), (n1, n2)
+    dft = tmxu._dft_matrix(8)
+    w = jgl.primitive_root_of_unity(3)
+    assert all(int(dft[j, k]) == pow(w, j * k, P) for j in range(8) for k in range(8))
+
+
+def test_k4_views_and_refusals(k4_lib):
+    """A view whose rows share one stride is read in place; one whose last
+    axis is strided, or whose rows share no stride, is copied once
+    (``copies``); a call the kernel does not take raises."""
+    import torch
+
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_tpu.ntt import ntt as jntt
+
+    x = _k4_inputs(np.random.default_rng(71), (4, 6), 64)
+    t = torch.from_numpy(x.view(np.int64))
+    cases = [(t[:, ::2], 0), (t[1], 0), (t.transpose(0, 1), 1), (t[:, :3], 1),
+             (t.transpose(1, 2).contiguous().transpose(1, 2)[..., :64], 1)]
+    for view, copied in cases:
+        before = ntt_cuda.copies
+        got = ntt_cuda.transform(view, "ntt", lib=k4_lib).numpy().view(U64)
+        assert np.array_equal(got, jntt.host_ntt(view.contiguous().numpy().view(U64)))
+        assert ntt_cuda.copies == before + copied, view.stride()
+    with pytest.raises(RuntimeError, match="k4_ntt"):
+        ntt_cuda.transform(t, "ntt", log_n1=6, lib=k4_lib)   # n1 = n: no n2
+    with pytest.raises(RuntimeError, match="k4_ntt"):
+        ntt_cuda.transform(torch.zeros(1 << 14, dtype=torch.int64), "ntt", log_n1=0,
+                           lib=k4_lib)   # more than a tile on the row path
+    with pytest.raises(ValueError):
+        ntt_cuda.transform(t, "coset_ntt", size=32, lib=k4_lib)   # size below n_in
+    with pytest.raises(ValueError):
+        ntt_cuda.transform(t, "ntt")   # a CPU tensor without a host library

@@ -1,7 +1,8 @@
 """What provers on several threads of one process share, on the CPU.
 
-The three kernel wrappers (K1 ``hash/poseidon_cuda.py``, K2
-``parallel/exchange_cuda.py``, K3 ``iop/witness_cuda.py``) build their
+The four kernel wrappers (K1 ``hash/poseidon_cuda.py``, K2
+``parallel/exchange_cuda.py``, K3 ``iop/witness_cuda.py``, K4
+``ntt/ntt_cuda.py``) build their
 library once however many threads ask at first use, and their launch
 counters (in all, by mode and by card) lose no count when threads launch
 at once; ``PolynomialBatch.ensure_device`` copies the circuit's
@@ -21,10 +22,11 @@ import torch
 from zk_circuits_torch.fri.oracle import PolynomialBatch
 from zk_circuits_torch.hash import poseidon_cuda
 from zk_circuits_torch.iop import witness_cuda
+from zk_circuits_torch.ntt import ntt_cuda
 from zk_circuits_torch.parallel import exchange_cuda
 
 WRAPPERS = {"k1": (poseidon_cuda, "tree"), "k2": (exchange_cuda, "dft"),
-            "k3": (witness_cuda, "walk")}
+            "k3": (witness_cuda, "walk"), "k4": (ntt_cuda, "lde")}
 
 
 class _FakeLib(types.SimpleNamespace):
@@ -49,6 +51,7 @@ def test_library_built_once_under_threads(name, monkeypatch):
     def cdll(path):
         lib = _FakeLib()
         lib.block_exchange_call_size = lambda: ctypes.sizeof(exchange_cuda._Call)
+        lib.k4_call_size = lambda: ctypes.sizeof(ntt_cuda._Call)
         return lib
 
     monkeypatch.setattr(mod, "_LIB", None)

@@ -39,9 +39,6 @@ struct BxCall {
 // field helpers
 // ---------------------------------------------------------------------------
 
-// Canonical a - b mod p for canonical a, b.
-GL_HD uint64_t gl_sub(uint64_t a, uint64_t b) { return a >= b ? a - b : a - b + GL_P; }
-
 // x * 2^j mod p for any u64 x and 0 <= j < 96, non-canonical.  One 128-bit
 // reduction below 64, two from 64 (x 2^(j-64), then times 2^64); shifts
 // and adds, no multiply.

@@ -112,3 +112,6 @@ GL_HD uint64_t gl_canon(uint64_t a) { return a >= GL_P ? a - GL_P : a; }
 GL_HD uint64_t gl_add(uint64_t a, uint64_t b) {
   return gl_canon(gl_add_canon_rhs(a, b));
 }
+
+// Canonical a - b mod p for canonical a, b.
+GL_HD uint64_t gl_sub(uint64_t a, uint64_t b) { return a >= b ? a - b : a - b + GL_P; }

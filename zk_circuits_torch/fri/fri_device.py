@@ -66,12 +66,9 @@ def _ddl(c0, c1, zp0, zp1, zi0, zi1):
 
 
 def _ext_coset_ntt_dev(c0, c1, shift: int, out_size: int):
-    """Evaluate an ext-coeff pair on the coset shift*<w_N>."""
-    m = c0.shape[-1]
-    pw = nttm.powers(shift, out_size, c0.device)
-    p0 = torch.nn.functional.pad(c0, (0, out_size - m))
-    p1 = torch.nn.functional.pad(c1, (0, out_size - m))
-    return nttm.ntt(gfd.mul(p0, pw)), nttm.ntt(gfd.mul(p1, pw))
+    """Evaluate an ext-coeff pair on the coset shift*<w_N>: each component
+    zero-padded to ``out_size`` and coset-transformed in one call."""
+    return nttm.coset_ntt(c0, shift, out_size), nttm.coset_ntt(c1, shift, out_size)
 
 
 def _fiber_leaves(v0, v1, arity: int) -> torch.Tensor:

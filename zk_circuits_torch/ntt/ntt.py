@@ -10,8 +10,15 @@ Two implementations, bit-identical:
 - host_*: numpy arrays, in the host runtime (zk_circuits_torch.native);
   ``host_ntt_plain``/``host_intt_plain`` are the numpy golden model
   (zk_circuits_torch.host.gl) the tests hold it to.
-- tensor functions: torch int64 tensors on any device, a radix-2 stage
-  loop of whole-tensor butterflies.
+- tensor functions (``ntt``, ``intt``, ``coset_ntt``, ``coset_intt``,
+  ``lde``) on torch int64 tensors, routed by device: a CUDA tensor goes to
+  the hand-written kernel K4 (ntt/ntt_cuda.py, csrc/ntt.cu), one call a
+  transform with the coset scaling, padding, reversal and n^-1 inside it;
+  a CPU tensor goes to the plain version (``*_plain``), a radix-2 stage
+  loop of whole-tensor butterflies; any other device raises.  Unlike the
+  JAX package's ``_use_mxu`` there is no switch and no size threshold:
+  Hopper multiplies u64 natively, so the JAX package's matmul form
+  (ntt_mxu.py) has no reason on the card, and every NTT there is K4's.
 
 The NTT always runs along the LAST axis; leading axes are batch.
 """
@@ -159,8 +166,8 @@ def powers(base: int, n: int, device) -> torch.Tensor:
                    lambda: gfd.from_u64(gl.powers(base, n), device))
 
 
-def ntt(coeffs: torch.Tensor) -> torch.Tensor:
-    """NTT along the last axis: bit-reversal gather, then log2(n) radix-2
+def ntt_plain(coeffs: torch.Tensor) -> torch.Tensor:
+    """``ntt``'s plain version: bit-reversal gather, then log2(n) radix-2
     butterfly stages over the whole tensor."""
     n = coeffs.shape[-1]
     if n == 1:
@@ -177,32 +184,82 @@ def ntt(coeffs: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def intt(values: torch.Tensor) -> torch.Tensor:
+def intt_plain(values: torch.Tensor) -> torch.Tensor:
     n = values.shape[-1]
     if n == 1:
         return values
     # INTT(x)[k] = (1/n) * NTT(x)[-k mod n]
-    y = ntt(values)
+    y = ntt_plain(values)
     y = torch.cat([y[..., :1], y[..., 1:].flip(-1)], dim=-1)
     return gfd.mul_const(y, int(gl.inverse(np.uint64(n))))
 
 
-def coset_ntt(coeffs: torch.Tensor,
-              shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+def coset_ntt_plain(coeffs: torch.Tensor, shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR,
+                    size: int | None = None) -> torch.Tensor:
     n = coeffs.shape[-1]
-    return ntt(gfd.mul(coeffs, powers(shift, n, coeffs.device)))
+    if size is not None and size != n:
+        coeffs = torch.nn.functional.pad(coeffs, (0, size - n))
+        n = size
+    return ntt_plain(gfd.mul(coeffs, powers(shift, n, coeffs.device)))
+
+
+def coset_intt_plain(values: torch.Tensor,
+                     shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    coeffs = intt_plain(values)
+    inv_shift = pow(shift, gl.P_INT - 2, gl.P_INT)
+    return gfd.mul(coeffs, powers(inv_shift, coeffs.shape[-1], coeffs.device))
+
+
+def lde_plain(coeffs: torch.Tensor, rate_bits: int,
+              shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    """Zero-pad by 2^rate_bits then coset-NTT (the low-degree extension)."""
+    return coset_ntt_plain(coeffs, shift, coeffs.shape[-1] << rate_bits)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (K4), False for a CPU one (the plain version)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the NTT runs on CPU or CUDA tensors, got one on {x.device}")
+    return x.device.type == "cuda"
+
+
+def _k4(x: torch.Tensor, mode: str, **kw) -> torch.Tensor:
+    from . import ntt_cuda
+
+    return ntt_cuda.transform(x, mode, **kw)
+
+
+def ntt(coeffs: torch.Tensor) -> torch.Tensor:
+    """values[i] = p(w^i) along the last axis: K4 on the card, else the
+    stage loop."""
+    return _k4(coeffs, "ntt") if _on_card(coeffs) else ntt_plain(coeffs)
+
+
+def intt(values: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``ntt``."""
+    return _k4(values, "intt") if _on_card(values) else intt_plain(values)
+
+
+def coset_ntt(coeffs: torch.Tensor, shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR,
+              size: int | None = None) -> torch.Tensor:
+    """values[i] = p(shift * w^i) of the coefficients zero-padded to
+    ``size`` points (default: their number)."""
+    if _on_card(coeffs):
+        return _k4(coeffs, "coset_ntt", shift=shift, size=size)
+    return coset_ntt_plain(coeffs, shift, size)
 
 
 def coset_intt(values: torch.Tensor,
                shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
-    coeffs = intt(values)
-    inv_shift = pow(shift, gl.P_INT - 2, gl.P_INT)
-    return gfd.mul(coeffs, powers(inv_shift, coeffs.shape[-1], coeffs.device))
+    """The inverse of ``coset_ntt``."""
+    if _on_card(values):
+        return _k4(values, "coset_intt", shift=shift)
+    return coset_intt_plain(values, shift)
 
 
 def lde(coeffs: torch.Tensor, rate_bits: int,
         shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
     """Zero-pad by 2^rate_bits then coset-NTT (the low-degree extension)."""
-    n = coeffs.shape[-1]
-    padded = torch.nn.functional.pad(coeffs, (0, n * ((1 << rate_bits) - 1)))
-    return coset_ntt(padded, shift)
+    if _on_card(coeffs):
+        return _k4(coeffs, "lde", rate_bits=rate_bits, shift=shift)
+    return lde_plain(coeffs, rate_bits, shift)

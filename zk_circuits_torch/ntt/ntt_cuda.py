@@ -1,0 +1,235 @@
+"""Wrapper of the Hopper Goldilocks NTT kernel K4 (csrc/ntt.cu).
+
+Replaces the JAX package's ``ntt/ntt_mxu.py::ntt_mxu`` (:167; its DFT-128
+steps as exact bf16 limb matmuls on the MXU, ``_gf_dot_matrix`` :122),
+which the JAX package's ``ntt/ntt.py::ntt`` (:198) takes for large
+unsharded NTTs on a TPU (``_use_mxu``, :172); it is no Pallas kernel.  On
+the card every NTT of the port takes K4: ``ntt/ntt.py`` routes each of
+its transforms on a CUDA tensor to one ``transform`` call here.
+
+Five modes (``MODES``), each one call of the kernel: ``ntt``, ``intt``,
+``coset_ntt`` (also zero-padded to a larger size), ``coset_intt`` and
+``lde``.  The coset scaling, the LDE's zeros, the inverse's reversal and
+n^-1 run inside the kernel (csrc/ntt.cuh gives the formula).  A transform
+of up to 2^``ROW_MAX_LOG`` points is one launch (the row path); a larger
+one is two (the four-step over ``split(n)``'s factors, through a scratch
+tensor).  Bound on the H100: bytes or the butterflies' multiplies,
+whichever is larger (see the kernel source and chip_smoke.py's k4_work).
+
+Counters: ``launches`` (kernel launches: 1 a row-path call, 2 a four-step
+call), by mode and by card, and ``copies`` (inputs copied once because
+their last axis was not contiguous or their rows shared no one stride).
+
+Build: nvcc for sm_90a into ``zk_circuits_torch/_build`` at first use, a
+plain C interface loaded with ctypes.  This module launches on CUDA
+tensors only; the plain versions are ``ntt/ntt.py``'s stage loop
+(``ntt_plain``, ``intt_plain``, ``coset_ntt_plain``, ``coset_intt_plain``,
+``lde_plain``), which ntt.py takes for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..field import goldilocks as gfd
+from ..host import gl
+from ..utils.nvcc import build_library
+from . import ntt as nttm
+
+HEADERS = ("goldilocks.cuh", "ntt.cuh")
+MODES = ("ntt", "intt", "coset_ntt", "coset_intt", "lde")
+ROW_MAX_LOG = 13      # the row path's largest transform: 2^13 points (a tile)
+MAX_LOG_N = 26        # the four-step's: factors of up to 2^13 each
+
+# Launches of the CUDA kernel in this process, in all, by mode and by card,
+# and the inputs copied to a contiguous last axis.
+launches = 0
+launches_by_mode = dict.fromkeys(MODES, 0)
+launches_by_device: dict = {}
+copies = 0
+build_log = ""   # nvcc's output of the last build (ptxas register report)
+_LIB = None
+_LOCK = threading.Lock()   # the build and the counters, shared by threads
+
+
+class _Call(ctypes.Structure):
+    """ctypes mirror of csrc/ntt.cuh's K4Call."""
+
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("scratch", ctypes.c_void_p), ("tw", ctypes.c_void_p),
+                ("pre", ctypes.c_void_p), ("post", ctypes.c_void_p),
+                ("scale", ctypes.c_ulonglong), ("rows", ctypes.c_longlong),
+                ("in_stride", ctypes.c_longlong), ("n_in", ctypes.c_longlong),
+                ("log_n", ctypes.c_int), ("log_n1", ctypes.c_int),
+                ("inverse", ctypes.c_int)]
+
+
+def reset_launches() -> None:
+    global launches, copies
+    with _LOCK:
+        launches = copies = 0
+        for k in launches_by_mode:
+            launches_by_mode[k] = 0
+        launches_by_device.clear()
+
+
+def _count(mode: str, device, k: int = 1) -> None:
+    global launches
+    with _LOCK:
+        launches += k
+        launches_by_mode[mode] += k
+        launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + k
+
+
+def build() -> Path:
+    """Compile csrc/ntt.cu (cached by the hash of its sources); returns the
+    library's path."""
+    global build_log
+    lib, log = build_library("ntt", "ntt.cu", HEADERS)
+    if log:
+        build_log = log
+    return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ntt.cu's C interface on the loaded library ``lib`` (the
+    built one, or in the tests a host build of the same interface) and
+    check the K4Call mirror against it."""
+    lib.k4_ntt.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.k4_ntt.restype = ctypes.c_int
+    lib.k4_call_size.restype = ctypes.c_int
+    if lib.k4_call_size() != ctypes.sizeof(_Call):
+        raise RuntimeError(f"K4Call is {lib.k4_call_size()} bytes in the library, "
+                           f"{ctypes.sizeof(_Call)} in its ctypes mirror")
+    return lib
+
+
+def _lib():
+    """The built library, built and loaded once (under a lock: callers on
+    several threads may ask at once)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = bind(ctypes.CDLL(str(build())))
+    return _LIB
+
+
+# --- plan and tables -------------------------------------------------------------
+
+
+def split(n: int) -> tuple[int, int]:
+    """The four-step's factors n = n1 * n2: n1 = 2^floor(log2(n) / 2), so
+    both fit a tile up to 2^26 and pass A reads runs of several j1 (the
+    JAX package's ``_split`` keeps n1 <= 128 for its matmul, which would
+    leave n2 = 2^15 at 2^22 points, more than a tile)."""
+    log = n.bit_length() - 1
+    return 1 << (log // 2), 1 << (log - log // 2)
+
+
+def plan(n: int) -> int:
+    """log2(n1) of the four-step K4 runs for n points, or 0 for the row
+    path (n <= 2^ROW_MAX_LOG)."""
+    if n <= 1 << ROW_MAX_LOG:
+        return 0
+    return split(n)[0].bit_length() - 1
+
+
+def stage_table(n: int) -> np.ndarray:
+    """K4's twiddle table for transforms of up to n points: stage s's
+    w_{2^(s+1)}^j (j < 2^s) from slot 2^s - 1, for s < log2(n); n - 1
+    values (one for n = 1), the last n / 2 of them w_n^e."""
+    segs = [gl.powers(gl.primitive_root_of_unity(s + 1), 1 << s)
+            for s in range(n.bit_length() - 1)]
+    return np.concatenate(segs) if segs else np.ones(1, dtype=np.uint64)
+
+
+def twiddles(n: int, device) -> torch.Tensor:
+    """``stage_table(n)`` on ``device``, uploaded once and cached beside
+    ntt.py's tables: every stage's twiddles and the four-step's."""
+    return nttm._cached(("k4_tw", n, str(device)), lambda: gfd.from_u64(stage_table(n), device))
+
+
+# --- the entry point ---------------------------------------------------------------
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as (rows, n_in) with a contiguous last axis and one row stride:
+    a view, or a contiguous copy (counted in ``copies``)."""
+    global copies
+    n_in = x.shape[-1]
+    try:
+        v = x.view(-1, n_in)
+        if n_in == 1 or v.stride(1) == 1:
+            return v
+    except RuntimeError:
+        pass
+    with _LOCK:
+        copies += 1
+    return x.contiguous().view(-1, n_in)
+
+
+def transform(x: torch.Tensor, mode: str, *, rate_bits: int = 0,
+              shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR, size: int | None = None,
+              log_n1: int | None = None, lib=None) -> torch.Tensor:
+    """One K4 call along the last axis of the int64 tensor ``x`` (..., n_in)
+    of canonical values; returns a fresh contiguous (..., n):
+
+    - ``ntt``: values at w^i, n = n_in;
+    - ``intt``: the inverse, n = n_in;
+    - ``coset_ntt``: values at shift * w^i of ``x`` zero-padded to ``size``
+      (default n_in);
+    - ``coset_intt``: the inverse of ``coset_ntt``, n = n_in;
+    - ``lde``: ``coset_ntt`` at size n_in * 2^rate_bits.
+
+    n is a power of two up to 2^MAX_LOG_N.  Two hooks for the checks (the
+    tests, chip_smoke.py's k4_check): ``log_n1`` overrides ``plan`` (0: the
+    row path; else the four-step with n1 = 2^log_n1), and ``lib``, a host
+    build of the kernel's C interface, runs the call on a CPU tensor;
+    without it ``x`` must lie on a CUDA device, where the built library
+    runs it."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; K4's modes are {MODES}")
+    if x.dtype != torch.int64 or x.dim() < 1 or x.shape[-1] < 1:
+        raise ValueError(f"expected an int64 tensor (..., n) with n >= 1, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if lib is None and x.device.type != "cuda":
+        raise ValueError(f"K4 runs on CUDA tensors, got one on {x.device} (the plain "
+                         f"versions are ntt/ntt.py's *_plain)")
+    n_in = x.shape[-1]
+    n = n_in << rate_bits if mode == "lde" else (size or n_in) if mode == "coset_ntt" else n_in
+    if n & (n - 1) or n < n_in or n > 1 << MAX_LOG_N:
+        raise ValueError(f"{mode}: {n_in} inputs to {n} points; n must be a power of two "
+                         f"in [n_in, 2^{MAX_LOG_N}]")
+    log_n = n.bit_length() - 1
+    log_n1 = plan(n) if log_n1 is None else log_n1
+    v = _rows(x)
+    rows, dev = v.shape[0], x.device
+    out = torch.empty((rows, n), dtype=torch.int64, device=dev)
+    if rows == 0:
+        return out.view(*x.shape[:-1], n)
+    inverse = mode in ("intt", "coset_intt")
+    scratch = torch.empty_like(out) if log_n1 else None
+    pre = nttm.powers(shift, n_in, dev) if mode in ("coset_ntt", "lde") else None
+    post = nttm.powers(pow(shift, gl.P_INT - 2, gl.P_INT), n, dev) if mode == "coset_intt" else None
+    call = _Call(x=v.data_ptr(), out=out.data_ptr(),
+                 scratch=scratch.data_ptr() if scratch is not None else None,
+                 tw=twiddles(n, dev).data_ptr(), pre=pre.data_ptr() if pre is not None else None,
+                 post=post.data_ptr() if post is not None else None,
+                 scale=pow(n, gl.P_INT - 2, gl.P_INT) if inverse else 1, rows=rows,
+                 in_stride=v.stride(0), n_in=n_in, log_n=log_n, log_n1=log_n1,
+                 inverse=int(inverse))
+    if dev.type == "cuda":
+        err = _lib().k4_ntt(dev.index, ctypes.byref(call),
+                            torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        err = lib.k4_ntt(0, ctypes.byref(call), None)
+    if err != 0:
+        raise RuntimeError(f"k4_ntt ({mode}, n={n}, log_n1={log_n1}) failed: CUDA error {err}")
+    if dev.type == "cuda":
+        _count(mode, dev, 2 if log_n1 else 1)
+    return out.view(*x.shape[:-1], n)
