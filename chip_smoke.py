@@ -61,13 +61,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
 7. k4_check -- K4 against its plain torch version (ntt/ntt.py's stage
                loop) on the card, equal integers: every transform of a
                proof (the wires INTT, the zs NTT and INTT, the three LDEs
-               with their salt polys, the quotient's coset INTT, FRI's
-               padded coset NTT of each fold round), the B=4 wires LDE and
+               with their salt polys, the quotient's coset INTT of every
+               challenge in one call, FRI's padded coset NTT of each fold
+               round, both components in one call), the B=4 wires LDE and
                quotient coset INTT, a level circuit's 2^14 -> 2^17 wires
                LDE, the sharded path's 2^20-point row NTT and the
                2^22-point NTT; rows of 0, 1 and p - 1 in every mode on both
-               paths; the four-step at 2^13 where the row path runs; and
-               ntt_mxu/intt_mxu.
+               paths; the row path at 2^13 where the four-step runs; the
+               tile plans' edges (one row at 2^14, 2^15 and 2^16, 135 rows
+               at 2^13) in every mode; and ntt_mxu/intt_mxu.
 8. profile  -- one more warm wormhole proof under torch.profiler: device
                busy time and idle share, device operations beside
                DEVICE_OPS_BEFORE (a record, not a gate), top kernels, K3's
@@ -117,15 +119,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                host time per wrapper call; each kernel's instruction,
                load and store counts from the built library's SASS
                (cuobjdump).  A share of the bound above 1.05 fails.
-13. k4_time -- K4's device time (graph_ms) at the main path's shapes
-               (the wires LDE, the kernels line's figure; the B=4 wires
-               LDE; the wires INTT; the zs NTT; the quotient's coset INTT
-               and LDE; FRI's first coset NTT; a level circuit's 2^17
-               wires LDE; the sharded path's 2^20-point row NTT) beside
-               its plain version, its bound (bytes or the butterflies'
-               multiplies: k4_work) and the host time a wrapper call; no
-               PyTorch call computes a Goldilocks NTT, so no library time.
-               A share of the bound above 1.05 fails.
+13. k4_time -- K4's device time (graph_ms) at every shape of k4_check's
+               main-path list (the wires LDE is the kernels line's
+               figure) and at the one-row coset INTT and FRI coset NTT
+               that a call took before it served both challenges or both
+               components, beside its plain version, its bound (bytes or
+               the butterflies' multiplies: k4_work), the time recorded
+               before the redesign (K4_BEFORE_MS), the host time a
+               wrapper call, each launch's blocks, threads, shared bytes
+               and resident blocks an SM; ptxas's registers and spills and
+               the kernel's IMAD.WIDE, LDS and STS counts from its SASS
+               (cuobjdump); no PyTorch call computes a Goldilocks NTT, so
+               no library time.  A share of the bound above 1.05 fails.
 14. aggregate -- the reference's default tree aggregation (b=2, d=3: 8
                leaves) of the wormhole phase's zk proof through the
                port's WormholeProofAggregator on the card: 3 pushes, 5
@@ -298,6 +303,10 @@ K4_SOURCE = "zk_circuits_torch/csrc/ntt.cu"
 K4_REPLACES = "zk_circuits_tpu/ntt/ntt_mxu.py:167"
 K4_TIMED_CALLS = 8     # back-to-back calls per K4 timing (graph_ms)
 K4_MULS_PER_PRODUCT = 8   # 32-bit multiplies of a 64x64 product
+# graph_ms of the first, radix-2 K4 (PERF.md, PR 12 run E), by k4_time's shape
+K4_BEFORE_MS = {"wires_lde": 0.369428, "batch_wires_lde": 1.340142, "wires_intt": 0.071562,
+                "quotient_coset_intt_one_row": 0.063586, "level_wires_lde": 0.715634,
+                "sharded_row_ntt": 0.076704}
 # 64x64 products an op of each kind (8 32-bit multiplies each, as above):
 # arith c0*m0*m1 + c1*ad; arith_ext an extension product (5) and 4 scalings;
 # the Fermat inverse 64 squarings and 63 multiplies; ext_inv its norm (3),
@@ -998,10 +1007,10 @@ def expected_k3_launches(cd) -> dict:
 
 def expected_k4_launches(common) -> dict:
     """K4's launches a proof, or a batch of proofs (a call serves the
-    batch's rows), by mode: two a call of more than 2^13 points (the
-    four-step), one below.  The wires INTT, the zs stage's NTT and INTT,
-    the three commits' LDEs, the quotient's coset INTT a challenge, and
-    FRI's coset NTT of each codeword's two components a fold round."""
+    batch's rows), by mode: two a call that takes the four-step, one a
+    row-path call.  The wires INTT, the zs stage's NTT and INTT, the three
+    commits' LDEs, the quotient's coset INTT (every challenge in one call),
+    and FRI's coset NTT of a fold round (both components in one call)."""
     from zk_circuits_torch.ntt import ntt_cuda
 
     def k(n):
@@ -1012,8 +1021,8 @@ def expected_k4_launches(common) -> dict:
     for a_bits in cfg.fri_config.reduction_arities(common.degree_bits):
         sizes.append(size)
         size >>= a_bits
-    return {"ntt": k(n), "intt": 2 * k(n), "coset_ntt": sum(2 * k(s) for s in sizes),
-            "coset_intt": cfg.num_challenges * k(lde), "lde": 3 * k(lde)}
+    return {"ntt": k(n), "intt": 2 * k(n), "coset_ntt": sum(k(s) for s in sizes),
+            "coset_intt": k(lde), "lde": 3 * k(lde)}
 
 
 @contextlib.contextmanager
@@ -2064,7 +2073,9 @@ def k2_cards(rng):
     median of 10, beside the plain version across the cards; each result
     equal to the plain version's.  The bound: the larger of the bytes
     over the cards' HBM and the bytes each card reads from peers over
-    its NVLink.  None with fewer cards."""
+    its NVLink.  Beside copy and the forward interleave, the library's
+    form of the same function (``k2_cards_library``).  None with fewer
+    cards."""
     import numpy as np
     import torch
 
@@ -2097,6 +2108,16 @@ def k2_cards(rng):
         with torch.cuda.device(0):
             ms = cuda_ms(kernel, reps=10)
             plain_ms = cuda_ms(plain, reps=5)
+        library = {"library_ms": None}
+        if mode in ("copy", "interleave"):
+            lib_call = k2_cards_library(mode, blocks if mode == "copy" else rows, mesh.devices)
+            got, want = lib_call(), kernel()
+            if not all(torch.equal(g, w.view(g.shape)) for g, w in zip(got, want)):
+                raise AssertionError(f"K2 {mode} across {e} cards != its library form")
+            del got, want
+            with torch.cuda.device(0):
+                library = {"library_ms": cuda_ms(lib_call, reps=10)}
+            library["k2_over_library"] = ms / library["library_ms"]
         nbytes = 2 * 8 * n
         peer = 8 * n * (e - 1) // e // e        # read by each card from its peers
         bound = max(nbytes / (e * HBM_BYTES_PER_S), peer / NVLINK_BYTES_PER_S) * 1e3
@@ -2104,8 +2125,47 @@ def k2_cards(rng):
                     "mesh": [str(d) for d in mesh.devices], "ms": ms, "plain_ms": plain_ms,
                     "bytes": nbytes, "peer_bytes_per_card": peer, "bound_ms": bound,
                     "bound_by": "nvlink" if peer / NVLINK_BYTES_PER_S > nbytes / (
-                        e * HBM_BYTES_PER_S) else "bytes", "share_of_bound": bound / ms})
+                        e * HBM_BYTES_PER_S) else "bytes", "share_of_bound": bound / ms,
+                    **library})
     return out
+
+
+def k2_cards_library(mode: str, parts: list, devices: list):
+    """The library's form of K2's copy or forward interleave with shard s
+    on ``devices[s]`` (used only to time against K2): for each destination
+    card, one peer ``copy_`` of each source's block into a tensor on that
+    card (copy: ``out_d[s] = parts[s][d]``), for the interleave into an
+    (E, m / E) tensor that one ``t().contiguous()`` turns into out_d[j E +
+    t1] = z_t1[d m / E + j].  Every card's stream waits on cuda:0's at the
+    start and cuda:0's on every card's at the end, as for K2's launch; the
+    copies from cuda:0 come last on each card."""
+    import torch
+
+    e = len(parts)
+
+    def call():
+        start = torch.cuda.Event()
+        start.record(torch.cuda.current_stream(devices[0]))
+        for dev in devices:
+            torch.cuda.current_stream(dev).wait_event(start)
+        outs = []
+        for d, dev in enumerate(devices):
+            with torch.cuda.device(dev):
+                if mode == "copy":
+                    out = torch.empty((e, *parts[0][d].shape), dtype=torch.int64, device=dev)
+                else:
+                    bm = parts[0].numel() // e
+                    out = torch.empty((e, bm), dtype=torch.int64, device=dev)
+                for s in sorted(range(e), key=lambda s: s == 0):
+                    src = parts[s][d] if mode == "copy" else parts[s][d * bm:(d + 1) * bm]
+                    out[s].copy_(src, non_blocking=True)
+                outs.append(out if mode == "copy" else out.t().contiguous().view(-1))
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+                torch.cuda.current_stream(devices[0]).wait_event(done)
+        return outs
+
+    return call
 
 
 def phase_k2_time(state) -> None:
@@ -2220,11 +2280,11 @@ def phase_k2_time(state) -> None:
 def k4_cases(common) -> list:
     """(name, mode, input shape, keyword arguments) of the transforms K4
     serves: one proof's (the wires INTT, NTT and INTT of the zs stage, the
-    three commits' LDEs with their salt polys, the quotient's coset INTT a
-    challenge, FRI's padded coset NTT of each fold round), a batch of
-    BATCH's, a level circuit's wires LDE (degree 2^14) and the sharded
-    path's 2^20-point row NTT and its 2^22-point single-device
-    reference."""
+    three commits' LDEs with their salt polys, the quotient's coset INTT
+    of every challenge, FRI's padded coset NTT of each fold round on both
+    components), a batch of BATCH's, a level circuit's wires LDE (degree
+    2^14) and the sharded path's 2^20-point row NTT and its 2^22-point
+    single-device reference."""
     cfg, n, lde = common.config, common.degree, common.lde_size
     rate, salts = cfg.rate_bits, 4 if cfg.zero_knowledge else 0
     zs = common.num_zs_partial_products_polys
@@ -2233,15 +2293,15 @@ def k4_cases(common) -> list:
              ("zs_ntt", "ntt", (cfg.num_routed_wires, n), {}),
              ("zs_intt", "intt", (zs, n), {}),
              ("zs_lde", "lde", (zs + salts, n), {"rate_bits": rate}),
-             ("quotient_coset_intt", "coset_intt", (lde,), {}),
+             ("quotient_coset_intt", "coset_intt", (cfg.num_challenges, lde), {}),
              ("quotient_lde", "lde", (common.num_quotient_polys + salts, n),
               {"rate_bits": rate})]
     size, m = lde, n
     for r, a_bits in enumerate(cfg.fri_config.reduction_arities(common.degree_bits)):
-        cases.append((f"fri_coset_ntt_{r}", "coset_ntt", (m,), {"size": size}))
+        cases.append((f"fri_coset_ntt_{r}", "coset_ntt", (2, m), {"size": size}))
         size, m = size >> a_bits, m >> a_bits
     cases += [("batch_wires_lde", "lde", (BATCH, cfg.num_wires + salts, n), {"rate_bits": rate}),
-              ("batch_quotient_coset_intt", "coset_intt", (BATCH, lde), {}),
+              ("batch_quotient_coset_intt", "coset_intt", (cfg.num_challenges, BATCH, lde), {}),
               ("level_wires_lde", "lde", (cfg.num_wires + salts, 2 * n), {"rate_bits": rate}),
               ("sharded_row_ntt", "ntt", (1 << (NTT_LOG - 2),), {}),
               ("ntt_2_22", "ntt", (1 << NTT_LOG,), {})]
@@ -2342,8 +2402,13 @@ def phase_k4_check(state) -> None:
                 check(f"constant_{value}_{size}", mode, x,
                       **({"rate_bits": 1} if mode == "lde" else {}))
     x = k4_inputs(rng, (5, n))[0]
-    for mode in ("ntt", "intt"):                    # the four-step where the row path runs
-        check(f"four_step_{n}", mode, x, log_n1=(n.bit_length() - 1) // 2)
+    for mode in ("ntt", "intt"):                    # the row path where the four-step runs
+        check(f"row_path_{n}", mode, x, log_n1=0)
+    for rows, size in ((1, 1 << 14), (1, 1 << 15), (1, 1 << 16), (135, n)):   # plans' edges
+        x = k4_inputs(rng, (rows, size))[0]
+        for mode in ntt_cuda.MODES:
+            check(f"plan_edge_{rows}x{size}", mode, x,
+                  **({"rate_bits": 1} if mode == "lde" else {}))
     for size in (64, 1 << 16):
         x = k4_inputs(rng, (2, size))[0]
         if not (torch.equal(mxu.ntt_mxu(x), k4_plain("ntt", x)) and
@@ -2355,44 +2420,100 @@ def phase_k4_check(state) -> None:
           "launches": ntt_cuda.launches - before, "copies": ntt_cuda.copies})
 
 
+def k4_sass_counts() -> dict:
+    """Per kernel of K4's built library (one a pass length, k4_kernel<L>):
+    its instruction count and its IMAD.WIDE, IMAD.HI, LDS, STS, LDG, STG,
+    local (spill) and barrier counts from cuobjdump -sass, and its
+    registers and spills from ptxas (``ntt_cuda.build_log``, the output of
+    this process's build)."""
+    import collections
+    import re
+
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(ntt_cuda.build())],
+                          capture_output=True, text=True, timeout=120).stdout
+    out = {}
+    for name, ins in sass_functions(text).items():
+        m = re.match(r"_Z\d+k4_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        ops = collections.Counter(op for _, op, _ in ins)
+        out[f"L{m.group(1)}"] = {"instructions": len(ins), **{
+            k: sum(v for op, v in ops.items() if op.startswith(k))
+            for k in ("IMAD.WIDE", "IMAD.HI", "LDS", "STS", "LDG", "STG", "LDL", "STL", "BAR")}}
+    if not out:
+        raise AssertionError("no K4 kernel in the SASS")
+    kernel = None
+    for ln in ntt_cuda.build_log.splitlines():
+        m = re.search(r"entry function '_Z\d+k4_kernelILi(\d+)E", ln)
+        kernel = f"L{m.group(1)}" if m else kernel
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kernel in out:
+            out[kernel]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and kernel in out:
+            out[kernel]["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+    return out
+
+
 def phase_k4_time(state) -> None:
     """K4's device time at the main path's shapes (see the module doc)."""
     import numpy as np
+    import torch
 
     from zk_circuits_torch.ntt import ntt_cuda
 
     cd, _, _ = state["wormhole"]
     rng = np.random.default_rng(2032)
-    timed = ("wires_lde", "batch_wires_lde", "wires_intt", "zs_ntt", "quotient_coset_intt",
-             "quotient_lde", "fri_coset_ntt_0", "level_wires_lde", "sharded_row_ntt")
+    n, lde = cd.common.degree, cd.common.lde_size
+    cases = k4_cases(cd.common) + [
+        ("quotient_coset_intt_one_row", "coset_intt", (lde,), {}),
+        ("fri_coset_ntt_0_one_row", "coset_ntt", (n,), {"size": lde})]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows_out = []
-    for name, mode, shape, kw in k4_cases(cd.common):
-        if name not in timed:
-            continue
+    for name, mode, shape, kw in cases:
         xs = k4_inputs(rng, shape, K4_TIMED_CALLS)
         g = graph_ms([lambda x=x: ntt_cuda.transform(x, mode, **kw) for x in xs])
-        n = shape[-1] << kw["rate_bits"] if mode == "lde" else kw.get("size", shape[-1])
-        nbytes, muls = k4_work(mode, shape, n)
+        points = shape[-1] << kw["rate_bits"] if mode == "lde" else kw.get("size", shape[-1])
+        rows = int(np.prod(shape[:-1], dtype=np.int64))
+        nbytes, muls = k4_work(mode, shape, points)
         bound, by = k4_bound_ms(nbytes, muls)
         plain_ms = cuda_ms(lambda: k4_plain(mode, xs[0], **kw), reps=3, warmup=1)
-        rows_out.append({"shape": name, "mode": mode, "input": list(shape), "points": n,
-                         "launches_per_call": 2 if ntt_cuda.plan(n) else 1,
-                         "factors": list(ntt_cuda.split(n)) if ntt_cuda.plan(n) else None,
-                         **g, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        log_n1 = ntt_cuda.plan(points)
+        cols = ntt_cuda.tiles(rows, points, log_n1, ntt_cuda._sm_count(
+            ntt_cuda._lib(), torch.device("cuda:0")))
+        launches = [{"log_len": lg, "blocks": b, "threads": t, "smem_bytes": sm,
+                     "blocks_per_sm": ntt_cuda.occupancy("cuda:0", lg, t, sm),
+                     "blocks_per_sm_of_card": b / sms}
+                    for lg, (b, t, sm) in zip(ntt_cuda.pass_logs(points, log_n1),
+                                              ntt_cuda.launch_shape(rows, points, log_n1, cols))]
+        before = K4_BEFORE_MS.get(name)
+        rows_out.append({"shape": name, "mode": mode, "input": list(shape), "points": points,
+                         "launches_per_call": len(launches),
+                         "factors": list(ntt_cuda.split(points)) if log_n1 else None,
+                         "log_cols": list(cols), "launch": launches,
+                         **g, "before_ms": before,
+                         "ms_over_before": g["ms"] / before if before else None,
+                         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                          "bytes": nbytes, "muls": muls, "share_of_bound": bound / g["ms"],
                          "library_ms": None,
                          "host_us_per_call": host_us_per_call(
                              lambda: ntt_cuda.transform(xs[0], mode, **kw))})
         del xs
     emit({"phase": "k4_time", "int32_mul_per_s": INT32_MUL_PER_S,
-          "hbm_bytes_per_s": HBM_BYTES_PER_S,
+          "hbm_bytes_per_s": HBM_BYTES_PER_S, "sms": sms,
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {K4_TIMED_CALLS} "
                     f"calls on inputs of their own, L2 emptied first, per call, median of 8 "
-                    f"replays (min_ms/max_ms: their range); plain_ms: CUDA events around one "
-                    f"call of the plain version (ntt/ntt.py's stage loop), median of 3; "
-                    f"host_us_per_call: perf_counter around 100 wrapper calls; library_ms: "
-                    f"none, no PyTorch call computes a Goldilocks NTT",
-          "rows": rows_out})
+                    f"replays (min_ms/max_ms: their range); before_ms: the first, radix-2 "
+                    f"K4 at the same shape (PERF.md, PR 12 run E); plain_ms: CUDA events "
+                    f"around one call of the plain version (ntt/ntt.py's stage loop), median "
+                    f"of 3; host_us_per_call: perf_counter around 100 wrapper calls; "
+                    f"launch: each launch's blocks, threads and shared bytes "
+                    f"(ntt_cuda.launch_shape) and resident blocks an SM "
+                    f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor); library_ms: none, no "
+                    f"PyTorch call computes a Goldilocks NTT",
+          "rows": rows_out, "sass": k4_sass_counts()})
     over = [r for r in rows_out if r["share_of_bound"] > 1.05]
     if over:
         raise AssertionError(f"K4 timed below its bound: {over}")

@@ -477,7 +477,7 @@ def test_k4_every_mode_matches_plain(cuda, log_n):
 
 def test_ntt_mxu_on_the_card(cuda):
     """ntt_mxu/intt_mxu on a CUDA tensor are ntt.ntt/ntt.intt, one K4 call
-    each on the path K4 plans for the size (the row path to 2^13 points,
+    each on the path K4 plans for the size (the row path to 2^12 points,
     the four-step above), and equal the plain stage loop."""
     from zk_circuits_torch.ntt import ntt as nttm
     from zk_circuits_torch.ntt import ntt_cuda

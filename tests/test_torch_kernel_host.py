@@ -1000,19 +1000,58 @@ K4_SHIM = r"""
 #include <vector>
 #include "ntt.cuh"
 
-// One pass of a call: its blocks one at a time, each block's threads in
-// turn between the barriers, over a shared-memory buffer of the size the
-// launch asks for, with a guard band after it that must stay untouched.
+static int shim_sms = 4;   // the SM count the wrapper's tile plan reads
+
+// One block on the host: its threads one after another in each phase, each
+// thread's K4_V values kept between the phases (k4_block runs them in the
+// kernel's order; a barrier is the end of a phase).
+struct ShimBlock {
+  const K4Call& c;
+  int pass;
+  K4Tile t;
+  uint64_t* sm;
+  int nthr;
+  std::vector<uint64_t> regs;
+
+  uint64_t* v(int tid) { return regs.data() + (std::size_t)tid * K4_V; }
+  template <int B>
+  void begin() {
+    for (int tid = 0; tid < nthr; tid++) k4_begin_r<B>(c, pass, t, v(tid), tid, nthr);
+  }
+  template <int B>
+  void put(int r) {
+    for (int tid = 0; tid < nthr; tid++) k4_put_r<B>(c, pass, t, sm, r, v(tid), tid, nthr);
+  }
+  template <int B>
+  void get(int r) {
+    for (int tid = 0; tid < nthr; tid++) k4_get_r<B>(c, pass, t, sm, r, v(tid), tid, nthr);
+  }
+  template <int B>
+  void store() {
+    for (int tid = 0; tid < nthr; tid++) k4_store_r<B>(c, pass, t, v(tid), tid, nthr);
+  }
+  void sync() {}
+};
+
+template <int L>
+static void shim_block(const K4Call& c, int pass, const K4Tile& t, uint64_t* sm, int nthr) {
+  ShimBlock blk{c, pass, t, sm, nthr,
+                std::vector<uint64_t>((std::size_t)nthr * K4_V, 0xA5A5A5A5A5A5A5A5ULL)};
+  k4_block<L>(blk);
+}
+
+// One pass of a call: its blocks one at a time over a shared-memory buffer
+// of the size the launch asks for, with a guard band after it that must
+// stay untouched.
 static int run_pass(const K4Call& c, int pass) {
   const long long elems = k4_smem_elems(c, pass), guard = 64;
   if (elems > K4_SMEM_MAX_ELEMS) return 701;   // more than the launch's opt-in
   std::vector<uint64_t> sm(elems + guard, 0x5A5A5A5A5A5A5A5AULL);
   for (long long b = 0; b < k4_blocks(c, pass); b++) {
     const K4Tile t = k4_tile(c, pass, b);
-    for (int tid = 0; tid < K4_THREADS; tid++) k4_load(c, pass, t, sm.data(), tid, K4_THREADS);
-    for (int s = 0; s < t.log_len; s++)
-      for (int tid = 0; tid < K4_THREADS; tid++) k4_stage(c, t, sm.data(), s, tid, K4_THREADS);
-    for (int tid = 0; tid < K4_THREADS; tid++) k4_store(c, pass, t, sm.data(), tid, K4_THREADS);
+    const int nthr = k4_threads(t.l, t.lc);
+    if (nthr > K4_MAX_THREADS) return 702;
+    K4_BY_LEN(t.l, shim_block, c, pass, t, sm.data(), nthr)
     for (long long i = elems; i < elems + guard; i++)
       if (sm[i] != 0x5A5A5A5A5A5A5A5AULL) return 700;   // out of the block's shared memory
   }
@@ -1029,10 +1068,55 @@ int k4_ntt(int, const K4Call* call, void*) {
   return err ? err : run_pass(c, K4_PASS_B);
 }
 int k4_call_size(void) { return (int)sizeof(K4Call); }
-// The four-step's twiddle w_n^(j1 k2) for every (j1, k2) of (n1, n2).
+int k4_sm_count(int) { return shim_sms; }
+void shim_k4_set_sms(int sms) { shim_sms = sms; }
+// Per pass of the call: blocks, threads a block, shared bytes a block.
+void shim_k4_launch(const K4Call* c, long long* out) {
+  for (int p = 0; p < 3; p++) {
+    const int l = k4_log_len(*c, p);
+    out[3 * p] = k4_blocks(*c, p);
+    out[3 * p + 1] = k4_threads(l, c->log_cols[p]);
+    out[3 * p + 2] = 8 * k4_smem_elems(*c, p);
+  }
+}
+// The four-step's twiddle w_n^(j1 k2) for every (j1, k2) of (n1, n2), from
+// lo and hi (k4_twiddle), canonical.
 void shim_k4_twiddles(const K4Call* c, long long n1, long long n2, uint64_t* out) {
   for (long long j1 = 0; j1 < n1; j1++)
-    for (long long k2 = 0; k2 < n2; k2++) out[j1 * n2 + k2] = k4_twiddle(*c, j1 * k2);
+    for (long long k2 = 0; k2 < n2; k2++) out[j1 * n2 + k2] = gl_canon(k4_twiddle(*c, j1 * k2));
+}
+// The same as pass A's store computes them: for each j1 and d < 2^ls, the
+// running powers over k2 = d + k 2^ls.
+void shim_k4_twiddle_runs(const K4Call* c, long long n1, long long n2, int ls, uint64_t* out) {
+  for (long long j1 = 0; j1 < n1; j1++)
+    for (long long d = 0; d < (1LL << ls); d++) {
+      K4Run run = k4_run(*c, j1, d, ls);
+      for (long long k2 = d; k2 < n2; k2 += 1LL << ls) out[j1 * n2 + k2] = gl_canon(k4_next(run));
+    }
+}
+// The DFT of one task of a round of radix 2^b on `count` rows of 2^b
+// values of any u64, the first 2^z of each nonzero (k4_dft<b, z>).
+void shim_k4_dft(uint64_t* a, int b, int z, long long count) {
+  for (long long i = 0; i < count; i++) {
+    uint64_t* row = a + (i << b);
+#define K4_SHIM_DFT(bb)                                          \
+  if (b == bb) {                                                 \
+    switch (z) {                                                 \
+      case 0: k4_dft<bb, 0>(row); break;                         \
+      case 1: k4_dft<bb, (bb < 1 ? bb : 1)>(row); break;         \
+      case 2: k4_dft<bb, (bb < 2 ? bb : 2)>(row); break;         \
+      case 3: k4_dft<bb, (bb < 3 ? bb : 3)>(row); break;         \
+      default: k4_dft<bb, bb>(row); break;                       \
+    }                                                            \
+  }
+    K4_SHIM_DFT(1) K4_SHIM_DFT(2) K4_SHIM_DFT(3) K4_SHIM_DFT(4)
+  }
+}
+void shim_add_lazy(const uint64_t* a, const uint64_t* b, uint64_t* out, long n) {
+  for (long i = 0; i < n; i++) out[i] = gl_add_lazy(a[i], b[i]);
+}
+void shim_sub_lazy(const uint64_t* a, const uint64_t* b, uint64_t* out, long n) {
+  for (long i = 0; i < n; i++) out[i] = gl_sub_lazy(a[i], b[i]);
 }
 }
 """
@@ -1054,8 +1138,14 @@ def k4_lib():
     subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(nvcc.CSRC),
                     "-o", str(so), str(src)], check=True)
     lib = ntt_cuda.bind(ctypes.CDLL(str(so)))   # the wrapper's declarations and mirror check
-    lib.shim_k4_twiddles.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                                     ctypes.c_void_p]
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.shim_k4_twiddles.argtypes = [vp, ll, ll, vp]
+    lib.shim_k4_twiddle_runs.argtypes = [vp, ll, ll, ctypes.c_int, vp]
+    lib.shim_k4_launch.argtypes = [vp, vp]
+    lib.shim_k4_dft.argtypes = [vp, ctypes.c_int, ctypes.c_int, ll]
+    lib.shim_k4_set_sms.argtypes = [ctypes.c_int]
+    for name in ("shim_add_lazy", "shim_sub_lazy"):
+        getattr(lib, name).argtypes = [vp, vp, vp, ctypes.c_long]
     yield lib
     shutil.rmtree(build, ignore_errors=True)
 
@@ -1102,16 +1192,18 @@ def _k4_check(k4_lib, mode, x, log_n1=None):
 
 @pytest.mark.parametrize("log_n", range(0, 14))
 def test_k4_row_path_every_mode_matches_host(k4_lib, log_n):
-    """The row path at n = 2^log_n (the LDE's larger outputs take the
-    four-step), a tile of several whole rows or one, every mode, over
-    leading axes (2, 3)."""
+    """The row path at n = 2^log_n, which ``plan`` picks up to
+    2^ROW_MAX_LOG and the kernel takes up to 2^13 (the LDE's outputs above
+    2^13 take the four-step), a tile of several whole rows or one, every
+    mode, over leading axes (2, 3)."""
     from zk_circuits_torch.ntt import ntt_cuda
 
     n = 1 << log_n
-    assert ntt_cuda.plan(n) == 0
+    assert (ntt_cuda.plan(n) == 0) == (log_n <= ntt_cuda.ROW_MAX_LOG)
     x = _k4_inputs(np.random.default_rng(400 + log_n), (2, 3), n)
     for mode in K4_MODES:
-        _k4_check(k4_lib, mode, x)
+        points = n << int(mode[3:]) if mode.startswith("lde") else n
+        _k4_check(k4_lib, mode, x, 0 if points <= 1 << 13 else None)
 
 
 @pytest.mark.parametrize("log_n", [9, 14, 16])
@@ -1164,9 +1256,12 @@ def test_k4_padded_coset_ntt_matches_host(k4_lib):
 
 def test_k4_split_and_twiddles_match_jax(k4_lib):
     """The port's ``ntt_mxu._split`` and ``_twiddle_table`` are the JAX
-    package's; the kernel's four-step twiddle w_n^(j1 k2) equals
-    ``_twiddle_table`` at ``_split``'s factors and at K4's; K4's factors
-    fit a tile up to 2^26."""
+    package's; the kernel's four-step twiddle w_n^(j1 k2), from lo and hi
+    (``k4_twiddle``) and as pass A's running powers along k2 (``k4_run``
+    at every stride its last round takes), equals ``_twiddle_table`` at
+    ``_split``'s factors and at K4's; every round table holds
+    w_(L_r)^(j k) of the JAX package's roots; K4's factors fit a pass up to
+    2^26."""
     from zk_circuits_torch.ntt import ntt_cuda
     from zk_circuits_torch.ntt import ntt_mxu as tmxu
     from zk_circuits_tpu.ntt import ntt_mxu as jmxu
@@ -1177,22 +1272,152 @@ def test_k4_split_and_twiddles_match_jax(k4_lib):
             assert tmxu._split(n) == jmxu._split(n)
         n1, n2 = ntt_cuda.split(n)
         assert n1 * n2 == n and n1 <= n2 <= 2 * n1 and n2 <= 1 << 13
-    for n1, n2 in (jmxu._split(1 << 9), jmxu._split(1 << 14), ntt_cuda.split(1 << 16)):
+    for n1, n2 in (jmxu._split(1 << 9), jmxu._split(1 << 14), ntt_cuda.split(1 << 16),
+                   ntt_cuda.split(1 << 17)):
         lo, hi = jmxu._twiddle_table(n1, n2)
         want = lo.astype(U64) | (hi.astype(U64) << U64(32))
         assert np.array_equal(tmxu._twiddle_table(n1, n2), want)
-        n = n1 * n2
-        tw = ntt_cuda.stage_table(n)
-        for s in range(n.bit_length() - 1):   # stage s: w_{2^(s+1)}^j from slot 2^s - 1
-            seg = tw[(1 << s) - 1: (2 << s) - 1]
-            assert np.array_equal(seg, jgl.powers(jgl.primitive_root_of_unity(s + 1), 1 << s))
-        call = ntt_cuda._Call(tw=tw.ctypes.data, log_n=n.bit_length() - 1)
+        n, log_n1 = n1 * n2, n1.bit_length() - 1
+        tw = ntt_cuda.tables(n, log_n1)
+        call = ntt_cuda._Call(tw=tw.ctypes.data, log_n=n.bit_length() - 1, log_n1=log_n1, scale=1)
         got = np.empty((n1, n2), dtype=U64)
         k4_lib.shim_k4_twiddles(ctypes.byref(call), n1, n2, _ptr(got))
         assert np.array_equal(got, want), (n1, n2)
+        for ls in range(0, n2.bit_length() - 1, 4):   # S of a last round: 16^(rounds - 1)
+            got[:] = 0
+            k4_lib.shim_k4_twiddle_runs(ctypes.byref(call), n1, n2, ls, _ptr(got))
+            assert np.array_equal(got, want), (n1, n2, ls)
+    for log_len in range(0, 14):
+        tab, at, lr = ntt_cuda.round_tables(log_len), 0, log_len
+        assert sum(ntt_cuda.radix_logs(log_len)) == log_len
+        for b in ntt_cuda.radix_logs(log_len)[:-1]:
+            w = jgl.primitive_root_of_unity(lr)
+            seg = tab[at: at + (1 << lr)].reshape(1 << b, 1 << (lr - b))
+            assert all(int(seg[k, j]) == pow(w, j * k, P)
+                       for k in range(1 << b) for j in range(0, 1 << (lr - b), 7)), (log_len, b)
+            at, lr = at + (1 << lr), lr - b
+        assert at == len(tab)
     dft = tmxu._dft_matrix(8)
     w = jgl.primitive_root_of_unity(3)
     assert all(int(dft[j, k]) == pow(w, j * k, P) for j in range(8) for k in range(8))
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4])
+def test_k4_register_dft_matches_direct_sum(k4_lib, b):
+    """A round's DFT in registers (``k4_dft<b, z>``) against the direct
+    sum over the JAX package's root, on values of any u64: lanes in
+    [p, 2^64) built on purpose (2^64 - 1, p, p + 1, random ones), so that
+    the lazy add and sub carry and borrow twice, and with only the first
+    2^z inputs nonzero (the stages over an LDE's zeros skipped: z = b - 1,
+    b - 2, b - 3 are rates 1, 2, 3)."""
+    r, count = 1 << b, 64
+    w = jgl.primitive_root_of_unity(b)
+    rng = np.random.default_rng(90 + b)
+    edge = np.array([0, 1, P - 1, P, P + 1, (1 << 64) - 1, (1 << 64) - 2, 1 << 63,
+                     (1 << 32) - 1], dtype=U64)
+    for z in range(b + 1):
+        a = rng.integers(P, 1 << 64, (count, r), dtype=U64, endpoint=False)
+        a[: count // 2] = rng.choice(edge, (count // 2, r))
+        a[:, 1 << z:] = 0
+        got = a.copy()
+        k4_lib.shim_k4_dft(_ptr(got), b, z, count)
+        for i in range(count):
+            want = [sum(int(a[i, m]) * pow(w, m * k, P) for m in range(1 << z)) % P
+                    for k in range(r)]
+            assert [int(v) % P for v in got[i]] == want, (b, z, i)
+
+
+def test_k4_lazy_add_and_sub_carry_twice(k4_lib):
+    """gl_add_lazy and gl_sub_lazy take any u64 on both sides: every pair
+    of edge values, among them pairs whose sum carries twice (a + b - 2^64
+    >= p) and whose difference borrows twice (a - b + 2^64 < EPS), and
+    random lanes in [p, 2^64); each result is congruent to the true one."""
+    eps = (1 << 32) - 1
+    edge = [0, 1, 2, eps - 1, eps, eps + 1, P - 1, P, P + 1, (1 << 63), (1 << 64) - eps - 1,
+            (1 << 64) - eps, (1 << 64) - 2, (1 << 64) - 1]
+    rng = np.random.default_rng(77)
+    lanes = edge + [int(v) for v in rng.integers(P, 1 << 64, 32, dtype=U64, endpoint=False)]
+    a = np.array([x for x in lanes for _ in lanes], dtype=U64)
+    b = np.array([y for _ in lanes for y in lanes], dtype=U64)
+    add, sub = np.empty_like(a), np.empty_like(a)
+    k4_lib.shim_add_lazy(_ptr(a), _ptr(b), _ptr(add), len(a))
+    k4_lib.shim_sub_lazy(_ptr(a), _ptr(b), _ptr(sub), len(a))
+    pairs = list(zip(a.tolist(), b.tolist()))
+    assert any(x + y - (1 << 64) >= P for x, y in pairs)     # carries twice
+    assert any(0 <= x - y + (1 << 64) < eps for x, y in pairs)   # borrows twice
+    for (x, y), s, d in zip(pairs, add.tolist(), sub.tolist()):
+        assert s % P == (x + y) % P and d % P == (x - y) % P, (x, y)
+
+
+# Tile plans the main path's shapes get on an H100 (132 SMs): (rows, n) ->
+# per pass (blocks, threads, shared bytes).  The wires LDE and its batch of
+# 4, the wires INTT, the zs stage's NTT and INTT, one 2^16 row (the
+# quotient's coset INTT, FRI's first coset NTT: two rows since one call
+# takes both), the level-1 LDE, the sharded path's 2^20 row and FRI's
+# second coset NTT (two rows of 2^12 on the row path).
+K4_MAIN_PLANS = {
+    (139, 1 << 16): [(2224, 256, 34944), (2224, 256, 34816)],
+    (556, 1 << 16): [(8896, 256, 34944), (8896, 256, 34816)],
+    (135, 1 << 13): [(540, 128, 17536), (540, 128, 17408)],
+    (80, 1 << 13): [(640, 64, 8768), (640, 64, 8704)],
+    (20, 1 << 13): [(320, 32, 4384), (320, 32, 4352)],
+    (2, 1 << 16): [(128, 64, 8736), (128, 64, 8704)],
+    (1, 1 << 16): [(64, 64, 8736), (64, 64, 8704)],
+    (139, 1 << 17): [(4448, 256, 34880), (4448, 256, 34816)],
+    (1, 1 << 20): [(256, 256, 34848), (256, 256, 34816)],
+    (2, 1 << 12): [(2, 256, 34816)],
+}
+
+
+@pytest.mark.parametrize("shape", sorted(K4_MAIN_PLANS))
+def test_k4_tile_plans_at_main_path_shapes(k4_lib, shape):
+    """``tiles`` fills an H100's 132 SMs (four blocks an SM where the call
+    has the columns, the four-step's tiles at least 4 columns wide) at the
+    main path's shapes, and ``launch_shape`` gives what the header launches
+    for that plan."""
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    rows, n = shape
+    log_n1 = ntt_cuda.plan(n)
+    cols = ntt_cuda.tiles(rows, n, log_n1, 132)
+    got = ntt_cuda.launch_shape(rows, n, log_n1, cols)
+    assert got == K4_MAIN_PLANS[shape], (shape, cols, got)
+    call = ntt_cuda._Call(rows=rows, log_n=n.bit_length() - 1, log_n1=log_n1,
+                          log_cols=(ctypes.c_int * 3)(*cols))
+    out = np.zeros(9, dtype=np.int64)
+    k4_lib.shim_k4_launch(ctypes.byref(call), _ptr(out))
+    passes = [0] if log_n1 == 0 else [1, 2]
+    assert [tuple(out[3 * p: 3 * p + 3]) for p in passes] == got
+    for blocks, threads, smem in got:
+        assert smem <= 36 * 1024 and threads <= 256
+        assert blocks >= 4 * 132 or threads <= 64 or rows * n <= 1 << 13 or n >= 1 << 20
+
+
+@pytest.mark.parametrize("rows", [1, 3, 40])
+@pytest.mark.parametrize("log_n", [5, 9, 10, 11])
+def test_k4_tile_plans_small_scale_match_host(k4_lib, rows, log_n, monkeypatch):
+    """The main path's tile plans at small scale: the row path's threshold
+    and the tile's bounds patched down (a row path of 2^5, four-steps of
+    2^9 to 2^11, passes of one round and two) and the SM count stepped up,
+    so that one row, a few rows and many rows shrink the tile to plans of
+    their own; every mode against the host."""
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    monkeypatch.setattr(ntt_cuda, "ROW_MAX_LOG", 5)
+    monkeypatch.setattr(ntt_cuda, "TILE_LOG", 8)
+    monkeypatch.setattr(ntt_cuda, "TILE_MIN_LOG", 6)
+    n, seen = 1 << log_n, set()
+    x = _k4_inputs(np.random.default_rng(600 + log_n + rows), (rows,), n)
+    for sms in (1, 4, 16, 256):
+        k4_lib.shim_k4_set_sms(sms)
+        try:
+            cols = ntt_cuda.tiles(rows, n, ntt_cuda.plan(n), sms)
+            seen.add(cols)
+            for mode in K4_MODES:
+                _k4_check(k4_lib, mode, x)
+        finally:
+            k4_lib.shim_k4_set_sms(4)
+    assert len(seen) > 1 or (log_n == 5 and rows < 40), seen
 
 
 def test_k4_views_and_refusals(k4_lib):

@@ -115,3 +115,73 @@ GL_HD uint64_t gl_add(uint64_t a, uint64_t b) {
 
 // Canonical a - b mod p for canonical a, b.
 GL_HD uint64_t gl_sub(uint64_t a, uint64_t b) { return a >= b ? a - b : a - b + GL_P; }
+
+// a - b over 64 bits and the borrow as a mask: 0, or 0xFFFFFFFF = EPS.  On
+// the card the mask is the subtract's own borrow-out (subc), one
+// instruction, where a 0/1 borrow costs two more to turn into EPS.
+GL_HD uint64_t gl_sub_mask(uint64_t a, uint64_t b, uint32_t* mask) {
+#ifdef __CUDA_ARCH__
+  uint64_t d;
+  asm("sub.cc.u64 %0, %2, %3;\n\tsubc.u32 %1, 0, 0;" : "=l"(d), "=r"(*mask) : "l"(a), "l"(b));
+  return d;
+#else
+  *mask = a < b ? 0xFFFFFFFFu : 0u;
+  return a - b;
+#endif
+}
+
+// gl_reduce128 with its borrow kept as a mask: the same value.
+GL_HD uint64_t gl_reduce128_m(uint64_t lo, uint64_t hi) {
+  uint32_t m, c;
+  uint64_t t0 = gl_sub_mask(lo, hi >> 32, &m);
+  t0 -= m;   // borrow: 2^64 = EPS, cannot underflow again
+  const uint64_t hl = hi & GL_EPS;
+  const uint64_t t2 = gl_add_carry(t0, (hl << 32) - hl, &c);   // hl * EPS < 2^64
+  return t2 + (uint64_t)(0u - c);   // carry: cannot overflow again
+}
+
+// a * b mod p for any u64 a, b; any u64 out: gl_mul's value.  On the card
+// the 128-bit product is one carry chain of 32-bit multiply-adds (r3 r2 r1
+// r0, the low and high halves of the four partial products: eight IMADs
+// and an add, where gl_mul's four IMAD.WIDE.U32 leave ptxas seven adds to
+// place), reduced by gl_reduce128_m.
+GL_HD uint64_t gl_mul_m(uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+  uint32_t r0, r1, r2, r3;
+  asm("mul.lo.u32 %0, %4, %6;\n\t"
+      "mul.hi.u32 %1, %4, %6;\n\t"
+      "mad.lo.cc.u32 %1, %4, %7, %1;\n\t"
+      "madc.hi.u32 %2, %4, %7, 0;\n\t"
+      "mad.lo.cc.u32 %1, %5, %6, %1;\n\t"
+      "madc.hi.cc.u32 %2, %5, %6, %2;\n\t"
+      "madc.hi.u32 %3, %5, %7, 0;\n\t"
+      "mad.lo.cc.u32 %2, %5, %7, %2;\n\t"
+      "addc.u32 %3, %3, 0;"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"((uint32_t)a), "r"((uint32_t)(a >> 32)), "r"((uint32_t)b), "r"((uint32_t)(b >> 32)));
+  return gl_reduce128_m(((uint64_t)r1 << 32) | r0, ((uint64_t)r3 << 32) | r2);
+#else
+  return gl_mul(a, b);
+#endif
+}
+
+// a + b mod p for any u64 a and b; any u64 out.  A carry owes 2^64 = EPS
+// (mod p); adding it carries once more when a + b - 2^64 >= p, and then the
+// sum is below EPS, so a second EPS fits: two corrections, never a third.
+GL_HD uint64_t gl_add_lazy(uint64_t a, uint64_t b) {
+  uint32_t c;
+  uint64_t s = gl_add_carry(a, b, &c);
+  s = gl_add_carry(s, (uint64_t)(0u - c), &c);
+  return s + (uint64_t)(0u - c);
+}
+
+// a - b mod p for any u64 a and b; any u64 out.  A borrow owes -2^64 = -EPS;
+// taking it off borrows once more when a - b + 2^64 < EPS, and then the
+// difference is at least p > EPS, so a second EPS comes off without a
+// third borrow.
+GL_HD uint64_t gl_sub_lazy(uint64_t a, uint64_t b) {
+  uint32_t m;
+  uint64_t d = gl_sub_mask(a, b, &m);
+  d = gl_sub_mask(d, m, &m);
+  return d - m;
+}

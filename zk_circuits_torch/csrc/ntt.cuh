@@ -15,50 +15,71 @@
 //   ntt           n_in = n
 //   intt          inverse, scale = n^-1
 //   coset_ntt     pre = shift^i (and n_in < n for a padded one)
-//   coset_intt    inverse, scale = n^-1, post = shift^-m
+//   coset_intt    inverse, post = n^-1 shift^-m
 //   lde           pre = shift^i, n = n_in 2^rate_bits
 //
 // Every output is canonical, so equal to the stage loop's (field results
-// are unique).  Two paths:
+// are unique).  Two paths, each made of passes; a pass transforms columns
+// of L = 2^l points, a block a tile of C = 2^lc columns:
 //
-//   row path   (log_n1 = 0, n <= 2^K4_TILE_LOG): a block holds a tile of
-//              whole rows in shared memory: loaded at bit-reversed
-//              positions, log2(n) radix-2 stages, stored in natural order
-//              (ntt.py's _bit_reverse_indices and its stage twiddles
-//              w_{2^(s+1)}^j).
-//   four-step  (n = n1 n2, both <= 2^K4_TILE_LOG): input i = j1 + n1 j2,
+//   row path   (log_n1 = 0, n <= 2^K4_PASS_MAX_LOG): one pass, a column a
+//              row (L = n).
+//   four-step  (n = n1 n2, both <= 2^K4_PASS_MAX_LOG): input i = j1 + n1 j2,
 //              output k = k2 + n2 k1 (the maps of the JAX package's
 //              ntt_mxu.py:167-191, with any factors the call names):
-//     pass A   a block takes one batch row's j1 in [first, first + R):
-//              NTT_{n2} over j2 of each, times w_n^(j1 k2), written to
-//              scratch[row, k2, j1];
-//     pass B   a block takes one batch row's k2 in [first, first + R):
-//              NTT_{n1} over j1 of each (a contiguous run of scratch),
-//              written to output k2 + n2 k1.
+//     pass A   columns j1 of one batch row: NTT_{n2} over j2, times
+//              w_n^(j1 k2), written to scratch[row, k2, j1];
+//     pass B   columns k2 of one batch row: NTT_{n1} over j1 (a contiguous
+//              run of scratch), written to output k2 + n2 k1.
 //
-// One twiddle table serves every stage and the four-step's twiddle: its
-// stage s segment, 2^s values from slot 2^s - 1, holds w_{2^(s+1)}^j
-// (j < 2^s), whatever the length of the transform the stage belongs to;
-// the last segment is w_n^e for e < n / 2, and w_n^e for e >= n / 2 is
-// -w_n^(e - n / 2).  A warp's neighbouring butterflies read neighbouring
-// twiddles.
+// A pass is a Stockham transform in rounds: round r takes the remaining
+// length L_r apart as L_r = R_r M_r, R_r = 16 but in one round
+// (k4_radix_log: the last of two, the second of three or four), which
+// takes what is left.  Subproblem D of round r (D < S_r = R_0 ... R_(r-1))
+// holds Y_r[D][j], j < L_r (Y_0 is the column).  A task (D, j < M_r) takes
+// the R_r values a[m] = Y_r[D][j + M_r m], computes their R_r-point DFT
+// A[k] in registers (radix-2 stages whose twiddles, powers of w_16, are
+// powers of two: shifts, k4_unit_mul), and hands on Y_(r+1)[D + S_r k][j]
+// = A[k] w_(L_r)^(j k); the last round's A[k] is X[D + S_r k].  Each
+// thread holds K4_V = 16 values, 16 / R_r tasks of a round.  Round 0
+// reads the input and the last round writes the output, each thread its
+// R_r values at a stride, so that neighbouring threads touch neighbouring
+// words; between rounds the tile goes through shared memory once (one
+// write, a barrier, one read).  The values stay in [0, 2^64) between
+// stages (gl_mul_m, gl_add_lazy, gl_sub_lazy); only the output store
+// canonicalises.  An input zero from n_in on skips round 0's stages that
+// would only copy (k4_live_log).
 //
-// Shared memory: tile row r starts at r * k4_pitch(l) and element i sits
-// at k4_pad(i, l), one spare slot every 2^(l-5) elements.  The bit-reversed
-// scatter of a warp's 32 neighbouring elements then lands in 32 banks
-// instead of one, and an odd pitch spreads pass A's rows over the banks.
-// The kernel's loops run thread tid of nthr over the tile; the host tests
-// run a block's threads one after another between the barriers.
+// Tables (tw, built by the wrapper): for each pass, each round r but the
+// last, w_(L_r)^(j k) at k M_r + j (k < R_r, j < M_r); the row path's, or
+// pass A's then pass B's; then for the four-step w_n^e as lo[e mod 2^h]
+// hi[e >> h] (h = ceil(log_n / 2)), from which pass A computes its
+// twiddles as running powers along k2.
+//
+// Shared memory: column c at c * k4_pitch(l, pass), value q at k4_pad(q),
+// one spare slot every 16 values, and in pass A an odd pitch.  A 64-bit
+// access is served a half-warp at a time; its 16 threads meet 16 bank
+// pairs at every exchange of the wide tiles (16 columns or more) and of the
+// row path, and up to four threads share a pair in pass A's exchanges of
+// a narrow tile (4 or 8 columns; scripts/k4_variants.py's pitch_spread
+// spreads those too).
+// The kernel's phases run thread tid of nthr over the tile; the host tests
+// run a block's threads one after another between the barriers, each with
+// its own 16 values.
 #pragma once
 
 #include "goldilocks.cuh"
 
-#define K4_TILE_LOG 13    // a tile holds 2^13 elements (plus padding)
-#define K4_THREADS 512    // threads a block
-#define K4_MAX_LOG_N 26   // 2 K4_TILE_LOG: the four-step's largest n
-// The largest tile in shared-memory slots: 2^7 rows of 2^6 elements at a
-// pitch of 97 (every other tile is smaller: k4_smem_elems).
-#define K4_SMEM_MAX_ELEMS 12416
+#define K4_V 16               // values a thread holds (registers)
+#define K4_LOG_V 4
+#define K4_PASS_MAX_LOG 13    // the longest pass: 2^13 points
+#define K4_MAX_LOG_N 26       // 2 K4_PASS_MAX_LOG: the four-step's largest n
+#define K4_TILE_MAX_LOG 12    // a tile holds at most 2^12 values, 256 threads,
+                              // but a pass of 2^13 takes one column, 512 threads
+#define K4_MAX_THREADS 512
+// The largest shared tile in slots: one column of 2^13 in pass A,
+// k4_pitch(13, K4_PASS_A).
+#define K4_SMEM_MAX_ELEMS 8705
 
 enum K4Pass { K4_PASS_ROW = 0, K4_PASS_A = 1, K4_PASS_B = 2 };
 
@@ -66,194 +87,483 @@ struct K4Call {
   const uint64_t* x;         // input rows: row r at x + r * in_stride
   uint64_t* out;             // (rows, n), contiguous
   uint64_t* scratch;         // (rows, n2, n1): pass A's output (four-step only)
-  const uint64_t* tw;        // stage s at tw + 2^s - 1: w_{2^(s+1)}^j, j < 2^s
+  const uint64_t* tw;        // the round tables, then lo and hi (see above)
   const uint64_t* pre;       // shift^i for i < n_in, or null
-  const uint64_t* post;      // shift^-m for m < n, or null
-  unsigned long long scale;  // n^-1 for an inverse transform, else 1
+  const uint64_t* post;      // n^-1 shift^-m for m < n, or null
+  unsigned long long scale;  // n^-1 for an inverse transform without post, else 1
   long long rows, in_stride, n_in;
   int log_n, log_n1;         // log_n1 = 0: the row path; else n1 = 2^log_n1
   int inverse;
+  int log_cols[3];           // log2 of a tile's columns, per pass (the wrapper's plan)
 };
 
-// The rows of one block's tile.  Row path: batch rows row .. row + count - 1.
-// Passes A and B: batch row `row`, j1 (A) or k2 (B) first .. first + count - 1,
-// count = 2^log_count.
+// One block's tile.  Row path: batch rows row .. row + count - 1 (columns
+// from count on are past the last row).  Passes A and B: batch row `row`,
+// j1 (A) or k2 (B) first .. first + 2^lc - 1.
 struct K4Tile {
   long long row, first;
-  int count, log_count, log_len;
+  int count, l, lc, rounds;
+};
+
+// A task of a round: column c, subproblem d, index j < M_r.
+struct K4Task {
+  int c, d, j;
 };
 
 // ---------------------------------------------------------------------------
-// indices
+// geometry
 // ---------------------------------------------------------------------------
 
-// j's lowest `bits` bits reversed.
-GL_HD unsigned k4_rev(unsigned j, int bits) {
-#ifdef __CUDA_ARCH__
-  return bits ? __brev(j) >> (32 - bits) : 0u;
-#else
-  unsigned r = 0;
-  for (int b = 0; b < bits; b++) r |= ((j >> b) & 1u) << (bits - 1 - b);
-  return r;
-#endif
+// j's lowest `bits` bits reversed, bits <= 4: one expression without a
+// loop, so that it folds to a constant in the unrolled DFT (an index the
+// compiler cannot fold would put the thread's values in local memory).
+GL_HD constexpr int k4_rev(int j, int bits) {
+  return (((j & 1) << 3) | ((j & 2) << 1) | ((j & 4) >> 1) | ((j & 8) >> 3)) >> (4 - bits);
 }
-
-// Shared-memory slot of element i of a tile row of 2^l elements.
-GL_HD int k4_pad(int i, int l) { return l > 5 ? i + (i >> (l - 5)) : i; }
-
-// Slots a tile row of 2^l elements takes (odd from l = 6 on).
-GL_HD int k4_pitch(int l) { return l > 5 ? (1 << l) + 33 : 1 << l; }
 
 GL_HD int k4_log_len(const K4Call& c, int pass) {
   return pass == K4_PASS_ROW ? c.log_n : pass == K4_PASS_A ? c.log_n - c.log_n1 : c.log_n1;
 }
 
-// log2 of the rows of a full tile.
-GL_HD int k4_log_tile_rows(const K4Call& c, int pass) {
-  const int l = k4_log_len(c, pass);
-  const int most = pass == K4_PASS_ROW ? 30 : pass == K4_PASS_A ? c.log_n1 : c.log_n - c.log_n1;
-  const int fit = K4_TILE_LOG - l;
-  return fit < most ? fit : most;
+// Rounds of a pass of 2^l points, and log2 of round r's radix: 16 but one
+// round, which takes what is left (1 for l = 0: a copy): the last of two,
+// the second of three or four.  Round 0 keeps radix 16 for an LDE's zeros,
+// and a small radix in the middle spares the last round's exchange the
+// bank conflicts of a short column and, with three rounds, one round of
+// twiddles (the last one's M is 1).
+GL_HD constexpr int k4_rounds(int l) {
+  return l <= K4_LOG_V ? 1 : (l + K4_LOG_V - 1) / K4_LOG_V;
+}
+
+GL_HD constexpr int k4_radix_log(int l, int r) {
+  return r != (k4_rounds(l) > 2 ? 1 : k4_rounds(l) - 1)
+             ? K4_LOG_V
+             : l - K4_LOG_V * (k4_rounds(l) - 1);
+}
+
+// log2 S_r: the radices of the rounds before round r together; round r's
+// sub-transforms have 2^(l - k4_done_log(l, r)) points.
+GL_HD constexpr int k4_done_log(int l, int r) {
+  int s = 0;
+  for (int q = 0; q < r; q++) s += k4_radix_log(l, q);
+  return s;
+}
+
+// Whether a tile of 2^lc columns of a pass of 2^l points fits a block.
+GL_HD constexpr bool k4_tile_fits(int l, int lc) {
+  return lc >= 0 && (l + lc <= K4_TILE_MAX_LOG || (l == K4_PASS_MAX_LOG && lc == 0));
+}
+
+// Threads of a block: 16 values each, at least one.
+GL_HD int k4_threads(int l, int lc) {
+  return l + lc > K4_LOG_V ? 1 << (l + lc - K4_LOG_V) : 1;
+}
+
+// Shared-memory slot of value q of a column, and the slots a column of the
+// pass takes: odd in pass A, whose first and last rounds run over columns.
+GL_HD int k4_pad(int q) { return q + (q >> 4); }
+GL_HD int k4_pitch(int l, int pass) {
+  return (1 << l) + ((1 << l) >> 4) + (pass == K4_PASS_A ? 1 : 0);
 }
 
 GL_HD long long k4_blocks(const K4Call& c, int pass) {
-  const int lr = k4_log_tile_rows(c, pass);
-  if (pass == K4_PASS_ROW) return (c.rows + (1LL << lr) - 1) >> lr;
-  const int per_row = pass == K4_PASS_A ? c.log_n1 : c.log_n - c.log_n1;
-  return c.rows << (per_row - lr);
+  const int lc = c.log_cols[pass];
+  if (pass == K4_PASS_ROW) return (c.rows + (1LL << lc) - 1) >> lc;
+  const int cols = pass == K4_PASS_A ? c.log_n1 : c.log_n - c.log_n1;
+  return c.rows << (cols - lc);
 }
 
-// Shared-memory elements of a block of the pass.
+// Shared-memory slots of a block of the pass (none for one round).
 GL_HD long long k4_smem_elems(const K4Call& c, int pass) {
-  long long r = 1LL << k4_log_tile_rows(c, pass);
-  if (pass == K4_PASS_ROW && c.rows < r) r = c.rows;
-  return r * k4_pitch(k4_log_len(c, pass));
+  const int l = k4_log_len(c, pass);
+  return k4_rounds(l) > 1 ? (long long)k4_pitch(l, pass) << c.log_cols[pass] : 0;
 }
 
 GL_HD K4Tile k4_tile(const K4Call& c, int pass, long long blk) {
   K4Tile t;
-  t.log_len = k4_log_len(c, pass);
-  t.log_count = k4_log_tile_rows(c, pass);
+  t.l = k4_log_len(c, pass);
+  t.lc = c.log_cols[pass];
+  t.rounds = k4_rounds(t.l);
   if (pass == K4_PASS_ROW) {
-    t.row = blk << t.log_count;
+    t.row = blk << t.lc;
     t.first = 0;
     const long long left = c.rows - t.row;
-    t.count = left < (1LL << t.log_count) ? (int)left : 1 << t.log_count;
+    t.count = left < (1LL << t.lc) ? (int)left : 1 << t.lc;
   } else {
-    const int per_row = (pass == K4_PASS_A ? c.log_n1 : c.log_n - c.log_n1) - t.log_count;
+    const int per_row = (pass == K4_PASS_A ? c.log_n1 : c.log_n - c.log_n1) - t.lc;
     t.row = blk >> per_row;
-    t.first = (blk & ((1LL << per_row) - 1)) << t.log_count;
-    t.count = 1 << t.log_count;
+    t.first = (blk & ((1LL << per_row) - 1)) << t.lc;
+    t.count = 1 << t.lc;
   }
   return t;
 }
 
+// Task tau of round r.  Pass A's first and last rounds put neighbouring
+// tasks on neighbouring columns (j1, contiguous in the input and in
+// scratch); otherwise neighbouring tasks take neighbouring j, then d.
+GL_HD K4Task k4_task(int pass, const K4Tile& t, int r, int tau) {
+  const int b = k4_radix_log(t.l, r), lm = t.l - k4_done_log(t.l, r) - b;   // log2 M_r
+  K4Task k;
+  int q;
+  if (pass == K4_PASS_A && (r == 0 || r == t.rounds - 1)) {
+    k.c = tau & ((1 << t.lc) - 1);
+    q = tau >> t.lc;
+  } else {
+    q = tau & ((1 << (t.l - b)) - 1);
+    k.c = tau >> (t.l - b);
+  }
+  k.j = q & ((1 << lm) - 1);
+  k.d = q >> lm;
+  return k;
+}
+
 // A call the kernel takes: n up to 2^26, the row path up to 2^13, the
-// four-step's factors both up to 2^13, n_in in [1, n].
+// four-step's factors both up to 2^13, n_in in [1, n], tiles that fit a
+// block (k4_tile_fits) and no more columns than the pass has.
 GL_HD bool k4_valid(const K4Call& c) {
   if (c.log_n < 0 || c.log_n > K4_MAX_LOG_N || c.rows < 0 || c.n_in < 1 ||
       c.n_in > (1LL << c.log_n) || c.in_stride < 0 || c.inverse < 0 || c.inverse > 1)
     return false;
-  if (c.log_n1 == 0) return c.log_n <= K4_TILE_LOG;
-  return c.log_n1 > 0 && c.log_n1 < c.log_n && c.log_n1 <= K4_TILE_LOG &&
-         c.log_n - c.log_n1 <= K4_TILE_LOG && c.scratch != nullptr;
+  const int l1 = c.log_n1, l2 = c.log_n - c.log_n1;
+  if (l1 == 0)
+    return c.log_n <= K4_PASS_MAX_LOG && k4_tile_fits(c.log_n, c.log_cols[0]);
+  return l1 > 0 && l2 > 0 && l1 <= K4_PASS_MAX_LOG && l2 <= K4_PASS_MAX_LOG &&
+         c.scratch != nullptr && c.log_cols[1] <= l1 && k4_tile_fits(l2, c.log_cols[1]) &&
+         c.log_cols[2] <= l2 && k4_tile_fits(l1, c.log_cols[2]);
 }
 
 // ---------------------------------------------------------------------------
-// field
+// tables and field
 // ---------------------------------------------------------------------------
 
-// Input element i of the row at `src`: zero from n_in on, times pre[i].
+// Values of the round tables of a pass of 2^l points.
+GL_HD long long k4_round_table_elems(int l) {
+  long long n = 0;
+  for (int r = 0; r < k4_rounds(l) - 1; r++) n += 1LL << (l - k4_done_log(l, r));
+  return n;
+}
+
+// Round r's table of the pass: w_(L_r)^(j k) at k M_r + j.
+GL_HD const uint64_t* k4_round_table(const K4Call& c, int pass, int l, int r) {
+  const uint64_t* t = c.tw + (pass == K4_PASS_B ? k4_round_table_elems(c.log_n - c.log_n1) : 0);
+  for (int q = 0; q < r; q++) t += 1LL << (l - k4_done_log(l, q));
+  return t;
+}
+
+// w_n^e for 0 <= e < n on the four-step: lo[e mod 2^h] hi[e >> h], any u64.
+GL_HD uint64_t k4_twiddle(const K4Call& c, long long e) {
+  const int h = (c.log_n + 1) >> 1;
+  const uint64_t* lo = c.tw + k4_round_table_elems(c.log_n - c.log_n1) +
+                       k4_round_table_elems(c.log_n1);
+  return gl_mul_m(lo[e & ((1LL << h) - 1)], lo[(1LL << h) + (e >> h)]);
+}
+
+// Pass A's twiddles of one task, w_n^(j1 (d + k 2^ls)) for k = 0, 1, ...:
+// running powers, start w_n^(j1 d) (times the inverse's n^-1), step
+// w_n^(j1 2^ls).
+struct K4Run {
+  uint64_t w, step;
+};
+
+GL_HD K4Run k4_run(const K4Call& c, long long j1, long long d, int ls) {
+  K4Run run;
+  run.w = k4_twiddle(c, j1 * d);
+  if (c.scale != 1) run.w = gl_mul_m(run.w, c.scale);   // n^-1, here and not in pass B
+  run.step = k4_twiddle(c, j1 << ls);
+  return run;
+}
+
+GL_HD uint64_t k4_next(K4Run& run) {
+  const uint64_t w = run.w;
+  run.w = gl_mul_m(run.w, run.step);
+  return w;
+}
+
+// x 2^k mod p for 0 <= k < 96 and any u64 x, any u64 out: shifts and adds,
+// no multiply (2^64 = EPS mod p, one reduction, two from k = 64 on).
+template <int K>
+GL_HD uint64_t k4_shl(uint64_t x) {
+  if constexpr (K == 0) {
+    return x;
+  } else if constexpr (K >= 64) {
+    return gl_reduce128_m(0, k4_shl<K - 64>(x));
+  } else if constexpr (K <= 32) {
+    return gl_reduce96(x << K, x >> (64 - K));   // the high part is below 2^32
+  } else {
+    return gl_reduce128_m(x << K, x >> (64 - K));
+  }
+}
+
+// y w_16^u for 0 < u < 8 as (-1)^neg y 2^k: ntt.py's w_16 is 2^156 mod p,
+// so w_16^u = 2^(156 u mod 192) and 2^96 = -1.  The stage twiddles of a
+// round's DFT are w_(2^(s+1))^j = w_16^(j 2^(3-s)).  Constant once unrolled.
+GL_HD uint64_t k4_unit_mul(uint64_t y, int u, bool* neg) {
+  switch (u) {
+    case 1: *neg = true; return k4_shl<60>(y);    // 2^156
+    case 2: *neg = true; return k4_shl<24>(y);    // 2^120
+    case 3: *neg = false; return k4_shl<84>(y);   // 2^84
+    case 4: *neg = false; return k4_shl<48>(y);   // 2^48
+    case 5: *neg = false; return k4_shl<12>(y);   // 2^12
+    case 6: *neg = true; return k4_shl<72>(y);    // 2^168
+    default: *neg = true; return k4_shl<36>(y);   // 2^132
+  }
+}
+
+// Input value i of the row at `src`: zero from n_in on, times pre[i].
 GL_HD uint64_t k4_in(const K4Call& c, const uint64_t* src, long long i) {
   if (i >= c.n_in) return 0;
-  const uint64_t v = gl_canon(src[i]);
-  return c.pre ? gl_canon(gl_mul(v, c.pre[i])) : v;
+  return c.pre ? gl_mul_m(src[i], c.pre[i]) : src[i];
 }
 
-// Output position of X[k], and the value stored there.
+// Output position of X[k], and the canonical value stored there.
 GL_HD long long k4_dest(const K4Call& c, long long k) {
   return c.inverse ? (0 - k) & ((1LL << c.log_n) - 1) : k;
 }
 
 GL_HD uint64_t k4_out(const K4Call& c, long long m, uint64_t v) {
-  if (c.scale != 1) v = gl_canon(gl_mul(v, c.scale));
-  return c.post ? gl_canon(gl_mul(v, c.post[m])) : v;
+  if (c.scale != 1 && c.log_n1 == 0) v = gl_mul_m(v, c.scale);   // the four-step's: k4_run
+  if (c.post) v = gl_mul_m(v, c.post[m]);
+  return gl_canon(v);
 }
 
-// w_n^e for e < n (n >= 2), from the table's last segment.
-GL_HD uint64_t k4_twiddle(const K4Call& c, long long e) {
-  const long long h = 1LL << (c.log_n - 1);
-  const uint64_t* last = c.tw + h - 1;
-  return e < h ? last[e] : GL_P - last[e - h];   // w != 0
+// log2 of the round-0 inputs a[m] that can be nonzero (m below it): the
+// pass's value j = j + M_0 m is input j (row path) or j1 + n1 j (pass A),
+// zero from n_in on.  Pass B reads scratch, which is full.
+GL_HD int k4_live_log(const K4Call& c, int pass, int l) {
+  const int b = k4_radix_log(l, 0);
+  if (pass == K4_PASS_B) return b;
+  const long long jmax =
+      pass == K4_PASS_ROW ? c.n_in : (c.n_in + (1LL << c.log_n1) - 1) >> c.log_n1;
+  const long long m0 = 1LL << (l - b), live = (jmax + m0 - 1) / m0;
+  int z = 0;
+  while (z < b && (1LL << z) < live) z++;
+  return z;
 }
 
 // ---------------------------------------------------------------------------
-// a block's three phases (barriers between them and between stages)
+// the DFT of a task, in registers
 // ---------------------------------------------------------------------------
 
-GL_HD void k4_load(const K4Call& c, int pass, const K4Tile& t, uint64_t* sm, int tid, int nthr) {
-  const int l = t.log_len, pitch = k4_pitch(l), total = t.count << l;
-  if (pass == K4_PASS_ROW) {   // neighbouring threads on neighbouring i
-    for (int f = tid; f < total; f += nthr) {
-      const int r = f >> l, i = f & ((1 << l) - 1);
-      sm[r * pitch + k4_pad(k4_rev(i, l), l)] = k4_in(c, c.x + (t.row + r) * c.in_stride, i);
+// In place on a[0 .. 2^B): A[k] = sum_m a[m] w_(2^B)^(m k), natural order in
+// and out, where a[m] for m >= 2^Z are zero and not read: the first B - Z
+// radix-2 stages of the decimation in time would only copy, so every slot
+// starts as its stage-(B - Z) value.  Any u64 in and out.
+template <int B, int Z>
+GL_HD void k4_dft(uint64_t* a) {
+  constexpr int R = 1 << B;
+  uint64_t w[R];
+#pragma unroll
+  for (int p = 0; p < R; p++) w[p] = a[k4_rev(p >> (B - Z), Z)];
+#pragma unroll
+  for (int s = B - Z; s < B; s++)
+#pragma unroll
+    for (int i = 0; i < R; i += 2 << s)
+#pragma unroll
+      for (int j = 0; j < (1 << s); j++) {
+        const uint64_t x = w[i + j], y0 = w[i + j + (1 << s)];
+        bool neg = false;
+        const uint64_t y = j ? k4_unit_mul(y0, j << (3 - s), &neg) : y0;
+        w[i + j] = neg ? gl_sub_lazy(x, y) : gl_add_lazy(x, y);
+        w[i + j + (1 << s)] = neg ? gl_add_lazy(x, y) : gl_sub_lazy(x, y);
+      }
+#pragma unroll
+  for (int p = 0; p < R; p++) a[p] = w[p];
+}
+
+template <int B>
+GL_HD void k4_dft_live(uint64_t* a, int z) {
+  switch (z) {
+    case 0: k4_dft<B, 0>(a); break;
+    case 1: k4_dft<B, (B < 1 ? B : 1)>(a); break;
+    case 2: k4_dft<B, (B < 2 ? B : 2)>(a); break;
+    case 3: k4_dft<B, (B < 3 ? B : 3)>(a); break;
+    default: k4_dft<B, B>(a); break;
+  }
+}
+
+// A[k] *= w_(L_r)^(j k) after round r (not the last).
+template <int B>
+GL_HD void k4_twiddle_round(const K4Call& c, int pass, const K4Tile& t, int r, const K4Task& k,
+                            uint64_t* a) {
+  const int lm = t.l - k4_done_log(t.l, r) - B;
+  const uint64_t* tab = k4_round_table(c, pass, t.l, r) + k.j;
+#pragma unroll
+  for (int q = 1; q < (1 << B); q++) a[q] = gl_mul_m(a[q], tab[(long long)q << lm]);
+}
+
+// ---------------------------------------------------------------------------
+// a block's phases: begin, then per round after the first put (barrier)
+// get, then store; a barrier also before every put but the first
+// ---------------------------------------------------------------------------
+
+// Round 0: each task's inputs from the row (pre and the zeros fused in),
+// its DFT and, when more rounds follow, its twiddles.
+template <int B>
+GL_HD void k4_begin_r(const K4Call& c, int pass, const K4Tile& t, uint64_t* v, int tid, int nthr) {
+  constexpr int R = 1 << B;
+  const int lm = t.l - B, tasks = 1 << (t.l + t.lc - B);
+  const int z = k4_live_log(c, pass, t.l);
+#pragma unroll
+  for (int u = 0; u < K4_V / R; u++) {
+    const int tau = tid + nthr * u;
+    if (tau >= tasks) continue;
+    uint64_t* a = v + u * R;
+    const K4Task k = k4_task(pass, t, 0, tau);
+    if (pass == K4_PASS_ROW) {
+      const uint64_t* src = c.x + (t.row + k.c) * c.in_stride;
+      const bool live = k.c < t.count;
+#pragma unroll
+      for (int m = 0; m < R; m++)
+        if (m < (1 << z)) a[m] = live ? k4_in(c, src, k.j + ((long long)m << lm)) : 0;
+    } else if (pass == K4_PASS_A) {
+      const uint64_t* src = c.x + t.row * c.in_stride;
+      const long long j1 = t.first + k.c;
+#pragma unroll
+      for (int m = 0; m < R; m++)
+        if (m < (1 << z)) a[m] = k4_in(c, src, j1 + ((long long)(k.j + (m << lm)) << c.log_n1));
+    } else {
+      const uint64_t* src = c.scratch + (t.row << c.log_n) + ((t.first + k.c) << c.log_n1) + k.j;
+#pragma unroll
+      for (int m = 0; m < R; m++) a[m] = src[(long long)m << lm];
     }
-  } else if (pass == K4_PASS_A) {   // neighbouring threads on neighbouring j1
-    const uint64_t* src = c.x + t.row * c.in_stride;
-    for (int f = tid; f < total; f += nthr) {
-      const int r = f & (t.count - 1), j2 = f >> t.log_count;
-      sm[r * pitch + k4_pad(k4_rev(j2, l), l)] =
-          k4_in(c, src, t.first + r + ((long long)j2 << c.log_n1));
-    }
-  } else {   // the tile is one contiguous run of scratch
-    const uint64_t* src = c.scratch + (t.row << c.log_n) + (t.first << c.log_n1);
-    for (int f = tid; f < total; f += nthr) {
-      const int r = f >> l, j1 = f & ((1 << l) - 1);
-      sm[r * pitch + k4_pad(k4_rev(j1, l), l)] = src[f];
+    k4_dft_live<B>(a, z);
+    if (t.rounds > 1) k4_twiddle_round<B>(c, pass, t, 0, k, a);
+  }
+}
+
+// After round r (not the last, radix 2^B): each task's A[k] to
+// Y_(r+1)[d + S_r k][j].
+template <int B>
+GL_HD void k4_put_r(const K4Call& c, int pass, const K4Tile& t, uint64_t* sm, int r,
+                    const uint64_t* v, int tid, int nthr) {
+  (void)c;
+  constexpr int R = 1 << B;
+  const int ld = k4_done_log(t.l, r), lm = t.l - ld - B, pitch = k4_pitch(t.l, pass);
+  const int tasks = 1 << (t.l + t.lc - B);
+#pragma unroll
+  for (int u = 0; u < K4_V / R; u++) {
+    const int tau = tid + nthr * u;
+    if (tau >= tasks) continue;
+    const uint64_t* a = v + u * R;
+    const K4Task k = k4_task(pass, t, r, tau);
+    uint64_t* col = sm + k.c * pitch;
+#pragma unroll
+    for (int q = 0; q < R; q++) col[k4_pad(((k.d + (q << ld)) << lm) + k.j)] = a[q];
+  }
+}
+
+// Round r >= 1: each task's inputs Y_r[d][j + M_r m] from shared memory,
+// its DFT and, when more rounds follow, its twiddles.
+template <int B>
+GL_HD void k4_get_r(const K4Call& c, int pass, const K4Tile& t, const uint64_t* sm, int r,
+                    uint64_t* v, int tid, int nthr) {
+  constexpr int R = 1 << B;
+  const int lr = t.l - k4_done_log(t.l, r), lm = lr - B, pitch = k4_pitch(t.l, pass);
+  const int tasks = 1 << (t.l + t.lc - B);
+#pragma unroll
+  for (int u = 0; u < K4_V / R; u++) {
+    const int tau = tid + nthr * u;
+    if (tau >= tasks) continue;
+    uint64_t* a = v + u * R;
+    const K4Task k = k4_task(pass, t, r, tau);
+    const uint64_t* col = sm + k.c * pitch;
+    const int base = (k.d << lr) + k.j;
+#pragma unroll
+    for (int m = 0; m < R; m++) a[m] = col[k4_pad(base + (m << lm))];
+    k4_dft<B, B>(a);
+    if (r < t.rounds - 1) k4_twiddle_round<B>(c, pass, t, r, k, a);
+  }
+}
+
+// The last round's A[k] = X[d + S k] (S = S_(rounds - 1)) of the pass:
+// to the output (row path, pass B: inverse's reversal, scale and post
+// fused, canonical) or to scratch times pass A's twiddle w_n^(j1 k2).
+template <int B>
+GL_HD void k4_store_r(const K4Call& c, int pass, const K4Tile& t, const uint64_t* v, int tid,
+                      int nthr) {
+  constexpr int R = 1 << B;
+  const int ls = k4_done_log(t.l, t.rounds - 1), tasks = 1 << (t.l + t.lc - B);
+#pragma unroll
+  for (int u = 0; u < K4_V / R; u++) {
+    const int tau = tid + nthr * u;
+    if (tau >= tasks) continue;
+    const uint64_t* a = v + u * R;
+    const K4Task k = k4_task(pass, t, t.rounds - 1, tau);
+    if (pass == K4_PASS_ROW) {
+      if (k.c >= t.count) continue;
+      uint64_t* dst = c.out + ((t.row + k.c) << c.log_n);
+#pragma unroll
+      for (int q = 0; q < R; q++) {
+        const long long m = k4_dest(c, k.d + ((long long)q << ls));
+        dst[m] = k4_out(c, m, a[q]);
+      }
+    } else if (pass == K4_PASS_A) {
+      const long long j1 = t.first + k.c;
+      uint64_t* dst = c.scratch + (t.row << c.log_n) + j1;
+      K4Run run = k4_run(c, j1, k.d, ls);
+#pragma unroll
+      for (int q = 0; q < R; q++)
+        dst[(k.d + ((long long)q << ls)) << c.log_n1] = gl_mul_m(a[q], k4_next(run));
+    } else {
+      uint64_t* dst = c.out + (t.row << c.log_n);
+      const long long k2 = t.first + k.c;
+      const int log_n2 = c.log_n - c.log_n1;
+#pragma unroll
+      for (int q = 0; q < R; q++) {
+        const long long m = k4_dest(c, k2 + ((k.d + ((long long)q << ls)) << log_n2));
+        dst[m] = k4_out(c, m, a[q]);
+      }
     }
   }
 }
 
-// Radix-2 stage s of every row of the tile: butterflies 2^s apart.
-GL_HD void k4_stage(const K4Call& c, const K4Tile& t, uint64_t* sm, int s, int tid, int nthr) {
-  const int l = t.log_len, pitch = k4_pitch(l), total = t.count << (l - 1);
-  const uint64_t* tw = c.tw + (1 << s) - 1;
-  for (int f = tid; f < total; f += nthr) {
-    const int r = f >> (l - 1), u = f & ((1 << (l - 1)) - 1);
-    const int j = u & ((1 << s) - 1);
-    const int i0 = ((u >> s) << (s + 1)) | j;
-    uint64_t* row = sm + r * pitch;
-    const int p0 = k4_pad(i0, l), p1 = k4_pad(i0 + (1 << s), l);
-    const uint64_t a = row[p0];
-    const uint64_t b = gl_canon(gl_mul(row[p1], tw[j]));
-    row[p0] = gl_add(a, b);
-    row[p1] = gl_sub(a, b);
+// A block's work on a pass of 2^L points, its phases in order: round 0,
+// then for each later round a put of the last round's values (after a
+// barrier: every read of the exchange before it done), a barrier and the
+// round's get, then the store.  `blk` runs a phase for the block's threads
+// and holds their values: on the card one thread and __syncthreads
+// (ntt.cu), in the host tests every thread in turn and no barrier.
+template <int L, class Block>
+GL_HD void k4_block(Block& blk) {
+  constexpr int k = k4_rounds(L);
+  blk.template begin<k4_radix_log(L, 0)>();
+  if constexpr (k > 1) {
+    blk.template put<k4_radix_log(L, 0)>(0);
+    blk.sync();
+    blk.template get<k4_radix_log(L, 1)>(1);
   }
+  if constexpr (k > 2) {
+    blk.sync();
+    blk.template put<k4_radix_log(L, 1)>(1);
+    blk.sync();
+    blk.template get<k4_radix_log(L, 2)>(2);
+  }
+  if constexpr (k > 3) {
+    blk.sync();
+    blk.template put<k4_radix_log(L, 2)>(2);
+    blk.sync();
+    blk.template get<k4_radix_log(L, 3)>(3);
+  }
+  static_assert(k <= 4, "a pass has at most four rounds");
+  blk.template store<k4_radix_log(L, k - 1)>();
 }
 
-GL_HD void k4_store(const K4Call& c, int pass, const K4Tile& t, const uint64_t* sm, int tid,
-                    int nthr) {
-  const int l = t.log_len, pitch = k4_pitch(l), total = t.count << l;
-  if (pass == K4_PASS_ROW) {   // neighbouring threads on neighbouring k
-    for (int f = tid; f < total; f += nthr) {
-      const int r = f >> l, k = f & ((1 << l) - 1);
-      const long long m = k4_dest(c, k);
-      c.out[((t.row + r) << c.log_n) + m] = k4_out(c, m, sm[r * pitch + k4_pad(k, l)]);
-    }
-  } else if (pass == K4_PASS_A) {   // neighbouring threads on neighbouring j1
-    uint64_t* dst = c.scratch + (t.row << c.log_n) + t.first;
-    for (int f = tid; f < total; f += nthr) {
-      const int r = f & (t.count - 1), k2 = f >> t.log_count;
-      const uint64_t w = k4_twiddle(c, (t.first + r) * k2);
-      dst[((long long)k2 << c.log_n1) + r] = gl_canon(gl_mul(sm[r * pitch + k4_pad(k2, l)], w));
-    }
-  } else {   // neighbouring threads on neighbouring k2
-    uint64_t* dst = c.out + (t.row << c.log_n);
-    const int log_n2 = c.log_n - c.log_n1;
-    for (int f = tid; f < total; f += nthr) {
-      const int r = f & (t.count - 1), k1 = f >> t.log_count;
-      const long long m = k4_dest(c, t.first + r + ((long long)k1 << log_n2));
-      dst[m] = k4_out(c, m, sm[r * pitch + k4_pad(k1, l)]);
-    }
+// The kernel's pass lengths, 2^0 .. 2^K4_PASS_MAX_LOG: F<L>(args...) for
+// the call's L.
+#define K4_BY_LEN(l, F, ...)                   \
+  switch (l) {                                 \
+    case 0: F<0>(__VA_ARGS__); break;          \
+    case 1: F<1>(__VA_ARGS__); break;          \
+    case 2: F<2>(__VA_ARGS__); break;          \
+    case 3: F<3>(__VA_ARGS__); break;          \
+    case 4: F<4>(__VA_ARGS__); break;          \
+    case 5: F<5>(__VA_ARGS__); break;          \
+    case 6: F<6>(__VA_ARGS__); break;          \
+    case 7: F<7>(__VA_ARGS__); break;          \
+    case 8: F<8>(__VA_ARGS__); break;          \
+    case 9: F<9>(__VA_ARGS__); break;          \
+    case 10: F<10>(__VA_ARGS__); break;        \
+    case 11: F<11>(__VA_ARGS__); break;        \
+    case 12: F<12>(__VA_ARGS__); break;        \
+    default: F<13>(__VA_ARGS__); break;        \
   }
-}

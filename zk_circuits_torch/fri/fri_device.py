@@ -68,7 +68,8 @@ def _ddl(c0, c1, zp0, zp1, zi0, zi1):
 def _ext_coset_ntt_dev(c0, c1, shift: int, out_size: int):
     """Evaluate an ext-coeff pair on the coset shift*<w_N>: each component
     zero-padded to ``out_size`` and coset-transformed in one call."""
-    return nttm.coset_ntt(c0, shift, out_size), nttm.coset_ntt(c1, shift, out_size)
+    v = nttm.coset_ntt(torch.stack([c0, c1]), shift, out_size)
+    return v[0], v[1]
 
 
 def _fiber_leaves(v0, v1, arity: int) -> torch.Tensor:

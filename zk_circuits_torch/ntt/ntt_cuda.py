@@ -10,11 +10,14 @@ its transforms on a CUDA tensor to one ``transform`` call here.
 Five modes (``MODES``), each one call of the kernel: ``ntt``, ``intt``,
 ``coset_ntt`` (also zero-padded to a larger size), ``coset_intt`` and
 ``lde``.  The coset scaling, the LDE's zeros, the inverse's reversal and
-n^-1 run inside the kernel (csrc/ntt.cuh gives the formula).  A transform
-of up to 2^``ROW_MAX_LOG`` points is one launch (the row path); a larger
-one is two (the four-step over ``split(n)``'s factors, through a scratch
-tensor).  Bound on the H100: bytes or the butterflies' multiplies,
-whichever is larger (see the kernel source and chip_smoke.py's k4_work).
+n^-1 run inside the kernel (csrc/ntt.cuh gives the formula and the
+rounds).  A transform of up to 2^``ROW_MAX_LOG`` points is one launch (the
+row path); a larger one is two (the four-step over ``split(n)``'s
+factors, through a scratch tensor).  ``tiles`` sizes each pass's tiles
+from the card's SM count so that the pass launches ``BLOCKS_PER_SM``
+blocks an SM where the call has the columns.  Bound on the H100: bytes or
+the butterflies' multiplies, whichever is larger (see the kernel source
+and chip_smoke.py's k4_work).
 
 Counters: ``launches`` (kernel launches: 1 a row-path call, 2 a four-step
 call), by mode and by card, and ``copies`` (inputs copied once because
@@ -43,8 +46,15 @@ from . import ntt as nttm
 
 HEADERS = ("goldilocks.cuh", "ntt.cuh")
 MODES = ("ntt", "intt", "coset_ntt", "coset_intt", "lde")
-ROW_MAX_LOG = 13      # the row path's largest transform: 2^13 points (a tile)
+ROW_MAX_LOG = 12      # the row path's largest transform: 2^12 points (a tile)
 MAX_LOG_N = 26        # the four-step's: factors of up to 2^13 each
+V_LOG = 4             # values a thread holds, log2 (csrc/ntt.cuh K4_LOG_V)
+TILE_MAX_LOG = 12     # the kernel's largest tile (csrc/ntt.cuh K4_TILE_MAX_LOG)
+TILE_LOG = 12         # a tile's values at most, log2, unless a pass is longer: 32 KB
+TILE_MIN_LOG = 9      # and at least (32 threads), where the pass has the columns
+COLS_MIN_LOG = 2      # the four-step's columns at least: the runs of j1 (pass A) and
+                      # k2 (pass B) that neighbouring threads load and store
+BLOCKS_PER_SM = 4     # tiles shrink until a pass launches this many blocks an SM
 
 # Launches of the CUDA kernel in this process, in all, by mode and by card,
 # and the inputs copied to a contiguous last axis.
@@ -66,7 +76,7 @@ class _Call(ctypes.Structure):
                 ("scale", ctypes.c_ulonglong), ("rows", ctypes.c_longlong),
                 ("in_stride", ctypes.c_longlong), ("n_in", ctypes.c_longlong),
                 ("log_n", ctypes.c_int), ("log_n1", ctypes.c_int),
-                ("inverse", ctypes.c_int)]
+                ("inverse", ctypes.c_int), ("log_cols", ctypes.c_int * 3)]
 
 
 def reset_launches() -> None:
@@ -103,6 +113,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.k4_ntt.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.k4_ntt.restype = ctypes.c_int
     lib.k4_call_size.restype = ctypes.c_int
+    lib.k4_sm_count.argtypes = [ctypes.c_int]
+    lib.k4_sm_count.restype = ctypes.c_int
     if lib.k4_call_size() != ctypes.sizeof(_Call):
         raise RuntimeError(f"K4Call is {lib.k4_call_size()} bytes in the library, "
                            f"{ctypes.sizeof(_Call)} in its ctypes mirror")
@@ -124,9 +136,9 @@ def _lib():
 
 def split(n: int) -> tuple[int, int]:
     """The four-step's factors n = n1 * n2: n1 = 2^floor(log2(n) / 2), so
-    both fit a tile up to 2^26 and pass A reads runs of several j1 (the
+    both fit a pass up to 2^26 and pass A reads runs of several j1 (the
     JAX package's ``_split`` keeps n1 <= 128 for its matmul, which would
-    leave n2 = 2^15 at 2^22 points, more than a tile)."""
+    leave n2 = 2^15 at 2^22 points, more than a pass)."""
     log = n.bit_length() - 1
     return 1 << (log // 2), 1 << (log - log // 2)
 
@@ -139,22 +151,131 @@ def plan(n: int) -> int:
     return split(n)[0].bit_length() - 1
 
 
-def stage_table(n: int) -> np.ndarray:
-    """K4's twiddle table for transforms of up to n points: stage s's
-    w_{2^(s+1)}^j (j < 2^s) from slot 2^s - 1, for s < log2(n); n - 1
-    values (one for n = 1), the last n / 2 of them w_n^e."""
-    segs = [gl.powers(gl.primitive_root_of_unity(s + 1), 1 << s)
-            for s in range(n.bit_length() - 1)]
-    return np.concatenate(segs) if segs else np.ones(1, dtype=np.uint64)
+def _passes(rows: int, log_n: int, log_n1: int) -> list:
+    """(pass, log2 of its length, log2 of the columns it has a batch row
+    or, for the row path, of the rows rounded up) of each pass of a call."""
+    if log_n1 == 0:
+        return [(0, log_n, max(rows - 1, 0).bit_length())]
+    return [(1, log_n - log_n1, log_n1), (2, log_n1, log_n - log_n1)]
 
 
-def twiddles(n: int, device) -> torch.Tensor:
-    """``stage_table(n)`` on ``device``, uploaded once and cached beside
-    ntt.py's tables: every stage's twiddles and the four-step's."""
-    return nttm._cached(("k4_tw", n, str(device)), lambda: gfd.from_u64(stage_table(n), device))
+def _blocks(rows: int, p: int, cols: int, lc: int) -> int:
+    return -(-rows >> lc) if p == 0 else rows << (cols - lc)
+
+
+def tiles(rows: int, n: int, log_n1: int, sms: int) -> tuple[int, int, int]:
+    """log2 of the columns a tile of each pass holds (rows on the row path;
+    j1 in pass A, k2 in pass B; K4Call's ``log_cols``): 2^TILE_LOG values,
+    or the pass's length if longer, shrunk while the pass launches fewer
+    than BLOCKS_PER_SM * ``sms`` blocks, but not below 2^TILE_MIN_LOG
+    values nor, on the four-step, 2^COLS_MIN_LOG columns, and never past
+    the columns there are or the kernel's largest tile."""
+    cols = [0, 0, 0]
+    for p, l, have in _passes(rows, n.bit_length() - 1, log_n1):
+        fit = max(0, TILE_MAX_LOG - l)   # csrc/ntt.cuh k4_tile_fits
+        lo = min(have, fit, max(0, TILE_MIN_LOG - l, COLS_MIN_LOG if p else 0))
+        lc = max(lo, min(have, fit, TILE_LOG - l))
+        while lc > lo and _blocks(rows, p, have, lc) < BLOCKS_PER_SM * sms:
+            lc -= 1
+        cols[p] = lc
+    return tuple(cols)
+
+
+def rounds(log_len: int) -> int:
+    """Rounds of a pass of 2^log_len points (csrc/ntt.cuh k4_rounds)."""
+    return 1 if log_len <= V_LOG else -(-log_len // V_LOG)
+
+
+def radix_logs(log_len: int) -> list:
+    """log2 of each round's radix (csrc/ntt.cuh k4_radix_log): 16 but one
+    round, which takes what is left: the last of two, the second of three
+    or four."""
+    k = rounds(log_len)
+    logs = [V_LOG] * k
+    logs[1 if k > 2 else k - 1] = log_len - V_LOG * (k - 1)
+    return logs
+
+
+def pass_logs(n: int, log_n1: int) -> list:
+    """log2 of the length of each pass of a call: n, or n2 then n1."""
+    return [l for _, l, _ in _passes(1, n.bit_length() - 1, log_n1)]
+
+
+def launch_shape(rows: int, n: int, log_n1: int, cols: tuple) -> list:
+    """(blocks, threads, shared bytes) of each launch of a call, as
+    csrc/ntt.cu makes them (k4_blocks, k4_threads, k4_smem_elems)."""
+    out = []
+    for p, l, have in _passes(rows, n.bit_length() - 1, log_n1):
+        lc = cols[p]
+        pitch = (1 << l) + ((1 << l) >> 4) + (p == 1)
+        out.append((_blocks(rows, p, have, lc), max(1, 1 << (l + lc - V_LOG)),
+                    8 * (pitch << lc) if rounds(l) > 1 else 0))
+    return out
+
+
+def round_tables(log_len: int) -> np.ndarray:
+    """A pass's inter-round twiddles: for each round r but the last, of
+    radix R_r over sub-transforms of L_r points, w_(L_r)^(j k) at
+    k L_r / R_r + j (k < R_r, j < L_r / R_r)."""
+    segs, lr = [], log_len
+    for b in radix_logs(log_len)[:-1]:
+        e = np.arange(1 << b)[:, None] * np.arange(1 << (lr - b))[None, :]
+        segs.append(gl.powers(gl.primitive_root_of_unity(lr), 1 << lr)[e.reshape(-1)])
+        lr -= b
+    return np.concatenate(segs) if segs else np.zeros(0, dtype=np.uint64)
+
+
+def tables(n: int, log_n1: int) -> np.ndarray:
+    """K4's tables for a call of n points (csrc/ntt.cuh): the row path's
+    round tables, or pass A's and pass B's, then for the four-step w_n^e as
+    lo (e < 2^h) and hi (w_n^(2^h e), e < n / 2^h), h = ceil(log2(n) / 2);
+    at least one value."""
+    log_n = n.bit_length() - 1
+    if log_n1 == 0:
+        segs = [round_tables(log_n)]
+    else:
+        h = (log_n + 1) // 2
+        w = gl.primitive_root_of_unity(log_n)
+        segs = [round_tables(log_n - log_n1), round_tables(log_n1), gl.powers(w, 1 << h),
+                gl.powers(pow(int(w), 1 << h, gl.P_INT), 1 << (log_n - h))]
+    segs.append(np.ones(1, dtype=np.uint64))
+    return np.concatenate(segs)
+
+
+def twiddles(n: int, log_n1: int, device) -> torch.Tensor:
+    """``tables(n, log_n1)`` on ``device``, uploaded once and cached beside
+    ntt.py's tables."""
+    return nttm._cached(("k4_tw", n, log_n1, str(device)),
+                        lambda: gfd.from_u64(tables(n, log_n1), device))
+
+
+def _sm_count(lib, device) -> int:
+    """The card's SM count through the library (cached a card); the host
+    tests' library gives its own."""
+    if device.type != "cuda":
+        return lib.k4_sm_count(0)
+    return nttm._cached(("k4_sms", str(device)), lambda: lib.k4_sm_count(device.index))
+
+
+def occupancy(device, log_len: int, threads: int, smem: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` shared bytes of a pass of
+    2^log_len points that one SM of the CUDA ``device`` holds at once (for
+    chip_smoke.py's report)."""
+    lib = _lib()
+    lib.k4_occupancy.argtypes = [ctypes.c_int] * 4
+    lib.k4_occupancy.restype = ctypes.c_int
+    return lib.k4_occupancy(torch.device(device).index or 0, log_len, threads, smem)
 
 
 # --- the entry point ---------------------------------------------------------------
+
+
+def _coset_intt_post(shift: int, n: int, device) -> torch.Tensor:
+    """n^-1 shift^-m for m < n: the coset INTT's output scaling, one table
+    (cached)."""
+    inv = pow(shift, gl.P_INT - 2, gl.P_INT)
+    return nttm._cached(("k4_post", inv, n, str(device)), lambda: gfd.from_u64(
+        gl.mul(gl.powers(inv, n), np.uint64(pow(n, gl.P_INT - 2, gl.P_INT))), device))
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -213,21 +334,21 @@ def transform(x: torch.Tensor, mode: str, *, rate_bits: int = 0,
     if rows == 0:
         return out.view(*x.shape[:-1], n)
     inverse = mode in ("intt", "coset_intt")
+    lib = _lib() if dev.type == "cuda" else lib
     scratch = torch.empty_like(out) if log_n1 else None
     pre = nttm.powers(shift, n_in, dev) if mode in ("coset_ntt", "lde") else None
-    post = nttm.powers(pow(shift, gl.P_INT - 2, gl.P_INT), n, dev) if mode == "coset_intt" else None
+    post = _coset_intt_post(shift, n, dev) if mode == "coset_intt" else None
     call = _Call(x=v.data_ptr(), out=out.data_ptr(),
                  scratch=scratch.data_ptr() if scratch is not None else None,
-                 tw=twiddles(n, dev).data_ptr(), pre=pre.data_ptr() if pre is not None else None,
+                 tw=twiddles(n, log_n1, dev).data_ptr(),
+                 pre=pre.data_ptr() if pre is not None else None,
                  post=post.data_ptr() if post is not None else None,
-                 scale=pow(n, gl.P_INT - 2, gl.P_INT) if inverse else 1, rows=rows,
+                 scale=pow(n, gl.P_INT - 2, gl.P_INT) if mode == "intt" else 1, rows=rows,
                  in_stride=v.stride(0), n_in=n_in, log_n=log_n, log_n1=log_n1,
-                 inverse=int(inverse))
-    if dev.type == "cuda":
-        err = _lib().k4_ntt(dev.index, ctypes.byref(call),
-                            torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        err = lib.k4_ntt(0, ctypes.byref(call), None)
+                 inverse=int(inverse),
+                 log_cols=(ctypes.c_int * 3)(*tiles(rows, n, log_n1, _sm_count(lib, dev))))
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    err = lib.k4_ntt(dev.index or 0, ctypes.byref(call), stream)
     if err != 0:
         raise RuntimeError(f"k4_ntt ({mode}, n={n}, log_n1={log_n1}) failed: CUDA error {err}")
     if dev.type == "cuda":

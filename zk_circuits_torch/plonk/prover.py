@@ -89,11 +89,9 @@ def _quotient_commit_body(common, blinding: bool, cs_vals, wires_vals,
     vans = _device_vanishing_eval(common, cs_vals.t(), wires_vals.transpose(-1, -2),
                                   zsp_vals.transpose(-1, -2), x_c, l1_c, pi_hash,
                                   betas, gammas, alphas)
-    chunks = []
-    for c in range(cfg.num_challenges):
-        qc = nttm.coset_intt(gfd.mul(vans[c], zh_inv_c))  # (..., 8n) coefficients
-        for t in range(common.quotient_degree_factor):
-            chunks.append(qc[..., t * n : (t + 1) * n])
+    qs = nttm.coset_intt(gfd.mul(torch.stack(vans), zh_inv_c))  # (challenges, ..., 8n)
+    chunks = [qs[c, ..., t * n : (t + 1) * n] for c in range(cfg.num_challenges)
+              for t in range(common.quotient_degree_factor)]
     coeffs = torch.stack(chunks, dim=-2)
     if blinding:
         coeffs = _with_salts(coeffs)
