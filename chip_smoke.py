@@ -303,7 +303,8 @@ K4_SOURCE = "zk_circuits_torch/csrc/ntt.cu"
 K4_REPLACES = "zk_circuits_tpu/ntt/ntt_mxu.py:167"
 K4_TIMED_CALLS = 8     # back-to-back calls per K4 timing (graph_ms)
 K4_MULS_PER_PRODUCT = 8   # 32-bit multiplies of a 64x64 product
-# graph_ms of the first, radix-2 K4 (PERF.md, PR 12 run E), by k4_time's shape
+# graph_ms of the first, radix-2 K4 on an H100 (PERF.md's table, "ms before"), by
+# k4_time's shape
 K4_BEFORE_MS = {"wires_lde": 0.369428, "batch_wires_lde": 1.340142, "wires_intt": 0.071562,
                 "quotient_coset_intt_one_row": 0.063586, "level_wires_lde": 0.715634,
                 "sharded_row_ntt": 0.076704}
@@ -2506,7 +2507,7 @@ def phase_k4_time(state) -> None:
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {K4_TIMED_CALLS} "
                     f"calls on inputs of their own, L2 emptied first, per call, median of 8 "
                     f"replays (min_ms/max_ms: their range); before_ms: the first, radix-2 "
-                    f"K4 at the same shape (PERF.md, PR 12 run E); plain_ms: CUDA events "
+                    f"K4 at the same shape (PERF.md); plain_ms: CUDA events "
                     f"around one call of the plain version (ntt/ntt.py's stage loop), median "
                     f"of 3; host_us_per_call: perf_counter around 100 wrapper calls; "
                     f"launch: each launch's blocks, threads and shared bytes "
