@@ -124,7 +124,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                figure) and at the one-row coset INTT and FRI coset NTT
                that a call took before it served both challenges or both
                components, beside its plain version, its bound (bytes or
-               the butterflies' multiplies: k4_work), the time recorded
+               the decomposition's products: k4_work), the time recorded
                before the redesign (K4_BEFORE_MS), the host time a
                wrapper call, each launch's blocks, threads, shared bytes
                and resident blocks an SM; ptxas's registers and spills and
@@ -2074,9 +2074,7 @@ def k2_cards(rng):
     median of 10, beside the plain version across the cards; each result
     equal to the plain version's.  The bound: the larger of the bytes
     over the cards' HBM and the bytes each card reads from peers over
-    its NVLink.  Beside copy and the forward interleave, the library's
-    form of the same function (``k2_cards_library``).  None with fewer
-    cards."""
+    its NVLink.  None with fewer cards."""
     import numpy as np
     import torch
 
@@ -2109,16 +2107,6 @@ def k2_cards(rng):
         with torch.cuda.device(0):
             ms = cuda_ms(kernel, reps=10)
             plain_ms = cuda_ms(plain, reps=5)
-        library = {"library_ms": None}
-        if mode in ("copy", "interleave"):
-            lib_call = k2_cards_library(mode, blocks if mode == "copy" else rows, mesh.devices)
-            got, want = lib_call(), kernel()
-            if not all(torch.equal(g, w.view(g.shape)) for g, w in zip(got, want)):
-                raise AssertionError(f"K2 {mode} across {e} cards != its library form")
-            del got, want
-            with torch.cuda.device(0):
-                library = {"library_ms": cuda_ms(lib_call, reps=10)}
-            library["k2_over_library"] = ms / library["library_ms"]
         nbytes = 2 * 8 * n
         peer = 8 * n * (e - 1) // e // e        # read by each card from its peers
         bound = max(nbytes / (e * HBM_BYTES_PER_S), peer / NVLINK_BYTES_PER_S) * 1e3
@@ -2126,47 +2114,8 @@ def k2_cards(rng):
                     "mesh": [str(d) for d in mesh.devices], "ms": ms, "plain_ms": plain_ms,
                     "bytes": nbytes, "peer_bytes_per_card": peer, "bound_ms": bound,
                     "bound_by": "nvlink" if peer / NVLINK_BYTES_PER_S > nbytes / (
-                        e * HBM_BYTES_PER_S) else "bytes", "share_of_bound": bound / ms,
-                    **library})
+                        e * HBM_BYTES_PER_S) else "bytes", "share_of_bound": bound / ms})
     return out
-
-
-def k2_cards_library(mode: str, parts: list, devices: list):
-    """The library's form of K2's copy or forward interleave with shard s
-    on ``devices[s]`` (used only to time against K2): for each destination
-    card, one peer ``copy_`` of each source's block into a tensor on that
-    card (copy: ``out_d[s] = parts[s][d]``), for the interleave into an
-    (E, m / E) tensor that one ``t().contiguous()`` turns into out_d[j E +
-    t1] = z_t1[d m / E + j].  Every card's stream waits on cuda:0's at the
-    start and cuda:0's on every card's at the end, as for K2's launch; the
-    copies from cuda:0 come last on each card."""
-    import torch
-
-    e = len(parts)
-
-    def call():
-        start = torch.cuda.Event()
-        start.record(torch.cuda.current_stream(devices[0]))
-        for dev in devices:
-            torch.cuda.current_stream(dev).wait_event(start)
-        outs = []
-        for d, dev in enumerate(devices):
-            with torch.cuda.device(dev):
-                if mode == "copy":
-                    out = torch.empty((e, *parts[0][d].shape), dtype=torch.int64, device=dev)
-                else:
-                    bm = parts[0].numel() // e
-                    out = torch.empty((e, bm), dtype=torch.int64, device=dev)
-                for s in sorted(range(e), key=lambda s: s == 0):
-                    src = parts[s][d] if mode == "copy" else parts[s][d * bm:(d + 1) * bm]
-                    out[s].copy_(src, non_blocking=True)
-                outs.append(out if mode == "copy" else out.t().contiguous().view(-1))
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(dev))
-                torch.cuda.current_stream(devices[0]).wait_event(done)
-        return outs
-
-    return call
 
 
 def phase_k2_time(state) -> None:
@@ -2340,23 +2289,40 @@ def k4_inputs(rng, shape, count: int = 1) -> list:
 def k4_work(mode: str, shape: tuple, n: int) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) that one K4 call's function needs: its
     input read once and its output written once (K4's own tables are not
-    the function's); in each stage, a product a butterfly whose twiddle is
-    not 1, where over an input zero-padded from n_in to n points (lde, a
-    padded coset_ntt) the first log2(n / n_in) stages, loaded bit-reversed,
-    only copy, so a row needs (n/2) log2(n_in) - (n_in - 1) products; and
-    the mode's scalings: shift^i on the inputs but the first, n^-1 on the
-    inverse's outputs (for the coset INTT one table of n^-1 shift^-m).
-    8 multiplies a 64x64 product."""
+    the function's); the products of the radix-16 decomposition K4 runs
+    (csrc/ntt.cuh), where a product by a power of w_16 is a shift and
+    counts nothing: in each pass, each column's inter-round twiddles
+    w_(L_r)^(j k) with j, k > 0 (S_r (R_r - 1) (M_r - 1) after round r,
+    in round 0 only for the j that an input reaches: an LDE's zero tasks
+    need none); on the four-step, w_n^(j1 k2) for j1, k2 > 0; and the
+    mode's scalings: shift^i on the inputs but the first, n^-1 on the
+    inverse's outputs (for the coset INTT one table of n^-1 shift^-m; for
+    the four-step INTT n products that take the four-step twiddle and n^-1
+    together, as pass A does).  8 multiplies a 64x64 product."""
+    from zk_circuits_torch.ntt import ntt_cuda
+
     rows, n_in = 1, shape[-1]
     for d in shape[:-1]:
         rows *= d
     nbytes = 8 * rows * (n_in + n)
-    products = rows * ((n // 2) * (n_in.bit_length() - 1) - (n_in - 1))
+    log_n1 = ntt_cuda.plan(n)
+    products = 0
+    for p, l in enumerate(ntt_cuda.pass_logs(n, log_n1)):
+        # the j that an input reaches in round 0: input j (row path) or j1 + n1 j (pass A)
+        live = n_in if not log_n1 else -(-n_in >> log_n1) if p == 0 else 1 << l
+        lr, per_col = l, 0
+        for r, b in enumerate(ntt_cuda.radix_logs(l)[:-1]):
+            m = 1 << (lr - b)
+            per_col += (1 << (l - lr)) * ((1 << b) - 1) * ((min(m, live) if r == 0 else m) - 1)
+            lr -= b
+        products += (n >> l) * per_col
+    if log_n1 and mode != "intt":     # the INTT's are among its n scalings
+        products += ((1 << log_n1) - 1) * ((n >> log_n1) - 1)
     if mode in ("coset_ntt", "lde"):
-        products += rows * (n_in - 1)
+        products += n_in - 1
     if mode in ("intt", "coset_intt"):
-        products += rows * n
-    return nbytes, products * K4_MULS_PER_PRODUCT
+        products += n
+    return nbytes, rows * products * K4_MULS_PER_PRODUCT
 
 
 def k4_bound_ms(nbytes: int, muls: int) -> tuple[float, str]:

@@ -1,9 +1,10 @@
-"""Host-clock times of warm zk wormhole proofs with the torch port on one
-GPU: the cold build of the circuit (with every kernel and the host
-runtime built before it), then five single proofs and three batches of
-four, after one of each to warm up, with the stage timers' medians and
-each openings+fri stage beside the sum of its fri/* timers (the
-remainder is the host transcript); one JSON line.
+"""Host-clock times of zk wormhole proofs with the torch port on one GPU:
+the cold build of the circuit (with every kernel and the host runtime
+built before it), the first single proof and the first batch of four
+after it (cold: each kernel's first launch in the process among them),
+then five single proofs and three batches of four, with the stage
+timers' medians and each openings+fri stage beside the sum of its fri/*
+timers (the remainder is the host transcript); one JSON line.
 
     python scripts/torch_prove_times.py [CHECKOUT]
 
@@ -49,6 +50,12 @@ def main() -> None:
     poseidon_cuda.build()
     witness_cuda.build()
     try:
+        from zk_circuits_torch.ntt import ntt_cuda
+    except ImportError:
+        ntt_cuda = None
+    if ntt_cuda is not None:
+        ntt_cuda.build()
+    try:
         from zk_circuits_torch import native
     except ImportError:
         native = None
@@ -70,8 +77,8 @@ def main() -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
-    timed(lambda: cd.prove(pw(), device="cuda"))
-    timed(lambda: prove_batch(cd, [pw() for _ in range(4)]))
+    cold_single = timed(lambda: cd.prove(pw(), device="cuda"))
+    cold_batch = timed(lambda: prove_batch(cd, [pw() for _ in range(4)]))
     profiling.reset_timings()
     single = [timed(lambda: cd.prove(pw(), device="cuda")) for _ in range(5)]
     single_stages = _medians(("prove", "fri"))
@@ -80,7 +87,8 @@ def main() -> None:
     batch_stages = _medians(("batch", "fri"))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "native": native is not None,
-        "build_s": build_s, "single_s": single, "batch_s": batch,
+        "build_s": build_s, "cold_single_s": cold_single, "cold_batch_s": cold_batch,
+        "single_s": single, "batch_s": batch,
         "single_median_s": statistics.median(single),
         "batch_median_s": statistics.median(batch),
         "single_transcript_s": _remainder(single_stages, "prove/openings+fri", ""),

@@ -1356,15 +1356,15 @@ def test_k4_lazy_add_and_sub_carry_twice(k4_lib):
 # takes both), the level-1 LDE, the sharded path's 2^20 row and FRI's
 # second coset NTT (two rows of 2^12 on the row path).
 K4_MAIN_PLANS = {
-    (139, 1 << 16): [(2224, 256, 34944), (2224, 256, 34816)],
-    (556, 1 << 16): [(8896, 256, 34944), (8896, 256, 34816)],
-    (135, 1 << 13): [(540, 128, 17536), (540, 128, 17408)],
-    (80, 1 << 13): [(640, 64, 8768), (640, 64, 8704)],
-    (20, 1 << 13): [(320, 32, 4384), (320, 32, 4352)],
-    (2, 1 << 16): [(128, 64, 8736), (128, 64, 8704)],
-    (1, 1 << 16): [(64, 64, 8736), (64, 64, 8704)],
-    (139, 1 << 17): [(4448, 256, 34880), (4448, 256, 34816)],
-    (1, 1 << 20): [(256, 256, 34848), (256, 256, 34816)],
+    (139, 1 << 16): [(2224, 256, 34944), (2224, 256, 34944)],
+    (556, 1 << 16): [(8896, 256, 34944), (8896, 256, 34944)],
+    (135, 1 << 13): [(540, 128, 17536), (540, 128, 17664)],
+    (80, 1 << 13): [(640, 64, 8768), (640, 64, 8832)],
+    (20, 1 << 13): [(320, 32, 4384), (320, 32, 4416)],
+    (2, 1 << 16): [(128, 64, 8736), (128, 64, 8736)],
+    (1, 1 << 16): [(64, 64, 8736), (64, 64, 8736)],
+    (139, 1 << 17): [(4448, 256, 34880), (4448, 256, 34944)],
+    (1, 1 << 20): [(256, 256, 34848), (256, 256, 34848)],
     (2, 1 << 12): [(2, 256, 34816)],
 }
 

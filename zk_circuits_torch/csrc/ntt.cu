@@ -9,8 +9,9 @@
 // (ntt.cuh gives the formula, its modes, the index maps and the rounds).
 //
 // Launches: the row path (n <= 2^13; the wrapper sends it up to 2^12) is
-// one launch, a block a tile of whole rows; the four-step (n up to 2^26, factors chosen by the wrapper)
-// is two, pass A then pass B, through a (rows, n2, n1) scratch tensor.
+// one launch, a block a tile of whole rows; the four-step (n up to 2^26,
+// factors chosen by the wrapper) is two, pass A then pass B, through a
+// (rows, n2, n1) scratch tensor.
 // The wrapper sizes the tiles so that a pass launches four blocks an SM
 // where the call has the columns (ntt_cuda.tiles, from the card's SM
 // count), the four-step's tiles at least 4 columns wide.
@@ -28,16 +29,19 @@
 // per-launch opt-in below).
 //
 // Bound on the H100: bytes (the input read once, the output written
-// once) or operations where the butterflies dominate: a product a
-// butterfly whose twiddle is not 1, none in the stages over an LDE's
-// zeros, at 8 32-bit multiplies each (chip_smoke.py's k4_work and k4_time
-// give both for each shape).  What the design does about it: every global
-// load and store has neighbouring threads on neighbouring addresses, the
-// intermediate values cross shared memory once a round (not once a stage),
-// and no stage, product or canonicalisation is spent on the LDE's zeros or
-// between stages.  Measured, pass A is bound by integer instructions, pass
-// B by its memory traffic at half HBM's rate, a pass of few rows by
-// latency (PERF.md, scripts/k4_variants.py).
+// once) or operations: the products of this radix-16 decomposition (the
+// inter-round and four-step twiddles that are not 1, the scalings; a
+// product by a power of w_16 is a shift and counts nothing), at 8 32-bit
+// multiplies each (chip_smoke.py's k4_work and k4_time give both for each
+// shape; at every shape of the main path the bytes bound).  What the
+// design does about it: every global load and store has neighbouring
+// threads on neighbouring addresses (pass B's last round runs over
+// columns, so that its stores fill whole sectors), the intermediate
+// values cross shared memory once a round (not once a stage), and no
+// stage, product or canonicalisation is spent on the LDE's zeros or
+// between stages.  Measured, pass A is bound by integer instructions,
+// pass B by its memory traffic below HBM's rate, a pass of few rows by
+// latency (PERF.md).
 #include <cuda_runtime.h>
 
 #include "ntt.cuh"
@@ -70,11 +74,19 @@ struct K4Thread {
   __device__ __forceinline__ void sync() { __syncthreads(); }
 };
 
-// A pass of 2^L points, a block a tile: 256 threads at most, four blocks
-// an SM (at most 64 registers a thread), or one column of 2^13 in 512.
+// Blocks of 256 threads an SM that the kernel of a pass of 2^L points is
+// built for, which caps its registers at 65536 / (256 blocks): four (64
+// registers, some 80 bytes spilled) where the passes of the large LDEs
+// need the warps for their instruction rate; three (up to 80, no spill)
+// for the short passes of the 2^13 transforms (L <= 7), one wave of a few
+// warps an SM that waits on each thread's own latency; one column of 2^13
+// in 512 threads.
+GL_HD constexpr int k4_min_blocks(int l) { return l > K4_TILE_MAX_LOG ? 1 : l <= 7 ? 3 : 4; }
+
+// A pass of 2^L points, a block a tile: 256 threads at most, or one
+// column of 2^13 in 512.
 template <int L>
-__global__ void __launch_bounds__(L > K4_TILE_MAX_LOG ? K4_MAX_THREADS : 256,
-                                  L > K4_TILE_MAX_LOG ? 1 : 4)
+__global__ void __launch_bounds__(L > K4_TILE_MAX_LOG ? K4_MAX_THREADS : 256, k4_min_blocks(L))
     k4_kernel(const __grid_constant__ K4Call c, int pass) {
   extern __shared__ uint64_t k4_smem[];
   K4Thread th{c, pass, k4_tile(c, pass, blockIdx.x), k4_smem, {}};

@@ -57,12 +57,11 @@
 // twiddles as running powers along k2.
 //
 // Shared memory: column c at c * k4_pitch(l, pass), value q at k4_pad(q),
-// one spare slot every 16 values, and in pass A an odd pitch.  A 64-bit
-// access is served a half-warp at a time; its 16 threads meet 16 bank
-// pairs at every exchange of the wide tiles (16 columns or more) and of the
-// row path, and up to four threads share a pair in pass A's exchanges of
-// a narrow tile (4 or 8 columns; scripts/k4_variants.py's pitch_spread
-// spreads those too).
+// one spare slot every 16 values, and in passes A and B an odd pitch.  A
+// 64-bit access is served a half-warp at a time; its 16 threads meet 16
+// bank pairs at every exchange of the wide tiles (16 columns or more) and
+// of the row path, and up to four threads share a pair in the exchanges
+// over columns of a narrow tile (4 or 8 columns).
 // The kernel's phases run thread tid of nthr over the tile; the host tests
 // run a block's threads one after another between the barriers, each with
 // its own 16 values.
@@ -160,10 +159,11 @@ GL_HD int k4_threads(int l, int lc) {
 }
 
 // Shared-memory slot of value q of a column, and the slots a column of the
-// pass takes: odd in pass A, whose first and last rounds run over columns.
+// pass takes: odd in the four-step's passes, whose rounds that load or
+// store run over columns (k4_task).
 GL_HD int k4_pad(int q) { return q + (q >> 4); }
 GL_HD int k4_pitch(int l, int pass) {
-  return (1 << l) + ((1 << l) >> 4) + (pass == K4_PASS_A ? 1 : 0);
+  return (1 << l) + ((1 << l) >> 4) + (pass == K4_PASS_ROW ? 0 : 1);
 }
 
 GL_HD long long k4_blocks(const K4Call& c, int pass) {
@@ -198,14 +198,16 @@ GL_HD K4Tile k4_tile(const K4Call& c, int pass, long long blk) {
   return t;
 }
 
-// Task tau of round r.  Pass A's first and last rounds put neighbouring
-// tasks on neighbouring columns (j1, contiguous in the input and in
-// scratch); otherwise neighbouring tasks take neighbouring j, then d.
+// Task tau of round r.  Pass A's first and last rounds, and pass B's last
+// round after others, put neighbouring tasks on neighbouring columns (j1,
+// contiguous in the input and in scratch; k2, contiguous in the output);
+// otherwise neighbouring tasks take neighbouring j, then d.
 GL_HD K4Task k4_task(int pass, const K4Tile& t, int r, int tau) {
   const int b = k4_radix_log(t.l, r), lm = t.l - k4_done_log(t.l, r) - b;   // log2 M_r
   K4Task k;
   int q;
-  if (pass == K4_PASS_A && (r == 0 || r == t.rounds - 1)) {
+  if ((pass == K4_PASS_A && (r == 0 || r == t.rounds - 1)) ||
+      (pass == K4_PASS_B && r > 0 && r == t.rounds - 1)) {
     k.c = tau & ((1 << t.lc) - 1);
     q = tau >> t.lc;
   } else {

@@ -16,8 +16,8 @@ row path); a larger one is two (the four-step over ``split(n)``'s
 factors, through a scratch tensor).  ``tiles`` sizes each pass's tiles
 from the card's SM count so that the pass launches ``BLOCKS_PER_SM``
 blocks an SM where the call has the columns.  Bound on the H100: bytes or
-the butterflies' multiplies, whichever is larger (see the kernel source
-and chip_smoke.py's k4_work).
+the products of the radix-16 decomposition, whichever is larger (see the
+kernel source and chip_smoke.py's k4_work).
 
 Counters: ``launches`` (kernel launches: 1 a row-path call, 2 a four-step
 call), by mode and by card, and ``copies`` (inputs copied once because
@@ -207,7 +207,7 @@ def launch_shape(rows: int, n: int, log_n1: int, cols: tuple) -> list:
     out = []
     for p, l, have in _passes(rows, n.bit_length() - 1, log_n1):
         lc = cols[p]
-        pitch = (1 << l) + ((1 << l) >> 4) + (p == 1)
+        pitch = (1 << l) + ((1 << l) >> 4) + (p != 0)
         out.append((_blocks(rows, p, have, lc), max(1, 1 << (l + lc - V_LOG)),
                     8 * (pitch << lc) if rounds(l) > 1 else 0))
     return out
