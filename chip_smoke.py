@@ -6,9 +6,10 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. card     -- the card's name and power limit; build the Poseidon kernel
-               (K1), the block exchange (K2), the witness schedule (K3)
-               and the NTT (K4) from csrc/, one nvcc each, all started
-               together, timed.
+               (K1), the block exchange (K2), the witness schedule (K3),
+               the NTT (K4), the vanishing polynomial (K5) and the
+               permutation products (K6) from csrc/, one nvcc each, all
+               started together, timed.
 2. square   -- a one-gate square circuit under both standard configs: the
                proof from device="cuda" must equal the proof from
                device="cpu" byte for byte, and verify.
@@ -22,14 +23,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                each wide level, one cells launch), and no host witness;
                K4's, by mode, those of the proof's transforms (two a
                four-step, one a row-path call: expected_k4_launches), and
-               no call of the NTT's plain stage loop on the card.
+               no call of the NTT's plain stage loop on the card; K5's
+               (one) and K6's (two) a proof, and no call of the quotient's
+               or the permutation argument's plain version on the card
+               (plain_quotient_on_card).
 4. batch    -- the batched prover: prove_batch of B=4 zk wormhole proofs
                (one cold batch, two warm), each proof's sha256 == the pinned
                digest, proof 0 verified and a tampered copy refused; K1's
                launches per batch by mode == those of one proof (tree, top)
                and the PoW sweeps the found witnesses need, K3's == those of
                one proof, no host witness, K4's == those of one proof
-               and no plain NTT on the card; stage times, the
+               and no plain NTT on the card, K5 once and K6 twice a batch
+               and no plain quotient body on the card; stage times, the
                second warm batch under torch.profiler and bench.py's JSON
                keys; then the square circuit at B=4 with distinct witnesses
                under a zk config with FRI fold rounds, each proof == a
@@ -73,7 +78,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 8. profile  -- one more warm wormhole proof under torch.profiler: device
                busy time and idle share, device operations beside
                DEVICE_OPS_BEFORE (a record, not a gate), top kernels, K3's
-               and K4's launches.
+               and K4's launches; then one more with each prove/* stage
+               under a profiler window of its own (stage_device_ops): its
+               device operations, busy time and most frequent operations;
+               K5 once and K6 twice a proof, no plain quotient body.
 9. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
                card (and spread over the cards when there are several):
                copy with even and odd block sizes and edge values, and at E=4 every fiber regroup and
@@ -93,7 +101,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                verified, tamper-checked).  K2's launch counter must rise in
                every sub-step, K1's in every sub-step that hashes leaves;
                each four-step's row NTTs are one K4 four-step a shard, and
-               K4's launches by mode are printed per sub-step.
+               K4's launches by mode are printed per sub-step; a sharded
+               proof launches K5 once a shard (its rows, row0 and its halo)
+               and K6 twice, with no plain quotient body on the card.
                Then the device operations of one profiled 2^22 four-step,
                fused and as the sequence it replaced (K2 copies with eager
                torch field operations between them), each with its K2
@@ -141,14 +151,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
                public inputs extract equal to the leaf's.  Every level
                prove (a batch of 4, a batch of 2, one proof) launches K1 by
                mode and K3 by kernel as many times as its level circuit
-               gives, with no host witness.  Then the host's part of a
+               gives, K5 once and K6 twice, with no host witness and no
+               plain quotient body on the card.  Then the host's part of a
                level-1 prove (the chunk witnesses, seed_batch), one warm
                level-1 prove_level under torch.profiler, and K1 (the
                level-1 wires tree, alone and at B=4) and K3 (the level-1
                witness at B=4, the level-3 witness alone) at the level
                circuits' shapes, each held to its plain version and timed
                as in k1_time and witness_check.
-15. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
+15. k5_check -- K5 against its plain version (plonk/prover.py's
+               _device_vanishing_eval times 1/Z_H) on the card, equal
+               integers: the wormhole's coset alone and at B=4, the
+               level-1 aggregation circuit's (arithmetic-extension and
+               random-access gates) at its batch of 4, the sharded path's
+               E=4 calls (a shard's rows, row0 and its halo) against the
+               whole coset, and inputs of 0, 1 and p - 1.
+16. k6_check -- K6 against its plain version (_zs_values_plain) on the
+               card, equal integers: the same shapes on H, one proof
+               unbatched (the sharded prover's call), a zero denominator
+               in one chunk, inputs of 0, 1 and p - 1.
+17. k5_time -- K5's device time (graph_ms) at k5_check's three main-path
+               shapes beside its plain version, its bound (bytes, or the
+               64x64 products counted from the circuit's table: k5_work)
+               and the host time of a wrapper call; ptxas's registers and
+               spills and the SASS counts of each kernel.  A share of the
+               bound above 1.05 fails.
+18. k6_time -- the same for K6 (k6_work).
+19. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
                over make_mesh(4) (shard i on cuda:(i % cards); the four
                shards prove in turn, on one card or on four), cold and
                warm, beside an unsharded batch of 8 cold
@@ -161,7 +190,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                utils/profiling.device_trace (torch.profiler, a Chrome
                trace written under ZKT_PROFILE_DIR), each card's busy
                time and idle share.
-16. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
+20. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
                with its cached level circuits (none built again), once
                on one card and twice (first, warm) on several:
                level 1's 4 chunks split one a shard, level 2 (B=2, not a
@@ -170,7 +199,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                leaves extracted; K1/K3 launches a level prove as its
                split gives; seconds per level beside the aggregate
                phase's warm unsharded ones.
-17. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
+21. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
                shards: with 4 cards or more each process owns 2 cards
                and the backend is nccl, else both share cuda:0 under
                gloo (NCCL refuses two ranks on one card); the backend
@@ -184,13 +213,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     With four cards or more, k1_time also times the wires tree on each
     card alone and on all at once, and k2_time each K2 mode at 2^22
     points with its shards on four cards (NVLink peers).
-18. voting  -- the vote circuit of tests/test_voting.py under
+22. voting  -- the vote circuit of tests/test_voting.py under
                standard_recursion_config built and proved on the card (cold
                and warm), sha256 == the JAX host path's (pinned below),
                verified, tamper-checked, K1's and K3's launches as the
                circuit gives, no host witness; a vote with the wrong
                Merkle depth refused by the device witness on the card.
-19. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
+23. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
                written to a temporary directory; WormholeProver.new_from_files
                proves the golden inputs on the card (sha256 == the pinned
                zk digest) and WormholeVerifier.new_from_files verifies it;
@@ -198,7 +227,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                decodes to a proof with the JAX host path's sha256 (pinned
                below), which a freshly built verifier accepts, whose public
                inputs are the golden fixture's.
-20. compat  -- the reference-format layer (zk_circuits_torch/compat, host
+24. compat  -- the reference-format layer (zk_circuits_torch/compat, host
                numpy): its import runs the fast-Poseidon self-check; K1's
                hash_rows of 4096 seeded rows of 8 felts (one permutation
                each, state = row || 0^4) on the card equals its plain
@@ -209,7 +238,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and its polys' sha256 is the JAX package's (pinned below).
                Its K1 launch is a cross-check, counted apart under
                launches_by_path["compat"].
-21. native  -- the host runtime (zk_circuits_torch.native: g++ builds
+25. native  -- the host runtime (zk_circuits_torch.native: g++ builds
                csrc/host_native.cpp in the card phase, beside the nvcc
                builds; its seconds and library name): every function
                equal to its numpy plain version at the circuit's sizes
@@ -231,6 +260,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -302,6 +332,13 @@ K3_TIMED_CALLS = 4     # back-to-back witnesses per K3 timing (graph_ms)
 K4_SOURCE = "zk_circuits_torch/csrc/ntt.cu"
 K4_REPLACES = "zk_circuits_tpu/ntt/ntt_mxu.py:167"
 K4_TIMED_CALLS = 8     # back-to-back calls per K4 timing (graph_ms)
+K5_SOURCE = "zk_circuits_torch/csrc/quotient.cu"
+K5_REPLACES = "zk_circuits_tpu/plonk/prover.py:186"
+K5_TIMED_CALLS = 4     # back-to-back calls per K5 timing (graph_ms)
+K6_SOURCE = "zk_circuits_torch/csrc/permutation.cu"
+K6_REPLACES = "zk_circuits_tpu/plonk/prover.py:266"
+K6_TIMED_CALLS = 8     # back-to-back calls per K6 timing (graph_ms)
+K6_INVERSE_PRODUCTS = 73   # csrc/permutation.cuh k6_inverse: 64 squarings and 9 products
 K4_MULS_PER_PRODUCT = 8   # 32-bit multiplies of a 64x64 product
 # graph_ms of the first, radix-2 K4 on an H100 (PERF.md's table, "ms before"), by
 # k4_time's shape
@@ -316,7 +353,7 @@ K3_PRODUCTS = {"const": 0, "arith": 3, "arith_ext": 9, "eq_inv": 127, "ext_inv":
                "base_sum": 0, "random_access": 0, "poseidon": 4 + 118 * 4}
 K3_CHAIN_DEPTH = 128   # levels of the arith chain circuit that times a narrow level
 # a warm wormhole proof's device operations with the host witness (PERF.md)
-DEVICE_OPS_BEFORE = 75940   # a warm proof's device operations before K4 (PERF.md)
+DEVICE_OPS_BEFORE = 64251   # a warm proof's device operations before K5 and K6 (PERF.md)
 SHARDS = 4             # E of the sharded phase
 BATCH = 4              # proofs per prove_batch call (bench.py's ZKT_BENCH_BATCH)
 NTT_LOG = 22           # SCALING.md's size of one sharded polynomial
@@ -430,6 +467,7 @@ def phase_card(state) -> None:
     from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.ntt import ntt_cuda
     from zk_circuits_torch.parallel import exchange_cuda
+    from zk_circuits_torch.plonk import permutation_cuda, quotient_cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -443,20 +481,22 @@ def phase_card(state) -> None:
 
     poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's, K3's, native's
     # one nvcc per source and g++ for the host runtime, all started together
-    with ThreadPoolExecutor(5) as pool:
-        k1, k2, k3, k4, host = pool.map(timed, (poseidon_cuda.build, exchange_cuda.build,
-                                                witness_cuda.build, ntt_cuda.build,
-                                                native.build))
+    with ThreadPoolExecutor(7) as pool:
+        k1, k2, k3, k4, k5, k6, host = pool.map(timed, (
+            poseidon_cuda.build, exchange_cuda.build, witness_cuda.build, ntt_cuda.build,
+            quotient_cuda.build, permutation_cuda.build, native.build))
     native.available()
     state["native_build"] = {"build_s": host, "library": native.build().name,
                              "compiler_output": native.build_log}
-    ptxas = [ln.strip() for mod in (poseidon_cuda, exchange_cuda, witness_cuda, ntt_cuda)
+    ptxas = [ln.strip() for mod in (poseidon_cuda, exchange_cuda, witness_cuda, ntt_cuda,
+                                    quotient_cuda, permutation_cuda)
              for ln in mod.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "card", "nvidia_smi": state["smi"],
           "name": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "k1_build_s": k1, "k2_build_s": k2, "k3_build_s": k3, "k4_build_s": k4,
+          "k5_build_s": k5, "k6_build_s": k6,
           "native_build_s": host,
           "ptxas": ptxas})
 
@@ -907,15 +947,18 @@ def phase_wormhole(state) -> None:
         return proof, time.perf_counter() - t
 
     profiling.reset_timings()
-    with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts:
+    with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts, \
+            plain_quotient_on_card() as plain_quotient:
         poseidon_cuda.reset_launches()      # main path starts here
         witness_cuda.reset_launches()
         ntt_cuda.reset_launches()
+        reset_quotient_launches()
         proof, cold_s = one_proof(prover)
         per_proof = poseidon_cuda.launches
         by_mode = dict(poseidon_cuda.launches_by_mode)
         k3_per_proof = dict(witness_cuda.launches_by_kernel)
         k4_per_proof = dict(ntt_cuda.launches_by_mode)
+        k56_per_proof = quotient_launches()
         warm = []
         for _ in range(3):
             proof_w, dt = one_proof(WormholeProver(circuit_data=cd, targets=targets))
@@ -923,6 +966,7 @@ def phase_wormhole(state) -> None:
         launches = poseidon_cuda.launches   # main path ends here
         k3_launches = witness_cuda.launches
         k4_launches = ntt_cuda.launches
+        k5_launches, k6_launches = quotient_launches()
     if per_proof <= 0 or launches != 4 * per_proof:
         raise AssertionError(f"K1 launches: {per_proof} per proof, {launches} in all")
     want = expected_k1_launches(cd.common)
@@ -937,6 +981,10 @@ def phase_wormhole(state) -> None:
     if k4_per_proof != k4_want or k4_launches != 4 * sum(k4_want.values()) or plain_ntts:
         raise AssertionError(f"K4 launches {k4_per_proof} per proof ({k4_launches} in all), "
                              f"want {k4_want}; plain NTTs on the card: {plain_ntts}")
+    if k56_per_proof != (1, 2) or (k5_launches, k6_launches) != (4, 8) or plain_quotient:
+        raise AssertionError(f"K5, K6 launches {k56_per_proof} per proof ({k5_launches}, "
+                             f"{k6_launches} in all), want (1, 2); plain quotient bodies on "
+                             f"the card: {plain_quotient}")
 
     data = proof_to_bytes(proof)
     if proof_to_bytes(proof_w) != data:
@@ -959,6 +1007,7 @@ def phase_wormhole(state) -> None:
     state["k3_launches_by_kernel"] = dict(witness_cuda.launches_by_kernel)
     state["k4_launches"] = k4_launches
     state["k4_launches_by_mode"] = dict(ntt_cuda.launches_by_mode)
+    state["k5_launches"], state["k6_launches"] = k5_launches, k6_launches
     timings = {k: statistics.median(v) for k, v in profiling.get_timings().items()}
     emit({"phase": "wormhole", "config": "standard_recursion_zk_config",
           "degree_bits": cd.common.degree_bits, "proof_bytes": len(data),
@@ -972,6 +1021,9 @@ def phase_wormhole(state) -> None:
           "k4_launches_per_proof_by_mode": k4_per_proof, "k4_launches": k4_launches,
           "k4_launches_by_mode": state["k4_launches_by_mode"], "plain_ntts_on_card": 0,
           "k4_copies": ntt_cuda.copies,
+          "k5_launches_per_proof": k56_per_proof[0], "k5_launches": k5_launches,
+          "k6_launches_per_proof": k56_per_proof[1], "k6_launches": k6_launches,
+          "plain_quotient_on_card": 0,
           "host_witnesses": len(host_witnesses), "stage_median_s": timings})
 
 
@@ -1027,29 +1079,59 @@ def expected_k4_launches(common) -> dict:
 
 
 @contextlib.contextmanager
-def plain_ntts_on_card():
-    """A list that grows by the name of every call of ntt/ntt.py's plain
-    stage loop (``*_plain``) on a CUDA tensor inside the block: on the
-    card every transform must take K4."""
-    from zk_circuits_torch.ntt import ntt as nttm
-
-    names = ("ntt_plain", "intt_plain", "coset_ntt_plain", "coset_intt_plain", "lde_plain")
-    real, calls = {k: getattr(nttm, k) for k in names}, []
+def plain_calls_on_card(module, names):
+    """A list that grows by the name of every call of ``module``'s
+    functions ``names`` with a CUDA tensor among its arguments inside the
+    block."""
+    real, calls = {k: getattr(module, k) for k in names}, []
 
     def counted(name, fn):
-        def call(x, *args, **kwargs):
-            if x.is_cuda:
+        def call(*args, **kwargs):
+            if any(getattr(a, "is_cuda", False) for a in args):
                 calls.append(name)
-            return fn(x, *args, **kwargs)
+            return fn(*args, **kwargs)
         return call
 
     for k, fn in real.items():
-        setattr(nttm, k, counted(k, fn))
+        setattr(module, k, counted(k, fn))
     try:
         yield calls
     finally:
         for k, fn in real.items():
-            setattr(nttm, k, fn)
+            setattr(module, k, fn)
+
+
+def plain_ntts_on_card():
+    """The calls of ntt/ntt.py's plain stage loop (``*_plain``) on a CUDA
+    tensor inside the block: on the card every transform must take K4."""
+    from zk_circuits_torch.ntt import ntt as nttm
+
+    return plain_calls_on_card(nttm, ("ntt_plain", "intt_plain", "coset_ntt_plain",
+                                      "coset_intt_plain", "lde_plain"))
+
+
+def plain_quotient_on_card():
+    """The calls of the quotient's and the permutation argument's plain
+    versions (plonk/prover.py's ``_device_vanishing_eval`` and
+    ``_zs_values_plain``) on CUDA tensors inside the block: on the card the
+    main path takes K5 and K6."""
+    from zk_circuits_torch.plonk import prover
+
+    return plain_calls_on_card(prover, ("_device_vanishing_eval", "_zs_values_plain"))
+
+
+def quotient_launches() -> tuple[int, int]:
+    """K5's and K6's launches so far."""
+    from zk_circuits_torch.plonk import permutation_cuda, quotient_cuda
+
+    return quotient_cuda.launches, permutation_cuda.launches
+
+
+def reset_quotient_launches() -> None:
+    from zk_circuits_torch.plonk import permutation_cuda, quotient_cuda
+
+    quotient_cuda.reset_launches()
+    permutation_cuda.reset_launches()
 
 
 def profiled(fn) -> tuple:
@@ -1067,13 +1149,7 @@ def profiled(fn) -> tuple:
         _sync_all()
         wall = time.perf_counter() - t0
     t1 = time.perf_counter()
-    by_name: dict[str, list] = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type().name == "CUDA" and \
-                not getattr(e, "is_hidden_event", lambda: False)():
-            s = by_name.setdefault(e.name(), [0.0, 0])
-            s[0] += e.duration_ns() / 1e9
-            s[1] += 1
+    by_name = device_events(prof)
     if not by_name:
         raise AssertionError("the profiler recorded no device time")
     busy = sum(v[0] for v in by_name.values())
@@ -1088,6 +1164,50 @@ def profiled(fn) -> tuple:
         "ntt_kernel_s": sum(v[0] for k, v in by_name.items() if "k4_" in k),
         "top_device_ops": [{"name": k[:100], "s": v[0], "count": v[1]}
                            for k, v in top]}
+
+
+def device_events(prof) -> dict:
+    """{kernel or copy name: [device seconds, count]} of a torch.profiler
+    run's raw device events."""
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA" and \
+                not getattr(e, "is_hidden_event", lambda: False)():
+            s = by_name.setdefault(e.name(), [0.0, 0])
+            s[0] += e.duration_ns() / 1e9
+            s[1] += 1
+    return by_name
+
+
+@contextlib.contextmanager
+def stage_device_ops():
+    """Inside the block, each stage timer of plonk/prover_batch.py
+    (``prove/wires``, ``prove/zs``, ``prove/quotient``,
+    ``prove/openings+fri``) runs under a torch.profiler window of its own
+    (card only) ending in a synchronise; the yielded dict gets each stage's
+    device operations, busy seconds and top operations by count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zk_circuits_torch.plonk import prover_batch
+
+    real, out = prover_batch.stage_timer, {}
+
+    @contextlib.contextmanager
+    def timed(name):
+        with real(name), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            yield
+            _sync_all()
+        by_name = device_events(prof)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+        out[name] = {"device_ops": sum(v[1] for v in by_name.values()),
+                     "device_busy_s": sum(v[0] for v in by_name.values()),
+                     "top_by_count": [{"name": k[:80], "count": v[1]} for k, v in top]}
+
+    prover_batch.stage_timer = timed
+    try:
+        yield out
+    finally:
+        prover_batch.stage_timer = real
 
 
 def _refuses_tampering(cd, proof) -> None:
@@ -1136,13 +1256,16 @@ def phase_batch(state) -> None:
     poseidon_cuda.reset_launches()      # the batch path starts here
     witness_cuda.reset_launches()
     ntt_cuda.reset_launches()
+    reset_quotient_launches()
     batch_s, per_batch, k3_per_batch, k4_per_batch, prof = [], [], [], [], None
     for i in range(3):                  # one cold batch, two warm
         pws = witnesses()
         before = dict(poseidon_cuda.launches_by_mode)
         k3_before = dict(witness_cuda.launches_by_kernel)
         k4_before = dict(ntt_cuda.launches_by_mode)
-        with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts:
+        k56_before = quotient_launches()
+        with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts, \
+                plain_quotient_on_card() as plain_quotient:
             if i < 2:
                 proofs, dt = _synced(lambda: prove_batch(cd, pws))
                 batch_s.append(dt)
@@ -1165,6 +1288,10 @@ def phase_batch(state) -> None:
             raise AssertionError(f"K4 launches per batch {k4}, want {k4_want}; plain NTTs "
                                  f"on the card: {plain_ntts}")
         k4_per_batch.append(k4)
+        k56 = tuple(a - b for a, b in zip(quotient_launches(), k56_before))
+        if k56 != (1, 2) or plain_quotient:
+            raise AssertionError(f"K5, K6 launches per batch {k56}, want (1, 2); plain "
+                                 f"quotient bodies on the card: {plain_quotient}")
         digests = [hashlib.sha256(proof_to_bytes(p)).hexdigest() for p in proofs]
         if len(proofs) != BATCH or set(digests) != {GOLDEN_WORMHOLE_ZK_SHA256}:
             raise AssertionError(f"batched wormhole sha256s {digests} != pinned "
@@ -1173,6 +1300,7 @@ def phase_batch(state) -> None:
     state["k1_launches_batch"] = launches
     state["k3_launches_batch"] = witness_cuda.launches
     state["k4_launches_batch"] = ntt_cuda.launches
+    state["k5_launches_batch"], state["k6_launches_batch"] = quotient_launches()
     k4_copies = ntt_cuda.copies         # inputs K4 copied to one row stride, 3 batches
     t_verify = time.perf_counter()
     cd.verify(proofs[0])
@@ -1219,6 +1347,9 @@ def phase_batch(state) -> None:
           "k3_launches": state["k3_launches_batch"],
           "k4_launches_per_batch_by_mode": k4_per_batch,
           "k4_launches": state["k4_launches_batch"], "k4_copies": k4_copies,
+          "k5_launches_per_batch": 1, "k5_launches": state["k5_launches_batch"],
+          "k6_launches_per_batch": 2, "k6_launches": state["k6_launches_batch"],
+          "plain_quotient_on_card": 0,
           "host_witnesses": 0,
           "device_ops_before": DEVICE_OPS_BEFORE,
           "stage_median_s": stages, "stage_s": timings, "profile_warm_batch": prof,
@@ -1558,15 +1689,36 @@ def phase_profile(state) -> None:
     from zk_circuits_torch.ntt import ntt_cuda
 
     cd, targets, inputs = state["wormhole"]
+
+    def prove():
+        return WormholeProver(circuit_data=cd, targets=targets).commit(inputs).prove(
+            device="cuda")
+
     before, k4_before = witness_cuda.launches, dict(ntt_cuda.launches_by_mode)
-    _, prof = profiled(lambda: WormholeProver(circuit_data=cd, targets=targets)
-                       .commit(inputs).prove(device="cuda"))
+    k56_before = quotient_launches()
+    with plain_quotient_on_card() as plain_quotient:
+        _, prof = profiled(prove)
+        with stage_device_ops() as by_stage:
+            prove()
+    if plain_quotient:
+        raise AssertionError(f"plain quotient bodies on the card: {plain_quotient}")
+    k56 = [a - b for a, b in zip(quotient_launches(), k56_before)]
+    if k56 != [2, 4]:
+        raise AssertionError(f"K5, K6 launches {k56} over two proofs, want [2, 4]")
     state["device_ops"] = prof["device_ops"]
+    state["device_ops_by_stage"] = by_stage
     emit({"phase": "profile", **prof, "device_ops_before": DEVICE_OPS_BEFORE,
           "device_ops_shed": DEVICE_OPS_BEFORE - prof["device_ops"],
+          "device_ops_by_stage": by_stage,
+          "device_ops_in_stages": sum(v["device_ops"] for v in by_stage.values()),
           "k3_launches": witness_cuda.launches - before,
           "k4_launches_by_mode": {k: v - k4_before[k]
-                                  for k, v in ntt_cuda.launches_by_mode.items()}})
+                                  for k, v in ntt_cuda.launches_by_mode.items()},
+          "k5_launches": k56[0] // 2, "k6_launches": k56[1] // 2,
+          "plain_quotient_on_card": 0,
+          "by_stage_note": "a second warm proof, each prove/* stage under its own "
+                           "torch.profiler window (card only), ending in a synchronise; "
+                           "k5/k6 launches per proof"})
 
 
 def _synced(fn):
@@ -1617,7 +1769,12 @@ def phase_sharded(state) -> None:
         k1_before, k2_before = poseidon_cuda.launches, exchange_cuda.launches
         by_mode = dict(exchange_cuda.launches_by_mode)
         k4_before = dict(ntt_cuda.launches_by_mode)
-        res, secs = _synced(fn)
+        k56_before = quotient_launches()
+        with plain_quotient_on_card() as plain_quotient:
+            res, secs = _synced(fn)
+        if plain_quotient:
+            raise AssertionError(f"sharded/{step}: plain quotient bodies on the card: "
+                                 f"{plain_quotient}")
         k1 = poseidon_cuda.launches - k1_before
         k2 = exchange_cuda.launches - k2_before
         if k2 <= 0 or (hashes and k1 <= 0):
@@ -1626,7 +1783,9 @@ def phase_sharded(state) -> None:
                        "k2_launches_by_mode": {k: v - by_mode[k] for k, v in
                                                exchange_cuda.launches_by_mode.items()},
                        "k4_launches_by_mode": {k: v - k4_before[k] for k, v in
-                                               ntt_cuda.launches_by_mode.items()}}
+                                               ntt_cuda.launches_by_mode.items()},
+                       **dict(zip(("k5_launches", "k6_launches"), (
+                           a - b for a, b in zip(quotient_launches(), k56_before))))}
         return res
 
     n = cd.common.degree
@@ -1660,6 +1819,7 @@ def phase_sharded(state) -> None:
     poseidon_cuda.reset_launches()      # main path starts here
     exchange_cuda.reset_launches()
     ntt_cuda.reset_launches()
+    reset_quotient_launches()
     # each sub-step runs twice and the second run is timed
     # 1. batch-sharded LDE commit at the wormhole wires shape
     for _ in range(2):
@@ -1688,6 +1848,11 @@ def phase_sharded(state) -> None:
     k1_launches = poseidon_cuda.launches
     state["k4_launches_sharded"] = ntt_cuda.launches
     k4_by_mode = dict(ntt_cuda.launches_by_mode)
+    state["k5_launches_sharded"], state["k6_launches_sharded"] = quotient_launches()
+    for name in ("prove_cold", "prove_warm"):   # K5 a shard, K6 once on the first
+        if (steps[name]["k5_launches"], steps[name]["k6_launches"]) != (SHARDS, 2):
+            raise AssertionError(f"sharded/{name}: K5, K6 launches {steps[name]['k5_launches']}"
+                                 f", {steps[name]['k6_launches']}, want {SHARDS}, 2")
     for name in ("ntt", "intt", "coset_lde"):   # each card's row NTT: one K4 four-step
         if steps[name]["k4_launches_by_mode"]["ntt"] != 2 * SHARDS:
             raise AssertionError(f"sharded/{name}: K4 launches by mode "
@@ -1769,6 +1934,11 @@ def phase_sharded(state) -> None:
                k1_launches_per_proof=steps["prove_warm"]["k1_launches"],
                k4_launches=state["k4_launches_sharded"], k4_launches_by_mode=k4_by_mode,
                k4_launches_by_mode_per_proof=steps["prove_warm"]["k4_launches_by_mode"],
+               k5_launches=state["k5_launches_sharded"],
+               k5_launches_per_proof=steps["prove_warm"]["k5_launches"],
+               k6_launches=state["k6_launches_sharded"],
+               k6_launches_per_proof=steps["prove_warm"]["k6_launches"],
+               plain_quotient_on_card=0,
                cold_proof_s=steps["prove_cold"]["s"],
                warm_proof_s=steps["prove_warm"]["s"],
                ntt_ms=steps["ntt"]["s"] * 1e3)
@@ -2387,43 +2557,6 @@ def phase_k4_check(state) -> None:
           "launches": ntt_cuda.launches - before, "copies": ntt_cuda.copies})
 
 
-def k4_sass_counts() -> dict:
-    """Per kernel of K4's built library (one a pass length, k4_kernel<L>):
-    its instruction count and its IMAD.WIDE, IMAD.HI, LDS, STS, LDG, STG,
-    local (spill) and barrier counts from cuobjdump -sass, and its
-    registers and spills from ptxas (``ntt_cuda.build_log``, the output of
-    this process's build)."""
-    import collections
-    import re
-
-    from zk_circuits_torch.ntt import ntt_cuda
-
-    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(ntt_cuda.build())],
-                          capture_output=True, text=True, timeout=120).stdout
-    out = {}
-    for name, ins in sass_functions(text).items():
-        m = re.match(r"_Z\d+k4_kernelILi(\d+)E", name)
-        if not m:
-            continue
-        ops = collections.Counter(op for _, op, _ in ins)
-        out[f"L{m.group(1)}"] = {"instructions": len(ins), **{
-            k: sum(v for op, v in ops.items() if op.startswith(k))
-            for k in ("IMAD.WIDE", "IMAD.HI", "LDS", "STS", "LDG", "STG", "LDL", "STL", "BAR")}}
-    if not out:
-        raise AssertionError("no K4 kernel in the SASS")
-    kernel = None
-    for ln in ntt_cuda.build_log.splitlines():
-        m = re.search(r"entry function '_Z\d+k4_kernelILi(\d+)E", ln)
-        kernel = f"L{m.group(1)}" if m else kernel
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and kernel in out:
-            out[kernel]["registers"] = int(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and kernel in out:
-            out[kernel]["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
-    return out
-
-
 def phase_k4_time(state) -> None:
     """K4's device time at the main path's shapes (see the module doc)."""
     import numpy as np
@@ -2480,7 +2613,9 @@ def phase_k4_time(state) -> None:
                     f"(ntt_cuda.launch_shape) and resident blocks an SM "
                     f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor); library_ms: none, no "
                     f"PyTorch call computes a Goldilocks NTT",
-          "rows": rows_out, "sass": k4_sass_counts()})
+          "rows": rows_out, "sass": kernel_sass_counts(
+              ntt_cuda.build(), ntt_cuda.build_log, "k4_kernel",
+              key=lambda name: "L" + re.match(r"_Z\d+k4_kernelILi(\d+)E", name).group(1))})
     over = [r for r in rows_out if r["share_of_bound"] > 1.05]
     if over:
         raise AssertionError(f"K4 timed below its bound: {over}")
@@ -2520,7 +2655,9 @@ def level_prove_records():
         def run(self, proofs, inner_vo, *args, **kw):
             k1 = dict(poseidon_cuda.launches_by_mode)
             k3 = dict(witness_cuda.launches_by_kernel)
-            with host_witness_calls() as host_witnesses:
+            k56 = quotient_launches()
+            with host_witness_calls() as host_witnesses, \
+                    plain_quotient_on_card() as plain_quotient:
                 out, secs = _synced(lambda: real(self, proofs, inner_vo, *args, **kw))
             outs = out if isinstance(out, list) else [out]
             records.append({
@@ -2528,6 +2665,8 @@ def level_prove_records():
                 "s": secs, "host_witnesses": len(host_witnesses),
                 "k1": {k: v - k1[k] for k, v in poseidon_cuda.launches_by_mode.items()},
                 "k3": {k: v - k3[k] for k, v in witness_cuda.launches_by_kernel.items()},
+                "k5_k6": [a - b for a, b in zip(quotient_launches(), k56)],
+                "plain_quotient": len(plain_quotient),
                 "sweeps": max(p.proof.opening_proof.pow_witness for p in outs) // GRIND_ROWS + 1,
                 "pow_sweeps": [p.proof.opening_proof.pow_witness // GRIND_ROWS + 1
                                for p in outs]})
@@ -2613,11 +2752,13 @@ def phase_aggregate(state) -> None:
         profiling.reset_timings()
         pc.reset_launches()                 # the aggregate path starts here
         witness_cuda.reset_launches()
+        reset_quotient_launches()
         agg, root, cold_s = aggregate()
         _, warm_root, warm_s = aggregate()
         k1_launches = pc.launches           # the aggregate path ends here
         k1_by_mode = dict(pc.launches_by_mode)
         k3_launches = witness_cuda.launches
+        k5_launches, k6_launches = quotient_launches()
     level_prove_s = profiling.get_timings()["agg/level_prove"]
 
     data = proof_to_bytes(root)
@@ -2647,15 +2788,18 @@ def phase_aggregate(state) -> None:
         k3_want = expected_k3_launches(lc.circuit_data)
         k1 = r["k1"]
         if (k1["tree"], k1["top"], k1["sponge"]) != (want["tree"], want["top"], r["sweeps"]) \
-                or r["k3"] != k3_want or r["host_witnesses"]:
+                or r["k3"] != k3_want or r["host_witnesses"] or r["k5_k6"] != [1, 2] \
+                or r["plain_quotient"]:
             raise AssertionError(f"aggregate level {i % depth + 1}: K1 {k1} (want {want}, "
                                  f"{r['sweeps']} sweeps), K3 {r['k3']} (want {k3_want}), "
-                                 f"{r['host_witnesses']} host witnesses")
+                                 f"{r['host_witnesses']} host witnesses, K5/K6 {r['k5_k6']} "
+                                 f"(want [1, 2]), {r['plain_quotient']} plain quotient "
+                                 f"bodies on the card")
         proves.append({"run": "cold" if i < depth else "warm", "level": i % depth + 1,
                        "batch": r["batch"], "s": r["s"], "agg_level_prove_s": level_prove_s[i],
                        "k1_launches_by_mode": k1, "k1_expected": want, "sweeps": r["sweeps"],
                        "k3_launches_by_kernel": r["k3"], "k3_expected": k3_want,
-                       "host_witnesses": 0})
+                       "k5_k6_launches": r["k5_k6"], "host_witnesses": 0})
     levels = [r["level"] for r in records[:depth]]
     circuits = []
     for i, lc in enumerate(levels):
@@ -2736,7 +2880,9 @@ def phase_aggregate(state) -> None:
         if k["name"] in ("poseidon_leaf_hash", "witness_schedule"):
             k["launches_by_path"]["aggregate"] = (k1_launches if k["name"] ==
                                                   "poseidon_leaf_hash" else k3_launches)
-    state["aggregate_launches"] = {"k1": k1_launches, "k3": k3_launches}
+    state["aggregate_launches"] = {"k1": k1_launches, "k3": k3_launches, "k5": k5_launches,
+                                   "k6": k6_launches}
+    state["level1_cd"] = lc1.circuit_data   # k5_check's and k6_check's level-1 shapes
     state["aggregate_warm_s"] = warm_s
     state["aggregate_warm_level_s"] = {p["level"]: p["s"] for p in proves if p["run"] == "warm"}
     emit({"phase": "aggregate", "config": "standard_recursion_zk_config",
@@ -2746,7 +2892,8 @@ def phase_aggregate(state) -> None:
           "leaves_extracted": len(extracted), "root_proof_bytes": len(data),
           "level_circuits": circuits, "cold_aggregate_s": cold_s, "warm_aggregate_s": warm_s,
           "level_proves": proves, "k1_launches": k1_launches, "k1_launches_by_mode": k1_by_mode,
-          "k3_launches": k3_launches, "host_witnesses": 0,
+          "k3_launches": k3_launches, "k5_launches": k5_launches, "k6_launches": k6_launches,
+          "host_witnesses": 0, "plain_quotient_on_card": 0,
           "level1_host": {"chunk_witnesses_s": chunk_witness_s, "seed_batch_cold_s": seed_cold_s,
                           "seed_batch_warm_s": statistics.median(seed_warm_s)},
           "level1_conflict_check": conflict_check,
@@ -2759,6 +2906,449 @@ def phase_aggregate(state) -> None:
           "k1_level_rows": k1_rows, "k3_level_rows": k3_rows})
     del agg, records, pws, proofs
     torch.cuda.empty_cache()
+
+
+def gl_random(gen, shape):
+    """Canonical random field elements of ``shape`` on the card."""
+    import torch
+
+    from zk_circuits_torch.field import goldilocks as gf
+
+    return gf.canon(torch.randint(-(1 << 63), (1 << 63) - 1, shape, generator=gen,
+                                  device="cuda", dtype=torch.int64))
+
+
+def gl_full(shape, value: int):
+    import torch
+
+    return torch.full(shape, value - (1 << 64) if value >= 1 << 63 else value,
+                      dtype=torch.int64, device="cuda")
+
+
+def k5_inputs(common, gen, batch: int, points: int | None = None, value=None) -> dict:
+    """A K5 call's inputs on the card at the first ``points`` rows of the
+    coset (all of them by default): the circuit's cs (k, points), the
+    proofs' wires (B, W + 4, points) and zsp (B, nc (1 + pp) + 4, points)
+    (their salt rows, which K5 does not read), the coset tables, the pi
+    hashes (B, 1, 4) and the challenges (nc, B, 1): seeded from ``gen``, or
+    every value ``value``."""
+    from zk_circuits_torch.plonk.prover import _coset_tables
+
+    cfg = common.config
+    nc, points = cfg.num_challenges, points or common.lde_size
+    pp = -(-cfg.num_routed_wires // common.quotient_degree_factor) - 1
+
+    def draw(*shape):
+        return gl_random(gen, shape) if value is None else gl_full(shape, value)
+
+    return dict(cs=draw(common.num_constants_sigmas_polys, points),
+                wires=draw(batch, cfg.num_wires + 4, points),
+                zsp=draw(batch, nc * (1 + pp) + 4, points),
+                tables=tuple(t[:points] for t in _coset_tables(common, "cuda")),
+                pi_hash=draw(batch, 1, 4), betas=draw(nc, batch, 1), gammas=draw(nc, batch, 1),
+                alphas=draw(nc, batch, 1))
+
+
+def k5_call(common, inp: dict, **kw):
+    from zk_circuits_torch.plonk import quotient_cuda
+
+    return quotient_cuda.vanishing(common, inp["cs"], inp["wires"], inp["zsp"], inp["tables"],
+                                   inp["pi_hash"], inp["betas"], inp["gammas"], inp["alphas"],
+                                   **kw)
+
+
+def k5_plain(common, inp: dict):
+    """K5's plain version: plonk/prover.py's _device_vanishing_eval times
+    1/Z_H, (nc, B, points)."""
+    import torch
+
+    from zk_circuits_torch.field import goldilocks as gf
+    from zk_circuits_torch.plonk.prover import _device_vanishing_eval
+
+    x, l1, zh_inv = inp["tables"]
+    vans = _device_vanishing_eval(common, inp["cs"].t(), inp["wires"].transpose(-1, -2),
+                                  inp["zsp"].transpose(-1, -2), x, l1, inp["pi_hash"],
+                                  inp["betas"], inp["gammas"], inp["alphas"])
+    return gf.mul(torch.stack(vans), zh_inv)
+
+
+def k5_products(common) -> int:
+    """64x64 products of one point of one proof in K5 (csrc/quotient.cuh
+    k5_point), from the circuit's table: a challenge's L1 term, 4 a routed
+    wire less 2 a chunk (a chunk's first factors start its products), 3 a
+    chunk term and the scaling by alpha^M; a gate's own products (an
+    arithmetic op 3, an extension op 9, a base-sum limb's booleanity 1, a
+    random-access copy bits + 2^bits - 1, Poseidon 5 and 118 S-boxes of 4),
+    its filter's terms less one, and per challenge one a constraint of the
+    fold and two for the filter and the power of alpha; then 1/Z_H, one a
+    challenge.  The block's tables (powers of alpha, beta k_j: a few
+    products a point) are left out."""
+    from zk_circuits_torch.plonk import quotient_cuda as qc
+
+    blob = qc.circuit_blob(common)
+    routed, chunks = int(blob[3]), int(blob[5])
+    nc = common.config.num_challenges
+    total = nc * (2 + 4 * routed - 2 * chunks + 3 * chunks) + nc
+    own = {1: lambda p0, p1: 0, 2: lambda p0, p1: 0, 3: lambda p0, p1: 3 * p0,
+           4: lambda p0, p1: p0, 5: lambda p0, p1: 9 * p0,
+           6: lambda p0, p1: p1 * (p0 + (1 << p0) - 1), 7: lambda p0, p1: 5 + 118 * 4}
+    recs = blob[qc.HEAD + routed:].reshape(-1, qc.GATE_FIELDS)
+    for gate, rec in zip(common.gate_types, recs):
+        kind, p0, p1, nf = (int(v) for v in (rec[0], rec[1], rec[2], rec[4]))
+        if kind == 0:
+            continue
+        total += own[kind](p0, p1) + max(nf - 1, 0) + nc * (gate.num_constraints + 2)
+    return total
+
+
+def k5_work(common, batch: int, points: int) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of one K5 call: the rows it reads once
+    (the circuit's cs; a proof's wires up to the last any gate or the
+    permutation argument uses, its zs and partial products; the three
+    coset tables; the pi hashes and challenges) and its output written
+    once; ``k5_products`` a point a proof at 8 multiplies each."""
+    cfg = common.config
+    nc = cfg.num_challenges
+    pp = -(-cfg.num_routed_wires // common.quotient_degree_factor) - 1
+    wires = max([cfg.num_routed_wires] + [g.num_wires_used for g in common.gate_types])
+    rows = common.num_constants_sigmas_polys + 3 + batch * (wires + nc * (1 + pp) + nc)
+    nbytes = 8 * points * rows + 8 * batch * (4 + 3 * nc)
+    return nbytes, batch * points * k5_products(common) * K4_MULS_PER_PRODUCT
+
+
+def k5_cases(state) -> list:
+    """(name, circuit data, proofs) of the shapes K5 serves: one wormhole
+    proof, a batch of BATCH, and a level-1 aggregation prove (a batch of
+    4 of a 2^14-row level circuit with arithmetic-extension and
+    random-access gates)."""
+    cd = state["wormhole"][0]
+    return [("wormhole", cd, 1), ("wormhole_batch", cd, BATCH),
+            ("level1_batch", state["level1_cd"], AGG_CONFIG[0] ** (AGG_CONFIG[1] - 1))]
+
+
+def phase_k5_check(state) -> None:
+    """K5 against its plain version on the card, equal integers: the
+    wormhole's shape alone and at B=BATCH, the level-1 circuit's at its
+    batch, the sharded path's E=SHARDS calls (a shard's rows, row0 and its
+    halo) against the whole coset, and inputs of 0, 1 and p - 1."""
+    import torch
+
+    from zk_circuits_torch.plonk import quotient_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(2041)
+    before = quotient_cuda.launches
+    checked = []
+
+    def check(name, common, got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"k5_check/{name}: K5 {tuple(got.shape)} != its plain version")
+        checked.append({"name": name, "shape": list(got.shape),
+                        "gates": [g.id for g in common.gate_types]})
+
+    for name, data, batch in k5_cases(state):
+        common = data.common
+        inp = k5_inputs(common, gen, batch)
+        check(name, common, k5_call(common, inp), k5_plain(common, inp))
+        del inp
+    common = state["wormhole"][0].common
+    nc, rate = common.config.num_challenges, 1 << common.config.rate_bits
+    inp = k5_inputs(common, gen, 1)
+    whole = k5_plain(common, inp)[:, 0]
+    r = common.lde_size // SHARDS
+    zsp = inp["zsp"][0]
+    for d in range(SHARDS):                  # plonk/prover_sharded.py's calls
+        rows = slice(d * r, (d + 1) * r)
+        nxt = (d + 1) % SHARDS * r
+        zs_next = torch.cat([zsp[:nc, d * r + rate:(d + 1) * r], zsp[:nc, nxt:nxt + rate]], 1)
+        got = quotient_cuda.vanishing(
+            common, inp["cs"][:, rows], inp["wires"][0][:, rows], zsp[:, rows], inp["tables"],
+            inp["pi_hash"][:1], inp["betas"], inp["gammas"], inp["alphas"], zs_next=zs_next,
+            row0=d * r)
+        check(f"sharded_{d}_of_{SHARDS}", common, got, whole[:, rows])
+    for value in (0, 1, P - 1):
+        inp = k5_inputs(common, gen, 2, 1 << 12, value=value)
+        check(f"constant_{value}", common, k5_call(common, inp), k5_plain(common, inp))
+    state["k5_max_abs_err"] = 0
+    emit({"phase": "k5_check", "equal_integers": True, "cases": checked,
+          "launches": quotient_cuda.launches - before})
+
+
+def k6_inputs(data, gen, batch: int, zero_den: bool = False, value=None) -> dict:
+    """A K6 call's inputs on the card: seeded wire values on H (B, routed,
+    n), the circuit's sigmas and subgroup, seeded challenges (nc, B, 1);
+    with ``zero_den`` one denominator of proof 0, challenge 0, wire 13,
+    point 77 set to 0; every value ``value`` when it is given."""
+    from zk_circuits_torch.field import goldilocks as gf
+
+    common, po = data.common, data.prover_only
+    cfg = common.config
+    nc, routed, n = cfg.num_challenges, cfg.num_routed_wires, common.degree
+
+    def draw(*shape):
+        return gl_random(gen, shape) if value is None else gl_full(shape, value)
+
+    inp = dict(wv=draw(batch, routed, n), sig=gf.from_u64(po.sigmas_values, "cuda"),
+               x=gf.from_u64(po.subgroup, "cuda"), betas=draw(nc, batch, 1),
+               gammas=draw(nc, batch, 1))
+    if value is not None:
+        inp["sig"], inp["x"] = draw(routed, n), draw(n)
+    if zero_den:
+        j, i = 13, 77
+        den = gf.add(gf.mul(inp["betas"][0, 0], inp["sig"][j, i:i + 1]), inp["gammas"][0, 0])
+        inp["wv"][0, j, i] = gf.neg(den)[0]
+    return inp
+
+
+def k6_call(data, inp: dict, **kw):
+    from zk_circuits_torch.plonk import permutation_cuda
+
+    return permutation_cuda.products(data.common, inp["wv"], inp["sig"], inp["x"],
+                                     inp["betas"], inp["gammas"], **kw)
+
+
+def k6_point_launch(data, inp: dict):
+    """K6's point kernel alone on a call of its own (k6_time's point_ms):
+    the Z row holds each point's total and the partial-product rows its
+    running ratios, not yet scanned; counts no launch."""
+    import ctypes
+
+    import torch
+
+    from zk_circuits_torch.plonk import permutation_cuda
+
+    call, out, _ = permutation_cuda._prepare(data.common, inp["wv"], inp["sig"], inp["x"],
+                                             inp["betas"], inp["gammas"])
+    err = permutation_cuda._lib().k6_products(0, ctypes.byref(call), 0,
+                                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"k6_products (the point kernel) failed: CUDA error {err}")
+    return out
+
+
+def k6_plain(data, inp: dict):
+    from zk_circuits_torch.plonk.prover import _zs_values_plain
+
+    return _zs_values_plain(data.common, inp["wv"], inp["sig"], inp["x"], inp["betas"],
+                            inp["gammas"])
+
+
+def k6_point_products(common, fermat_per_chunk: bool = False) -> int:
+    """64x64 products at one point of one proof, every challenge: a
+    challenge costs 4 a routed wire less 2 a chunk (beta k_j x, beta s_j
+    and the chunk products, whose first factor starts them), 2 a chunk
+    (its ratio and the running product), and in the scan 2 and one a
+    partial product.  The point's nc x chunks denominators are inverted
+    as the function needs it: one batch inversion (3 products an element
+    less 3, and one inverse, K6_INVERSE_PRODUCTS) with each zero put as 1
+    and its inverse masked back to 0.  ``fermat_per_chunk``: what the
+    kernel spends instead, an inverse a chunk (its design cost)."""
+    cfg = common.config
+    nc, routed = cfg.num_challenges, cfg.num_routed_wires
+    chunks = -(-routed // common.quotient_degree_factor)
+    per = nc * (4 * routed - 2 * chunks + 2 * chunks + 2 + (chunks - 1))
+    if fermat_per_chunk:
+        return per + nc * chunks * K6_INVERSE_PRODUCTS
+    return per + 3 * (nc * chunks - 1) + K6_INVERSE_PRODUCTS
+
+
+def k6_work(common, batch: int) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of one K6 call: the wire values, sigmas,
+    subgroup and challenges read once, the Z and partial-product rows and
+    the closing products written once; k6_point_products at each point of
+    each proof, 8 multiplies a product.  (The scan's threads' own scan, a
+    few hundred products a block, is left out.)"""
+    cfg = common.config
+    nc, routed, n = cfg.num_challenges, cfg.num_routed_wires, common.degree
+    chunks = -(-routed // common.quotient_degree_factor)
+    rows = routed + 1 + batch * (routed + nc * chunks)
+    nbytes = 8 * n * rows + 8 * batch * 3 * nc
+    return nbytes, batch * n * k6_point_products(common) * K4_MULS_PER_PRODUCT
+
+
+def phase_k6_check(state) -> None:
+    """K6 against its plain version on the card, equal integers: the
+    wormhole's shape alone, at B=BATCH and unbatched (the sharded prover's
+    call), the level-1 circuit's at its batch, a zero denominator in one
+    chunk, inputs of 0, 1 and p - 1; and the main path's own values (the
+    golden witness's wires on H) closing to 1."""
+    import torch
+
+    from zk_circuits_torch.plonk import permutation_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(2042)
+    before = permutation_cuda.launches
+    cd = state["wormhole"][0]
+    checked = []
+
+    def check(name, data, inp, unbatched=False):
+        if unbatched:
+            inp = dict(inp, wv=inp["wv"][0], betas=inp["betas"][:, :1], gammas=inp["gammas"][:, :1])
+        got, finals = k6_call(data, inp)
+        want, want_finals = k6_plain(data, inp)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not (torch.equal(got, want) and
+                                           torch.equal(finals, want_finals)):
+            raise AssertionError(f"k6_check/{name}: K6 {tuple(got.shape)} != its plain version")
+        checked.append({"name": name, "values": list(got.shape), "finals": list(finals.shape)})
+        return got, finals
+
+    for name, data, batch in k5_cases(state):
+        check(name, data, k6_inputs(data, gen, batch))
+    check("unbatched", cd, k6_inputs(cd, gen, 1), unbatched=True)
+    got, finals = check("zero_denominator", cd, k6_inputs(cd, gen, 2, zero_den=True))
+    if int(finals[0, 0]) != 0 or int(got[0, 0, 78:].abs().sum()) != 0:
+        raise AssertionError("k6_check/zero_denominator: the zero did not close the scan")
+    for value in (0, 1, P - 1):
+        check(f"constant_{value}", cd, k6_inputs(cd, gen, 2, value=value))
+    state["k6_max_abs_err"] = 0
+    emit({"phase": "k6_check", "equal_integers": True, "cases": checked,
+          "launches": permutation_cuda.launches - before})
+
+
+def kernel_sass_counts(lib_path, build_log: str, prefix: str, key=None) -> dict:
+    """Per kernel (mangled name starting ``_Z..prefix``) of a built
+    library, under ``key(name)`` (the name itself by default): its
+    instruction count and IMAD.WIDE, IMAD.HI, LDG, STG, LDS, STS, local
+    (spill) and barrier counts from cuobjdump -sass, and its registers and
+    spill bytes from ptxas (``build_log``, the output of this process's
+    build)."""
+    import collections
+
+    key = key or (lambda name: name)
+    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120).stdout
+    out = {}
+    for name, ins in sass_functions(text).items():
+        if not re.match(rf"_Z\d+{prefix}", name):
+            continue
+        ops = collections.Counter(op for _, op, _ in ins)
+        out[key(name)] = {"instructions": len(ins), **{
+            k: sum(v for op, v in ops.items() if op.startswith(k))
+            for k in ("IMAD.WIDE", "IMAD.HI", "LDG", "STG", "LDS", "STS", "LDL", "STL", "BAR")}}
+    if not out:
+        raise AssertionError(f"no {prefix} kernel in the SASS of {lib_path}")
+    kernel = None
+    for ln in build_log.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        kernel = key(m.group(1)) if m and re.match(rf"_Z\d+{prefix}", m.group(1)) else (
+            None if m else kernel)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kernel in out:
+            out[kernel]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and kernel in out:
+            out[kernel]["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+    return out
+
+
+def quotient_time_rows(state, kernel: str) -> list:
+    """graph_ms rows of K5 or K6 at k5_cases' shapes: each beside its plain
+    version (one call, CUDA events, median of 3), its bound (k5_work or
+    k6_work) and the host time of a wrapper call."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2043 if kernel == "k5" else 2044)
+    rows = []
+    for name, data, batch in k5_cases(state):
+        common = data.common
+        if kernel == "k5":
+            ins = [k5_inputs(common, gen, batch) for _ in range(K5_TIMED_CALLS)]
+            fn, plain = k5_call, k5_plain
+            nbytes, muls = k5_work(common, batch, common.lde_size)
+            arg = common
+            shape = {"points": common.lde_size, "batch": batch}
+        else:
+            ins = [k6_inputs(data, gen, batch) for _ in range(K6_TIMED_CALLS)]
+            fn, plain = k6_call, k6_plain
+            nbytes, muls = k6_work(common, batch)
+            arg = data
+            shape = {"points": common.degree, "batch": batch}
+        g = graph_ms([lambda i=i: fn(arg, i) for i in ins])
+        if kernel == "k6":   # the point kernel alone; the scan is the rest
+            g["point_ms"] = graph_ms([lambda i=i: k6_point_launch(arg, i) for i in ins])["ms"]
+            g["scan_ms"] = g["ms"] - g["point_ms"]
+        plain_ms = cuda_ms(lambda: plain(arg, ins[0]), reps=3, warmup=1)
+        bound, by = k4_bound_ms(nbytes, muls)
+        rows.append({"shape": name, **shape, "gates": [g_.id for g_ in common.gate_types],
+                     **g, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "bytes": nbytes, "muls": muls, "share_of_bound": bound / g["ms"],
+                     "library_ms": None,
+                     "host_us_per_call": host_us_per_call(lambda: fn(arg, ins[0]))})
+        del ins
+    over = [r for r in rows if r["share_of_bound"] > 1.05]
+    if over:
+        raise AssertionError(f"{kernel} timed below its bound: {over}")
+    return rows
+
+
+def phase_k5_time(state) -> None:
+    """K5's device time (graph_ms) at k5_cases' shapes beside its plain
+    version and bound; registers, spills and SASS counts."""
+    from zk_circuits_torch.plonk import quotient_cuda
+
+    rows = quotient_time_rows(state, "k5")
+    emit({"phase": "k5_time", "int32_mul_per_s": INT32_MUL_PER_S,
+          "hbm_bytes_per_s": HBM_BYTES_PER_S,
+          "products_per_point": {r[0]: k5_products(r[1].common) for r in k5_cases(state)},
+          "timing": f"ms: CUDA events around the replay of a CUDA graph of {K5_TIMED_CALLS} "
+                    f"calls on inputs of their own, L2 emptied first, per call, median of 8 "
+                    f"replays (min_ms/max_ms: their range); plain_ms: CUDA events around "
+                    f"one call of the plain version (plonk/prover.py's "
+                    f"_device_vanishing_eval times 1/Z_H), median of 3; host_us_per_call: "
+                    f"perf_counter around 100 wrapper calls; library_ms: none, no PyTorch "
+                    f"call computes the vanishing polynomial",
+          "rows": rows, "sass": kernel_sass_counts(quotient_cuda.build(),
+                                                   quotient_cuda.build_log, "k5_")})
+    main = rows[0]
+    state.setdefault("kernels", []).append({
+        "name": "vanishing_quotient", "route": "cuda", "source": K5_SOURCE,
+        "replaces": K5_REPLACES + " (_quotient_commit_body, jitted at :230, over "
+                                  "plonk/vanishing.py:161 eval_vanishing; no Pallas kernel)",
+        "launches": state["k5_launches"],
+        "launches_by_path": {"wormhole": state["k5_launches"],
+                             "batch": state["k5_launches_batch"],
+                             "sharded": state["k5_launches_sharded"],
+                             "aggregate": state["aggregate_launches"]["k5"]},
+        "max_abs_err": state["k5_max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "ms_by_shape": {r["shape"]: r["ms"] for r in rows}})
+
+
+def phase_k6_time(state) -> None:
+    """K6's device time (graph_ms) at k5_cases' shapes beside its plain
+    version and bound; registers, spills and SASS counts."""
+    from zk_circuits_torch.plonk import permutation_cuda
+
+    rows = quotient_time_rows(state, "k6")
+    emit({"phase": "k6_time", "int32_mul_per_s": INT32_MUL_PER_S,
+          "hbm_bytes_per_s": HBM_BYTES_PER_S,
+          "products_per_point": {r[0]: {"bound": k6_point_products(r[1].common),
+                                        "kernel": k6_point_products(r[1].common, True)}
+                                 for r in k5_cases(state)},
+          "timing": f"ms: CUDA events around the replay of a CUDA graph of {K6_TIMED_CALLS} "
+                    f"calls (two launches each) on inputs of their own, L2 emptied first, "
+                    f"per call, median of 8 replays; point_ms: the same with the point "
+                    f"kernel alone (scan_ms: the difference); plain_ms: CUDA events around one call "
+                    f"of the plain version (plonk/prover.py's _zs_values_plain), median of "
+                    f"3; library_ms: none, no PyTorch call computes these products",
+          "rows": rows, "sass": kernel_sass_counts(permutation_cuda.build(),
+                                                   permutation_cuda.build_log, "k6_")})
+    main = rows[0]
+    state.setdefault("kernels", []).append({
+        "name": "permutation_products", "route": "cuda", "source": K6_SOURCE,
+        "replaces": K6_REPLACES + " (_zs_coeffs_body, jitted at :349; no Pallas kernel)",
+        "launches": state["k6_launches"],
+        "launches_by_path": {"wormhole": state["k6_launches"],
+                             "batch": state["k6_launches_batch"],
+                             "sharded": state["k6_launches_sharded"],
+                             "aggregate": state["aggregate_launches"]["k6"]},
+        "max_abs_err": state["k6_max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "ms_by_shape": {r["shape"]: r["ms"] for r in rows}})
+    state.pop("level1_cd", None)
 
 
 MESH_BATCH = 8          # proofs of the batch_mesh phase, over a mesh of SHARDS shards
@@ -3339,6 +3929,8 @@ PHASES = {"card": phase_card, "square": phase_square,
           "k2_check": phase_k2_check, "sharded": phase_sharded,
           "k1_time": phase_k1_time, "k2_time": phase_k2_time,
           "k4_time": phase_k4_time, "aggregate": phase_aggregate,
+          "k5_check": phase_k5_check, "k6_check": phase_k6_check,
+          "k5_time": phase_k5_time, "k6_time": phase_k6_time,
           "batch_mesh": phase_batch_mesh, "aggregate_mesh": phase_aggregate_mesh,
           "multihost": phase_multihost, "voting": phase_voting, "api": phase_api,
           "compat": phase_compat, "native": phase_native}

@@ -13,7 +13,8 @@ timed (default: this one), so that two commits can be compared on one
 card in turns: unpack the other commit with ``git archive`` into a
 git-ignored directory and run old, new, new, old on one card in a row.
 A checkout without the host runtime (``zk_circuits_torch.native``) is
-timed without it.
+timed without it; every kernel a checkout has (K5 and K6 where
+``plonk/quotient_cuda.py`` exists) is built before the circuit.
 """
 
 import json
@@ -55,6 +56,13 @@ def main() -> None:
         ntt_cuda = None
     if ntt_cuda is not None:
         ntt_cuda.build()
+    try:
+        from zk_circuits_torch.plonk import permutation_cuda, quotient_cuda
+    except ImportError:
+        permutation_cuda = quotient_cuda = None
+    if quotient_cuda is not None:
+        quotient_cuda.build()
+        permutation_cuda.build()
     try:
         from zk_circuits_torch import native
     except ImportError:

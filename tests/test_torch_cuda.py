@@ -490,3 +490,129 @@ def test_ntt_mxu_on_the_card(cuda):
         assert torch.equal(mxu.ntt_mxu(t), nttm.ntt_plain(t))
         assert torch.equal(mxu.intt_mxu(t), nttm.intt_plain(t))
         assert ntt_cuda.launches == before + 2 * (2 if ntt_cuda.plan(n) else 1)
+
+
+def _gate_common(gates, degree_bits=13, **cfg_kw):
+    """The port's CommonCircuitData for these gate types (build_circuit_data's
+    sort and selector groups); the wormhole's gates by default."""
+    from zk_circuits_torch.host import gl
+    from zk_circuits_torch.plonk import circuit_data as cdm
+    from zk_circuits_torch.plonk.config import CircuitConfig
+
+    cfg = CircuitConfig(zero_knowledge=True, **cfg_kw)
+    gate_types = sorted(gates, key=lambda g: (-g.degree, g.id))
+    groups = cdm._selector_groups(gate_types, cfg.max_quotient_degree_factor)
+    return cdm.CommonCircuitData(
+        config=cfg, degree_bits=degree_bits, gate_types=gate_types, selector_groups=groups,
+        gate_to_group={gate_types[gi].id: k for k, grp in enumerate(groups) for gi in grp},
+        gate_to_index={g.id: i for i, g in enumerate(gate_types)},
+        num_gate_constraints=max(g.num_constraints for g in gate_types), num_public_inputs=0,
+        k_is=gl.powers(gl.MULTIPLICATIVE_GROUP_GENERATOR, cfg.num_routed_wires))
+
+
+def _wormhole_gates():
+    from zk_circuits_torch.iop import gates as G
+
+    return [G.PoseidonGate(), G.ArithmeticGate(num_ops=20), G.BaseSum2Gate(num_limbs=32),
+            G.BaseSum2Gate(num_limbs=5), G.ConstantGate(num_consts=2), G.PublicInputGate(),
+            G.NoopGate()]
+
+
+def _k5_inputs(common, device, batch, seed):
+    from zk_circuits_torch.plonk.prover import _coset_tables
+
+    cfg = common.config
+    rng = np.random.default_rng(seed)
+    pts, nc = common.lde_size, cfg.num_challenges
+
+    def draw(*shape):
+        return gf.from_u64(rng.integers(0, P, shape, dtype=np.uint64), device)
+
+    return dict(cs=draw(common.num_constants_sigmas_polys, pts),
+                wires=draw(batch, cfg.num_wires + 4, pts),
+                zsp=draw(batch, nc * (1 + common.num_partial_products) + 4, pts),
+                tables=_coset_tables(common, device), pi_hash=draw(batch, 1, 4),
+                betas=draw(nc, batch, 1), gammas=draw(nc, batch, 1), alphas=draw(nc, batch, 1))
+
+
+def _k5_plain(common, inp):
+    from zk_circuits_torch.plonk.prover import _device_vanishing_eval
+
+    x, l1, zh_inv = inp["tables"]
+    vans = _device_vanishing_eval(common, inp["cs"].t(), inp["wires"].transpose(-1, -2),
+                                  inp["zsp"].transpose(-1, -2), x, l1, inp["pi_hash"],
+                                  inp["betas"], inp["gammas"], inp["alphas"])
+    return gf.mul(torch.stack(vans), zh_inv)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_k5_matches_plain(cuda, batch):
+    """K5 at the wormhole's gates and coset (2^16 points), one launch,
+    equal to plonk/prover.py's _device_vanishing_eval times 1/Z_H."""
+    from zk_circuits_torch.plonk import quotient_cuda
+
+    common = _gate_common(_wormhole_gates())
+    inp = _k5_inputs(common, cuda, batch, batch)
+    before = quotient_cuda.launches
+    got = quotient_cuda.vanishing(common, inp["cs"], inp["wires"], inp["zsp"], inp["tables"],
+                                  inp["pi_hash"], inp["betas"], inp["gammas"], inp["alphas"])
+    torch.cuda.synchronize()
+    assert quotient_cuda.launches == before + 1
+    assert torch.equal(got, _k5_plain(common, inp))
+
+
+def test_k5_level_gates_match_plain(cuda):
+    """The recursion's gates (arithmetic extension, random access) beside
+    Poseidon, at a 2^12-point coset, B = 2."""
+    from zk_circuits_torch.iop import gates as G
+    from zk_circuits_torch.plonk import quotient_cuda
+
+    common = _gate_common([G.PoseidonGate(), G.ArithmeticExtensionGate(num_ops=10),
+                           G.RandomAccessGate(bits=4, num_copies=4), G.ConstantGate(2),
+                           G.PublicInputGate(), G.NoopGate()], degree_bits=9)
+    inp = _k5_inputs(common, cuda, 2, 5)
+    got = quotient_cuda.vanishing(common, inp["cs"], inp["wires"], inp["zsp"], inp["tables"],
+                                  inp["pi_hash"], inp["betas"], inp["gammas"], inp["alphas"])
+    assert torch.equal(got, _k5_plain(common, inp))
+
+
+def test_k5_refuses_an_unknown_gate(cuda):
+    """A gate class K5 has no evaluator for raises NotImplementedError; no
+    eager fallback."""
+    from zk_circuits_torch.iop import gates as G
+    from zk_circuits_torch.plonk import quotient_cuda
+
+    class Custom(G.ArithmeticGate):
+        pass
+
+    common = _gate_common([Custom(num_ops=3), G.NoopGate()], degree_bits=4)
+    inp = _k5_inputs(common, cuda, 1, 9)
+    with pytest.raises(NotImplementedError):
+        quotient_cuda.vanishing(common, inp["cs"], inp["wires"], inp["zsp"], inp["tables"],
+                                inp["pi_hash"], inp["betas"], inp["gammas"], inp["alphas"])
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_k6_matches_plain(cuda, batch):
+    """K6 at the wormhole's H (2^13 points), two launches, equal to
+    plonk/prover.py's _zs_values_plain, with a zero denominator in one
+    chunk of proof 0."""
+    from zk_circuits_torch.plonk import permutation_cuda
+    from zk_circuits_torch.plonk.prover import _zs_values_plain
+
+    common = _gate_common(_wormhole_gates())
+    n, rng = common.degree, np.random.default_rng(batch + 10)
+    wv = rng.integers(0, P, (batch, 80, n), dtype=np.uint64)
+    sig = rng.integers(0, P, (80, n), dtype=np.uint64)
+    betas, gammas = (rng.integers(0, P, (2, batch, 1), dtype=np.uint64) for _ in range(2))
+    wv[0, 5, 100] = (P - (int(betas[0, 0, 0]) * int(sig[5, 100]) + int(gammas[0, 0, 0])) % P) % P
+    x = gf.from_u64(rng.integers(0, P, n, dtype=np.uint64), cuda)
+    args = [gf.from_u64(a, cuda) for a in (wv, sig)] + [x] + \
+        [gf.from_u64(a, cuda) for a in (betas, gammas)]
+    before = permutation_cuda.launches
+    got, finals = permutation_cuda.products(common, *args)
+    torch.cuda.synchronize()
+    assert permutation_cuda.launches == before + 2
+    want, want_finals = _zs_values_plain(common, *args)
+    assert torch.equal(got, want) and torch.equal(finals, want_finals)
+    assert int(finals[0, 0]) == 0

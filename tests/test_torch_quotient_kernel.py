@@ -1,0 +1,530 @@
+"""K5 (the vanishing polynomial over the LDE coset) and K6 (the
+permutation argument's products over H), built for the host.
+
+csrc/quotient.cuh and csrc/permutation.cuh are __host__ __device__ code;
+here they are compiled with g++ behind a host copy of quotient.cu's and
+permutation.cu's C interfaces (k5_vanishing, k6_products and their
+K5Call/K6Call sizes) and driven through the wrappers' own
+``quotient_cuda.vanishing`` and ``permutation_cuda.products`` on CPU
+tensors.  A K5 call runs each proof's block tables, then its points one
+after another; K6's scan runs ``k6_scan_block`` with the block's threads
+in turn in each phase (``shim_k6_set_threads`` picks the block size, 1024
+on the card).  Equal integers are required against the port's plain
+versions (``plonk/prover.py::_device_vanishing_eval`` times 1/Z_H,
+``_zs_values_plain``) and the JAX package's host path
+(``plonk/prover.py::compute_quotient_values(..., use_device=False)`` and
+``compute_zs_and_partial_products``).
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_gates import (arithmetic_extension_gate, arithmetic_gate, base_sum_gate,
+                              constant_gate, poseidon_gate, random_access_gate)
+from test_torch_prover import JAX, TORCH, _build, _witness
+from zk_circuits_torch.hash import poseidon_cuda
+from zk_circuits_torch.iop import gates as t_gates
+from zk_circuits_torch.plonk import circuit_data as t_cd
+from zk_circuits_torch.plonk import permutation_cuda, quotient_cuda
+from zk_circuits_torch.plonk.prover import _device_vanishing_eval, _zs_values_plain
+from zk_circuits_torch.utils import nvcc
+from zk_circuits_tpu.host import gl as jgl
+from zk_circuits_tpu.iop import gates as j_gates
+from zk_circuits_tpu.iop import witness as j_witness
+from zk_circuits_tpu.plonk import circuit_data as j_cd
+from zk_circuits_tpu.plonk import prover as j_prover
+
+P = jgl.P_INT
+U64 = np.uint64
+CIRCUITS = [constant_gate, arithmetic_gate, base_sum_gate, arithmetic_extension_gate,
+            random_access_gate, poseidon_gate]
+
+# One intra-op thread: the suite runs several pytest workers side by side.
+torch.set_num_threads(1)
+
+SHIM = r"""
+#include <vector>
+#include "quotient.cuh"
+#include "permutation.cuh"
+
+static const uint64_t RC[POSEIDON_WIDTH * POSEIDON_ROUNDS] = POSEIDON_RC_INIT;
+static int shim_threads = 1024;   // the scan block's threads
+
+// A block on the host: each phase runs the block's threads in turn.
+struct ShimBlock {
+  int n;
+  int threads() const { return n; }
+  template <class F>
+  void each(F f) const {
+    for (int t = 0; t < n; t++) f(t);
+  }
+  void sync() const {}
+};
+
+template <int NC>
+static void k5_host(const K5Call& c) {
+  std::vector<uint64_t> apow(NC * K5_MAX_POW), bk(NC * PERM_MAX_ROUTED);
+  for (int b = 0; b < c.batch; b++) {
+    k5_tables<NC>(c, b, apow.data(), bk.data(), 0, 1);
+    for (long long i = 0; i < c.points; i++) k5_point<NC>(c, b, i, apow.data(), bk.data(), RC);
+  }
+}
+
+template <int NC>
+static void k6_points_host(const K6Call& c) {
+  std::vector<uint64_t> bk(NC * PERM_MAX_ROUTED);
+  for (int b = 0; b < c.batch; b++) {
+    perm_bk_table<NC>(c.kis, c.routed, c.betas, c.batch, b, bk.data(), 0, 1);
+    for (long long i = 0; i < c.n; i++) k6_point<NC>(c, b, i, bk.data());
+  }
+}
+
+extern "C" {
+int k5_vanishing(int, const K5Call* call, void*) {
+  const K5Call& c = *call;
+  if (k5_valid(c)) return 1;
+  switch (c.nc) {
+    case 1: k5_host<1>(c); break;
+    case 2: k5_host<2>(c); break;
+    case 3: k5_host<3>(c); break;
+    default: k5_host<4>(c); break;
+  }
+  return 0;
+}
+int k5_call_size(void) { return (int)sizeof(K5Call); }
+
+int k6_products(int, const K6Call* call, int step, void*) {
+  const K6Call& c = *call;
+  if (k6_valid(c) || step < 0 || step > 1) return 1;
+  if (step == 0) {
+    switch (c.nc) {
+      case 1: k6_points_host<1>(c); break;
+      case 2: k6_points_host<2>(c); break;
+      case 3: k6_points_host<3>(c); break;
+      default: k6_points_host<4>(c); break;
+    }
+    return 0;
+  }
+  ShimBlock blk{shim_threads};
+  std::vector<uint64_t> buf(2 * shim_threads);
+  for (int b = 0; b < c.batch; b++)
+    for (int ch = 0; ch < c.nc; ch++) k6_scan_block(blk, c, b, ch, buf.data());
+  return 0;
+}
+int k6_call_size(void) { return (int)sizeof(K6Call); }
+
+void shim_k6_set_threads(int t) { shim_threads = t; }
+void shim_k6_inverse(const uint64_t* a, uint64_t* out, long n) {
+  for (long i = 0; i < n; i++) out[i] = gl_canon(k6_inverse(a[i]));
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def qlib():
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to build the kernel headers for the host"
+    build = nvcc.BUILD_DIR / f"k5_shim_{os.getpid()}"
+    build.mkdir(parents=True, exist_ok=True)
+    poseidon_cuda.write_constants_header(build)
+    src = build / "k5_shim.cc"
+    src.write_text(SHIM)
+    so = build / "libk5shim.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(nvcc.CSRC),
+                    "-I", str(build), "-o", str(so), str(src)], check=True)
+    lib = ctypes.CDLL(str(so))
+    quotient_cuda.bind(lib)        # the wrappers' declarations and mirror checks
+    permutation_cuda.bind(lib)
+    lib.shim_k6_set_threads.argtypes = [ctypes.c_int]
+    lib.shim_k6_inverse.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
+    yield lib
+    shutil.rmtree(build, ignore_errors=True)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=U64).view(np.int64))
+
+
+def _u(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().numpy().view(U64)
+
+
+# --- circuits ----------------------------------------------------------------------
+
+
+def _wormhole_gates(g):
+    """The gate types of the zk wormhole circuit (the port's build of it,
+    13 rows: Poseidon, Arithmetic(20), BaseSum2(32), BaseSum2(5),
+    Constant(2), PublicInput, Noop in groups [[0, 1], [2, 3, 4, 5, 6]])."""
+    return [g.PoseidonGate(), g.ArithmeticGate(num_ops=20), g.BaseSum2Gate(num_limbs=32),
+            g.BaseSum2Gate(num_limbs=5), g.ConstantGate(num_consts=2), g.PublicInputGate(),
+            g.NoopGate()]
+
+
+def _common(cd, gates, cfg, degree_bits):
+    """A package's CommonCircuitData for these gate types, with its own
+    bookkeeping of build_circuit_data (sort, selector groups)."""
+    gate_types = sorted(gates, key=lambda g: (-g.degree, g.id))
+    groups = cd._selector_groups(gate_types, cfg.max_quotient_degree_factor)
+    return cd.CommonCircuitData(
+        config=cfg, degree_bits=degree_bits, gate_types=gate_types, selector_groups=groups,
+        gate_to_group={gate_types[gi].id: k for k, grp in enumerate(groups) for gi in grp},
+        gate_to_index={g.id: i for i, g in enumerate(gate_types)},
+        num_gate_constraints=max(g.num_constraints for g in gate_types),
+        num_public_inputs=0,
+        k_is=jgl.powers(jgl.MULTIPLICATIVE_GROUP_GENERATOR, cfg.num_routed_wires))
+
+
+def _wormhole_commons(**cfg_kw):
+    tc = _common(t_cd, _wormhole_gates(t_gates), TORCH.C(zero_knowledge=True, **cfg_kw), 13)
+    jc = _common(j_cd, _wormhole_gates(j_gates), JAX.C(zero_knowledge=True, **cfg_kw), 13)
+    return tc, jc
+
+
+@pytest.fixture(scope="module")
+def gate_circuits():
+    """Each gate circuit of tests/test_torch_gates.py built by both
+    packages: (port data, assignments, JAX data)."""
+    out = {}
+    for circuit in CIRCUITS:
+        data, assign = _build(TORCH, circuit, False, device="cpu")
+        jdata, _ = _build(JAX, circuit, False)
+        out[circuit.__name__] = (data, assign, jdata)
+    return out
+
+
+# --- K5 ------------------------------------------------------------------------------
+
+
+def _k5_inputs(common, rng, batch, points, value=None):
+    """Seeded canonical inputs of a K5 call at ``points`` coset points: the
+    circuit's cs (k, points), the proofs' wires (B, W + 4, points) and zsp
+    (B, nc (1 + pp) + 4, points) (4 salt rows each, which K5 does not
+    read), coset tables, pi hashes (B, 1, 4) and challenges (nc, B, 1);
+    every value ``value`` when it is given."""
+    cfg = common.config
+    nc = cfg.num_challenges
+    pp = -(-cfg.num_routed_wires // common.quotient_degree_factor) - 1
+
+    def draw(*shape):
+        if value is not None:
+            return np.full(shape, value, dtype=U64)
+        a = rng.integers(0, P, shape, dtype=U64)
+        k = min(3, a.size)
+        a.reshape(-1)[:k] = np.array([0, 1, P - 1], dtype=U64)[:k]
+        return a
+
+    return dict(cs=draw(common.num_constants_sigmas_polys, points),
+                wires=draw(batch, cfg.num_wires + 4, points),
+                zsp=draw(batch, nc * (1 + pp) + 4, points),
+                tables=tuple(draw(points) for _ in range(3)),
+                pi_hash=draw(batch, 1, 4), betas=draw(nc, batch, 1),
+                gammas=draw(nc, batch, 1), alphas=draw(nc, batch, 1))
+
+
+def _k5(qlib, common, inp, **kw):
+    """K5 on the host shim through the wrapper: (nc, B, points)."""
+    out = quotient_cuda.vanishing(
+        common, _t(inp["cs"]), _t(inp["wires"]), _t(inp["zsp"]),
+        tuple(_t(a) for a in inp["tables"]), _t(inp["pi_hash"]), _t(inp["betas"]),
+        _t(inp["gammas"]), _t(inp["alphas"]), lib=qlib, **kw)
+    return _u(out)
+
+
+def _k5_plain(common, inp):
+    """The port's plain version: _device_vanishing_eval times 1/Z_H."""
+    from zk_circuits_torch.field import goldilocks as gfd
+
+    x, l1, zh_inv = (_t(a) for a in inp["tables"])
+    vans = _device_vanishing_eval(
+        common, _t(inp["cs"]).t(), _t(inp["wires"]).transpose(-1, -2),
+        _t(inp["zsp"]).transpose(-1, -2), x, l1, _t(inp["pi_hash"]), _t(inp["betas"]),
+        _t(inp["gammas"]), _t(inp["alphas"]))
+    return _u(gfd.mul(torch.stack(vans), zh_inv))
+
+
+def _k5_jax(jcommon, inp):
+    """The JAX host path, proof by proof, times 1/Z_H: (nc, B, points)."""
+    x, l1, zh_inv = inp["tables"]
+    out = []
+    for b in range(inp["wires"].shape[0]):
+        vans = j_prover.compute_quotient_values(
+            jcommon, inp["cs"].T, inp["wires"][b].T, inp["zsp"][b].T, x, l1,
+            inp["pi_hash"][b], inp["betas"][:, b, 0], inp["gammas"][:, b, 0],
+            inp["alphas"][:, b, 0], use_device=False)
+        out.append([jgl.mul(v, zh_inv) for v in vans])
+    return np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("name", [c.__name__ for c in CIRCUITS])
+def test_k5_gate_circuits_match_plain_and_jax(qlib, gate_circuits, name):
+    """Each gate circuit's common (its gate types, selector groups and
+    filters) at its 2^8-point coset, B = 2, seeded values."""
+    data, _, jdata = gate_circuits[name]
+    common = data.common
+    inp = _k5_inputs(common, np.random.default_rng(len(name)), 2, common.lde_size)
+    got = _k5(qlib, common, inp)
+    assert got.shape == (common.config.num_challenges, 2, common.lde_size)
+    assert np.array_equal(got, _k5_plain(common, inp))
+    assert np.array_equal(got, _k5_jax(jdata.common, inp))
+    assert (got < U64(P)).all()
+
+
+def test_k5_wormhole_common_matches_plain_and_jax(qlib):
+    """The wormhole's gate types (both packages group them alike) at 256
+    points, B = 2, and one proof unbatched."""
+    common, jcommon = _wormhole_commons()
+    assert common.selector_groups == jcommon.selector_groups == [[0, 1], [2, 3, 4, 5, 6]]
+    assert common.num_gate_constraints == 123
+    inp = _k5_inputs(common, np.random.default_rng(7), 2, 256)
+    got = _k5(qlib, common, inp)
+    assert np.array_equal(got, _k5_plain(common, inp))
+    assert np.array_equal(got, _k5_jax(jcommon, inp))
+    one = {k: (v[:1] if k in ("wires", "zsp", "pi_hash") else
+               v[:, :1] if k in ("betas", "gammas", "alphas") else v) for k, v in inp.items()}
+    single = quotient_cuda.vanishing(
+        common, _t(one["cs"]), _t(one["wires"][0]), _t(one["zsp"][0]),
+        tuple(_t(a) for a in one["tables"]), _t(one["pi_hash"]), _t(one["betas"]),
+        _t(one["gammas"]), _t(one["alphas"]), lib=qlib)
+    assert np.array_equal(_u(single), got[:, 0])
+
+
+@pytest.mark.parametrize("value", [0, 1, P - 1])
+def test_k5_constant_rows_match_plain(qlib, value):
+    """Every input 0, 1 or p - 1."""
+    common, jcommon = _wormhole_commons()
+    inp = _k5_inputs(common, None, 1, 64, value=value)
+    got = _k5(qlib, common, inp)
+    assert np.array_equal(got, _k5_plain(common, inp))
+    assert np.array_equal(got, _k5_jax(jcommon, inp))
+
+
+def test_k5_short_last_chunk_matches_plain_and_jax(qlib):
+    """78 routed wires in chunks of 8: a last chunk of 6, which the
+    generic permutation terms take (plonk/vanishing.py:116)."""
+    common, jcommon = _wormhole_commons(num_routed_wires=78)
+    assert common.num_partial_products == 9
+    inp = _k5_inputs(common, np.random.default_rng(78), 2, 64)
+    got = _k5(qlib, common, inp)
+    assert np.array_equal(got, _k5_plain(common, inp))
+    assert np.array_equal(got, _k5_jax(jcommon, inp))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_k5_sharded_rows_with_halo_match_whole(qlib, shards):
+    """The sharded path's calls: shard d's rows, row0 = d r, zs at g x
+    from its own rows and the next shard's first 2^rate_bits (the halo),
+    as plonk/prover_sharded.py::_quotient_sharded makes them; together
+    equal to the single call, which wraps at the coset's end."""
+    common, _ = _wormhole_commons()
+    nc, rate = common.config.num_challenges, 1 << common.config.rate_bits
+    points = 128
+    r = points // shards
+    inp = _k5_inputs(common, np.random.default_rng(shards), 1, points)
+    whole = _k5(qlib, common, inp)
+    zsp = inp["zsp"][0]
+    parts = []
+    for d in range(shards):
+        rows = slice(d * r, (d + 1) * r)
+        halo = zsp[:nc, ((d + 1) % shards) * r:((d + 1) % shards) * r + rate]
+        zs_next = np.concatenate([zsp[:nc, d * r + rate:(d + 1) * r], halo], axis=1)
+        out = quotient_cuda.vanishing(
+            common, _t(inp["cs"][:, rows]), _t(inp["wires"][0][:, rows]), _t(zsp[:, rows]),
+            tuple(_t(a) for a in inp["tables"]), _t(inp["pi_hash"]), _t(inp["betas"]),
+            _t(inp["gammas"]), _t(inp["alphas"]), zs_next=_t(zs_next), row0=d * r, lib=qlib)
+        parts.append(_u(out))
+    assert np.array_equal(np.concatenate(parts, axis=-1), whole[:, 0])
+
+
+def test_k5_refuses_unknown_gates_and_bad_calls(qlib):
+    """A gate class without an evaluator (a subclass too) raises
+    NotImplementedError; wrong shapes, devices and shifts raise ValueError."""
+
+    class Custom(t_gates.ArithmeticGate):
+        pass
+
+    common, _ = _wormhole_commons()
+    bad = _common(t_cd, [Custom(num_ops=3), t_gates.NoopGate()], common.config, 4)
+    with pytest.raises(NotImplementedError, match="no evaluator"):
+        quotient_cuda.circuit_blob(bad)
+    inp = _k5_inputs(bad, np.random.default_rng(1), 1, 32)
+    with pytest.raises(NotImplementedError):
+        _k5(qlib, bad, inp)
+    inp = _k5_inputs(common, np.random.default_rng(1), 1, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        _k5(None, common, inp)
+    short = dict(inp, wires=inp["wires"][:, :100])
+    with pytest.raises(ValueError, match="wires"):
+        _k5(qlib, common, short)
+    with pytest.raises(ValueError, match="zs shift"):
+        _k5(qlib, common, _k5_inputs(common, np.random.default_rng(1), 1, 8))
+
+
+def test_k5_table_records(gate_circuits):
+    """The blob's header and records against the common they come from."""
+    data, _, _ = gate_circuits["random_access_gate"]
+    common = data.common
+    blob = quotient_cuda.circuit_blob(common)
+    head, routed = blob[:quotient_cuda.HEAD], common.config.num_routed_wires
+    assert list(head[:10]) == [len(common.gate_types), common.num_selectors, 2, routed, 8, 10,
+                               9, common.num_gate_constraints, 2, 135]
+    assert np.array_equal(blob[16:16 + routed].view(U64), common.k_is)
+    recs = blob[16 + routed:].reshape(-1, quotient_cuda.GATE_FIELDS)
+    for gate, rec in zip(common.gate_types, recs):
+        grp = common.gate_to_group[gate.id]
+        assert rec[3] == grp and rec[5] == common.num_gate_constraints - gate.num_constraints
+        others = [g for g in common.selector_groups[grp] if g != common.gate_to_index[gate.id]]
+        assert list(rec[6:6 + rec[4]]) == others + [common.unused_selector]
+    ra = recs[[g.id for g in common.gate_types].index("RandomAccessGate(bits=4,copies=4)")]
+    assert list(ra[:3]) == [6, 4, 4]
+
+
+# --- K6 ------------------------------------------------------------------------------
+
+
+def _k6(qlib, common, wv, sig, x, betas, gammas, threads=1024):
+    qlib.shim_k6_set_threads(threads)
+    values, finals = permutation_cuda.products(common, _t(wv), _t(sig), _t(x), _t(betas),
+                                               _t(gammas), lib=qlib)
+    return _u(values), _u(finals)
+
+
+def _k6_plain(common, wv, sig, x, betas, gammas):
+    values, finals = _zs_values_plain(common, _t(wv), _t(sig), _t(x), _t(betas), _t(gammas))
+    return _u(values), _u(finals)
+
+
+@pytest.mark.parametrize("name", [c.__name__ for c in CIRCUITS])
+def test_k6_valid_witness_matches_plain_and_jax(qlib, gate_circuits, name):
+    """Each gate circuit's witness on H (JAX host witness, equal circuits):
+    Z and the partial products equal the JAX package's
+    compute_zs_and_partial_products and the plain version, B = 2 with
+    each proof's own challenges, and every closing product is 1."""
+    data, assign, jdata = gate_circuits[name]
+    common, po = data.common, data.prover_only
+    wires, _ = j_witness.generate_witness(jdata, _witness(JAX, assign))   # (n, W)
+    routed = common.config.num_routed_wires
+    wv = np.stack([wires.T[:routed]] * 2)
+    rng = np.random.default_rng(len(name) + 100)
+    betas, gammas = (rng.integers(0, P, (2, 2, 1), dtype=U64) for _ in range(2))
+    got, finals = _k6(qlib, common, wv, po.sigmas_values, po.subgroup, betas, gammas, 4)
+    want, want_finals = _k6_plain(common, wv, po.sigmas_values, po.subgroup, betas, gammas)
+    assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+    assert (finals == 1).all()
+    for b in range(2):
+        ref = j_prover.compute_zs_and_partial_products(
+            jdata.common, jdata.prover_only, wires, betas[:, b, 0], gammas[:, b, 0])
+        assert np.array_equal(got[b], ref)
+
+
+@pytest.mark.parametrize("threads", [1, 4, 32, 1024])
+def test_k6_random_values_and_zero_denominator(qlib, threads):
+    """Random values on H (the product does not close), with one
+    denominator of one chunk of one point 0: its inverse is 0, as the
+    plain version's, and that chunk's ratio zeroes the rest of the
+    scan; scan blocks of 1 to 1024 threads (one tile or many)."""
+    common, _ = _wormhole_commons()
+    n, routed, nc = 256, 80, 2
+    rng = np.random.default_rng(threads)
+    wv = rng.integers(0, P, (3, routed, n), dtype=U64)
+    sig = rng.integers(0, P, (routed, n), dtype=U64)
+    x = jgl.powers(jgl.primitive_root_of_unity(8), n)
+    betas, gammas = (rng.integers(0, P, (nc, 3, 1), dtype=U64) for _ in range(2))
+    b, j, i = 1, 13, 77
+    wv[b, j, i] = (P - int(jgl.add(jgl.mul(betas[0, b, 0], sig[j, i]), gammas[0, b, 0]))) % P
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, threads)
+    want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
+    assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+    assert (got[b, 0, i + 1:] == 0).all() and got[b, 0, i] != 0 and finals[b, 0] == 0
+    assert (got < U64(P)).all()
+
+
+def test_k6_short_last_chunk_matches_plain_and_jax(qlib):
+    """78 routed wires in chunks of 8: a last chunk of 6.  A valid
+    permutation witness made from seeded pairs of cells that swap places
+    (each pair one value), so the JAX package's
+    compute_zs_and_partial_products, which refuses a product that does
+    not close, takes it; B = 2, each proof its own challenges."""
+    from types import SimpleNamespace
+
+    cfg_kw = dict(zero_knowledge=True, num_routed_wires=78)
+    common = _common(t_cd, _wormhole_gates(t_gates), TORCH.C(**cfg_kw), 6)
+    jcommon = _common(j_cd, _wormhole_gates(j_gates), JAX.C(**cfg_kw), 6)
+    assert common.num_partial_products == jcommon.num_partial_products == 9
+    n, routed = 64, 78
+    rng = np.random.default_rng(78)
+    x = jgl.powers(jgl.primitive_root_of_unity(6), n)
+    ids = jgl.mul(np.asarray(common.k_is, dtype=U64)[:, None], x[None, :]).reshape(-1)
+    wv = np.empty((2, routed * n), dtype=U64)
+    sig = np.empty(routed * n, dtype=U64)
+    pairs = rng.permutation(routed * n).reshape(-1, 2)
+    sig[pairs[:, 0]], sig[pairs[:, 1]] = ids[pairs[:, 1]], ids[pairs[:, 0]]
+    for b in range(2):
+        v = rng.integers(0, P, len(pairs), dtype=U64)
+        wv[b, pairs[:, 0]], wv[b, pairs[:, 1]] = v, v
+    wv, sig = wv.reshape(2, routed, n), sig.reshape(routed, n)
+    betas, gammas = (rng.integers(0, P, (2, 2, 1), dtype=U64) for _ in range(2))
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, 4)
+    want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
+    assert got.shape == (2, 20, n)
+    assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+    assert (finals == 1).all()
+    po = SimpleNamespace(subgroup=x, sigmas_values=sig)
+    for b in range(2):
+        ref = j_prover.compute_zs_and_partial_products(
+            jcommon, po, wv[b].T, betas[:, b, 0], gammas[:, b, 0])
+        assert np.array_equal(got[b], ref)
+
+
+@pytest.mark.parametrize("value", [0, 1, P - 1])
+def test_k6_constant_rows_and_unbatched(qlib, value):
+    """Every input 0, 1 or p - 1, one proof unbatched (the sharded
+    prover's call)."""
+    common, _ = _wormhole_commons()
+    n = 64
+    full = np.full((80, n), value, dtype=U64)
+    ch = np.full((2, 1), value, dtype=U64)
+    got, finals = _k6(qlib, common, full, full, full[0], ch, ch)
+    want, want_finals = _k6_plain(common, full, full, full[0], ch, ch)
+    assert got.shape == (20, n) and finals.shape == (2,)
+    assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+
+
+def test_k6_inverse_chain(qlib):
+    """The addition chain's a^(p-2) against the host inverse, 0 -> 0."""
+    rng = np.random.default_rng(3)
+    a = np.concatenate([np.array([0, 1, P - 1, 2, 7, 2**32, P - 2], dtype=U64),
+                        rng.integers(0, P, 4096, dtype=U64)])
+    out = np.empty_like(a)
+    qlib.shim_k6_inverse(a.ctypes.data_as(ctypes.c_void_p),
+                         out.ctypes.data_as(ctypes.c_void_p), a.size)
+    assert np.array_equal(out, jgl.inverse(a))
+
+
+def test_k6_refuses_bad_calls(qlib):
+    common, _ = _wormhole_commons()
+    wv = np.zeros((1, 80, 16), dtype=U64)
+    ch = np.zeros((2, 1, 1), dtype=U64)
+    with pytest.raises(ValueError, match="CUDA"):
+        permutation_cuda.products(common, _t(wv), _t(wv[0]), _t(wv[0, 0]), _t(ch), _t(ch))
+    with pytest.raises(ValueError, match="wvals"):
+        _k6(qlib, common, wv[:, :40], wv[0], wv[0, 0], ch, ch)
+    with pytest.raises(ValueError, match="challenges"):
+        _k6(qlib, common, wv, wv[0], wv[0, 0], ch[:, :, :0], ch)
+
+
+def test_stage_bodies_route_by_device():
+    """The quotient and zs bodies take K5/K6 on a CUDA tensor and their
+    plain versions on a CPU tensor; any other device raises."""
+    from zk_circuits_torch.plonk.prover import _on
+
+    assert _on(torch.zeros(2, dtype=torch.int64)) == "cpu"
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        _on(torch.zeros(2, dtype=torch.int64, device="meta"))

@@ -1,0 +1,82 @@
+// The vanishing polynomial over the LDE coset (K5) for Hopper.
+//
+// Replaces the XLA program that the JAX package jits for the quotient
+// (zk_circuits_tpu/plonk/prover.py:186 _quotient_commit_body, jitted at
+// :230, over plonk/vanishing.py:161 eval_vanishing, :118
+// _eval_permutation_terms_device and each gate's eval_device); it is no
+// Pallas kernel.  Eager torch ran it as ~37k launches a proof, one a field
+// operation.  Here it is one launch: a thread a coset point of a proof
+// (the proof on the grid's y) evaluates the L1 term, the permutation
+// argument's chunk terms and every gate type's constraints (quotient.cuh),
+// reduces them by each challenge's alpha and multiplies by 1/Z_H(x).  It
+// reads the commits' column-major LDE values where they lie (neighbouring
+// threads on neighbouring points, no transpose) and writes (nc, B, points)
+// in the layout the coset INTT takes.  A block first builds its proof's
+// powers of alpha and beta k_j in shared memory and copies the Poseidon
+// round constants there (a block's threads read the same one at once).
+//
+// Bound on the H100: operations.  A wormhole point costs ~1.6k 64x64
+// products (the Poseidon gate's 118 S-boxes, the permutation argument's
+// 80 x 2 products a challenge, two a constraint a challenge for the fold)
+// against ~2 KB of input and output, about 1.2 bytes a product, where the
+// card's balance point is ~1.6 (3.35 TB/s against 2.1e12 products a
+// second at 8 32-bit multiplies each; chip_smoke.py's k5_work).  So the design
+// spends no product it can avoid: a chunk's first factor starts its
+// product, beta k_j is a table, powers of alpha are a table, the MDS
+// layer is the frequency-domain form (shifts and adds), and every value
+// stays lazily reduced until the store.
+#include <cuda_runtime.h>
+
+#include "quotient.cuh"
+
+__constant__ uint64_t K5_RC[POSEIDON_WIDTH * POSEIDON_ROUNDS] = POSEIDON_RC_INIT;
+
+constexpr int K5_THREADS = 128;
+
+template <int NC>
+__global__ void __launch_bounds__(K5_THREADS) k5_kernel(const K5Call c) {
+  __shared__ uint64_t apow[NC * K5_MAX_POW];
+  __shared__ uint64_t bk[NC * PERM_MAX_ROUTED];
+  __shared__ uint64_t rc[POSEIDON_WIDTH * POSEIDON_ROUNDS];
+  for (int k = threadIdx.x; k < POSEIDON_WIDTH * POSEIDON_ROUNDS; k += K5_THREADS)
+    rc[k] = K5_RC[k];
+  k5_tables<NC>(c, blockIdx.y, apow, bk, threadIdx.x, K5_THREADS);
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * K5_THREADS + threadIdx.x;
+  if (i < c.points) k5_point<NC>(c, blockIdx.y, i, apow, bk, rc);
+}
+
+template <int NC>
+static cudaError_t k5_launch(const K5Call& c, cudaStream_t stream) {
+  dim3 grid((unsigned)((c.points + K5_THREADS - 1) / K5_THREADS), (unsigned)c.batch);
+  k5_kernel<NC><<<grid, K5_THREADS, 0, stream>>>(c);
+  return cudaGetLastError();
+}
+
+extern "C" {
+
+// Launches one call on `stream` of `device`; returns 0 or the CUDA error
+// code (cudaErrorInvalidValue for a call the kernel does not take).
+int k5_vanishing(int device, const K5Call* call, void* stream_ptr) {
+  const K5Call& c = *call;
+  if (k5_valid(c)) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  int prev = 0;
+  cudaGetDevice(&prev);
+  cudaSetDevice(device);
+  cudaError_t err;
+  switch (c.nc) {
+    case 1: err = k5_launch<1>(c, stream); break;
+    case 2: err = k5_launch<2>(c, stream); break;
+    case 3: err = k5_launch<3>(c, stream); break;
+    default: err = k5_launch<4>(c, stream); break;
+  }
+  cudaSetDevice(prev);
+  return (int)err;
+}
+
+// The size of the K5Call the library was built with (the wrapper checks
+// its ctypes mirror against it).
+int k5_call_size(void) { return (int)sizeof(K5Call); }
+
+}  // extern "C"

@@ -23,7 +23,7 @@ from ..hash import merkle as merklem
 from ..host import gl
 from ..iop.witness import PartialWitness
 from ..ntt import ntt as nttm
-from . import algebra
+from . import algebra, permutation_cuda, quotient_cuda
 from .proof import ProofWithPublicInputs
 from .vanishing import VanishingVars, eval_vanishing
 
@@ -84,12 +84,16 @@ def _quotient_commit_body(common, blinding: bool, cs_vals, wires_vals,
     ``_device_vanishing_eval`` takes them."""
     cfg = common.config
     n = common.degree
-    device = cs_vals.device
-    x_c, l1_c, zh_inv_c = _coset_tables(common, device)
-    vans = _device_vanishing_eval(common, cs_vals.t(), wires_vals.transpose(-1, -2),
-                                  zsp_vals.transpose(-1, -2), x_c, l1_c, pi_hash,
-                                  betas, gammas, alphas)
-    qs = nttm.coset_intt(gfd.mul(torch.stack(vans), zh_inv_c))  # (challenges, ..., 8n)
+    tables = _coset_tables(common, cs_vals.device)
+    if _on(cs_vals) == "cuda":      # K5, one launch
+        vals = quotient_cuda.vanishing(common, cs_vals, wires_vals, zsp_vals, tables,
+                                       pi_hash, betas, gammas, alphas)
+    else:
+        vans = _device_vanishing_eval(common, cs_vals.t(), wires_vals.transpose(-1, -2),
+                                      zsp_vals.transpose(-1, -2), *tables[:2], pi_hash,
+                                      betas, gammas, alphas)
+        vals = gfd.mul(torch.stack(vans), tables[2])
+    qs = nttm.coset_intt(vals)                                  # (challenges, ..., 8n)
     chunks = [qs[c, ..., t * n : (t + 1) * n] for c in range(cfg.num_challenges)
               for t in range(common.quotient_degree_factor)]
     coeffs = torch.stack(chunks, dim=-2)
@@ -115,27 +119,46 @@ def _zs_coeffs_body(common, sigmas_np, subgroup_np, wire_coeffs, betas, gammas):
     valid witness).
 
     For a batch of proofs, wire_coeffs is (B, k, n), the challenges
-    (num_challenges, B, 1), and the results carry the proof axis too."""
+    (num_challenges, B, 1), and the results carry the proof axis too.
+    On the card the products are K6's (plonk/permutation_cuda.py), on the
+    CPU ``_zs_values_plain``."""
     cfg = common.config
-    n = common.degree
-    q = common.quotient_degree_factor
-    num_routed = cfg.num_routed_wires
-    assert num_routed % q == 0
-    num_chunks = num_routed // q
-    num_pp = common.num_partial_products
     device = wire_coeffs.device
-
     sig = gfd.from_u64(sigmas_np, device)                       # (80, n)
     x = gfd.from_u64(subgroup_np, device)                       # (n,)
-    k = gfd.from_u64(np.asarray(common.k_is, dtype=np.uint64), device)
-    lead = wire_coeffs.shape[:-2]                               # () or (B,)
-    wvals = nttm.ntt(wire_coeffs[..., :num_routed, :])          # (..., 80, n)
+    wvals = nttm.ntt(wire_coeffs[..., :cfg.num_routed_wires, :])  # (..., 80, n)
+    if _on(wvals) == "cuda":
+        values, finals = permutation_cuda.products(common, wvals, sig, x, betas, gammas)
+    else:
+        values, finals = _zs_values_plain(common, wvals, sig, x, betas, gammas)
+    coeffs = nttm.intt(values)
+    if cfg.zero_knowledge:
+        coeffs = _with_salts(coeffs)
+    return coeffs, finals
+
+
+def _zs_values_plain(common, wvals, sig, x, betas, gammas):
+    """The plain version of K6: the Z and partial-product values (...,
+    nc + nc * pp, n) and the closing products (..., nc) from the routed
+    wires' values on H, eager torch."""
+    cfg = common.config
+    n = wvals.shape[-1]
+    q = common.quotient_degree_factor
+    num_routed = cfg.num_routed_wires
+    num_chunks = -(-num_routed // q)     # the last chunk shorter where q does not divide
+    pad = num_chunks * q - num_routed
+    num_pp = common.num_partial_products
+    k = gfd.from_u64(np.asarray(common.k_is, dtype=np.uint64), wvals.device)
+    lead = wvals.shape[:-2]                                     # () or (B,)
     kx = gfd.mul(k[:, None], x[None, :])                        # (80, n)
     polys, pps_all, finals = [], [], []
     for c in range(cfg.num_challenges):
         beta, gamma = betas[c][..., None], gammas[c][..., None]
         nums = gfd.add(wvals, gfd.add(gfd.mul(kx, beta), gamma))
         dens = gfd.add(wvals, gfd.add(gfd.mul(sig, beta), gamma))
+        if pad:                                                 # factors of 1 fill the last chunk
+            ones = torch.ones((*nums.shape[:-2], pad, n), dtype=nums.dtype, device=nums.device)
+            nums, dens = torch.cat([nums, ones], dim=-2), torch.cat([dens, ones], dim=-2)
         nums = nums.reshape(*lead, num_chunks, q, n)
         dens = dens.reshape(*lead, num_chunks, q, n)
         cn, cd = nums[..., 0, :], dens[..., 0, :]
@@ -154,11 +177,15 @@ def _zs_coeffs_body(common, sigmas_np, subgroup_np, wire_coeffs, betas, gammas):
         for t in range(num_pp):
             p = gfd.mul(p, ratios[..., t, :])
             pps_all.append(p)
-    values = torch.stack(polys + pps_all, dim=-2)               # (..., nc + nc*pp, n)
-    coeffs = nttm.intt(values)
-    if cfg.zero_knowledge:
-        coeffs = _with_salts(coeffs)
-    return coeffs, torch.cat(finals, dim=-1)
+    return torch.stack(polys + pps_all, dim=-2), torch.cat(finals, dim=-1)
+
+
+def _on(t: torch.Tensor) -> str:
+    """Where a stage body runs: "cuda" (the kernels) or "cpu" (their plain
+    versions); any other device raises."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the prover runs on CUDA or CPU tensors, got {t.device}")
+    return t.device.type
 
 
 def coset_domain_columns(common):

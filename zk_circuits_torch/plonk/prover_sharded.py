@@ -49,6 +49,7 @@ from ..ntt import ntt as nttm
 from ..parallel.mesh import Mesh, axis_mesh, gather, make_mesh, reshard, shard_last
 from ..parallel.ntt_exchange import all_to_all_blocks
 from ..parallel.ntt_sharded import intt_sharded, lde_batch_sharded
+from . import quotient_cuda
 from .proof import Proof, ProofWithPublicInputs
 
 
@@ -125,7 +126,7 @@ def _quotient_sharded(common, cs, wires, zsp, pi_hash, betas, gammas,
                       alphas, mesh: Mesh) -> ShardedBatch:
     """Row-parallel vanishing evaluation on the 8n coset, sharded coset
     INTT per challenge (K2), chunk split (+ salts), poly-sharded commit."""
-    from .prover import _coset_tables, _device_vanishing_eval
+    from .prover import _coset_tables, _device_vanishing_eval, _on
 
     cfg = common.config
     n, lde, e = common.degree, common.lde_size, mesh.size
@@ -137,17 +138,25 @@ def _quotient_sharded(common, cs, wires, zsp, pi_hash, betas, gammas,
     def col(vals, dev):
         return gfd.from_u64(np.asarray(vals, dtype=np.uint64).reshape(-1, 1), dev)
 
-    vals = [[] for _ in range(cfg.num_challenges)]
+    nc = cfg.num_challenges
+    vals = [[] for _ in range(nc)]
     for d, dev in enumerate(mesh.devices):
-        x, l1, zh_inv = (t[d * r:(d + 1) * r] for t in _coset_tables(common, dev))
-        halo = zsp.rows[(d + 1) % e][:, :rate].to(dev)
-        zsp_next = torch.cat([zsp.rows[d][:, rate:], halo], dim=1).t()
-        vans = _device_vanishing_eval(
-            common, cs.rows[d].t(), wires.rows[d].t(), zsp.rows[d].t(), x, l1,
-            gfd.from_u64(pi_hash.reshape(1, 4), dev), col(betas, dev),
-            col(gammas, dev), col(alphas, dev), zsp_next=zsp_next)
-        for c in range(cfg.num_challenges):
-            vals[c].append(gfd.mul(vans[c], zh_inv))
+        tables = _coset_tables(common, dev)
+        halo = zsp.rows[(d + 1) % e][:nc, :rate].to(dev)
+        zsp_next = torch.cat([zsp.rows[d][:nc, rate:], halo], dim=1)
+        pis = gfd.from_u64(pi_hash.reshape(1, 4), dev)
+        chall = [col(v, dev) for v in (betas, gammas, alphas)]
+        if _on(cs.rows[d]) == "cuda":   # K5 on the shard's rows, its halo beside them
+            y = quotient_cuda.vanishing(common, cs.rows[d], wires.rows[d], zsp.rows[d],
+                                        tables, pis, *chall, zs_next=zsp_next, row0=d * r)
+        else:
+            x, l1, zh_inv = (t[d * r:(d + 1) * r] for t in tables)
+            vans = _device_vanishing_eval(
+                common, cs.rows[d].t(), wires.rows[d].t(), zsp.rows[d].t(), x, l1, pis,
+                *chall, zsp_next=zsp_next.t())
+            y = gfd.mul(torch.stack(vans), zh_inv)
+        for c in range(nc):
+            vals[c].append(y[c])
     inv_shift = pow(gl.MULTIPLICATIVE_GROUP_GENERATOR, gl.P_INT - 2, gl.P_INT)
     q = common.quotient_degree_factor
     pieces = []
