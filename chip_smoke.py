@@ -7,9 +7,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. card     -- the card's name and power limit; build the Poseidon kernel
                (K1), the block exchange (K2), the witness schedule (K3),
-               the NTT (K4), the vanishing polynomial (K5) and the
-               permutation products (K6) from csrc/, one nvcc each, all
-               started together, timed.
+               the NTT (K4), the vanishing polynomial (K5), the
+               permutation products (K6) and the openings' and FRI's
+               arithmetic (K7-K9, one library) from csrc/, one nvcc each,
+               all started together, timed.
 2. square   -- a one-gate square circuit under both standard configs: the
                proof from device="cuda" must equal the proof from
                device="cpu" byte for byte, and verify.
@@ -26,7 +27,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                no call of the NTT's plain stage loop on the card; K5's
                (one) and K6's (two) a proof, and no call of the quotient's
                or the permutation argument's plain version on the card
-               (plain_quotient_on_card).
+               (plain_quotient_on_card); K7's (one), K8's (two) and K9's
+               (one a fold round) a proof, and no plain FRI body on the
+               card (plain_fri_on_card).
 4. batch    -- the batched prover: prove_batch of B=4 zk wormhole proofs
                (one cold batch, two warm), each proof's sha256 == the pinned
                digest, proof 0 verified and a tampered copy refused; K1's
@@ -34,7 +37,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and the PoW sweeps the found witnesses need, K3's == those of
                one proof, no host witness, K4's == those of one proof
                and no plain NTT on the card, K5 once and K6 twice a batch
-               and no plain quotient body on the card; stage times, the
+               and no plain quotient body on the card, K7-K9 as a proof
+               and no plain FRI body; stage times, the
                second warm batch under torch.profiler and bench.py's JSON
                keys; then the square circuit at B=4 with distinct witnesses
                under a zk config with FRI fold rounds, each proof == a
@@ -81,7 +85,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and K4's launches; then one more with each prove/* stage
                under a profiler window of its own (stage_device_ops): its
                device operations, busy time and most frequent operations;
-               K5 once and K6 twice a proof, no plain quotient body.
+               K5 once and K6 twice a proof, no plain quotient body;
+               K7-K9 as in wormhole, no plain FRI body; prove/openings+fri's
+               device operations beside OPENINGS_FRI_OPS_BEFORE.
 9. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
                card (and spread over the cards when there are several):
                copy with even and odd block sizes and edge values, and at E=4 every fiber regroup and
@@ -103,7 +109,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                each four-step's row NTTs are one K4 four-step a shard, and
                K4's launches by mode are printed per sub-step; a sharded
                proof launches K5 once a shard (its rows, row0 and its halo)
-               and K6 twice, with no plain quotient body on the card.
+               and K6 twice, with no plain quotient body on the card, and
+               K7 and K8's point kernel a shard and once more on the first
+               (the Z rows at g*zeta), K8's scan once, K9 a shard a round
+               (expected_fri_launches), with no plain FRI body.
                Then the device operations of one profiled 2^22 four-step,
                fused and as the sequence it replaced (K2 copies with eager
                torch field operations between them), each with its K2
@@ -151,8 +160,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                public inputs extract equal to the leaf's.  Every level
                prove (a batch of 4, a batch of 2, one proof) launches K1 by
                mode and K3 by kernel as many times as its level circuit
-               gives, K5 once and K6 twice, with no host witness and no
-               plain quotient body on the card.  Then the host's part of a
+               gives, K5 once and K6 twice, K7 once, K8 twice and K9 once
+               a fold round, with no host witness and no plain quotient or
+               FRI body on the card.  Then the host's part of a
                level-1 prove (the chunk witnesses, seed_batch), one warm
                level-1 prove_level under torch.profiler, and K1 (the
                level-1 wires tree, alone and at B=4) and K3 (the level-1
@@ -177,7 +187,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                spills and the SASS counts of each kernel.  A share of the
                bound above 1.05 fails.
 18. k6_time -- the same for K6 (k6_work).
-19. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
+19. fri_check -- K7, K8 and K9 against their plain versions
+               (fri/fri_device.py's _openings_plain, _reduce_alpha_plain,
+               _compose_plain, _fold_plain) on the card, equal integers:
+               one wormhole proof, B=4 and the level-1 batch at 2^14 (three
+               fold rounds, the last of arity 2), each with the circuit's
+               constants/sigmas shared (batch stride 0); every input 0, 1
+               or p - 1; each proof's points at 0, 1, -1, x and -1 - x;
+               arity bits 1-4, batched and 1-D; each shard's openings,
+               alpha reduction and fold on the sharded path (E=4) and the
+               Z rows at g*zeta on the first shard.
+20. fri_time -- K7-K9's device time (graph_ms) at fri_check's three
+               main-path shapes: K7, K8's point kernel, its scan, both,
+               each fold round, and a proof's launches of all three,
+               beside the plain versions, the bound (fri_work: bytes, or
+               the products the functions need) and the host time of a
+               wrapper call; ptxas's registers and spills and the SASS
+               counts of each kernel.  A share of the bound above 1.05
+               fails.
+21. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
                over make_mesh(4) (shard i on cuda:(i % cards); the four
                shards prove in turn, on one card or on four), cold and
                warm, beside an unsharded batch of 8 cold
@@ -190,7 +218,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                utils/profiling.device_trace (torch.profiler, a Chrome
                trace written under ZKT_PROFILE_DIR), each card's busy
                time and idle share.
-20. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
+22. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
                with its cached level circuits (none built again), once
                on one card and twice (first, warm) on several:
                level 1's 4 chunks split one a shard, level 2 (B=2, not a
@@ -199,7 +227,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                leaves extracted; K1/K3 launches a level prove as its
                split gives; seconds per level beside the aggregate
                phase's warm unsharded ones.
-21. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
+23. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
                shards: with 4 cards or more each process owns 2 cards
                and the backend is nccl, else both share cuda:0 under
                gloo (NCCL refuses two ranks on one card); the backend
@@ -213,13 +241,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     With four cards or more, k1_time also times the wires tree on each
     card alone and on all at once, and k2_time each K2 mode at 2^22
     points with its shards on four cards (NVLink peers).
-22. voting  -- the vote circuit of tests/test_voting.py under
+24. voting  -- the vote circuit of tests/test_voting.py under
                standard_recursion_config built and proved on the card (cold
                and warm), sha256 == the JAX host path's (pinned below),
                verified, tamper-checked, K1's and K3's launches as the
                circuit gives, no host witness; a vote with the wrong
                Merkle depth refused by the device witness on the card.
-23. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
+25. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
                written to a temporary directory; WormholeProver.new_from_files
                proves the golden inputs on the card (sha256 == the pinned
                zk digest) and WormholeVerifier.new_from_files verifies it;
@@ -227,7 +255,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                decodes to a proof with the JAX host path's sha256 (pinned
                below), which a freshly built verifier accepts, whose public
                inputs are the golden fixture's.
-24. compat  -- the reference-format layer (zk_circuits_torch/compat, host
+26. compat  -- the reference-format layer (zk_circuits_torch/compat, host
                numpy): its import runs the fast-Poseidon self-check; K1's
                hash_rows of 4096 seeded rows of 8 felts (one permutation
                each, state = row || 0^4) on the card equals its plain
@@ -238,7 +266,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and its polys' sha256 is the JAX package's (pinned below).
                Its K1 launch is a cross-check, counted apart under
                launches_by_path["compat"].
-25. native  -- the host runtime (zk_circuits_torch.native: g++ builds
+27. native  -- the host runtime (zk_circuits_torch.native: g++ builds
                csrc/host_native.cpp in the card phase, beside the nvcc
                builds; its seconds and library name): every function
                equal to its numpy plain version at the circuit's sizes
@@ -340,6 +368,10 @@ K6_REPLACES = "zk_circuits_tpu/plonk/prover.py:266"
 K6_TIMED_CALLS = 8     # back-to-back calls per K6 timing (graph_ms)
 K6_INVERSE_PRODUCTS = 73   # csrc/permutation.cuh k6_inverse: 64 squarings and 9 products
 K4_MULS_PER_PRODUCT = 8   # 32-bit multiplies of a 64x64 product
+FRI_SOURCE = "zk_circuits_torch/csrc/fri.cu"   # K7, K8 and K9
+FRI_REPLACES = "zk_circuits_tpu/fri/fri_device.py"
+FRI_TIMED_CALLS = 8    # back-to-back calls per K7-K9 timing (graph_ms)
+FRI_INVERSE_PRODUCTS = 78   # csrc/fri.cuh fri_inverse: the norm (3), its 73-product chain, 2
 # graph_ms of the first, radix-2 K4 on an H100 (PERF.md's table, "ms before"), by
 # k4_time's shape
 K4_BEFORE_MS = {"wires_lde": 0.369428, "batch_wires_lde": 1.340142, "wires_intt": 0.071562,
@@ -354,6 +386,8 @@ K3_PRODUCTS = {"const": 0, "arith": 3, "arith_ext": 9, "eq_inv": 127, "ext_inv":
 K3_CHAIN_DEPTH = 128   # levels of the arith chain circuit that times a narrow level
 # a warm wormhole proof's device operations with the host witness (PERF.md)
 DEVICE_OPS_BEFORE = 64251   # a warm proof's device operations before K5 and K6 (PERF.md)
+DEVICE_OPS_BEFORE_FRI = 11462        # ... before K7-K9 (PERF.md)
+OPENINGS_FRI_OPS_BEFORE = 11390      # prove/openings+fri's of them (stage_device_ops)
 SHARDS = 4             # E of the sharded phase
 BATCH = 4              # proofs per prove_batch call (bench.py's ZKT_BENCH_BATCH)
 NTT_LOG = 22           # SCALING.md's size of one sharded polynomial
@@ -463,6 +497,7 @@ def phase_card(state) -> None:
     import torch
 
     from zk_circuits_torch import native
+    from zk_circuits_torch.fri import fri_cuda
     from zk_circuits_torch.hash import poseidon_cuda
     from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.ntt import ntt_cuda
@@ -481,22 +516,22 @@ def phase_card(state) -> None:
 
     poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's, K3's, native's
     # one nvcc per source and g++ for the host runtime, all started together
-    with ThreadPoolExecutor(7) as pool:
-        k1, k2, k3, k4, k5, k6, host = pool.map(timed, (
+    with ThreadPoolExecutor(8) as pool:
+        k1, k2, k3, k4, k5, k6, k789, host = pool.map(timed, (
             poseidon_cuda.build, exchange_cuda.build, witness_cuda.build, ntt_cuda.build,
-            quotient_cuda.build, permutation_cuda.build, native.build))
+            quotient_cuda.build, permutation_cuda.build, fri_cuda.build, native.build))
     native.available()
     state["native_build"] = {"build_s": host, "library": native.build().name,
                              "compiler_output": native.build_log}
     ptxas = [ln.strip() for mod in (poseidon_cuda, exchange_cuda, witness_cuda, ntt_cuda,
-                                    quotient_cuda, permutation_cuda)
+                                    quotient_cuda, permutation_cuda, fri_cuda)
              for ln in mod.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "card", "nvidia_smi": state["smi"],
           "name": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "k1_build_s": k1, "k2_build_s": k2, "k3_build_s": k3, "k4_build_s": k4,
-          "k5_build_s": k5, "k6_build_s": k6,
+          "k5_build_s": k5, "k6_build_s": k6, "k7_k8_k9_build_s": k789,
           "native_build_s": host,
           "ptxas": ptxas})
 
@@ -948,17 +983,19 @@ def phase_wormhole(state) -> None:
 
     profiling.reset_timings()
     with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts, \
-            plain_quotient_on_card() as plain_quotient:
+            plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
         poseidon_cuda.reset_launches()      # main path starts here
         witness_cuda.reset_launches()
         ntt_cuda.reset_launches()
         reset_quotient_launches()
+        reset_fri_launches()
         proof, cold_s = one_proof(prover)
         per_proof = poseidon_cuda.launches
         by_mode = dict(poseidon_cuda.launches_by_mode)
         k3_per_proof = dict(witness_cuda.launches_by_kernel)
         k4_per_proof = dict(ntt_cuda.launches_by_mode)
         k56_per_proof = quotient_launches()
+        fri_per_proof = fri_launches()
         warm = []
         for _ in range(3):
             proof_w, dt = one_proof(WormholeProver(circuit_data=cd, targets=targets))
@@ -967,6 +1004,7 @@ def phase_wormhole(state) -> None:
         k3_launches = witness_cuda.launches
         k4_launches = ntt_cuda.launches
         k5_launches, k6_launches = quotient_launches()
+        fri_all = fri_launches()
     if per_proof <= 0 or launches != 4 * per_proof:
         raise AssertionError(f"K1 launches: {per_proof} per proof, {launches} in all")
     want = expected_k1_launches(cd.common)
@@ -985,6 +1023,11 @@ def phase_wormhole(state) -> None:
         raise AssertionError(f"K5, K6 launches {k56_per_proof} per proof ({k5_launches}, "
                              f"{k6_launches} in all), want (1, 2); plain quotient bodies on "
                              f"the card: {plain_quotient}")
+    fri_want = expected_fri_launches(cd.common)
+    if fri_per_proof != fri_want or fri_all != {k: 4 * v for k, v in fri_want.items()} \
+            or plain_fri:
+        raise AssertionError(f"K7-K9 launches {fri_per_proof} per proof ({fri_all} in all), "
+                             f"want {fri_want}; plain FRI bodies on the card: {plain_fri}")
 
     data = proof_to_bytes(proof)
     if proof_to_bytes(proof_w) != data:
@@ -1008,6 +1051,7 @@ def phase_wormhole(state) -> None:
     state["k4_launches"] = k4_launches
     state["k4_launches_by_mode"] = dict(ntt_cuda.launches_by_mode)
     state["k5_launches"], state["k6_launches"] = k5_launches, k6_launches
+    state["fri_launches"] = fri_all
     timings = {k: statistics.median(v) for k, v in profiling.get_timings().items()}
     emit({"phase": "wormhole", "config": "standard_recursion_zk_config",
           "degree_bits": cd.common.degree_bits, "proof_bytes": len(data),
@@ -1023,7 +1067,8 @@ def phase_wormhole(state) -> None:
           "k4_copies": ntt_cuda.copies,
           "k5_launches_per_proof": k56_per_proof[0], "k5_launches": k5_launches,
           "k6_launches_per_proof": k56_per_proof[1], "k6_launches": k6_launches,
-          "plain_quotient_on_card": 0,
+          "plain_quotient_on_card": 0, "k7_k9_launches_per_proof": fri_per_proof,
+          "k7_k9_launches": fri_all, "plain_fri_on_card": 0,
           "host_witnesses": len(host_witnesses), "stage_median_s": timings})
 
 
@@ -1081,13 +1126,18 @@ def expected_k4_launches(common) -> dict:
 @contextlib.contextmanager
 def plain_calls_on_card(module, names):
     """A list that grows by the name of every call of ``module``'s
-    functions ``names`` with a CUDA tensor among its arguments inside the
-    block."""
+    functions ``names`` with a CUDA tensor among its arguments (or in a list
+    or tuple among them) inside the block."""
     real, calls = {k: getattr(module, k) for k in names}, []
+
+    def on_card(a) -> bool:
+        if isinstance(a, (list, tuple)):
+            return any(on_card(x) for x in a)
+        return getattr(a, "is_cuda", False)
 
     def counted(name, fn):
         def call(*args, **kwargs):
-            if any(getattr(a, "is_cuda", False) for a in args):
+            if any(on_card(a) for a in args):
                 calls.append(name)
             return fn(*args, **kwargs)
         return call
@@ -1118,6 +1168,53 @@ def plain_quotient_on_card():
     from zk_circuits_torch.plonk import prover
 
     return plain_calls_on_card(prover, ("_device_vanishing_eval", "_zs_values_plain"))
+
+
+def plain_fri_on_card():
+    """The calls of the openings' and FRI's plain versions (fri/fri_device.py's
+    ``_openings_plain``, ``_reduce_alpha_plain``, ``_compose_plain``,
+    ``_fold_plain``) on CUDA tensors inside the block: on the card the main
+    path takes K7, K8 and K9."""
+    from zk_circuits_torch.fri import fri_device
+
+    return plain_calls_on_card(fri_device, ("_openings_plain", "_reduce_alpha_plain",
+                                            "_compose_plain", "_fold_plain"))
+
+
+def fri_launches() -> dict:
+    """K7's, K8's and K9's launches so far."""
+    from zk_circuits_torch.fri import fri_cuda
+
+    return dict(fri_cuda.launches_by_kernel)
+
+
+def fri_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in fri_launches().items()}
+
+
+def reset_fri_launches() -> None:
+    from zk_circuits_torch.fri import fri_cuda
+
+    fri_cuda.reset_launches()
+
+
+def expected_fri_launches(common, shards: int | None = None) -> dict:
+    """K7's, K8's and K9's launches a proof, or a batch of proofs of one
+    circuit: K7 once, K8 twice (its point kernel and its scan), K9 once a
+    fold round.  For a sharded proof over ``shards`` shards: K7 and K8's
+    point kernel once a shard and once more for the Z rows at g*zeta, K8's
+    scan once, K9 once a shard a fold round while every shard holds a
+    multiple of the arity, else once (fri_sharded._fold gathers)."""
+    arities = common.config.fri_config.reduction_arities(common.degree_bits)
+    if shards is None:
+        return {"k7": 1, "k8": 2, "k9": len(arities)}
+    pieces, k9 = [common.degree // shards] * shards, 0
+    for a in arities:
+        if any(p % (1 << a) for p in pieces):
+            pieces = [sum(pieces)]
+        k9 += len(pieces)
+        pieces = [p >> a for p in pieces]
+    return {"k7": shards + 1, "k8": shards + 2, "k9": k9}
 
 
 def quotient_launches() -> tuple[int, int]:
@@ -1162,6 +1259,8 @@ def profiled(fn) -> tuple:
         "exchange_kernel_s": sum(v[0] for k, v in by_name.items()
                                  if "block_exchange" in k),
         "ntt_kernel_s": sum(v[0] for k, v in by_name.items() if "k4_" in k),
+        "fri_kernel_s": sum(v[0] for k, v in by_name.items()
+                            if any(f"k{i}_" in k for i in (7, 8, 9))),
         "top_device_ops": [{"name": k[:100], "s": v[0], "count": v[1]}
                            for k, v in top]}
 
@@ -1257,6 +1356,8 @@ def phase_batch(state) -> None:
     witness_cuda.reset_launches()
     ntt_cuda.reset_launches()
     reset_quotient_launches()
+    reset_fri_launches()
+    fri_want = expected_fri_launches(cd.common)
     batch_s, per_batch, k3_per_batch, k4_per_batch, prof = [], [], [], [], None
     for i in range(3):                  # one cold batch, two warm
         pws = witnesses()
@@ -1264,8 +1365,9 @@ def phase_batch(state) -> None:
         k3_before = dict(witness_cuda.launches_by_kernel)
         k4_before = dict(ntt_cuda.launches_by_mode)
         k56_before = quotient_launches()
+        fri_before = fri_launches()
         with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts, \
-                plain_quotient_on_card() as plain_quotient:
+                plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
             if i < 2:
                 proofs, dt = _synced(lambda: prove_batch(cd, pws))
                 batch_s.append(dt)
@@ -1292,6 +1394,10 @@ def phase_batch(state) -> None:
         if k56 != (1, 2) or plain_quotient:
             raise AssertionError(f"K5, K6 launches per batch {k56}, want (1, 2); plain "
                                  f"quotient bodies on the card: {plain_quotient}")
+        fri = fri_since(fri_before)
+        if fri != fri_want or plain_fri:
+            raise AssertionError(f"K7-K9 launches per batch {fri}, want {fri_want}; plain FRI "
+                                 f"bodies on the card: {plain_fri}")
         digests = [hashlib.sha256(proof_to_bytes(p)).hexdigest() for p in proofs]
         if len(proofs) != BATCH or set(digests) != {GOLDEN_WORMHOLE_ZK_SHA256}:
             raise AssertionError(f"batched wormhole sha256s {digests} != pinned "
@@ -1301,6 +1407,7 @@ def phase_batch(state) -> None:
     state["k3_launches_batch"] = witness_cuda.launches
     state["k4_launches_batch"] = ntt_cuda.launches
     state["k5_launches_batch"], state["k6_launches_batch"] = quotient_launches()
+    state["fri_launches_batch"] = fri_launches()
     k4_copies = ntt_cuda.copies         # inputs K4 copied to one row stride, 3 batches
     t_verify = time.perf_counter()
     cd.verify(proofs[0])
@@ -1349,7 +1456,8 @@ def phase_batch(state) -> None:
           "k4_launches": state["k4_launches_batch"], "k4_copies": k4_copies,
           "k5_launches_per_batch": 1, "k5_launches": state["k5_launches_batch"],
           "k6_launches_per_batch": 2, "k6_launches": state["k6_launches_batch"],
-          "plain_quotient_on_card": 0,
+          "plain_quotient_on_card": 0, "k7_k9_launches_per_batch": fri_want,
+          "k7_k9_launches": state["fri_launches_batch"], "plain_fri_on_card": 0,
           "host_witnesses": 0,
           "device_ops_before": DEVICE_OPS_BEFORE,
           "stage_median_s": stages, "stage_s": timings, "profile_warm_batch": prof,
@@ -1696,19 +1804,28 @@ def phase_profile(state) -> None:
 
     before, k4_before = witness_cuda.launches, dict(ntt_cuda.launches_by_mode)
     k56_before = quotient_launches()
-    with plain_quotient_on_card() as plain_quotient:
+    fri_before = fri_launches()
+    with plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
         _, prof = profiled(prove)
         with stage_device_ops() as by_stage:
             prove()
-    if plain_quotient:
-        raise AssertionError(f"plain quotient bodies on the card: {plain_quotient}")
+    if plain_quotient or plain_fri:
+        raise AssertionError(f"plain quotient bodies on the card: {plain_quotient}; plain "
+                             f"FRI bodies: {plain_fri}")
     k56 = [a - b for a, b in zip(quotient_launches(), k56_before)]
     if k56 != [2, 4]:
         raise AssertionError(f"K5, K6 launches {k56} over two proofs, want [2, 4]")
+    fri = fri_since(fri_before)
+    fri_want = {k: 2 * v for k, v in expected_fri_launches(cd.common).items()}
+    if fri != fri_want:
+        raise AssertionError(f"K7-K9 launches {fri} over two proofs, want {fri_want}")
     state["device_ops"] = prof["device_ops"]
     state["device_ops_by_stage"] = by_stage
     emit({"phase": "profile", **prof, "device_ops_before": DEVICE_OPS_BEFORE,
           "device_ops_shed": DEVICE_OPS_BEFORE - prof["device_ops"],
+          "device_ops_before_fri": DEVICE_OPS_BEFORE_FRI,
+          "openings_fri_device_ops": by_stage["prove/openings+fri"]["device_ops"],
+          "openings_fri_device_ops_before": OPENINGS_FRI_OPS_BEFORE,
           "device_ops_by_stage": by_stage,
           "device_ops_in_stages": sum(v["device_ops"] for v in by_stage.values()),
           "k3_launches": witness_cuda.launches - before,
@@ -1716,9 +1833,10 @@ def phase_profile(state) -> None:
                                   for k, v in ntt_cuda.launches_by_mode.items()},
           "k5_launches": k56[0] // 2, "k6_launches": k56[1] // 2,
           "plain_quotient_on_card": 0,
+          "k7_k9_launches": {k: v // 2 for k, v in fri.items()}, "plain_fri_on_card": 0,
           "by_stage_note": "a second warm proof, each prove/* stage under its own "
                            "torch.profiler window (card only), ending in a synchronise; "
-                           "k5/k6 launches per proof"})
+                           "k5/k6 and k7-k9 launches per proof"})
 
 
 def _synced(fn):
@@ -1770,11 +1888,12 @@ def phase_sharded(state) -> None:
         by_mode = dict(exchange_cuda.launches_by_mode)
         k4_before = dict(ntt_cuda.launches_by_mode)
         k56_before = quotient_launches()
-        with plain_quotient_on_card() as plain_quotient:
+        fri_before = fri_launches()
+        with plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
             res, secs = _synced(fn)
-        if plain_quotient:
+        if plain_quotient or plain_fri:
             raise AssertionError(f"sharded/{step}: plain quotient bodies on the card: "
-                                 f"{plain_quotient}")
+                                 f"{plain_quotient}; plain FRI bodies: {plain_fri}")
         k1 = poseidon_cuda.launches - k1_before
         k2 = exchange_cuda.launches - k2_before
         if k2 <= 0 or (hashes and k1 <= 0):
@@ -1785,7 +1904,8 @@ def phase_sharded(state) -> None:
                        "k4_launches_by_mode": {k: v - k4_before[k] for k, v in
                                                ntt_cuda.launches_by_mode.items()},
                        **dict(zip(("k5_launches", "k6_launches"), (
-                           a - b for a, b in zip(quotient_launches(), k56_before))))}
+                           a - b for a, b in zip(quotient_launches(), k56_before)))),
+                       "k7_k9_launches": fri_since(fri_before)}
         return res
 
     n = cd.common.degree
@@ -1820,6 +1940,7 @@ def phase_sharded(state) -> None:
     exchange_cuda.reset_launches()
     ntt_cuda.reset_launches()
     reset_quotient_launches()
+    reset_fri_launches()
     # each sub-step runs twice and the second run is timed
     # 1. batch-sharded LDE commit at the wormhole wires shape
     for _ in range(2):
@@ -1849,10 +1970,17 @@ def phase_sharded(state) -> None:
     state["k4_launches_sharded"] = ntt_cuda.launches
     k4_by_mode = dict(ntt_cuda.launches_by_mode)
     state["k5_launches_sharded"], state["k6_launches_sharded"] = quotient_launches()
+    state["fri_launches_sharded"] = fri_launches()
+    fri_want = expected_fri_launches(cd.common, SHARDS)
     for name in ("prove_cold", "prove_warm"):   # K5 a shard, K6 once on the first
         if (steps[name]["k5_launches"], steps[name]["k6_launches"]) != (SHARDS, 2):
             raise AssertionError(f"sharded/{name}: K5, K6 launches {steps[name]['k5_launches']}"
                                  f", {steps[name]['k6_launches']}, want {SHARDS}, 2")
+        if steps[name]["k7_k9_launches"] != fri_want:
+            raise AssertionError(f"sharded/{name}: K7-K9 launches "
+                                 f"{steps[name]['k7_k9_launches']}, want {fri_want}")
+    if not steps["fri_commit"]["k7_k9_launches"]["k9"]:
+        raise AssertionError("sharded/fri_commit: no K9 launch")
     for name in ("ntt", "intt", "coset_lde"):   # each card's row NTT: one K4 four-step
         if steps[name]["k4_launches_by_mode"]["ntt"] != 2 * SHARDS:
             raise AssertionError(f"sharded/{name}: K4 launches by mode "
@@ -1938,7 +2066,8 @@ def phase_sharded(state) -> None:
                k5_launches_per_proof=steps["prove_warm"]["k5_launches"],
                k6_launches=state["k6_launches_sharded"],
                k6_launches_per_proof=steps["prove_warm"]["k6_launches"],
-               plain_quotient_on_card=0,
+               plain_quotient_on_card=0, k7_k9_launches=state["fri_launches_sharded"],
+               k7_k9_launches_per_proof=fri_want, plain_fri_on_card=0,
                cold_proof_s=steps["prove_cold"]["s"],
                warm_proof_s=steps["prove_warm"]["s"],
                ntt_ms=steps["ntt"]["s"] * 1e3)
@@ -2656,8 +2785,9 @@ def level_prove_records():
             k1 = dict(poseidon_cuda.launches_by_mode)
             k3 = dict(witness_cuda.launches_by_kernel)
             k56 = quotient_launches()
+            fri = fri_launches()
             with host_witness_calls() as host_witnesses, \
-                    plain_quotient_on_card() as plain_quotient:
+                    plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
                 out, secs = _synced(lambda: real(self, proofs, inner_vo, *args, **kw))
             outs = out if isinstance(out, list) else [out]
             records.append({
@@ -2666,7 +2796,8 @@ def level_prove_records():
                 "k1": {k: v - k1[k] for k, v in poseidon_cuda.launches_by_mode.items()},
                 "k3": {k: v - k3[k] for k, v in witness_cuda.launches_by_kernel.items()},
                 "k5_k6": [a - b for a, b in zip(quotient_launches(), k56)],
-                "plain_quotient": len(plain_quotient),
+                "plain_quotient": len(plain_quotient), "k7_k9": fri_since(fri),
+                "plain_fri": len(plain_fri),
                 "sweeps": max(p.proof.opening_proof.pow_witness for p in outs) // GRIND_ROWS + 1,
                 "pow_sweeps": [p.proof.opening_proof.pow_witness // GRIND_ROWS + 1
                                for p in outs]})
@@ -2753,12 +2884,14 @@ def phase_aggregate(state) -> None:
         pc.reset_launches()                 # the aggregate path starts here
         witness_cuda.reset_launches()
         reset_quotient_launches()
+        reset_fri_launches()
         agg, root, cold_s = aggregate()
         _, warm_root, warm_s = aggregate()
         k1_launches = pc.launches           # the aggregate path ends here
         k1_by_mode = dict(pc.launches_by_mode)
         k3_launches = witness_cuda.launches
         k5_launches, k6_launches = quotient_launches()
+        fri_all = fri_launches()
     level_prove_s = profiling.get_timings()["agg/level_prove"]
 
     data = proof_to_bytes(root)
@@ -2786,20 +2919,23 @@ def phase_aggregate(state) -> None:
         lc = r["level"]
         want = expected_k1_launches(lc.circuit_data.common, r["batch"])
         k3_want = expected_k3_launches(lc.circuit_data)
+        fri_want = expected_fri_launches(lc.circuit_data.common)
         k1 = r["k1"]
         if (k1["tree"], k1["top"], k1["sponge"]) != (want["tree"], want["top"], r["sweeps"]) \
                 or r["k3"] != k3_want or r["host_witnesses"] or r["k5_k6"] != [1, 2] \
-                or r["plain_quotient"]:
+                or r["plain_quotient"] or r["k7_k9"] != fri_want or r["plain_fri"]:
             raise AssertionError(f"aggregate level {i % depth + 1}: K1 {k1} (want {want}, "
                                  f"{r['sweeps']} sweeps), K3 {r['k3']} (want {k3_want}), "
                                  f"{r['host_witnesses']} host witnesses, K5/K6 {r['k5_k6']} "
-                                 f"(want [1, 2]), {r['plain_quotient']} plain quotient "
-                                 f"bodies on the card")
+                                 f"(want [1, 2]), K7-K9 {r['k7_k9']} (want {fri_want}), "
+                                 f"{r['plain_quotient']} plain quotient and {r['plain_fri']} "
+                                 f"plain FRI bodies on the card")
         proves.append({"run": "cold" if i < depth else "warm", "level": i % depth + 1,
                        "batch": r["batch"], "s": r["s"], "agg_level_prove_s": level_prove_s[i],
                        "k1_launches_by_mode": k1, "k1_expected": want, "sweeps": r["sweeps"],
                        "k3_launches_by_kernel": r["k3"], "k3_expected": k3_want,
-                       "k5_k6_launches": r["k5_k6"], "host_witnesses": 0})
+                       "k5_k6_launches": r["k5_k6"], "k7_k9_launches": r["k7_k9"],
+                       "host_witnesses": 0})
     levels = [r["level"] for r in records[:depth]]
     circuits = []
     for i, lc in enumerate(levels):
@@ -2843,7 +2979,7 @@ def phase_aggregate(state) -> None:
                           seed_reps, seeds)), 10)}
     del filled, seeded
     # one warm level-1 prove_level under the profiler
-    _, prof = profiled(lambda: lc1.prove_level(proofs, inner_vo))
+    level1_proofs, prof = profiled(lambda: lc1.prove_level(proofs, inner_vo))
 
     # K1 and K3 at the level circuits' shapes, each against its plain version
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -2881,8 +3017,9 @@ def phase_aggregate(state) -> None:
             k["launches_by_path"]["aggregate"] = (k1_launches if k["name"] ==
                                                   "poseidon_leaf_hash" else k3_launches)
     state["aggregate_launches"] = {"k1": k1_launches, "k3": k3_launches, "k5": k5_launches,
-                                   "k6": k6_launches}
-    state["level1_cd"] = lc1.circuit_data   # k5_check's and k6_check's level-1 shapes
+                                   "k6": k6_launches, **fri_all}
+    state["level1_cd"] = lc1.circuit_data   # the level-1 shapes of k5_check to fri_time
+    state["level1_proof"] = level1_proofs[0]
     state["aggregate_warm_s"] = warm_s
     state["aggregate_warm_level_s"] = {p["level"]: p["s"] for p in proves if p["run"] == "warm"}
     emit({"phase": "aggregate", "config": "standard_recursion_zk_config",
@@ -2893,6 +3030,7 @@ def phase_aggregate(state) -> None:
           "level_circuits": circuits, "cold_aggregate_s": cold_s, "warm_aggregate_s": warm_s,
           "level_proves": proves, "k1_launches": k1_launches, "k1_launches_by_mode": k1_by_mode,
           "k3_launches": k3_launches, "k5_launches": k5_launches, "k6_launches": k6_launches,
+          "k7_k9_launches": fri_all, "plain_fri_on_card": 0,
           "host_witnesses": 0, "plain_quotient_on_card": 0,
           "level1_host": {"chunk_witnesses_s": chunk_witness_s, "seed_batch_cold_s": seed_cold_s,
                           "seed_batch_warm_s": statistics.median(seed_warm_s)},
@@ -3348,7 +3486,302 @@ def phase_k6_time(state) -> None:
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
         "ms_by_shape": {r["shape"]: r["ms"] for r in rows}})
+
+
+def fri_widths(proof) -> tuple:
+    """The four oracles' polynomials of a proof's circuit (constants/sigmas,
+    wires, zs and partial products, quotient; salts included), from its
+    opening set."""
+    o = proof.proof.openings
+    return tuple(len(x) for x in (o.constants_sigmas, o.wires, o.zs_partial_products,
+                                  o.quotient))
+
+
+def fri_cases(state) -> list:
+    """(name, circuit common, oracle widths, proofs) of the shapes K7-K9
+    serve on the main path: one wormhole proof, a batch of BATCH, and a
+    level-1 aggregation prove (a batch of 4 at 2^14: three fold rounds,
+    the last of arity 2)."""
+    cd, level1 = state["wormhole"][0], state["level1_cd"]
+    worm = fri_widths(state["wormhole_proof"])
+    return [("wormhole", cd.common, worm, 1), ("wormhole_batch", cd.common, worm, BATCH),
+            ("level1_batch", level1.common, fri_widths(state["level1_proof"]),
+             AGG_CONFIG[0] ** (AGG_CONFIG[1] - 1))]
+
+
+def fri_inputs(gen, widths, n: int, batch: int, num_zs: int, value=None) -> dict:
+    """K7's and K8's inputs on the card for ``batch`` proofs of a circuit
+    whose oracles hold ``widths`` polynomials of n coefficients: the
+    prover's rows (the constants/sigmas (k, n), shared, the others (B, k,
+    n); every row at zeta, row r of them taking alpha^r, then the first
+    num_zs zs rows at g*zeta, alpha^0, ...), alpha (1, 2, B) and the
+    points (3, 2, B): zeta, g*zeta and alpha^num_zs: seeded from ``gen``,
+    or every value ``value``."""
+    def draw(*shape):
+        return gl_random(gen, shape) if value is None else gl_full(shape, value)
+
+    sets = [draw(widths[0], n)] + [draw(batch, k, n) for k in widths[1:]]
+    first = [sum(widths[:i]) for i in range(len(widths))]
+    rows = [(x, 0, e) for x, e in zip(sets, first)] + [(sets[2][:, :num_zs], 1, 0)]
+    return dict(rows=rows, alpha=draw(1, 2, batch), pts=draw(3, 2, batch))
+
+
+def fri_fold_inputs(gen, common, batch: int) -> list:
+    """(arity bits, c pair (B, N), beta pair (B,)) of each fold round of a
+    proof of ``common``, seeded."""
+    out, size = [], common.degree
+    for a in common.config.fri_config.reduction_arities(common.degree_bits):
+        out.append((a, (gl_random(gen, (batch, size)), gl_random(gen, (batch, size))),
+                    (gl_random(gen, (batch,)), gl_random(gen, (batch,)))))
+        size >>= a
+    return out
+
+
+def fri_calls(inp: dict, plain: bool = False) -> dict:
+    """K7's and K8's closures over ``inp`` (fri_inputs'), or their plain
+    versions': openings, the alpha reduction, the composition and both of
+    K8's launches."""
+    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri import fri_device as fd
+
+    op, red, comp = ((fd._openings_plain, fd._reduce_alpha_plain, fd._compose_plain) if plain
+                     else (fri_cuda.openings, fri_cuda.reduce_alpha, fri_cuda.compose))
+    rows, pts, alpha = inp["rows"], inp["pts"], inp["alpha"]
+    comp_in = red(rows, alpha)
+
+    def compose(c):
+        return comp(*c, pts)
+
+    return {"k7": lambda: op(rows, pts[:2]), "k8_point": lambda: red(rows, alpha),
+            "k8_scan": lambda: compose(comp_in), "k8": lambda: compose(red(rows, alpha))}
+
+
+def fri_fold_call(case, plain: bool = False):
+    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri import fri_device as fd
+
+    a, c, beta = case
+    fold = fd._fold_plain if plain else fri_cuda.fold
+    return lambda: fold(*c, *beta, a)
+
+
+def _flat(out) -> list:
+    """The tensors of a kernel's result (a pair, or a list of pairs)."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for x in out for t in _flat(x)]
+
+
+def fri_work(kernel: str, widths: tuple, n: int, batch: int, num_zs: int,
+             arity_bits: int = 0) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of one call of a K7-K9 function, each
+    input read once and each output written once, 8 multiplies a 64x64
+    product (an extension product 4, its times 7 shifts and adds):
+    k7, the openings: the oracles (the constants/sigmas once for the
+    batch; the g*zeta rows are zs rows already read), the points, e (B, K +
+    num_zs); a base product with each component a row coefficient, and
+    the powers of both points (an extension product a power).  k8_point:
+    the oracles, alpha, comp0 and comp1; the base products and alpha's
+    powers (an extension product a row of a proof).
+    k8_scan: comp0 and comp1 ((B, n) pairs) and the points in, f out; nine
+    extension products a point (comp z^i twice, the two inverse powers,
+    alpha^num_zs, the powers of both points and of their inverses) and
+    two inverses a proof (FRI_INVERSE_PRODUCTS each).  k9 at
+    ``arity_bits``: c (B, N) in, (B, N / A) out, A - 1 extension products
+    an output."""
+    k = sum(widths)
+    oracle = 8 * n * (widths[0] + batch * (k - widths[0]))
+    rows = batch * (k + num_zs)
+    if kernel == "k7":
+        return oracle + 32 * batch + 16 * rows, \
+            (rows * n * 2 + batch * 2 * n * 4) * K4_MULS_PER_PRODUCT
+    if kernel == "k8_point":
+        return oracle + 16 * batch + 16 * batch * n * 2, \
+            (rows * n * 2 + rows * 4) * K4_MULS_PER_PRODUCT
+    if kernel == "k8_scan":
+        return 16 * batch * n * 3 + 48 * batch, \
+            batch * (n * 9 * 4 + 2 * FRI_INVERSE_PRODUCTS) * K4_MULS_PER_PRODUCT
+    if kernel == "k8":
+        b1, m1 = fri_work("k8_point", widths, n, batch, num_zs)
+        b2, m2 = fri_work("k8_scan", widths, n, batch, num_zs)
+        return b1 + b2, m1 + m2
+    arity = 1 << arity_bits
+    return 16 * batch * (n + n // arity) + 16 * batch, \
+        batch * (n // arity) * (arity - 1) * 4 * K4_MULS_PER_PRODUCT
+
+
+def phase_fri_check(state) -> None:
+    """K7, K8 and K9 against their plain versions on the card, equal
+    integers (see the module doc)."""
+    import torch
+
+    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri import fri_device as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(2051)
+    before = dict(fri_cuda.launches_by_kernel)
+    checked = []
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        got, want = _flat(got), _flat(want)
+        if len(got) != len(want) or not all(g.shape == w.shape and torch.equal(g, w)
+                                            for g, w in zip(got, want)):
+            raise AssertionError(f"fri_check/{name}: the kernel != its plain version")
+        checked.append({"name": name, "shapes": [list(g.shape) for g in got]})
+
+    def check_all(name, inp):
+        kern, plain = fri_calls(inp), fri_calls(inp, plain=True)
+        for k in ("k7", "k8_point", "k8_scan"):
+            check(f"{name}/{k}", kern[k](), plain[k]())
+
+    for name, common, widths, batch in fri_cases(state):
+        nz = common.config.num_challenges
+        check_all(name, fri_inputs(gen, widths, common.degree, batch, nz))
+        for case in fri_fold_inputs(gen, common, batch):
+            check(f"{name}/k9_{case[0]}_bits_{case[1][0].shape[-1]}", fri_fold_call(case)(),
+                  fri_fold_call(case, plain=True)())
+    common = state["wormhole"][0].common
+    widths, n, nz = fri_widths(state["wormhole_proof"]), common.degree, 2
+    for value in (0, 1, P - 1):               # every input the same edge value
+        check_all(f"constant_{value}", fri_inputs(gen, widths, n, 2, nz, value=value))
+    inp = fri_inputs(gen, widths, n, 5, nz)   # each proof's points at an edge point
+    edge = torch.tensor([[0, 1, P - 1 - (1 << 64), 0, P - 1 - (1 << 64)],
+                         [0, 0, 0, 1, P - 1 - (1 << 64)]], dtype=torch.int64, device="cuda")
+    inp["pts"], inp["alpha"] = torch.stack([edge, edge.flip(-1), edge]), edge[None]
+    check_all("edge_points", inp)
+    for a in (1, 2, 3, 4):                    # every arity, batched and 1-D
+        c = (gl_random(gen, (BATCH, n)), gl_random(gen, (BATCH, n)))
+        beta = (gl_random(gen, (BATCH,)), gl_random(gen, (BATCH,)))
+        check(f"k9_{a}_bits", fri_cuda.fold(*c, *beta, a), fd._fold_plain(*c, *beta, a))
+        one = (c[0][1], c[1][1], beta[0][1], beta[1][1])
+        check(f"k9_{a}_bits_1d", fri_cuda.fold(*one, a), fd._fold_plain(*one, a))
+    # the sharded path's calls (plonk/prover_sharded.py, fri/fri_sharded.py):
+    # each shard's pieces of the four oracles at zeta and their alpha
+    # reduction (zeros past an oracle's polynomials), the Z rows at g*zeta
+    # on the first shard, a 1-D fold of each shard's coefficients
+    e = SHARDS
+    kps = [-(-k // e) for k in widths]
+    zp = gl_random(gen, (1, 2, 1))
+    alpha = gl_random(gen, (1, 2, 1))
+    for j in range(e):
+        pieces = [(gl_random(gen, (k, n)), 0) for k in kps]
+        # the alpha reduction's pieces: each oracle's rows on shard j before
+        # its zero padding, at the power of alpha of its first row
+        reduced, off = [], 0
+        for (x, _), k, kp in zip(pieces, widths, kps):
+            real = min(max(k - j * kp, 0), kp)
+            if real:
+                reduced.append((x[:real], 0, off + j * kp))
+            off += k
+        check(f"sharded_{j}/k7", fri_cuda.openings(pieces, zp),
+              fd._openings_plain(pieces, zp))
+        check(f"sharded_{j}/k8_point", fri_cuda.reduce_alpha(reduced, alpha),
+              fd._reduce_alpha_plain(reduced, alpha))
+        c = (gl_random(gen, (n // e,)), gl_random(gen, (n // e,)))
+        beta = (gl_random(gen, ()), gl_random(gen, ()))
+        check(f"sharded_{j}/k9", fri_cuda.fold(*c, *beta, 4), fd._fold_plain(*c, *beta, 4))
+    zs = [(gl_random(gen, (nz, n)), 0, 0)]
+    check("sharded_zs_next/k7", fri_cuda.openings(zs, zp), fd._openings_plain(zs, zp))
+    check("sharded_zs_next/k8_point", fri_cuda.reduce_alpha(zs, alpha),
+          fd._reduce_alpha_plain(zs, alpha))
+    state["fri_max_abs_err"] = 0
+    emit({"phase": "fri_check", "equal_integers": True, "cases": checked,
+          "launches": {k: v - before[k] for k, v in fri_cuda.launches_by_kernel.items()}})
+
+
+# (kernel, name on the kernels line, what it computes, the JAX program, the
+# prefix of fri_time's rows whose sum is its figure: a wormhole proof's)
+FRI_KERNELS = (("k7", "fri_openings", "openings at zeta and g*zeta",
+                "_make_openings_run :158, jitted :173 and :181", "k7"),
+               ("k8", "fri_compose", "alpha reduction (point kernel) and divide-by-linear "
+                "(scan)", "_make_compose_run :193 (_reduce_alpha :70, _ddl :96), jitted "
+                ":227, :237, :246, without its round-0 NTT and commit", "k8"),
+               ("k9", "fri_fold", "fold, one launch a round",
+                "_fold_dev :136 in _make_fold_commit_run :255 and _final_fold_fn :289",
+                "k9_round"))
+
+
+def phase_fri_time(state) -> None:
+    """K7-K9's device time (graph_ms) at fri_cases' shapes beside their
+    plain versions and bounds (fri_work), the host time a wrapper call; a
+    proof's five launches in one graph; ptxas's registers and spills and
+    the SASS counts of each kernel."""
+    import torch
+
+    from zk_circuits_torch.fri import fri_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(2053)
+    rows = []
+    for name, common, widths, batch in fri_cases(state):
+        n, nz = common.degree, common.config.num_challenges
+        ins = [fri_inputs(gen, widths, n, batch, nz) for _ in range(FRI_TIMED_CALLS)]
+        calls = [fri_calls(i) for i in ins]
+        plain = fri_calls(ins[0], plain=True)
+        folds = [fri_fold_inputs(gen, common, batch) for _ in range(FRI_TIMED_CALLS)]
+        timed = [(k, [c[k] for c in calls], plain[k], fri_work(k, widths, n, batch, nz),
+                  {"n": n}) for k in ("k7", "k8_point", "k8_scan", "k8")]
+        for r, case in enumerate(folds[0]):
+            a, size = case[0], case[1][0].shape[-1]
+            timed.append((f"k9_round{r + 1}", [fri_fold_call(f[r]) for f in folds],
+                          fri_fold_call(case, plain=True),
+                          fri_work("k9", widths, size, batch, nz, a),
+                          {"n": size, "arity_bits": a}))
+        for kernel, fns, plain_fn, (nbytes, muls), shape in timed:
+            g = graph_ms(fns)
+            bound, by = k4_bound_ms(nbytes, muls)
+            rows.append({"shape": name, "kernel": kernel, "batch": batch, **shape,
+                         "widths": list(widths), **g,
+                         "plain_ms": cuda_ms(plain_fn, reps=3, warmup=1),
+                         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "muls": muls,
+                         "share_of_bound": bound / g["ms"], "library_ms": None,
+                         "host_us_per_call": host_us_per_call(fns[0])})
+
+        def proof_calls(c, f):
+            def run():
+                comp = c["k8"]()
+                return c["k7"](), comp, [fri_fold_call(x)() for x in f]
+            return run
+
+        rows.append({"shape": name, "kernel": "k7_k8_k9", "batch": batch,
+                     "launches": 3 + len(folds[0]),
+                     **graph_ms([proof_calls(c, f) for c, f in zip(calls, folds)])})
+        del ins, calls, folds
+    over = [r for r in rows if r.get("share_of_bound", 0) > 1.05]
+    if over:
+        raise AssertionError(f"K7-K9 timed below their bound: {over}")
+    emit({"phase": "fri_time", "int32_mul_per_s": INT32_MUL_PER_S,
+          "hbm_bytes_per_s": HBM_BYTES_PER_S,
+          "timing": f"ms: CUDA events around the replay of a CUDA graph of {FRI_TIMED_CALLS} "
+                    f"calls on inputs of their own, L2 emptied first, per call, median of 8 "
+                    f"replays (min_ms/max_ms: their range); k8 is both of K8's launches, "
+                    f"k7_k8_k9 a proof's (or batch's) launches of all three; plain_ms: CUDA "
+                    f"events around one call of the plain version (fri/fri_device.py's "
+                    f"_openings_plain, _reduce_alpha_plain, _compose_plain, _fold_plain), "
+                    f"median of 3; host_us_per_call: perf_counter around 100 wrapper calls; "
+                    f"library_ms: none, no PyTorch call computes these functions",
+          "rows": rows, "sass": kernel_sass_counts(fri_cuda.build(), fri_cuda.build_log,
+                                                   "k[789]_")})
+    for kernel, name, what, replaces, prefix in FRI_KERNELS:
+        mine = [r for r in rows if r["kernel"] == prefix or
+                (prefix == "k9_round" and r["kernel"].startswith(prefix))]
+        main = [r for r in mine if r["shape"] == "wormhole"]
+        ms, plain_ms, bound = (sum(r[k] for r in main) for k in ("ms", "plain_ms", "bound_ms"))
+        state.setdefault("kernels", []).append({
+            "name": name, "route": "cuda", "source": FRI_SOURCE,
+            "replaces": f"{FRI_REPLACES} {replaces}; no Pallas kernel ({what})",
+            "launches": state["fri_launches"][kernel],
+            "launches_by_path": {"wormhole": state["fri_launches"][kernel],
+                                 "batch": state["fri_launches_batch"][kernel],
+                                 "sharded": state["fri_launches_sharded"][kernel],
+                                 "aggregate": state["aggregate_launches"][kernel]},
+            "max_abs_err": state["fri_max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": main[0]["bound_by"], "library_ms": None,
+            "ms_by_shape": {f"{r['shape']}/{r['kernel']}": r["ms"] for r in mine}})
     state.pop("level1_cd", None)
+    state.pop("level1_proof", None)
 
 
 MESH_BATCH = 8          # proofs of the batch_mesh phase, over a mesh of SHARDS shards
@@ -3931,6 +4364,7 @@ PHASES = {"card": phase_card, "square": phase_square,
           "k4_time": phase_k4_time, "aggregate": phase_aggregate,
           "k5_check": phase_k5_check, "k6_check": phase_k6_check,
           "k5_time": phase_k5_time, "k6_time": phase_k6_time,
+          "fri_check": phase_fri_check, "fri_time": phase_fri_time,
           "batch_mesh": phase_batch_mesh, "aggregate_mesh": phase_aggregate_mesh,
           "multihost": phase_multihost, "voting": phase_voting, "api": phase_api,
           "compat": phase_compat, "native": phase_native}

@@ -14,7 +14,8 @@ card in turns: unpack the other commit with ``git archive`` into a
 git-ignored directory and run old, new, new, old on one card in a row.
 A checkout without the host runtime (``zk_circuits_torch.native``) is
 timed without it; every kernel a checkout has (K5 and K6 where
-``plonk/quotient_cuda.py`` exists) is built before the circuit.
+``plonk/quotient_cuda.py`` exists, K7-K9 where ``fri/fri_cuda.py`` does)
+is built before the circuit.
 """
 
 import json
@@ -63,6 +64,12 @@ def main() -> None:
     if quotient_cuda is not None:
         quotient_cuda.build()
         permutation_cuda.build()
+    try:
+        from zk_circuits_torch.fri import fri_cuda
+    except ImportError:
+        fri_cuda = None
+    if fri_cuda is not None:
+        fri_cuda.build()
     try:
         from zk_circuits_torch import native
     except ImportError:

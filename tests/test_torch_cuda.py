@@ -616,3 +616,128 @@ def test_k6_matches_plain(cuda, batch):
     want, want_finals = _zs_values_plain(common, *args)
     assert torch.equal(got, want) and torch.equal(finals, want_finals)
     assert int(finals[0, 0]) == 0
+
+
+WORMHOLE_FRI_WIDTHS = (84, 139, 24, 20)   # the zk wormhole's oracles, salts included
+
+
+def _fri_rows(device, batch, seed, n=1 << 13, widths=WORMHOLE_FRI_WIDTHS, num_zs=2):
+    """The prover's rows for K7/K8 at the wormhole's shapes: the
+    constants/sigmas (k, n), shared, the other oracles (B, k, n), row r of
+    them at alpha^r, the Z rows at g*zeta (alpha^0, ...); then comp0 and
+    comp1 ((B, n) pairs), alpha (1, 2, B) and the points (3, 2, B: zeta,
+    g*zeta, alpha^num_zs, proof 0's zeta -1), rows of 0, 1 and p - 1
+    first."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        x = rng.integers(0, P, shape, dtype=np.uint64)
+        x[..., :3] = [0, 1, P - 1][: x.shape[-1]]
+        return gf.from_u64(x, device)
+
+    sets = [draw(widths[0], n)] + [draw(batch, k, n) for k in widths[1:]]
+    first = np.cumsum((0,) + widths[:-1])
+    rows = [(x, 0, int(e)) for x, e in zip(sets, first)] + [(sets[2][:, :num_zs], 1, 0)]
+    comps = [(draw(batch, n), draw(batch, n)) for _ in range(2)]
+    pts = rng.integers(0, P, (4, 2, batch), dtype=np.uint64)
+    pts[0, :, 0] = [P - 1, 0]
+    pts = gf.from_u64(pts, device)
+    return rows, comps, pts[3:], pts[:3]
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_k7_matches_plain(cuda, batch):
+    """K7 at the wormhole's oracles (267 rows of 2^13 and the 2 Z rows at
+    g*zeta), one launch, equal to fri/fri_device.py's _openings_plain."""
+    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri.fri_device import _openings_plain
+
+    rows, _, _, pts = _fri_rows(cuda, batch, 70 + batch)
+    before = fri_cuda.launches_by_kernel["k7"]
+    got = fri_cuda.openings(rows, pts[:2])
+    torch.cuda.synchronize()
+    assert fri_cuda.launches_by_kernel["k7"] == before + 1
+    want = _openings_plain(rows, pts[:2])
+    assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_k8_matches_plain(cuda, batch):
+    """K8's point kernel and scan at the wormhole's shapes, one launch each,
+    equal to _reduce_alpha_plain and _compose_plain."""
+    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri.fri_device import _compose_plain, _reduce_alpha_plain
+
+    rows, comps, alpha, pts = _fri_rows(cuda, batch, 80 + batch)
+    before = fri_cuda.launches_by_kernel["k8"]
+    comp = fri_cuda.reduce_alpha(rows, alpha)
+    want = _reduce_alpha_plain(rows, alpha)
+    assert [torch.equal(g, w) for c, d in zip(comp, want, strict=True)
+            for g, w in zip(c, d, strict=True)] == [True] * 4
+    args = (*comps, pts)
+    f = fri_cuda.compose(*args)
+    torch.cuda.synchronize()
+    assert fri_cuda.launches_by_kernel["k8"] == before + 2
+    assert all(torch.equal(g, w) for g, w in zip(f, _compose_plain(*args), strict=True))
+
+
+@pytest.mark.parametrize("arity_bits", [1, 2, 3, 4])
+def test_k9_matches_plain(cuda, arity_bits):
+    """K9 at 2^13 coefficients, B = 4 and a 1-D shard piece, equal to
+    _fold_plain."""
+    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri.fri_device import _fold_plain
+
+    rng = np.random.default_rng(90 + arity_bits)
+    c0, c1 = (gf.from_u64(rng.integers(0, P, (4, 1 << 13), dtype=np.uint64), cuda)
+              for _ in range(2))
+    b0, b1 = (gf.from_u64(np.array([P - 1, 0, 1, 12345], dtype=np.uint64), cuda)
+              for _ in range(2))
+    before = fri_cuda.launches_by_kernel["k9"]
+    got = fri_cuda.fold(c0, c1, b0, b1, arity_bits)
+    piece = fri_cuda.fold(c0[2], c1[2], b0[2], b1[2], arity_bits)
+    torch.cuda.synchronize()
+    assert fri_cuda.launches_by_kernel["k9"] == before + 2
+    want = _fold_plain(c0, c1, b0, b1, arity_bits)
+    assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+    assert all(torch.equal(g, w[2]) for g, w in zip(piece, want, strict=True))
+
+
+def test_k7_k8_k9_launches_on_a_proof(cuda):
+    """A zk square circuit with FRI fold rounds proved on the card: K7 once,
+    K8 twice and K9 once a fold round, no plain FRI body on a CUDA tensor,
+    and the proof equal to the CPU's."""
+    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.iop.builder import CircuitBuilder
+    from zk_circuits_torch.iop.witness import PartialWitness
+    from zk_circuits_torch.plonk.config import CircuitConfig, FriConfig
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    cfg = CircuitConfig(zero_knowledge=True, fri_config=FriConfig(
+        proof_of_work_bits=2, num_query_rounds=3, reduction_arity_bits=2, final_poly_bits=1))
+    out, plain = [], []
+    for device in ("cuda", "cpu"):
+        b = CircuitBuilder(cfg)
+        x = b.add_virtual_target()
+        b.register_public_input(b.square(x))
+        data = b.build(device=device)
+        pw = PartialWitness()
+        pw.set_target(x, 5)
+        before = dict(fri_cuda.launches_by_kernel)
+        real = {k: getattr(fd, k) for k in ("_openings_plain", "_reduce_alpha_plain",
+                                            "_compose_plain", "_fold_plain")}
+        for k, fn in real.items():
+            setattr(fd, k, lambda *a, _k=k, _fn=fn: plain.append((device, _k)) or _fn(*a))
+        try:
+            out.append(proof_to_bytes(data.prove(pw, device=device)))
+        finally:
+            for k, fn in real.items():
+                setattr(fd, k, fn)
+        if device == "cuda":
+            rounds = len(cfg.fri_config.reduction_arities(data.common.degree_bits))
+            assert rounds >= 1
+            assert {k: v - before[k] for k, v in fri_cuda.launches_by_kernel.items()} == \
+                {"k7": 1, "k8": 2, "k9": rounds}
+    assert out[0] == out[1]
+    assert [d for d, _ in plain] == ["cpu"] * len(plain) and plain

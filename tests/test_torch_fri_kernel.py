@@ -1,0 +1,527 @@
+"""K7 (the openings), K8 (the alpha reduction and the composition) and K9
+(the fold), built for the host.
+
+csrc/fri.cuh is __host__ __device__ code; here it is compiled with g++
+behind a host copy of fri.cu's C interface (k7_openings, k8_reduce,
+k8_scan, k9_fold and fri_call_size) and driven through the wrapper's own
+``fri_cuda`` functions on CPU tensors.  A K7 call runs each (proof, row)
+block with its threads in turn between the barriers; K8's scan runs
+``k8_scan_block`` the same way (``shim_fri_set_threads`` picks the block
+sizes, 256 and 512 on the card).  Equal integers are required against the
+port's plain versions (``fri/fri_device.py``'s ``_openings_plain``,
+``_reduce_alpha_plain``, ``_compose_plain``, ``_fold_plain``) and the JAX
+package's programs on the CPU (``_make_openings_run``,
+``_make_compose_run(num_zs, None)`` and ``_fold_dev``, jitted), and whole
+proofs through the shim against the JAX host path's bytes.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import zk_circuits_torch.iop.builder as t_builder
+import zk_circuits_torch.iop.witness as t_witness
+import zk_circuits_torch.plonk.config as t_config
+import zk_circuits_tpu.iop.builder as j_builder
+import zk_circuits_tpu.iop.witness as j_witness
+import zk_circuits_tpu.plonk.config as j_config
+from zk_circuits_torch.fri import fri_cuda
+from zk_circuits_torch.fri import fri_device as fd
+from zk_circuits_torch.parallel.mesh import make_mesh
+from zk_circuits_torch.plonk.prover import prove_batch
+from zk_circuits_torch.plonk.prover_sharded import prove_sharded
+from zk_circuits_torch.utils import nvcc
+from zk_circuits_torch.utils.serialization import proof_to_bytes as t_bytes
+from zk_circuits_tpu.field import goldilocks as jgf
+from zk_circuits_tpu.fri import fri_device as jfd
+from zk_circuits_tpu.plonk.prover import prove as j_prove
+from zk_circuits_tpu.utils.serialization import proof_to_bytes as j_bytes
+
+P = 2**64 - 2**32 + 1
+U64 = np.uint64
+EDGES = np.array([0, 1, P - 1], dtype=U64)
+
+# One intra-op thread: the suite runs several pytest workers side by side.
+torch.set_num_threads(1)
+
+SHIM = r"""
+#include <vector>
+#include "fri.cuh"
+
+static int k7_threads = 256, scan_threads = 512;   // the blocks' threads, as on the card
+
+// A block on the host: each phase runs the block's threads in turn.
+struct ShimBlock {
+  int n;
+  int threads() const { return n; }
+  template <class F>
+  void each(F f) const {
+    for (int t = 0; t < n; t++) f(t);
+  }
+  void sync() const {}
+};
+
+extern "C" {
+int k7_openings(int, const K7Call* call, void*) {
+  const K7Call& c = *call;
+  if (k7_valid(c)) return 1;
+  ShimBlock blk{k7_threads};
+  std::vector<uint64_t> buf(2 * k7_threads);
+  for (int b = 0; b < c.r.batch; b++)
+    for (int r = 0; r < c.r.rows; r++) k7_row_block(blk, c, b, r, buf.data());
+  return 0;
+}
+
+int k8_reduce(int, const K8Call* call, void*) {
+  const K8Call& c = *call;
+  if (k8_valid(c)) return 1;
+  std::vector<uint64_t> apow(2 * K8_MAX_POW);
+  for (int b = 0; b < c.r.batch; b++) {
+    k8_alpha_table(c, b, apow.data(), 0, 1);
+    for (long long i = 0; i < c.r.n; i++) k8_point(c, b, i, apow.data());
+  }
+  return 0;
+}
+
+int k8_scan(int, const K8ScanCall* call, void*) {
+  const K8ScanCall& c = *call;
+  if (k8_scan_valid(c)) return 1;
+  ShimBlock blk{scan_threads};
+  std::vector<uint64_t> buf(8 * scan_threads);
+  for (int b = 0; b < c.batch; b++) k8_scan_block(blk, c, b, buf.data());
+  return 0;
+}
+
+int k9_fold(int, const K9Call* call, void*) {
+  const K9Call& c = *call;
+  if (k9_valid(c)) return 1;
+  for (int b = 0; b < c.batch; b++)
+    for (long long k = 0; k < c.m; k++) k9_point(c, b, k);
+  return 0;
+}
+
+int fri_call_size(int kind) {
+  switch (kind) {
+    case 0: return (int)sizeof(K7Call);
+    case 1: return (int)sizeof(K8Call);
+    case 2: return (int)sizeof(K8ScanCall);
+    case 3: return (int)sizeof(K9Call);
+    default: return -1;
+  }
+}
+
+void shim_fri_set_threads(int k7, int scan) {
+  k7_threads = k7;
+  scan_threads = scan;
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def flib():
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to build the kernel headers for the host"
+    build = nvcc.BUILD_DIR / f"fri_shim_{os.getpid()}"
+    build.mkdir(parents=True, exist_ok=True)
+    src = build / "fri_shim.cc"
+    src.write_text(SHIM)
+    so = build / "libfrishim.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(nvcc.CSRC),
+                    "-o", str(so), str(src)], check=True)
+    lib = ctypes.CDLL(str(so))
+    fri_cuda.bind(lib)          # the wrapper's declarations and size checks
+    lib.shim_fri_set_threads.argtypes = [ctypes.c_int, ctypes.c_int]
+    yield lib
+    shutil.rmtree(build, ignore_errors=True)
+
+
+@pytest.fixture
+def threads(flib):
+    """Set the shim's block sizes for one test; the card's afterwards."""
+    yield flib.shim_fri_set_threads
+    flib.shim_fri_set_threads(256, 512)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=U64).view(np.int64))
+
+
+def _u(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().numpy().view(U64)
+
+
+def _rand(rng, *shape, edges=False) -> np.ndarray:
+    """Canonical field elements; with ``edges`` the first entries of the
+    last axis are 0, 1 and p - 1."""
+    x = rng.integers(0, P, shape, dtype=U64)
+    if edges:
+        x[..., : len(EDGES)] = EDGES[: x.shape[-1]]
+    return x
+
+
+def _ext(rng, *shape, edges=False) -> np.ndarray:
+    """(*shape, 2) extension elements; with ``edges`` the first points of
+    the last axis of ``shape`` have components (0, p - 1), (1, 1), (p - 1,
+    0)."""
+    x = rng.integers(0, P, (*shape, 2), dtype=U64)
+    if edges:
+        k = min(len(EDGES), shape[-1])
+        x[..., :k, 0], x[..., :k, 1] = EDGES[:k], EDGES[::-1][:k]
+    return x
+
+
+def _pair(a: np.ndarray) -> tuple:
+    """A (..., 2) host ext array as a CPU tensor pair."""
+    return _t(a[..., 0]), _t(a[..., 1])
+
+
+# Points whose powers hit the edges: 0 (powers 1, 0, 0, ...; its inverse
+# is 0 on both sides), 1, -1 (powers +-1: lanes of p - 1), x (x^2 = 7) and
+# -1 - x.
+EDGE_POINTS = np.array([[0, 0], [1, 0], [P - 1, 0], [0, 1], [P - 1, P - 1]], dtype=U64)
+
+
+def _zs(rng, batch, edge=0) -> np.ndarray:
+    """Each proof's point (B, 2): proof 0's an edge point, the others
+    seeded."""
+    z = _ext(rng, batch)
+    z[0] = EDGE_POINTS[edge % len(EDGE_POINTS)]
+    return z
+
+
+def _pts(*points) -> torch.Tensor:
+    """Host (B, 2) points -> the kernels' (T, 2, B) tensor."""
+    return fd._points(list(points), "cpu")
+
+
+def _equal(got, want) -> bool:
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _oracles(rng, widths, n, batch):
+    """The four oracles' coefficients as the prover holds them: the
+    circuit's (k0, n), shared by the batch, and (B, k_i, n) for the
+    others, with rows of 0, 1 and p - 1 (whole rows and edge lanes)."""
+    out = []
+    for o, k in enumerate(widths):
+        x = _rand(rng, *((k, n) if o == 0 else (batch, k, n)), edges=True)
+        x[..., 0, :] = EDGES[o % 3]     # a constant row of 0, 1 or p - 1
+        out.append(x)
+    return out
+
+
+def _rows(oracles, num_zs):
+    """The prover's row list: every row at zeta (row r of them taking
+    alpha^r), then the Z rows at g*zeta (alpha^0, ...)."""
+    ts = [_t(x) for x in oracles]
+    first = np.cumsum([0] + [x.shape[-2] for x in ts[:-1]])
+    return [(x, 0, int(e)) for x, e in zip(ts, first)] + [(ts[2][:, :num_zs], 1, 0)]
+
+
+# The JAX package's fold, jitted where XLA's compile of its unrolled
+# Horner stays short (arity bits 1-2) and op by op above, where the
+# compile on a CPU grows to tens of seconds.
+_JAX_FOLD = jax.jit(jfd._fold_dev, static_argnums=4)
+JIT_FOLD_MAX_BITS = 2
+
+
+def _gf(x: np.ndarray):
+    return jgf.from_u64(x)
+
+
+def _jax_u64(*gfs) -> list:
+    return [jgf.to_u64(g) for g in gfs]
+
+
+# --- the call mirrors ------------------------------------------------------------
+
+
+def test_call_sizes_match_the_header(flib):
+    """fri_call_size of each kind is its ctypes mirror's size (bind checks
+    the same); an unknown kind is -1."""
+    for kind, (_, mirror) in enumerate(fri_cuda.CALLS):
+        assert flib.fri_call_size(kind) == ctypes.sizeof(mirror)
+    assert flib.fri_call_size(len(fri_cuda.CALLS)) == -1
+    assert ctypes.sizeof(fri_cuda._Set) == 40   # 36 bytes of fields, 8-aligned
+
+
+# --- K7 ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("log_n,widths,batch", [
+    (5, (3, 4, 3, 2), 1), (6, (2, 3, 4, 1), 2), (7, (4, 2, 2, 4), 3), (8, (1, 2, 2, 1), 2)])
+def test_k7_matches_plain(flib, log_n, widths, batch):
+    """K7 through the shim == _openings_plain: a shared constants oracle,
+    rows and lanes of 0, 1, p - 1, and edge points (powers at p - 1)."""
+    rng = np.random.default_rng(log_n * 10 + batch)
+    n, num_zs = 1 << log_n, 2
+    rows = _rows(_oracles(rng, widths, n, batch), num_zs)
+    pts = _pts(_zs(rng, batch, log_n), _zs(rng, batch, log_n + 1))
+    got = fri_cuda.openings(rows, pts, lib=flib)
+    assert got[0].shape == (batch, sum(widths) + num_zs)
+    assert _equal(got, fd._openings_plain(rows, pts))
+
+
+def test_k7_block_sizes(flib, threads):
+    """The tree reduction at blocks of 1, 2 and 32 threads (more threads
+    than coefficients at n = 2^5 with 256)."""
+    rng = np.random.default_rng(5)
+    rows = _rows(_oracles(rng, (2, 3, 3, 1), 32, 2), 2)
+    pts = _pts(_zs(rng, 2, 2), _zs(rng, 2, 3))
+    want = fd._openings_plain(rows, pts)
+    for k7 in (1, 2, 32, 256):
+        threads(k7, 512)
+        assert _equal(fri_cuda.openings(rows, pts, lib=flib), want)
+
+
+def test_k7_and_k8_at_every_edge_point(flib):
+    """Each proof of a batch of 5 at one of EDGE_POINTS (zeta, g*zeta,
+    alpha and s = alpha^num_zs alike): K7 and K8's two kernels == their
+    plain versions."""
+    rng = np.random.default_rng(11)
+    n, batch = 64, len(EDGE_POINTS)
+    rows = _rows(_oracles(rng, (2, 2, 3, 1), n, batch), 2)
+    pts = _pts(EDGE_POINTS, EDGE_POINTS[::-1])
+    assert _equal(fri_cuda.openings(rows, pts, lib=flib), fd._openings_plain(rows, pts))
+    alpha = _pts(EDGE_POINTS)
+    got, want = fri_cuda.reduce_alpha(rows, alpha, lib=flib), fd._reduce_alpha_plain(rows, alpha)
+    assert all(_equal(g, w) for g, w in zip(got, want, strict=True))
+    comps = [_pair(_ext(rng, batch, n, edges=True)) for _ in range(2)]
+    pts = _pts(EDGE_POINTS, EDGE_POINTS[::-1], EDGE_POINTS)
+    assert _equal(fri_cuda.compose(*comps, pts, lib=flib), fd._compose_plain(*comps, pts))
+
+
+def test_k7_matches_the_jax_openings_program(flib):
+    """K7 == the JAX package's _make_openings_run(num_zs), jitted, proof by
+    proof of a batch of 2 with the constants oracle shared."""
+    rng = np.random.default_rng(7)
+    n, num_zs, widths, batch = 64, 2, (3, 4, 3, 2), 2
+    oracles = _oracles(rng, widths, n, batch)
+    zeta, zeta_next = _zs(rng, batch, 2), _zs(rng, batch, 3)
+    e0, e1 = fri_cuda.openings(_rows(oracles, num_zs), _pts(zeta, zeta_next), lib=flib)
+    zp, znp = fd.ext_powers_each(zeta, n), fd.ext_powers_each(zeta_next, n)
+    run = jax.jit(jfd._make_openings_run(num_zs))
+    k = sum(widths)
+    for b in range(batch):
+        sets = tuple(_gf(o if i == 0 else o[b]) for i, o in enumerate(oracles))
+        je0, je1, jz0, jz1 = _jax_u64(*run(sets, _gf(zp[b, :, 0]), _gf(zp[b, :, 1]),
+                                           _gf(znp[b, :, 0]), _gf(znp[b, :, 1])))
+        assert np.array_equal(_u(e0[b, :k]), je0) and np.array_equal(_u(e1[b, :k]), je1)
+        assert np.array_equal(_u(e0[b, k:]), jz0) and np.array_equal(_u(e1[b, k:]), jz1)
+
+
+# --- K8 ----------------------------------------------------------------------------
+
+
+def _compose_inputs(rng, batch, n, edge=0):
+    """comp0 and comp1, (B, n) pairs with lanes of 0, 1 and p - 1, and the
+    (3, 2, B) points: zeta, g*zeta (proof 0's edge points) and s."""
+    comps = [_pair(_ext(rng, batch, n, edges=True)) for _ in range(2)]
+    return comps, _pts(_zs(rng, batch, edge), _zs(rng, batch, edge + 1), _ext(rng, batch))
+
+
+@pytest.mark.parametrize("log_n,widths,batch", [
+    (5, (3, 4, 3, 2), 1), (6, (2, 3, 4, 1), 3), (8, (4, 2, 3, 3), 2)])
+def test_k8_point_matches_plain(flib, log_n, widths, batch):
+    """K8's point kernel == _reduce_alpha_plain over the prover's rows (two
+    tables), and over one table of pieces at their own powers (a shard's
+    call), proof 0's alpha an edge point."""
+    rng = np.random.default_rng(80 + log_n)
+    n, num_zs = 1 << log_n, 2
+    rows = _rows(_oracles(rng, widths, n, batch), num_zs)
+    alpha = _pts(_zs(rng, batch, log_n))
+    got = fri_cuda.reduce_alpha(rows, alpha, lib=flib)
+    want = fd._reduce_alpha_plain(rows, alpha)
+    assert len(got) == 2 and all(_equal(g, w) for g, w in zip(got, want))
+    # a shard's call: pieces of the oracles at their own powers of alpha
+    one = [(x[..., :2, :], 0, e + 5) for x, _, e in rows[:4]]
+    got = fri_cuda.reduce_alpha(one, alpha, lib=flib)
+    assert len(got) == 1 and _equal(got[0], fd._reduce_alpha_plain(one, alpha)[0])
+
+
+@pytest.mark.parametrize("log_n,batch,scan", [(5, 1, 512), (6, 3, 512), (7, 2, 512),
+                                              (8, 2, 512), (8, 2, 4), (7, 1, 1),
+                                              (13, 1, 512)])
+def test_k8_scan_matches_plain(flib, threads, log_n, batch, scan):
+    """K8's scan == _compose_plain; blocks of 4 and 1 thread walk several
+    tiles with the carry, and one 2^13 scan is the wormhole's shape."""
+    rng = np.random.default_rng(log_n * 7 + scan)
+    threads(256, scan)
+    comps, pts = _compose_inputs(rng, batch, 1 << log_n, log_n)
+    got = fri_cuda.compose(*comps, pts, lib=flib)
+    want = fd._compose_plain(*comps, pts)
+    assert got[0].shape == (batch, 1 << log_n) and _equal(got, want)
+    assert int(got[0][0, -1]) == 0 and int(got[1][0, -1]) == 0
+
+
+def test_k8_matches_the_jax_compose_program(flib):
+    """K8's two launches == the JAX package's _make_compose_run(num_zs,
+    None), jitted (the composition without its round-0 commit), proof by
+    proof of a batch of 2, with the powers of zeta, g*zeta, their inverses
+    and alpha from the host for the JAX program."""
+    from zk_circuits_torch.host import gle
+
+    rng = np.random.default_rng(8)
+    n, num_zs, widths, batch = 64, 2, (3, 4, 3, 2), 2
+    oracles = _oracles(rng, widths, n, batch)
+    k = sum(widths)
+    zeta, alpha = _ext(rng, batch), _ext(rng, batch)
+    zeta_next = gle.mul(zeta, np.array([5, 0], dtype=U64))
+    zp, znp = fd.ext_powers_each(zeta, n), fd.ext_powers_each(zeta_next, n)
+    zi = fd.ext_powers_each(gle.inverse(zeta), n)
+    zni = fd.ext_powers_each(gle.inverse(zeta_next), n)
+    apow = fd.ext_powers_each(alpha, k)
+    s = gle.powmod(alpha, num_zs)
+    rows = _rows(oracles, num_zs)
+    comp = fri_cuda.reduce_alpha(rows, _pts(alpha), lib=flib)
+    f0, f1 = fri_cuda.compose(*comp, _pts(zeta, zeta_next, s), lib=flib)
+    run = jax.jit(jfd._make_compose_run(num_zs, None))
+    for b in range(batch):
+        sets = tuple(_gf(o if i == 0 else o[b]) for i, o in enumerate(oracles))
+        args = [a[b] for a in (apow, zp, zi)] + [apow[b, :num_zs]] + \
+            [a[b] for a in (znp, zni, s)]
+        flat = [g for a in args for g in (_gf(a[..., 0]), _gf(a[..., 1]))]
+        jf0, jf1 = _jax_u64(*run(sets, *flat))
+        assert np.array_equal(_u(f0[b]), jf0) and np.array_equal(_u(f1[b]), jf1)
+
+
+# --- K9 ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arity_bits", [1, 2, 3, 4])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_k9_matches_plain_and_the_jax_fold(flib, arity_bits, batch):
+    """K9 == _fold_plain and the JAX package's _fold_dev (jitted up to
+    JIT_FOLD_MAX_BITS, op by op above) at every arity, lanes of 0, 1 and
+    p - 1, betas at p - 1."""
+    rng = np.random.default_rng(90 + arity_bits + batch)
+    size = 64
+    c = _ext(rng, batch, size, edges=True)
+    c[0, -(1 << arity_bits):] = P - 1       # a whole fiber at p - 1
+    beta = _ext(rng, batch)
+    beta[0] = P - 1
+    c0, c1 = _pair(c)
+    b0, b1 = _pair(beta)
+    got = fri_cuda.fold(c0, c1, b0, b1, arity_bits, lib=flib)
+    assert got[0].shape == (batch, size >> arity_bits)
+    assert _equal(got, fd._fold_plain(c0, c1, b0, b1, arity_bits))
+    run = _JAX_FOLD if arity_bits <= JIT_FOLD_MAX_BITS else jfd._fold_dev
+    for b in range(batch):
+        j0, j1 = _jax_u64(*run(_gf(c[b, :, 0]), _gf(c[b, :, 1]), _gf(beta[b, 0]),
+                               _gf(beta[b, 1]), arity_bits))
+        assert np.array_equal(_u(got[0][b]), j0) and np.array_equal(_u(got[1][b]), j1)
+
+
+def test_k9_shard_form_and_strides(flib):
+    """The sharded path's call, a 1-D piece with a scalar beta, and a
+    strided batch (a view of every other row): equal to _fold_plain."""
+    rng = np.random.default_rng(99)
+    c = _ext(rng, 4, 256, edges=True)
+    beta = _ext(rng, 4)
+    c0, c1 = _pair(c)
+    b0, b1 = _pair(beta)
+    got = fri_cuda.fold(c0[1], c1[1], b0[1], b1[1], 4, lib=flib)
+    assert got[0].shape == (16,)
+    assert _equal(got, fd._fold_plain(c0[1], c1[1], b0[1], b1[1], 4))
+    got = fri_cuda.fold(c0[::2], c1[::2], b0[::2], b1[::2], 2, lib=flib)
+    assert _equal(got, fd._fold_plain(c0[::2], c1[::2], b0[::2], b1[::2], 2))
+
+
+# --- refusals ------------------------------------------------------------------------
+
+
+def test_refusals(flib):
+    """A CPU tensor without a host build, a bad arity, a table the call
+    lacks, too many sets and a points table of the wrong shape raise; no
+    plain fallback."""
+    rng = np.random.default_rng(3)
+    c0, c1 = _pair(_ext(rng, 2, 32))
+    b0, b1 = _pair(_ext(rng, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fri_cuda.fold(c0, c1, b0, b1, 2)
+    for bits in (0, 5):
+        with pytest.raises(ValueError):
+            fri_cuda.fold(c0, c1, b0, b1, bits, lib=flib)
+    x = _t(_rand(rng, 2, 3, 32))
+    pts = _pts(_ext(rng, 2))
+    with pytest.raises(ValueError, match="table"):
+        fri_cuda.openings([(x, 1)], pts, lib=flib)
+    with pytest.raises(ValueError):
+        fri_cuda.openings([(x, 0)] * 9, pts, lib=flib)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fri_cuda.openings([(x, 0)], pts)
+    with pytest.raises(ValueError, match="points"):
+        fri_cuda.compose(_pair(_ext(rng, 2, 32)), _pair(_ext(rng, 2, 32)), pts, lib=flib)
+    with pytest.raises(ValueError, match="powers of alpha"):
+        fri_cuda.reduce_alpha([(x, 0, fri_cuda.MAX_POW - 2)], pts, lib=flib)
+    with pytest.raises(ValueError):
+        fd.fold(c0.to("meta"), c1.to("meta"), b0, b1, 2)
+
+
+# --- the slice: whole proofs through the shim -----------------------------------------
+
+
+FRI_ROUNDS = dict(proof_of_work_bits=2, num_query_rounds=3, reduction_arity_bits=2,
+                  final_poly_bits=1)
+
+
+def _square(builder, witness, config, **build_kw):
+    b = builder.CircuitBuilder(config.CircuitConfig(
+        zero_knowledge=True, fri_config=config.FriConfig(**FRI_ROUNDS)))
+    x = b.add_virtual_target()
+    b.register_public_input(b.square(x))
+    data = b.build(**build_kw)
+
+    def pw(v):
+        w = witness.PartialWitness()
+        w.set_target(x, v)
+        return w
+
+    return data, pw
+
+
+@pytest.fixture
+def through_shim(flib, monkeypatch):
+    """fri_device's plain versions replaced by the kernels through the
+    shim, each call counted by kernel."""
+    calls = types.SimpleNamespace(k7=0, k8=0, k9=0)
+
+    def via(name, kernel):
+        def run(*args):
+            setattr(calls, kernel, getattr(calls, kernel) + 1)
+            return getattr(fri_cuda, name)(*args, lib=flib)
+        return run
+
+    for plain, name, kernel in (("_openings_plain", "openings", "k7"),
+                                ("_reduce_alpha_plain", "reduce_alpha", "k8"),
+                                ("_compose_plain", "compose", "k8"),
+                                ("_fold_plain", "fold", "k9")):
+        monkeypatch.setattr(fd, plain, via(name, kernel))
+    return calls
+
+
+def test_batch_and_sharded_proofs_through_the_shim(through_shim):
+    """A zk square circuit with FRI fold rounds: a batch of 2 and a
+    sharded proof over a 2-shard CPU mesh, every FRI field operation
+    through K7-K9's host build, byte-equal to the JAX host path's proofs;
+    K7 once, K8 twice and K9 once a fold round for the batch, and a call a
+    shard for the sharded proof."""
+    ref, ref_pw = _square(j_builder, j_witness, j_config)
+    want = {v: j_bytes(j_prove(ref, ref_pw(v), use_device=False)) for v in (3, 7)}
+    data, pw = _square(t_builder, t_witness, t_config, device="cpu")
+    rounds = len(data.common.config.fri_config.reduction_arities(data.common.degree_bits))
+    assert rounds >= 1
+    proofs = prove_batch(data, [pw(3), pw(7)], device="cpu")
+    assert [t_bytes(p) for p in proofs] == [want[3], want[7]]
+    assert vars(through_shim) == {"k7": 1, "k8": 2, "k9": rounds}
+    proof = prove_sharded(data, pw(7), make_mesh(2, device="cpu"))
+    assert t_bytes(proof) == want[7]
+    assert through_shim.k7 == 1 + 2 + 1 and through_shim.k8 == 2 + 2 + 2

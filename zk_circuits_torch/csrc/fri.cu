@@ -1,0 +1,152 @@
+// The openings' and FRI's field arithmetic (K7, K8, K9) for Hopper.
+//
+// Replaces the XLA programs that the JAX package jits for FRI
+// (zk_circuits_tpu/fri/fri_device.py): the openings (_make_openings_run
+// :158, jitted :173 and :181), the composition without its round-0 NTT and
+// commit (_make_compose_run :193: _reduce_alpha :70 and _ddl :96, jitted
+// :227, :237, :246) and the fold (_fold_dev :136 in _make_fold_commit_run
+// :255 and _final_fold_fn :289).  None is a Pallas kernel.  Eager torch
+// ran them as ~11.4k launches a proof; here they are four kernels (fri.cuh
+// gives the formulas), five launches for a proof or a batch of the
+// wormhole (K7 one, K8 two, K9 one a fold round):
+//   k7_kernel: a block of 256 threads a (row, proof): the row's products
+//     with the powers of its point, summed by each thread over its strided
+//     coefficients (its powers a running product from its first, computed
+//     by squaring) and then by a tree in shared memory.  The
+//     oracles are read in place (no concatenation, the shared
+//     constants/sigmas oracle once for the batch);
+//   k8_point_kernel: a thread a (point, proof): both alpha reductions over
+//     the same rows as K7, the block's powers of alpha computed into shared
+//     memory first (each thread's first by squaring, then running
+//     products), the row loop unrolled so that its loads overlap;
+//   k8_scan_kernel: a block of 512 threads a proof: both suffix sums at
+//     once (16 points a thread, then a Hillis-Steele scan of the threads'
+//     sums in shared memory, tile by tile with a carry), the scaling by
+//     the inverse powers and the sum with alpha^nz, f padded with its zero;
+//     each thread computes its points' powers of zeta, g zeta and their
+//     inverses (an inverse a point by the norm's Fermat chain);
+//   k9_kernel: a thread a (output coefficient, proof): Horner over the
+//     arity with that proof's beta.
+//
+// Bound on the H100 (chip_smoke.py's fri_work): K7 and K8's point kernel by
+// bytes, each reads every oracle row once (267 x 2^13 x 8 B = 17.5 MB a
+// wormhole proof) against two products a coefficient; they stream it with
+// neighbouring threads on neighbouring coefficients.  K7 spends an
+// extension product a coefficient more on its running power, K8's scan
+// an inverse and four powers a thread: the cost of not reading host power
+// tables.  K8's scan and K9 move under 0.4 MB a proof: their time is
+// latency (B blocks for the scan; a few thousand threads for a fold).
+#include <cuda_runtime.h>
+
+#include "fri.cuh"
+
+constexpr int K7_THREADS = 256;
+constexpr int K8_POINT_THREADS = 128;
+constexpr int K8_SCAN_THREADS = 512;
+constexpr int K9_THREADS = 128;
+
+// A block of T threads in k7_row_block's and k8_scan_block's terms.
+template <int T>
+struct FriBlock {
+  __device__ __forceinline__ int threads() const { return T; }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const { f((int)threadIdx.x); }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+__global__ void __launch_bounds__(K7_THREADS) k7_kernel(const __grid_constant__ K7Call c) {
+  __shared__ uint64_t buf[2 * K7_THREADS];
+  FriBlock<K7_THREADS> blk;
+  k7_row_block(blk, c, blockIdx.y, blockIdx.x, buf);
+}
+
+__global__ void __launch_bounds__(K8_POINT_THREADS)
+    k8_point_kernel(const __grid_constant__ K8Call c) {
+  __shared__ uint64_t apow[2 * K8_MAX_POW];
+  k8_alpha_table(c, blockIdx.y, apow, threadIdx.x, K8_POINT_THREADS);
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * K8_POINT_THREADS + threadIdx.x;
+  if (i < c.r.n) k8_point(c, blockIdx.y, i, apow);
+}
+
+__global__ void __launch_bounds__(K8_SCAN_THREADS)
+    k8_scan_kernel(const __grid_constant__ K8ScanCall c) {
+  __shared__ uint64_t buf[8 * K8_SCAN_THREADS];
+  FriBlock<K8_SCAN_THREADS> blk;
+  k8_scan_block(blk, c, blockIdx.x, buf);
+}
+
+__global__ void __launch_bounds__(K9_THREADS) k9_kernel(const __grid_constant__ K9Call c) {
+  const long long k = (long long)blockIdx.x * K9_THREADS + threadIdx.x;
+  if (k < c.m) k9_point(c, blockIdx.y, k);
+}
+
+static unsigned blocks(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+// Runs `launch` on `device` and returns its cudaGetLastError.
+template <class F>
+static int on_device(int device, F launch) {
+  int prev = 0;
+  cudaGetDevice(&prev);
+  cudaSetDevice(device);
+  launch();
+  const cudaError_t err = cudaGetLastError();
+  cudaSetDevice(prev);
+  return (int)err;
+}
+
+extern "C" {
+
+// Each launches its kernel once on `stream` of `device` and returns 0 or
+// the CUDA error code (cudaErrorInvalidValue for a call the kernel does
+// not take).
+int k7_openings(int device, const K7Call* call, void* stream) {
+  const K7Call& c = *call;
+  if (k7_valid(c)) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&] {
+    k7_kernel<<<dim3((unsigned)c.r.rows, (unsigned)c.r.batch), K7_THREADS, 0,
+                (cudaStream_t)stream>>>(c);
+  });
+}
+
+int k8_reduce(int device, const K8Call* call, void* stream) {
+  const K8Call& c = *call;
+  if (k8_valid(c)) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&] {
+    k8_point_kernel<<<dim3(blocks(c.r.n, K8_POINT_THREADS), (unsigned)c.r.batch),
+                      K8_POINT_THREADS, 0, (cudaStream_t)stream>>>(c);
+  });
+}
+
+int k8_scan(int device, const K8ScanCall* call, void* stream) {
+  const K8ScanCall& c = *call;
+  if (k8_scan_valid(c)) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&] {
+    k8_scan_kernel<<<(unsigned)c.batch, K8_SCAN_THREADS, 0, (cudaStream_t)stream>>>(c);
+  });
+}
+
+int k9_fold(int device, const K9Call* call, void* stream) {
+  const K9Call& c = *call;
+  if (k9_valid(c)) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&] {
+    k9_kernel<<<dim3(blocks(c.m, K9_THREADS), (unsigned)c.batch), K9_THREADS, 0,
+                (cudaStream_t)stream>>>(c);
+  });
+}
+
+// The sizes of the calls the library was built with: K7Call, K8Call,
+// K8ScanCall, K9Call for kind 0-3.
+int fri_call_size(int kind) {
+  switch (kind) {
+    case 0: return (int)sizeof(K7Call);
+    case 1: return (int)sizeof(K8Call);
+    case 2: return (int)sizeof(K8ScanCall);
+    case 3: return (int)sizeof(K9Call);
+    default: return -1;
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,317 @@
+"""Wrapper of the Hopper FRI kernels K7, K8 and K9 (csrc/fri.cu).
+
+Replaces the XLA programs the JAX package jits for the openings
+(``fri/fri_device.py:158 _make_openings_run``), the composition without its
+round-0 commit (``:193 _make_compose_run``) and the fold (``:136
+_fold_dev`` in ``:255`` and ``:289``); none is a Pallas kernel.
+
+- ``openings`` (K7, one launch): every row of a list of sets evaluated at
+  its table's point (zeta or g zeta) of its proof;
+- ``reduce_alpha`` (K8's point kernel, one launch): each table's rows
+  summed with their powers of alpha, computed on the card;
+- ``compose`` (K8's scan, one launch): both divisions by a linear factor
+  and their sum with alpha^num_zs, the FRI polynomial padded with its zero;
+
+K7 and K8 compute the powers of zeta, g zeta, their inverses and alpha on
+the card from the points (a table of T points a proof, (T, 2, B)), where
+the JAX program uploads host-computed tables: the integers are the same,
+and the host's numpy tables were most of the stages' time once the
+arithmetic left eager torch;
+- ``fold`` (K9, one launch a fold round).
+
+A set is ``(tensor, table)`` or ``(tensor, table, exp)``: a (k, n) tensor
+shared by the batch (the circuit's constants/sigmas oracle, read once for
+every proof) or (B, k, n), read in place through its strides (the last
+axis contiguous); K8's point kernel gives its row j the power exp + j of
+alpha (exp 0 when left out).  The plain
+versions are ``fri/fri_device.py``'s ``_openings_plain``,
+``_reduce_alpha_plain``, ``_compose_plain`` and ``_fold_plain``, which the
+prover takes for CPU tensors.
+
+Bound on the H100: bytes (chip_smoke.py's fri_work).  Counters:
+``launches``, in all, by kernel (``k7``, ``k8``, ``k9``) and by card.
+Build: nvcc for sm_90a into ``zk_circuits_torch/_build`` at first use, a
+plain C interface loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ..utils.nvcc import build_library
+
+HEADERS = ("goldilocks.cuh", "fri.cuh")
+MAX_SETS = 8          # csrc/fri.cuh FRI_MAX_SETS
+MAX_POW = 1024        # csrc/fri.cuh K8_MAX_POW
+MAX_BATCH = 65535     # the grid's y extent
+KERNELS = ("k7", "k8", "k9")
+
+launches = 0
+launches_by_kernel = dict.fromkeys(KERNELS, 0)
+launches_by_device: dict = {}
+build_log = ""   # nvcc's output of the last build (ptxas register report)
+_LIB = None
+_LOCK = threading.Lock()   # the build and the counters
+
+
+def _fields(spec: str, names: str) -> list:
+    kinds = {"p": ctypes.c_void_p, "l": ctypes.c_longlong, "i": ctypes.c_int}
+    return [(name, kinds[k]) for k, name in zip(spec, names.split())]
+
+
+class _Set(ctypes.Structure):
+    """ctypes mirror of csrc/fri.cuh's FriSet."""
+
+    _fields_ = _fields("plliii", "ptr bs rs rows table exp")
+
+
+class _Rows(ctypes.Structure):
+    """ctypes mirror of FriRows."""
+
+    _fields_ = [("sets", _Set * MAX_SETS)] + _fields("liii", "n nsets rows batch")
+
+
+class _K7Call(ctypes.Structure):
+    _fields_ = [("r", _Rows), ("pts", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("tables", ctypes.c_int)]
+
+
+class _K8Call(ctypes.Structure):
+    _fields_ = [("r", _Rows), ("alpha", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("tables", ctypes.c_int), ("npow", ctypes.c_int)]
+
+
+class _K8ScanCall(ctypes.Structure):
+    _fields_ = [("comp", ctypes.c_void_p * 4), ("pts", ctypes.c_void_p),
+                ("f", ctypes.c_void_p * 2), ("n", ctypes.c_longlong), ("batch", ctypes.c_int)]
+
+
+class _K9Call(ctypes.Structure):
+    _fields_ = [("c", ctypes.c_void_p * 2), ("c_bs", ctypes.c_longlong),
+                ("beta", ctypes.c_void_p * 2), ("out", ctypes.c_void_p * 2),
+                ("m", ctypes.c_longlong), ("arity_bits", ctypes.c_int), ("batch", ctypes.c_int)]
+
+
+CALLS = (("k7_openings", _K7Call), ("k8_reduce", _K8Call), ("k8_scan", _K8ScanCall),
+         ("k9_fold", _K9Call))
+
+
+def reset_launches() -> None:
+    global launches
+    with _LOCK:
+        launches = 0
+        for k in launches_by_kernel:
+            launches_by_kernel[k] = 0
+        launches_by_device.clear()
+
+
+def _count(kernel: str, device) -> None:
+    global launches
+    with _LOCK:
+        launches += 1
+        launches_by_kernel[kernel] += 1
+        launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + 1
+
+
+def build():
+    """Compile csrc/fri.cu (cached by the hash of its sources); returns the
+    library's path."""
+    global build_log
+    lib, log = build_library("fri", "fri.cu", HEADERS)
+    if log:
+        build_log = log
+    return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare fri.cu's C interface on ``lib`` (the built library, or in
+    the tests a host build of it) and check the call mirrors' sizes."""
+    lib.fri_call_size.argtypes = [ctypes.c_int]
+    lib.fri_call_size.restype = ctypes.c_int
+    for kind, (name, mirror) in enumerate(CALLS):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        if lib.fri_call_size(kind) != ctypes.sizeof(mirror):
+            raise RuntimeError(f"{name}'s call is {lib.fri_call_size(kind)} bytes in the "
+                               f"library, {ctypes.sizeof(mirror)} in its ctypes mirror")
+    return lib
+
+
+def _lib():
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = bind(ctypes.CDLL(str(build())))
+    return _LIB
+
+
+def _launch(kernel: str, name: str, call, dev: torch.device, lib, what: str) -> None:
+    """One launch of ``name`` on ``call``: the built library on a CUDA
+    device (counted), else ``lib``, a host build of the C interface."""
+    if dev.type == "cuda":
+        lib = _lib()
+        err = getattr(lib, name)(dev.index or 0, ctypes.byref(call),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        err = getattr(lib, name)(0, ctypes.byref(call), None)
+    if err != 0:
+        raise RuntimeError(f"{name} ({what}) failed: CUDA error {err}")
+    if dev.type == "cuda":
+        _count(kernel, dev)
+
+
+def _device(tensors: list, lib, kernel: str, plain: str) -> torch.device:
+    dev = tensors[0].device
+    if lib is None and dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors, got one on {dev} (the plain version "
+                         f"is fri/fri_device.py::{plain})")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{kernel}'s inputs must lie on one device")
+    if any(t.dtype != torch.int64 for t in tensors):
+        raise ValueError(f"{kernel} takes int64 tensors")
+    return dev
+
+
+def _rows(sets: list, batch: int, n: int | None = None) -> tuple:
+    """The FriRows over ``sets`` for ``batch`` proofs; returns it, its rows
+    and n."""
+    if not 1 <= len(sets) <= MAX_SETS or not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"expected 1-{MAX_SETS} sets and 1-{MAX_BATCH} proofs, got "
+                         f"{len(sets)} and {batch}")
+    rows = _Rows(nsets=len(sets), batch=batch)
+    total = 0
+    for s, (x, table, *exp) in enumerate(sets):
+        shared = x.dim() == 2
+        n = x.shape[-1] if n is None else n
+        exp = exp[0] if exp else 0
+        if x.dim() not in (2, 3) or (not shared and x.shape[0] != batch) or \
+                x.shape[-1] != n or (n > 1 and x.stride(-1) != 1) or table not in (0, 1) \
+                or exp < 0:
+            raise ValueError(f"set {s}: expected (k, {n}) or ({batch}, k, {n}) with a "
+                             f"contiguous last axis, table 0 or 1 and a power of alpha >= "
+                             f"0, got {tuple(x.shape)}, strides {x.stride()}, table {table}, "
+                             f"power {exp}")
+        rows.sets[s] = _Set(ptr=x.data_ptr(), bs=0 if shared else x.stride(0),
+                            rs=x.stride(-2), rows=x.shape[-2], table=table, exp=exp)
+        total += x.shape[-2]
+    if total < 1 or n < 1:
+        raise ValueError("the sets hold no coefficient")
+    rows.n, rows.rows = n, total
+    return rows, total, n
+
+
+def _pairs(name: str, pairs: list, shape: tuple) -> list:
+    """Contiguous copies (no copy when already so) of the component pairs,
+    each of ``shape``."""
+    out = []
+    for p in pairs:
+        for t in p:
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+            out.append(t.contiguous())
+    return out
+
+
+def _points(pts: torch.Tensor, counts: tuple) -> tuple:
+    """``pts`` as K7Call's and K8ScanCall's (T, 2, B) int64 table of T
+    points a proof (T in ``counts``), contiguous; returns it and B."""
+    if pts.dim() != 3 or pts.shape[0] not in counts or pts.shape[1] != 2 or \
+            pts.dtype != torch.int64 or not 1 <= pts.shape[2] <= MAX_BATCH:
+        raise ValueError(f"points: expected int64 (T, 2, B) with T in {counts}, got "
+                         f"{pts.dtype} {tuple(pts.shape)}")
+    return pts.contiguous(), pts.shape[2]
+
+
+def openings(sets: list, pts: torch.Tensor, *, lib=None) -> tuple:
+    """K7: ``e`` (B, R) as a component pair, row r of the sets (in order,
+    R rows in all) evaluated at its table's point of its proof:
+    e[b, r] = sum_i row_r[b, i] z_t[b]^i, with z_t[b] = (pts[t, 0, b],
+    pts[t, 1, b]) for the T = 1 or 2 points of ``pts`` (T, 2, B); the
+    powers are computed on the card.  ``lib``, a host build of the C
+    interface, runs the call on CPU tensors (the tests); without it every
+    tensor lies on one CUDA device."""
+    pts, batch = _points(pts, (1, 2))
+    dev = _device([x for x, *_ in sets] + [pts], lib, "K7", "_openings_plain")
+    rows, total, n = _rows(sets, batch)
+    if any(t >= pts.shape[0] for _, t, *_ in sets):
+        raise ValueError(f"a set names table {max(t for _, t, *_ in sets)} of "
+                         f"{pts.shape[0]}")
+    out = torch.empty((2, batch, total), dtype=torch.int64, device=dev)
+    call = _K7Call(r=rows, pts=pts.data_ptr(), out=out.data_ptr(), tables=pts.shape[0])
+    _launch("k7", "k7_openings", call, dev, lib, f"B={batch}, {total} rows of {n}")
+    return out[0], out[1]
+
+
+def reduce_alpha(sets: list, alpha: torch.Tensor, *, lib=None) -> list:
+    """K8's point kernel: for each table t named by the sets (0, or 0 and
+    1), comp_t (B, n) as a component pair, comp_t[b, i] = sum over the rows
+    r of table t of alpha[b]^e row_r[b, i], where row j of a set ``(rows,
+    table, exp)`` takes e = exp + j (e < MAX_POW); ``alpha`` (1, 2, B)
+    holds each proof's alpha, whose powers are computed on the card."""
+    alpha, batch = _points(alpha, (1,))
+    dev = _device([x for x, *_ in sets] + [alpha], lib, "K8", "_reduce_alpha_plain")
+    rows, total, n = _rows(sets, batch)
+    npow = max(x.shape[-2] + (e[0] if e else 0) for x, _, *e in sets)
+    if npow > MAX_POW:
+        raise ValueError(f"the sets take {npow} powers of alpha, K8 keeps {MAX_POW}")
+    tables = 1 + max(t for _, t, *_ in sets)
+    out = torch.empty((tables, 2, batch, n), dtype=torch.int64, device=dev)
+    call = _K8Call(r=rows, alpha=alpha.data_ptr(), out=out.data_ptr(), tables=tables,
+                   npow=npow)
+    _launch("k8", "k8_reduce", call, dev, lib, f"B={batch}, {total} rows of {n}")
+    return [(out[t, 0], out[t, 1]) for t in range(tables)]
+
+
+def compose(comp0: tuple, comp1: tuple, pts: torch.Tensor, *, lib=None) -> tuple:
+    """K8's scan: the FRI polynomial f (B, n) as a component pair from the
+    alpha-reduced comp0 (at zeta) and comp1 (at g zeta), each a (B, n)
+    pair, and ``pts`` (3, 2, B): each proof's zeta, g zeta and s =
+    alpha^num_zs: f[i] = q1[i] + s q0[i] for i < n - 1 and f[n - 1] = 0,
+    where q[i] = z^-(i+1) sum_{j > i} comp[j] z^j; the powers and the
+    inverses are computed on the card."""
+    batch, n = comp0[0].shape
+    ins = _pairs("compose", [comp0, comp1], (batch, n))
+    pts, pb = _points(pts, (3,))
+    dev = _device(ins + [pts], lib, "K8's scan", "_compose_plain")
+    if pb != batch:
+        raise ValueError(f"{pb} points' proofs for {batch}")
+    f = torch.empty((2, batch, n), dtype=torch.int64, device=dev)
+    call = _K8ScanCall(comp=(ctypes.c_void_p * 4)(*(t.data_ptr() for t in ins)),
+                       pts=pts.data_ptr(),
+                       f=(ctypes.c_void_p * 2)(f[0].data_ptr(), f[1].data_ptr()),
+                       n=n, batch=batch)
+    _launch("k8", "k8_scan", call, dev, lib, f"B={batch}, n={n}")
+    return f[0], f[1]
+
+
+def fold(c0: torch.Tensor, c1: torch.Tensor, b0: torch.Tensor, b1: torch.Tensor,
+         arity_bits: int, *, lib=None) -> tuple:
+    """K9: new_c[m] = sum_j beta^j c[A m + j] (A = 2^arity_bits, 1-4 bits)
+    for c (..., N) as a component pair with one beta (...) a leading index
+    (``b0``, ``b1``); returns (..., N / A)."""
+    *lead, size = c0.shape
+    arity = 1 << arity_bits
+    if not 1 <= arity_bits <= 4 or size % arity or len(lead) > 1 or c1.shape != c0.shape:
+        raise ValueError(f"K9 folds (N,) or (B, N) pairs with N a multiple of the arity "
+                         f"(1-4 bits); got {tuple(c0.shape)}, {tuple(c1.shape)} at "
+                         f"{arity_bits} bits")
+    x0, x1 = (c.reshape(-1, size) for c in (c0, c1))
+    batch = x0.shape[0]
+    if x0.stride() != x1.stride() or (size > 1 and x0.stride(1) != 1):
+        x0, x1 = x0.contiguous(), x1.contiguous()
+    beta = _pairs("beta", [(b0.reshape(-1), b1.reshape(-1))], (batch,))
+    dev = _device([x0, x1] + beta, lib, "K9", "_fold_plain")
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"expected 1-{MAX_BATCH} proofs, got {batch}")
+    m = size // arity
+    out = torch.empty((2, batch, m), dtype=torch.int64, device=dev)
+    call = _K9Call(c=(ctypes.c_void_p * 2)(x0.data_ptr(), x1.data_ptr()), c_bs=x0.stride(0),
+                   beta=(ctypes.c_void_p * 2)(*(t.data_ptr() for t in beta)),
+                   out=(ctypes.c_void_p * 2)(out[0].data_ptr(), out[1].data_ptr()),
+                   m=m, arity_bits=arity_bits, batch=batch)
+    _launch("k9", "k9_fold", call, dev, lib, f"B={batch}, N={size}, {arity_bits} bits")
+    return out[0].reshape(*lead, m), out[1].reshape(*lead, m)

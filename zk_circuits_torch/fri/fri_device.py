@@ -6,15 +6,21 @@ proofs of one circuit, one proof being the batch of one
 constants/sigmas oracle carries a leading proof axis, and each transcript
 stage fetches the whole batch's caps or evaluations in one transfer):
 
-- openings: every oracle polynomial evaluated at zeta / g*zeta as one
-  base-coefficient matvec against host-computed power tables;
+- openings: every oracle polynomial evaluated at zeta / g*zeta
+  (``openings``: K7 on the card, which computes the powers itself);
 - composition: the alpha-reduced FRI quotient (batch 0 at zeta, batch 1 at
-  g*zeta) with the vectorized divide-by-linear, then the round-0 codeword
-  NTT and Merkle commit;
-- fold rounds: coefficient-space fold (new_c[m] = sum_j beta^j c[A*m+j])
-  + next codeword NTT + Merkle commit;
+  g*zeta; ``reduce_alpha``: K8's point kernel) with the divide-by-linear
+  (``compose``: K8's scan), then the round-0 codeword NTT and Merkle
+  commit;
+- fold rounds: coefficient-space fold (new_c[m] = sum_j beta^j c[A*m+j];
+  ``fold``: K9) + next codeword NTT + Merkle commit;
 - query phase: every oracle and every commit-phase tree gathered on the
   device and fetched in one transfer.
+
+On a CUDA tensor the field arithmetic takes the kernels of ``fri_cuda``; on
+a CPU tensor their plain versions (``_openings_plain``,
+``_reduce_alpha_plain``, ``_compose_plain``, ``_fold_plain``); any other
+device raises.
 
 The Fiat-Shamir challenger stays on the host; only caps, the final
 polynomial and query rows leave the device.  Extension elements travel as
@@ -33,6 +39,7 @@ from ..hash import merkle as merklem
 from ..host import gl, gle
 from ..ntt import ntt as nttm
 from . import fri as frim
+from . import fri_cuda
 from .oracle import ext_powers
 
 
@@ -83,9 +90,9 @@ def _fiber_leaves(v0, v1, arity: int) -> torch.Tensor:
     return torch.stack([g0, g1], dim=-1).reshape(*lead, m, arity * 2)
 
 
-def _fold_dev(c0, c1, b0, b1, arity_bits: int):
-    """new_c[m] = sum_j beta^j c[A*m + j] (Horner over j); c (..., N) with
-    one beta (...) per leading index."""
+def _fold_plain(c0, c1, b0, b1, arity_bits: int):
+    """K9's plain version: new_c[m] = sum_j beta^j c[A*m + j] (Horner over
+    j); c (..., N) with one beta (...) per leading index."""
     arity = 1 << arity_bits
     *lead, size = c0.shape
     m = size // arity
@@ -97,6 +104,109 @@ def _fold_dev(c0, c1, b0, b1, arity_bits: int):
         acc0, acc1 = _emul(acc0, acc1, b0, b1)
         acc0, acc1 = _eadd(acc0, acc1, r0[..., j], r1[..., j])
     return acc0, acc1
+
+
+def _over_batch(x, batch: int):
+    """A set of rows as (B, k, n): a (k, n) set is shared by the batch."""
+    return x.expand(batch, *x.shape) if x.dim() == 2 else x
+
+
+def _host_points(pts: torch.Tensor) -> list:
+    """A (T, 2, B) points tensor -> T host (B, 2) ext arrays."""
+    return [np.ascontiguousarray(p.T) for p in gfd.to_u64(pts)]
+
+
+def _power_tables(z: np.ndarray, n: int, device) -> tuple:
+    """The (B, n) powers of each point of ``z`` (B, 2) as a device pair."""
+    return gfd.ext_pair(ext_powers_each(z, n), device)
+
+
+def _openings_plain(sets: list, pts: torch.Tensor):
+    """K7's plain version (``fri_cuda.openings``): e (B, R) as a component
+    pair, every row of the sets (each ``(rows, table, ...)``, in order)
+    evaluated at its table's point of ``pts`` (T, 2, B), through
+    host-computed power tables."""
+    n, batch = sets[0][0].shape[-1], pts.shape[-1]
+    tables = [_power_tables(z, n, pts.device) for z in _host_points(pts)]
+    e0, e1 = [], []
+    for x, t, *_ in sets:
+        x = _over_batch(x, batch)
+        p0, p1 = tables[t]
+        e0.append(gfd.sum_mod(gfd.mul(x, p0[:, None, :]), axis=-1))
+        e1.append(gfd.sum_mod(gfd.mul(x, p1[:, None, :]), axis=-1))
+    return torch.cat(e0, dim=-1), torch.cat(e1, dim=-1)
+
+
+def _reduce_alpha_plain(sets: list, alpha: torch.Tensor) -> list:
+    """K8's point kernel's plain version (``fri_cuda.reduce_alpha``): per
+    table t of the sets (each ``(rows, table, exp)``), the sum of its rows
+    times their powers of alpha (row j of a set: exp + j; ``alpha`` (1, 2,
+    B)), through a host-computed power table; (B, n) pairs."""
+    (a,) = _host_points(alpha)
+    npow = max(x.shape[-2] + e for x, _, e in sets)
+    ap0, ap1 = _power_tables(a, npow, alpha.device)
+    out = {}
+    for x, t, e in sets:
+        x = _over_batch(x, alpha.shape[-1])
+        k = x.shape[-2]
+        part = _reduce_alpha(x, ap0[:, e:e + k], ap1[:, e:e + k])
+        out[t] = part if t not in out else _eadd(*out[t], *part)
+    return [out[t] for t in range(len(out))]
+
+
+def _compose_plain(comp0, comp1, pts: torch.Tensor):
+    """K8's scan's plain version (``fri_cuda.compose``): from (B, n) pairs
+    and each proof's zeta, g*zeta and s (``pts``, (3, 2, B)),
+    final[:n-1] = q1 + s * q0 and final[n-1] = 0, with q0 and q1 the
+    divisions of comp0 by (X - zeta) and comp1 by (X - g*zeta), through
+    host-computed power tables."""
+    n = comp0[0].shape[-1]
+    zeta, zeta_next, _ = _host_points(pts)
+    q0 = _ddl(*comp0, *_power_tables(zeta, n, pts.device),
+              *_power_tables(gle.inverse(zeta), n, pts.device))
+    q1 = _ddl(*comp1, *_power_tables(zeta_next, n, pts.device),
+              *_power_tables(gle.inverse(zeta_next), n, pts.device))
+    sq = _emul(*q0, pts[2, 0][:, None], pts[2, 1][:, None])
+    return tuple(torch.nn.functional.pad(v, (0, 1)) for v in _eadd(*q1, *sq))
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU one (their
+    plain versions); any other device raises."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"FRI runs on CUDA or CPU tensors, got {t.device}")
+    return t.device.type == "cuda"
+
+
+def _points(points: list, device) -> torch.Tensor:
+    """Host (B, 2) ext arrays, one a point, -> the (T, 2, B) tensor the
+    kernels take, in one upload."""
+    return gfd.from_u64(np.stack([np.asarray(z, dtype=np.uint64).T for z in points]), device)
+
+
+def openings(sets: list, points: list):
+    """e (B, R) as a component pair: every row of ``sets`` (each ``(rows,
+    table)``: a (k, n) set shared by the batch or (B, k, n), in order)
+    evaluated at ``points[table]``, each proof's point as a host (B, 2)
+    array."""
+    device = sets[0][0].device
+    body = fri_cuda.openings if _on_card(sets[0][0]) else _openings_plain
+    return body(sets, _points(points, device))
+
+
+def reduce_alpha(sets: list, alpha) -> list:
+    """Per table of ``sets`` (each ``(rows, table, exp)``), the sum of its
+    rows times their powers of alpha (row j of a set: exp + j), each
+    proof's alpha a host (B, 2) array: a list of (B, n) pairs."""
+    body = fri_cuda.reduce_alpha if _on_card(sets[0][0]) else _reduce_alpha_plain
+    return body(sets, _points([alpha], sets[0][0].device))
+
+
+def fold(c0, c1, b0, b1, arity_bits: int):
+    """new_c[m] = sum_j beta^j c[A*m + j]; c (N,) or (B, N) with one beta
+    (a scalar, or (B,)) per leading index."""
+    body = fri_cuda.fold if _on_card(c0) else _fold_plain
+    return body(c0, c1, b0, b1, arity_bits)
 
 
 def _commit_codeword(f0, f1, shift: int, size: int, arity_bits: int,
@@ -187,27 +297,14 @@ def ext_powers_each(z: np.ndarray, n: int) -> np.ndarray:
     return ext_powers(z, n) if z.ndim == 1 else np.stack([ext_powers(e, n) for e in z])
 
 
-def compose(comp0, comp1, zeta, zeta_next, alpha, num_zs: int, zp, znp):
-    """The FRI polynomial from the alpha-reduced batches: comp0 (all
-    polynomials, opened at zeta) and comp1 (the Z polynomials, at g*zeta),
-    each an (n,) ext pair; zp/znp are the powers of zeta/g*zeta as device
-    pairs.  final[:n-1] = q1 + alpha^num_zs * q0, final[n-1] = 0.  For a
-    batch, the pairs are (B, n) and zeta, zeta_next, alpha (B, 2)."""
-    n = comp0[0].shape[-1]
-    device = comp0[0].device
-
-    def pair(arr):
-        return gfd.ext_pair(arr, device)
-
-    zi0, zi1 = pair(ext_powers_each(gle.inverse(zeta), n))
-    zni0, zni1 = pair(ext_powers_each(gle.inverse(zeta_next), n))
-    q0 = _ddl(*comp0, *zp, zi0, zi1)
-    q1 = _ddl(*comp1, *znp, zni0, zni1)
-    s0, s1 = pair(gle.powmod(alpha, num_zs))
-    lead = q0[0].shape[:-1]
-    sq = _emul(*q0, s0.reshape(*lead, 1), s1.reshape(*lead, 1))
-    f0, f1 = (torch.nn.functional.pad(v, (0, 1)) for v in _eadd(*q1, *sq))
-    return f0, f1
+def compose(comp0, comp1, zeta, zeta_next, alpha, num_zs: int):
+    """The FRI polynomial of B proofs from the alpha-reduced batches: comp0
+    (all polynomials, opened at zeta) and comp1 (the Z polynomials, at
+    g*zeta), each a (B, n) ext pair; zeta, zeta_next and alpha (B, 2) on
+    the host.  final[:n-1] = q1 + alpha^num_zs * q0, final[n-1] = 0."""
+    pts = _points([zeta, zeta_next, gle.powmod(alpha, num_zs)], comp0[0].device)
+    body = fri_cuda.compose if _on_card(comp0[0]) else _compose_plain
+    return body(comp0, comp1, pts)
 
 
 def commit_phase(f0, f1, fri_config, degree_bits: int, chs: list):
@@ -233,7 +330,7 @@ def commit_phase(f0, f1, fri_config, degree_bits: int, chs: list):
         beta = np.stack(beta)
         betas.append(beta)
         b0, b1 = gfd.ext_pair(beta, f0.device)
-        f0, f1 = _fold_dev(f0, f1, b0, b1, a_bits)
+        f0, f1 = fold(f0, f1, b0, b1, a_bits)
         shift = pow(shift, 1 << a_bits, gl.P_INT)
         size >>= a_bits
     return caps, trees, betas, f0, f1
@@ -304,48 +401,37 @@ def open_and_fri_device_batch(common, cs_oracle, commits: list, chs: list,
 
     cfg = common.config
     fri_config = cfg.fri_config
-    n = common.degree
     num_zs = cfg.num_challenges
     B = len(chs)
-    device = cs_oracle.device
     g_ext = np.array([gl.primitive_root_of_unity(common.degree_bits), 0],
                      dtype=np.uint64)
     zetas = np.stack([ch.get_extension_challenge() for ch in chs])    # (B, 2)
     zetas_next = gle.mul(zetas, g_ext)
 
-    def pair(arr):
-        return gfd.ext_pair(arr, device)
-
-    cs = cs_oracle.coeffs_dev
-    sets = [cs.expand(B, *cs.shape)] + [c.coeffs for c in commits]
+    sets = [cs_oracle.coeffs_dev] + [c.coeffs for c in commits]   # (k, n), (B, k_i, n)
     widths = tuple(s.shape[-2] for s in sets)
-    batch0 = torch.cat(sets, dim=-2)                                  # (B, K, n)
-    zs2 = sets[2][:, :num_zs]
+    k = sum(widths)
+    # every oracle row at zeta (table 0; row r of them takes alpha^r), then
+    # the Z rows at g*zeta (table 1; alpha^0, ...)
+    first = np.cumsum((0,) + widths[:-1])
+    rows = [(s, 0, int(e)) for s, e in zip(sets, first)] + [(sets[2][:, :num_zs], 1, 0)]
 
     with stage_timer(f"fri/openings_eval{tag}"):
-        zp = pair(ext_powers_each(zetas, n))                          # (B, n)
-        znp = pair(ext_powers_each(zetas_next, n))
-        evals = fetch_packed(
-            [gfd.sum_mod(gfd.mul(batch0, zp[0][:, None, :]), axis=-1),
-             gfd.sum_mod(gfd.mul(batch0, zp[1][:, None, :]), axis=-1),
-             gfd.sum_mod(gfd.mul(zs2, znp[0][:, None, :]), axis=-1),
-             gfd.sum_mod(gfd.mul(zs2, znp[1][:, None, :]), axis=-1)])
-    e0, e1, zn0, zn1 = evals
+        ev0, ev1 = fetch_packed(openings(rows, [zetas, zetas_next]))  # (B, K + num_zs)
+    e0, e1, zn0, zn1 = ev0[:, :k], ev1[:, :k], ev0[:, k:], ev1[:, k:]
     openings_l, alphas = [], []
     for b, ch in enumerate(chs):
-        openings = openings_set(np.stack([e0[b], e1[b]], axis=-1),
-                                np.stack([zn0[b], zn1[b]], axis=-1), widths)
-        openings_l.append(openings)
-        ch.observe_extension_elements(openings.batch0_flat())
-        ch.observe_extension_elements(openings.batch1_flat())
+        oset = openings_set(np.stack([e0[b], e1[b]], axis=-1),
+                            np.stack([zn0[b], zn1[b]], axis=-1), widths)
+        openings_l.append(oset)
+        ch.observe_extension_elements(oset.batch0_flat())
+        ch.observe_extension_elements(oset.batch1_flat())
         alphas.append(ch.get_extension_challenge())
     alphas = np.stack(alphas)
 
     with stage_timer(f"fri/compose_r0{tag}"):
-        ap0, ap1 = pair(ext_powers_each(alphas, sum(widths)))         # (B, K)
-        comp0 = _reduce_alpha(batch0, ap0, ap1)
-        comp1 = _reduce_alpha(zs2, ap0[:, :num_zs], ap1[:, :num_zs])
-        f0, f1 = compose(comp0, comp1, zetas, zetas_next, alphas, num_zs, zp, znp)
+        comp0, comp1 = reduce_alpha(rows, alphas)
+        f0, f1 = compose(comp0, comp1, zetas, zetas_next, alphas, num_zs)
 
     with stage_timer(f"fri/commit_phase{tag}"):
         caps, trees, _, f0, f1 = commit_phase(f0, f1, fri_config,
@@ -360,7 +446,7 @@ def open_and_fri_device_batch(common, cs_oracle, commits: list, chs: list,
 
     with stage_timer(f"fri/pow_grind{tag}"):
         pow_witnesses = frim.proof_of_work_grind_batch(
-            np.stack(pow_bases), fri_config.proof_of_work_bits, device)
+            np.stack(pow_bases), fri_config.proof_of_work_bits, cs_oracle.device)
 
     drawn = []
     for ch, w in zip(chs, pow_witnesses):

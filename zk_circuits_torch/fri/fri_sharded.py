@@ -12,8 +12,8 @@ contiguous slice, in order):
   destination d's leaf rows is one strided block;
 - leaves are hashed per shard with K1 and the tree is built row-sharded
   (hash/merkle.py::sharded_merkle_levels); only the cap is fetched;
-- the fold (new_c[m] = sum_j beta^j c[arity*m + j]) reads contiguous
-  arity-groups, so it is shard-local while every shard holds a multiple of
+- the fold (new_c[m] = sum_j beta^j c[arity*m + j], K9 on the card)
+  reads contiguous arity-groups, so it is shard-local while every shard holds a multiple of
   arity coefficients; once it does not (a short last round), the few
   coefficients left are folded on the first shard's device.
 
@@ -32,7 +32,7 @@ from ..host import gl
 from ..parallel.mesh import Mesh, axis_mesh, gather, make_mesh, shard_last
 from ..parallel.ntt_exchange import all_to_all_blocks
 from ..parallel.ntt_sharded import coset_ntt_pieces
-from .fri_device import _fold_dev
+from .fri_device import fold
 
 
 def fiber_leaves_sharded(v0: list, v1: list, arity: int, mesh: Mesh) -> list:
@@ -67,7 +67,7 @@ def _fold(p0: list, p1: list, beta, a_bits: int):
         p0, p1 = [gather(p0)], [gather(p1)]
     out0, out1 = [], []
     for a, b in zip(p0, p1):
-        f0, f1 = _fold_dev(a, b, *gfd.ext_pair(beta, a.device), a_bits)
+        f0, f1 = fold(a, b, *gfd.ext_pair(beta, a.device), a_bits)
         out0.append(f0)
         out1.append(f1)
     return out0, out1

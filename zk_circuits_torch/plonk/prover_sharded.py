@@ -17,8 +17,9 @@ cross-shard move written out (there is no partitioner):
   vector (three K2 exchanges), leaving whole quotient chunks per shard for
   the poly-sharded commit;
 - openings at zeta and g*zeta and the alpha-reduction run on each shard's
-  own polynomials; the small (n, 2) partial sums are added on the first
-  shard, which composes the FRI polynomial; the FRI commit chain is
+  own polynomials (K7 and K8's point kernel, one launch each a shard); the
+  small (n, 2) partial sums are added on the first shard, which composes
+  the FRI polynomial (K8's scan); the FRI commit chain is
   fri/fri_sharded.py; the PoW grind runs through K1 on the first shard;
   query rows and Merkle paths are gathered from the shard that owns them.
 
@@ -37,10 +38,10 @@ import torch
 from ..field import goldilocks as gfd
 from ..field.goldilocks import eadd
 from ..fri import fri as frim
-from ..fri.fri_device import (_reduce_alpha, compose, fri_proof, gather_trees,
-                              openings_set, query_indices)
+from ..fri.fri_device import (compose, fri_proof, gather_trees, openings, openings_set,
+                              query_indices, reduce_alpha)
 from ..fri.fri_sharded import commit_phase_sharded
-from ..fri.oracle import _deterministic_salt_polys, ext_powers
+from ..fri.oracle import _deterministic_salt_polys
 from ..hash import merkle as merklem
 from ..hash.challenger import Challenger
 from ..host import gl, gle, poseidon as hposeidon
@@ -206,59 +207,52 @@ def _open_and_fri_sharded(common, oracles: list, ch, mesh: Mesh) -> tuple:
     """Openings and FRI proof from sharded oracles (see the module doc)."""
     cfg = common.config
     fri_config = cfg.fri_config
-    n = common.degree
     num_zs = cfg.num_challenges
     dev0 = mesh.first
     zeta = ch.get_extension_challenge()
     g_ext = np.array([gl.primitive_root_of_unity(common.degree_bits), 0],
                      dtype=np.uint64)
     zeta_next = gle.mul(zeta, g_ext)
-    zpow, znpow = ext_powers(zeta, n), ext_powers(zeta_next, n)
     widths = tuple(o.num_polys for o in oracles)
 
-    # openings: each shard evaluates its own polynomials at zeta
-    zp = {str(d): gfd.ext_pair(zpow, d) for d in dict.fromkeys(mesh.devices)}
-    ev0, ev1 = [], []
+    # openings: each shard evaluates its own polynomials at zeta, one call
+    # over its piece of every oracle
+    shard_evals = []
+    for j in range(mesh.size):
+        e0, e1 = openings([(o.coeffs[j], 0) for o in oracles], [zeta[None]])
+        shard_evals.append((e0[0].to(dev0), e1[0].to(dev0)))
+    ev0, ev1, off = [], [], 0
     for o in oracles:
-        e0, e1 = [], []
-        for c in o.coeffs:
-            z0, z1 = zp[str(c.device)]
-            e0.append(gfd.sum_mod(gfd.mul(c, z0[None, :]), axis=-1).to(dev0))
-            e1.append(gfd.sum_mod(gfd.mul(c, z1[None, :]), axis=-1).to(dev0))
-        ev0.append(torch.cat(e0)[:o.num_polys])
-        ev1.append(torch.cat(e1)[:o.num_polys])
+        kps = o.coeffs[0].shape[0]
+        for c, ev in enumerate((ev0, ev1)):
+            ev.append(torch.cat([e[c][off:off + kps] for e in shard_evals])[:o.num_polys])
+        off += kps
     zs2 = oracles[2].polys(0, num_zs, dev0)
-    znp = gfd.ext_pair(znpow, dev0)
-    zn0 = gfd.sum_mod(gfd.mul(zs2, znp[0][None, :]), axis=-1)
-    zn1 = gfd.sum_mod(gfd.mul(zs2, znp[1][None, :]), axis=-1)
-    openings = openings_set(gfd.to_ext(torch.cat(ev0), torch.cat(ev1)),
-                            gfd.to_ext(zn0, zn1), widths)
-    ch.observe_extension_elements(openings.batch0_flat())
-    ch.observe_extension_elements(openings.batch1_flat())
+    zn0, zn1 = openings([(zs2, 0)], [zeta_next[None]])
+    oset = openings_set(gfd.to_ext(torch.cat(ev0), torch.cat(ev1)),
+                        gfd.to_ext(zn0[0], zn1[0]), widths)
+    ch.observe_extension_elements(oset.batch0_flat())
+    ch.observe_extension_elements(oset.batch1_flat())
     alpha = ch.get_extension_challenge()
 
-    # alpha-reduction per shard over its polynomials; partial sums on dev0
-    apow = ext_powers(alpha, sum(widths))
+    # alpha-reduction per shard over its polynomials (the rows before its
+    # zero padding, row r of the oracles in order taking alpha^r); partial
+    # sums on dev0
     comp0 = None
-    for j, dev in enumerate(mesh.devices):
-        batch, ap = [], []
-        off = 0
+    for j in range(mesh.size):
+        pieces, off = [], 0
         for o in oracles:
             kps = o.coeffs[0].shape[0]
-            a = np.zeros((kps, 2), dtype=np.uint64)
-            lo, hi = j * kps, min((j + 1) * kps, o.num_polys)
-            if hi > lo:
-                a[: hi - lo] = apow[off + lo: off + hi]
-            batch.append(o.coeffs[j])
-            ap.append(a)
+            real = min(max(o.num_polys - j * kps, 0), kps)
+            if real:
+                pieces.append((o.coeffs[j][:real], 0, off + j * kps))
             off += o.num_polys
-        part = _reduce_alpha(torch.cat(batch), *gfd.ext_pair(np.concatenate(ap), dev))
+        (part,) = reduce_alpha(pieces, alpha[None])
         part = tuple(t.to(dev0) for t in part)
         comp0 = part if comp0 is None else eadd(*comp0, *part)
-    ap0, ap1 = gfd.ext_pair(apow[:num_zs], dev0)
-    comp1 = _reduce_alpha(zs2, ap0, ap1)
-    f0, f1 = compose(comp0, comp1, zeta, zeta_next, alpha, num_zs,
-                     gfd.ext_pair(zpow, dev0), znp)
+    (comp1,) = reduce_alpha([(zs2, 0, 0)], alpha[None])
+    f0, f1 = compose(comp0, comp1, zeta[None], zeta_next[None], alpha[None], num_zs)
+    f0, f1 = f0[0], f1[0]
 
     caps, trees, _, p0, p1 = commit_phase_sharded(
         shard_last(f0, mesh), shard_last(f1, mesh), fri_config,
@@ -279,7 +273,7 @@ def _open_and_fri_sharded(common, oracles: list, ch, mesh: Mesh) -> tuple:
         colmajor=(True,) * len(oracles) + (False,) * len(trees), take=take)
     proof = fri_proof(caps, all_opened[: len(oracles)], all_opened[len(oracles):],
                       final_poly, pow_witness)
-    return openings, proof
+    return oset, proof
 
 
 def prove_sharded(circuit_data, pw, mesh: Mesh | None = None, axis="x",
