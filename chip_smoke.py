@@ -14,7 +14,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. square   -- a one-gate square circuit under both standard configs: the
                proof from device="cuda" must equal the proof from
                device="cpu" byte for byte, and verify.
-3. wormhole -- the zk wormhole proof as bench.py proves it (circuit built
+3. wide_configs -- a chain of products (degree 2^11) under
+               standard_recursion_zk_config at FRI arity 2^5 and at five
+               challenges, built and proved on the card: each proof's
+               sha256 == the JAX host path's (pinned below), verified; K9
+               once a fold round, K5 and K6 twice a group of at most four
+               challenges, no plain quotient or FRI body on the card.
+4. wormhole -- the zk wormhole proof as bench.py proves it (circuit built
                on the card, one cold and three warm proves), verified,
                tamper-checked, and its sha256 held to the digest of the JAX
                package's host-path proof of the same inputs (pinned below).
@@ -25,12 +31,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                K4's, by mode, those of the proof's transforms (two a
                four-step, one a row-path call: expected_k4_launches), and
                no call of the NTT's plain stage loop on the card; K5's
-               (one) and K6's (two) a proof, and no call of the quotient's
+               (two) and K6's (two) a proof, and no call of the quotient's
                or the permutation argument's plain version on the card
-               (plain_quotient_on_card); K7's (one), K8's (two) and K9's
+               (plain_quotient_on_card); K7's (one), K8's (three) and K9's
                (one a fold round) a proof, and no plain FRI body on the
                card (plain_fri_on_card).
-4. batch    -- the batched prover: prove_batch of B=4 zk wormhole proofs
+5. batch    -- the batched prover: prove_batch of B=4 zk wormhole proofs
                (one cold batch, two warm), each proof's sha256 == the pinned
                digest, proof 0 verified and a tampered copy refused; K1's
                launches per batch by mode == those of one proof (tree, top)
@@ -43,7 +49,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                keys; then the square circuit at B=4 with distinct witnesses
                under a zk config with FRI fold rounds, each proof == a
                sequential prove on the card.
-5. witness_check -- K3 against its plain torch version on the card and
+6. witness_check -- K3 against its plain torch version on the card and
                the host witness, equal integers: the zk wormhole's witness
                alone and at B=4 (the golden seeds, and copies with a few
                seeds changed where the host witness still accepts them),
@@ -60,14 +66,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                Poseidon level, each timed on a chain circuit of such
                levels; the design's candidates are
                scripts/k3_variants.py's).
-6. k1_check -- K1 against its plain torch version on the card: the sponge
+7. k1_check -- K1 against its plain torch version on the card: the sponge
                at every team size at the edges (n below the team, n not a
                multiple of the block's rows, cols 1 to 139, both layouts)
                and at the main path's widths; hash_tree against the plain
                level loop at the three commit shapes and the FRI trees, for
                one proof and for a batch of B=4; the sharded commit's
                per-shard sponge on every card.
-7. k4_check -- K4 against its plain torch version (ntt/ntt.py's stage
+8. k4_check -- K4 against its plain torch version (ntt/ntt.py's stage
                loop) on the card, equal integers: every transform of a
                proof (the wires INTT, the zs NTT and INTT, the three LDEs
                with their salt polys, the quotient's coset INTT of every
@@ -79,7 +85,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                paths; the row path at 2^13 where the four-step runs; the
                tile plans' edges (one row at 2^14, 2^15 and 2^16, 135 rows
                at 2^13) in every mode; and ntt_mxu/intt_mxu.
-8. profile  -- one more warm wormhole proof under torch.profiler: device
+9. profile  -- one more warm wormhole proof under torch.profiler: device
                busy time and idle share, device operations beside
                DEVICE_OPS_BEFORE (a record, not a gate), top kernels, K3's
                and K4's launches; then one more with each prove/* stage
@@ -88,14 +94,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                K5 once and K6 twice a proof, no plain quotient body;
                K7-K9 as in wormhole, no plain FRI body; prove/openings+fri's
                device operations beside OPENINGS_FRI_OPS_BEFORE.
-9. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
+10. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
                card (and spread over the cards when there are several):
                copy with even and odd block sizes and edge values, and at E=4 every fiber regroup and
                commit re-shard of the sharded phase; dft, twiddle and
                interleave, forward and inverse, at bm = 1 and 2^12 and at
                E=4 at every four-step of the sharded phase.  One launch
                per card and mode; equal integers.
-10. sharded  -- the multi-device path on a mesh of E=4 shards, in the order
+11. sharded  -- the multi-device path on a mesh of E=4 shards, in the order
                of the JAX package's multi-chip dryrun: the batch-sharded
                wires commit (cap == the single-device commit's), the
                sharded FRI commit chain at the production shape (caps,
@@ -117,7 +123,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                fused and as the sequence it replaced (K2 copies with eager
                torch field operations between them), each with its K2
                launches by mode.
-11. k1_time -- K1's device time (graph_ms) at the main path's shapes and
+12. k1_time -- K1's device time (graph_ms) at the main path's shapes and
                the whole wires tree against the 13 launches of the level
                loop, the B=4 batch's wires and FRI trees, beside the plain
                version and the bound; every team
@@ -125,7 +131,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the sharded path's per-shard ones; the permutation's
                multiply and instruction counts from the built library's
                SASS (cuobjdump).  A share of the bound above 1.05 fails.
-12. k2_time -- K2's device time (graph_ms) by mode: copy at the
+13. k2_time -- K2's device time (graph_ms) by mode: copy at the
                four-step's 2^22 exchange shape, the wires re-shard and the
                first FRI fiber regroup, beside its plain version, one
                PyTorch call (transpose + contiguous) and its byte bound;
@@ -138,7 +144,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                host time per wrapper call; each kernel's instruction,
                load and store counts from the built library's SASS
                (cuobjdump).  A share of the bound above 1.05 fails.
-13. k4_time -- K4's device time (graph_ms) at every shape of k4_check's
+14. k4_time -- K4's device time (graph_ms) at every shape of k4_check's
                main-path list (the wires LDE is the kernels line's
                figure) and at the one-row coset INTT and FRI coset NTT
                that a call took before it served both challenges or both
@@ -150,7 +156,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the kernel's IMAD.WIDE, LDS and STS counts from its SASS
                (cuobjdump); no PyTorch call computes a Goldilocks NTT, so
                no library time.  A share of the bound above 1.05 fails.
-14. aggregate -- the reference's default tree aggregation (b=2, d=3: 8
+15. aggregate -- the reference's default tree aggregation (b=2, d=3: 8
                leaves) of the wormhole phase's zk proof through the
                port's WormholeProofAggregator on the card: 3 pushes, 5
                dummies (the proof is its own dummy), once cold (3 level
@@ -169,43 +175,54 @@ Phases, each printing one JSON line; any failure exits non-zero:
                witness at B=4, the level-3 witness alone) at the level
                circuits' shapes, each held to its plain version and timed
                as in k1_time and witness_check.
-15. k5_check -- K5 against its plain version (plonk/prover.py's
+16. k5_check -- K5 against its plain version (plonk/prover.py's
                _device_vanishing_eval times 1/Z_H) on the card, equal
                integers: the wormhole's coset alone and at B=4, the
                level-1 aggregation circuit's (arithmetic-extension and
                random-access gates) at its batch of 4, the sharded path's
                E=4 calls (a shard's rows, row0 and its halo) against the
-               whole coset, and inputs of 0, 1 and p - 1.
-16. k6_check -- K6 against its plain version (_zs_values_plain) on the
+               whole coset, inputs of 0, 1 and p - 1, five challenges
+               (two groups of launches) and each of k5_time's per-gate
+               tables.
+17. k6_check -- K6 against its plain version (_zs_values_plain) on the
                card, equal integers: the same shapes on H, one proof
                unbatched (the sharded prover's call), a zero denominator
-               in one chunk, inputs of 0, 1 and p - 1.
-17. k5_time -- K5's device time (graph_ms) at k5_check's three main-path
+               in one chunk, inputs of 0, 1 and p - 1, five challenges
+               with and without a zero denominator.
+18. k5_time -- K5's device time (graph_ms) at k5_check's three main-path
                shapes beside its plain version, its bound (bytes, or the
                64x64 products counted from the circuit's table: k5_work)
                and the host time of a wrapper call; ptxas's registers and
-               spills and the SASS counts of each kernel.  A share of the
-               bound above 1.05 fails.
-18. k6_time -- the same for K6 (k6_work).
-19. fri_check -- K7, K8 and K9 against their plain versions
+               spills and the SASS counts of each kernel; beside the
+               parent commit's K5 on the same inputs in turns (paired_ms:
+               parent, this, this, parent; the parent's registers and
+               SASS too); and its split by gate kind: the wormhole's table
+               and tables of one gate kind each at the wormhole's shape
+               (k5_gate_tables), each beside the parent's.  A share of
+               the bound above 1.05 fails.
+19. k6_time -- the same for K6 (k6_work).
+20. fri_check -- K7, K8 and K9 against their plain versions
                (fri/fri_device.py's _openings_plain, _reduce_alpha_plain,
                _compose_plain, _fold_plain) on the card, equal integers:
                one wormhole proof, B=4 and the level-1 batch at 2^14 (three
                fold rounds, the last of arity 2), each with the circuit's
                constants/sigmas shared (batch stride 0); every input 0, 1
                or p - 1; each proof's points at 0, 1, -1, x and -1 - x;
-               arity bits 1-4, batched and 1-D; each shard's openings,
+               n not a multiple of K8's tiles and segments, a short
+               segment, a lone point and more segments than a scan
+               block's threads, at B = 3; arity bits 1-6, batched and 1-D; each shard's openings,
                alpha reduction and fold on the sharded path (E=4) and the
                Z rows at g*zeta on the first shard.
-20. fri_time -- K7-K9's device time (graph_ms) at fri_check's three
+21. fri_time -- K7-K9's device time (graph_ms) at fri_check's three
                main-path shapes: K7, K8's point kernel, its scan, both,
                each fold round, and a proof's launches of all three,
                beside the plain versions, the bound (fri_work: bytes, or
                the products the functions need) and the host time of a
                wrapper call; ptxas's registers and spills and the SASS
-               counts of each kernel.  A share of the bound above 1.05
-               fails.
-21. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
+               counts of each kernel; K8's point kernel, scan and both
+               beside the parent commit's on the same inputs (paired_ms).
+               A share of the bound above 1.05 fails.
+22. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
                over make_mesh(4) (shard i on cuda:(i % cards); the four
                shards prove in turn, on one card or on four), cold and
                warm, beside an unsharded batch of 8 cold
@@ -218,7 +235,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                utils/profiling.device_trace (torch.profiler, a Chrome
                trace written under ZKT_PROFILE_DIR), each card's busy
                time and idle share.
-22. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
+23. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
                with its cached level circuits (none built again), once
                on one card and twice (first, warm) on several:
                level 1's 4 chunks split one a shard, level 2 (B=2, not a
@@ -227,7 +244,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                leaves extracted; K1/K3 launches a level prove as its
                split gives; seconds per level beside the aggregate
                phase's warm unsharded ones.
-23. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
+24. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
                shards: with 4 cards or more each process owns 2 cards
                and the backend is nccl, else both share cuda:0 under
                gloo (NCCL refuses two ranks on one card); the backend
@@ -241,13 +258,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     With four cards or more, k1_time also times the wires tree on each
     card alone and on all at once, and k2_time each K2 mode at 2^22
     points with its shards on four cards (NVLink peers).
-24. voting  -- the vote circuit of tests/test_voting.py under
+25. voting  -- the vote circuit of tests/test_voting.py under
                standard_recursion_config built and proved on the card (cold
                and warm), sha256 == the JAX host path's (pinned below),
                verified, tamper-checked, K1's and K3's launches as the
                circuit gives, no host witness; a vote with the wrong
                Merkle depth refused by the device witness on the card.
-25. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
+26. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
                written to a temporary directory; WormholeProver.new_from_files
                proves the golden inputs on the card (sha256 == the pinned
                zk digest) and WormholeVerifier.new_from_files verifies it;
@@ -255,7 +272,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                decodes to a proof with the JAX host path's sha256 (pinned
                below), which a freshly built verifier accepts, whose public
                inputs are the golden fixture's.
-26. compat  -- the reference-format layer (zk_circuits_torch/compat, host
+27. compat  -- the reference-format layer (zk_circuits_torch/compat, host
                numpy): its import runs the fast-Poseidon self-check; K1's
                hash_rows of 4096 seeded rows of 8 felts (one permutation
                each, state = row || 0^4) on the card equals its plain
@@ -266,7 +283,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and its polys' sha256 is the JAX package's (pinned below).
                Its K1 launch is a cross-check, counted apart under
                launches_by_path["compat"].
-27. native  -- the host runtime (zk_circuits_torch.native: g++ builds
+28. native  -- the host runtime (zk_circuits_torch.native: g++ builds
                csrc/host_native.cpp in the card phase, beside the nvcc
                builds; its seconds and library name): every function
                equal to its numpy plain version at the circuit's sizes
@@ -293,6 +310,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 # sha256(proof_to_bytes(...)) of the zk wormhole proof of
 # golden_fixtures.test_inputs() from the JAX package's host path
@@ -325,6 +343,19 @@ GOLDEN_COMPAT_LAYOUT_SHA256 = (
 COMPAT_DEGREE_BITS = 13
 COMPAT_GATE_LIST = ("Noop", "Constant", "PublicInput", "BaseSum", "Arithmetic", "Poseidon")
 COMPAT_SELECTOR_GROUPS = ((0, 5), (5, 6))
+
+# The chain of MUL_CHAIN_MULS dependent products y <- y x (x = MUL_CHAIN_X,
+# degree 2^11) under standard_recursion_zk_config with one setting widened
+# (WIDE_CONFIGS): FRI folds of arity 2^5 (arities [5, 1]), or five
+# challenges.  sha256 of the JAX package's host-path proofs (prove(...,
+# use_device=False)); scripts/golden_digests.py prints them and
+# tests/test_torch_jax_pins.py re-derives them.
+MUL_CHAIN_MULS = 21000
+MUL_CHAIN_X = 3
+WIDE_CONFIGS = {"arity5": {"reduction_arity_bits": 5}, "challenges5": {"num_challenges": 5}}
+GOLDEN_MUL_CHAIN_SHA256 = {
+    "arity5": "39a036dc3e6138e4b48ff48db1f9b649f29775309e7c583ebdd2690deb64edc8",
+    "challenges5": "f9a1d6675717bd4991ffdda291dcea1f93102554e5a429079b5f53b550eaca1d"}
 
 P = 2**64 - 2**32 + 1
 GRIND_ROWS = 1 << 17   # candidates per PoW sweep (fri.GRIND_BATCH["cuda"])
@@ -371,7 +402,7 @@ K4_MULS_PER_PRODUCT = 8   # 32-bit multiplies of a 64x64 product
 FRI_SOURCE = "zk_circuits_torch/csrc/fri.cu"   # K7, K8 and K9
 FRI_REPLACES = "zk_circuits_tpu/fri/fri_device.py"
 FRI_TIMED_CALLS = 8    # back-to-back calls per K7-K9 timing (graph_ms)
-FRI_INVERSE_PRODUCTS = 78   # csrc/fri.cuh fri_inverse: the norm (3), its 73-product chain, 2
+FRI_INVERSE_PRODUCTS = 78   # an extension inverse: the norm (3), a 73-product chain, 2
 # graph_ms of the first, radix-2 K4 on an H100 (PERF.md's table, "ms before"), by
 # k4_time's shape
 K4_BEFORE_MS = {"wires_lde": 0.369428, "batch_wires_lde": 1.340142, "wires_intt": 0.071562,
@@ -393,6 +424,14 @@ BATCH = 4              # proofs per prove_batch call (bench.py's ZKT_BENCH_BATCH
 NTT_LOG = 22           # SCALING.md's size of one sharded polynomial
 SIM_TIMEOUT = 240      # seconds the multihost phase gives its processes
 K2_TIMED_CALLS = 32    # back-to-back calls per K2 timing (graph_ms)
+
+
+# The port before K5's and K8's redesign, whose kernels k5_time and
+# fri_time time beside this tree's in the same run (paired_ms): its
+# zk_circuits_torch/ under PARENT_DIR (git-ignored), unpacked there from the
+# checkout's git history when it has the commit.
+PARENT_COMMIT = "6132f71be43958e45adb6e448674e58f03a3bfc9"
+PARENT_DIR = "zk_circuits_torch/_build/parent"
 
 
 def emit(obj) -> None:
@@ -479,6 +518,61 @@ def graph_ms(calls: list, replays: int = 8) -> dict:
             "max_ms": max(times[1:])}
 
 
+def parent_port():
+    """The port at PARENT_COMMIT imported as the package ``zk_parent`` (its
+    kernels built into its own _build/), or None where PARENT_DIR lacks it
+    and ``git archive`` cannot unpack it."""
+    import importlib.util
+    from pathlib import Path
+
+    if "zk_parent" in sys.modules:
+        return sys.modules["zk_parent"]
+    root = Path(__file__).resolve().parent
+    pkg = root / PARENT_DIR / "zk_circuits_torch"
+    if not (pkg / "__init__.py").exists():
+        try:
+            tar = subprocess.run(["git", "-C", str(root), "archive", PARENT_COMMIT,
+                                  "zk_circuits_torch"], capture_output=True, timeout=120,
+                                 check=True).stdout
+            (root / PARENT_DIR).mkdir(parents=True, exist_ok=True)
+            subprocess.run(["tar", "-x", "-C", str(root / PARENT_DIR)], input=tar, check=True,
+                           capture_output=True, timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            return None
+    spec = importlib.util.spec_from_file_location("zk_parent", pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["zk_parent"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parent_kernels() -> dict:
+    """The parent's K5 and K7-K9 wrappers ({"k5": its quotient_cuda, "fri":
+    its fri_cuda}; empty without the parent); its K5 table knows this
+    tree's gate classes."""
+    import importlib
+
+    from zk_circuits_torch.plonk import quotient_cuda
+
+    if parent_port() is None:
+        return {}
+    pq = importlib.import_module("zk_parent.plonk.quotient_cuda")
+    by_name = {cls.__name__: kind for cls, kind in pq.KINDS.items()}
+    pq.KINDS = {cls: by_name[cls.__name__] for cls in quotient_cuda.KINDS}
+    return {"k5": pq, "fri": importlib.import_module("zk_parent.fri.fri_cuda")}
+
+
+def paired_ms(calls: list, parent_calls: list) -> dict:
+    """graph_ms of this tree's calls and of the parent's on the same
+    inputs, in turns on one card: parent, this, this, parent."""
+    runs = [graph_ms(c) for c in (parent_calls, calls, calls, parent_calls)]
+    return {"ms": [runs[1]["ms"], runs[2]["ms"]], "parent_ms": [runs[0]["ms"], runs[3]["ms"]],
+            "ms_range": [min(r["min_ms"] for r in runs[1:3]), max(r["max_ms"] for r in runs[1:3])],
+            "parent_ms_range": [min(runs[0]["min_ms"], runs[3]["min_ms"]),
+                                max(runs[0]["max_ms"], runs[3]["max_ms"])]}
+
+
 def leaf_matrix(rng, n: int, cols: int):
     """(n, cols) u64 leaf matrix with edge values in the first rows."""
     import numpy as np
@@ -515,11 +609,13 @@ def phase_card(state) -> None:
         return time.perf_counter() - t
 
     poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's, K3's, native's
+    parent = parent_kernels()   # the parent's K5 and K7-K9, timed beside this tree's
     # one nvcc per source and g++ for the host runtime, all started together
-    with ThreadPoolExecutor(8) as pool:
-        k1, k2, k3, k4, k5, k6, k789, host = pool.map(timed, (
+    with ThreadPoolExecutor(10) as pool:
+        k1, k2, k3, k4, k5, k6, k789, host, *parent_s = pool.map(timed, (
             poseidon_cuda.build, exchange_cuda.build, witness_cuda.build, ntt_cuda.build,
-            quotient_cuda.build, permutation_cuda.build, fri_cuda.build, native.build))
+            quotient_cuda.build, permutation_cuda.build, fri_cuda.build, native.build,
+            *(m.build for m in parent.values())))
     native.available()
     state["native_build"] = {"build_s": host, "library": native.build().name,
                              "compiler_output": native.build_log}
@@ -532,7 +628,8 @@ def phase_card(state) -> None:
           "device_count": torch.cuda.device_count(),
           "k1_build_s": k1, "k2_build_s": k2, "k3_build_s": k3, "k4_build_s": k4,
           "k5_build_s": k5, "k6_build_s": k6, "k7_k8_k9_build_s": k789,
-          "native_build_s": host,
+          "native_build_s": host, "parent": PARENT_COMMIT if parent else None,
+          "parent_build_s": dict(zip(parent, parent_s)),
           "ptxas": ptxas})
 
 
@@ -854,6 +951,30 @@ def _square_circuit(cfg, device):
     return b.build(device=device), witness
 
 
+def wide_config(config_mod, which: str):
+    """standard_recursion_zk_config of ``config_mod`` (plonk/config.py of
+    either package) with WIDE_CONFIGS[which] set."""
+    kw = dict(WIDE_CONFIGS[which])
+    fri = {k: kw.pop(k) for k in list(kw) if k in ("reduction_arity_bits",)}
+    return config_mod.CircuitConfig(zero_knowledge=True, fri_config=config_mod.FriConfig(**fri),
+                                    **kw)
+
+
+def mul_chain(builder_mod, witness_mod, config_mod, which: str, **build_kw):
+    """The mul chain circuit under wide_config(which), built by
+    ``builder_mod`` (iop/builder.py of either package), and its witness."""
+    b = builder_mod.CircuitBuilder(wide_config(config_mod, which))
+    x = b.add_virtual_target()
+    y = x
+    for _ in range(MUL_CHAIN_MULS):
+        y = b.mul(y, x)
+    b.register_public_input(y)
+    data = b.build(**build_kw)
+    pw = witness_mod.PartialWitness()
+    pw.set_target(x, MUL_CHAIN_X)
+    return data, pw
+
+
 def kinds_circuit(b, generator_op) -> list:
     """Give the CircuitBuilder ``b`` (of either package; ``generator_op``
     its GeneratorOp) one generator of every kind the witness schedule
@@ -956,6 +1077,48 @@ def phase_square(state) -> None:
               "verified": True, "cuda_s": t1 - t0, "cpu_s": t2 - t1})
 
 
+def phase_wide_configs(state) -> None:
+    """The mul chain under FRI folds of arity 2^5 and under five challenges,
+    built and proved on the card: each proof's sha256 == the JAX host
+    path's (GOLDEN_MUL_CHAIN_SHA256), verified; K9 once a fold round (at
+    arity 2^5 first), K5 once and K6 twice a group of at most four
+    challenges, and no plain quotient or FRI body on the card."""
+    import hashlib
+
+    from zk_circuits_torch.iop import builder, witness
+    from zk_circuits_torch.plonk import config, permutation_cuda, quotient_cuda
+    from zk_circuits_torch.plonk.prover import prove_batch
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    for which in WIDE_CONFIGS:
+        t0 = time.perf_counter()
+        data, pw = mul_chain(builder, witness, config, which, device="cuda")
+        t1 = time.perf_counter()
+        common = data.common
+        k56, fri = quotient_launches(), fri_launches()
+        with plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
+            proof, secs = _synced(lambda: prove_batch(data, [pw], device="cuda")[0])
+        k56 = [a - b for a, b in zip(quotient_launches(), k56)]
+        fri = fri_since(fri)
+        digest = hashlib.sha256(proof_to_bytes(proof)).hexdigest()
+        if digest != GOLDEN_MUL_CHAIN_SHA256[which]:
+            raise AssertionError(f"wide_configs/{which}: sha256 {digest} != the JAX host "
+                                 f"path's {GOLDEN_MUL_CHAIN_SHA256[which]}")
+        data.verify(proof)
+        want_fri, want_k56 = expected_fri_launches(common), expected_quotient_launches(common)
+        if tuple(k56) != want_k56 or fri != want_fri or plain_quotient or plain_fri:
+            raise AssertionError(f"wide_configs/{which}: K5, K6 launches {k56} (want "
+                                 f"{want_k56}), K7-K9 {fri} (want {want_fri}), "
+                                 f"plain bodies {plain_quotient + plain_fri}")
+        emit({"phase": "wide_configs", "config": which, "settings": WIDE_CONFIGS[which],
+              "degree_bits": common.degree_bits,
+              "arities": common.config.fri_config.reduction_arities(common.degree_bits),
+              "num_challenges": common.config.num_challenges, "sha256": digest,
+              "pinned": True, "verified": True, "build_s": t1 - t0, "prove_s": secs,
+              "k5_k6_launches": k56, "k7_k9_launches": fri,
+              "k5_max_ch": quotient_cuda.MAX_CH, "k6_max_ch": permutation_cuda.MAX_CH})
+
+
 def phase_wormhole(state) -> None:
     import torch
 
@@ -1019,10 +1182,12 @@ def phase_wormhole(state) -> None:
     if k4_per_proof != k4_want or k4_launches != 4 * sum(k4_want.values()) or plain_ntts:
         raise AssertionError(f"K4 launches {k4_per_proof} per proof ({k4_launches} in all), "
                              f"want {k4_want}; plain NTTs on the card: {plain_ntts}")
-    if k56_per_proof != (1, 2) or (k5_launches, k6_launches) != (4, 8) or plain_quotient:
+    k56_want = expected_quotient_launches(cd.common)
+    if k56_per_proof != k56_want or (k5_launches, k6_launches) != tuple(
+            4 * k for k in k56_want) or plain_quotient:
         raise AssertionError(f"K5, K6 launches {k56_per_proof} per proof ({k5_launches}, "
-                             f"{k6_launches} in all), want (1, 2); plain quotient bodies on "
-                             f"the card: {plain_quotient}")
+                             f"{k6_launches} in all), want {k56_want}; plain quotient bodies "
+                             f"on the card: {plain_quotient}")
     fri_want = expected_fri_launches(cd.common)
     if fri_per_proof != fri_want or fri_all != {k: 4 * v for k, v in fri_want.items()} \
             or plain_fri:
@@ -1200,21 +1365,34 @@ def reset_fri_launches() -> None:
 
 def expected_fri_launches(common, shards: int | None = None) -> dict:
     """K7's, K8's and K9's launches a proof, or a batch of proofs of one
-    circuit: K7 once, K8 twice (its point kernel and its scan), K9 once a
-    fold round.  For a sharded proof over ``shards`` shards: K7 and K8's
-    point kernel once a shard and once more for the Z rows at g*zeta, K8's
-    scan once, K9 once a shard a fold round while every shard holds a
-    multiple of the arity, else once (fri_sharded._fold gathers)."""
+    circuit: K7 once, K8 three times (its point kernel, and its scan's
+    segment sums and finish), K9 once a fold round.  For a sharded proof
+    over ``shards`` shards: K7 and K8's point kernel once a shard and once
+    more for the Z rows at g*zeta, K8's scan once (two launches), K9 once a
+    shard a fold round while every shard holds a multiple of the arity,
+    else once (fri_sharded._fold gathers)."""
+    from zk_circuits_torch.fri import fri_cuda
+
     arities = common.config.fri_config.reduction_arities(common.degree_bits)
     if shards is None:
-        return {"k7": 1, "k8": 2, "k9": len(arities)}
+        return {"k7": 1, "k8": 1 + fri_cuda.SCAN_LAUNCHES, "k9": len(arities)}
     pieces, k9 = [common.degree // shards] * shards, 0
     for a in arities:
         if any(p % (1 << a) for p in pieces):
             pieces = [sum(pieces)]
         k9 += len(pieces)
         pieces = [p >> a for p in pieces]
-    return {"k7": shards + 1, "k8": shards + 2, "k9": k9}
+    return {"k7": shards + 1, "k8": shards + 1 + fri_cuda.SCAN_LAUNCHES, "k9": k9}
+
+
+def expected_quotient_launches(common, shards: int = 1) -> tuple[int, int]:
+    """K5's and K6's launches a proof, or a batch of proofs of one circuit:
+    K5 quotient_cuda.LAUNCHES_PER_GROUP and K6 two a group of at most four
+    challenges; on the sharded path K5's a shard."""
+    from zk_circuits_torch.plonk import quotient_cuda
+
+    groups = -(-common.config.num_challenges // quotient_cuda.MAX_CH)
+    return shards * quotient_cuda.LAUNCHES_PER_GROUP * groups, 2 * groups
 
 
 def quotient_launches() -> tuple[int, int]:
@@ -1391,9 +1569,10 @@ def phase_batch(state) -> None:
                                  f"on the card: {plain_ntts}")
         k4_per_batch.append(k4)
         k56 = tuple(a - b for a, b in zip(quotient_launches(), k56_before))
-        if k56 != (1, 2) or plain_quotient:
-            raise AssertionError(f"K5, K6 launches per batch {k56}, want (1, 2); plain "
-                                 f"quotient bodies on the card: {plain_quotient}")
+        if k56 != expected_quotient_launches(cd.common) or plain_quotient:
+            raise AssertionError(f"K5, K6 launches per batch {k56}, want "
+                                 f"{expected_quotient_launches(cd.common)}; plain quotient "
+                                 f"bodies on the card: {plain_quotient}")
         fri = fri_since(fri_before)
         if fri != fri_want or plain_fri:
             raise AssertionError(f"K7-K9 launches per batch {fri}, want {fri_want}; plain FRI "
@@ -1454,8 +1633,10 @@ def phase_batch(state) -> None:
           "k3_launches": state["k3_launches_batch"],
           "k4_launches_per_batch_by_mode": k4_per_batch,
           "k4_launches": state["k4_launches_batch"], "k4_copies": k4_copies,
-          "k5_launches_per_batch": 1, "k5_launches": state["k5_launches_batch"],
-          "k6_launches_per_batch": 2, "k6_launches": state["k6_launches_batch"],
+          "k5_launches_per_batch": expected_quotient_launches(cd.common)[0],
+          "k5_launches": state["k5_launches_batch"],
+          "k6_launches_per_batch": expected_quotient_launches(cd.common)[1],
+          "k6_launches": state["k6_launches_batch"],
           "plain_quotient_on_card": 0, "k7_k9_launches_per_batch": fri_want,
           "k7_k9_launches": state["fri_launches_batch"], "plain_fri_on_card": 0,
           "host_witnesses": 0,
@@ -1813,8 +1994,9 @@ def phase_profile(state) -> None:
         raise AssertionError(f"plain quotient bodies on the card: {plain_quotient}; plain "
                              f"FRI bodies: {plain_fri}")
     k56 = [a - b for a, b in zip(quotient_launches(), k56_before)]
-    if k56 != [2, 4]:
-        raise AssertionError(f"K5, K6 launches {k56} over two proofs, want [2, 4]")
+    if k56 != [2 * k for k in expected_quotient_launches(cd.common)]:
+        raise AssertionError(f"K5, K6 launches {k56} over two proofs, want twice "
+                             f"{expected_quotient_launches(cd.common)}")
     fri = fri_since(fri_before)
     fri_want = {k: 2 * v for k, v in expected_fri_launches(cd.common).items()}
     if fri != fri_want:
@@ -1973,7 +2155,8 @@ def phase_sharded(state) -> None:
     state["fri_launches_sharded"] = fri_launches()
     fri_want = expected_fri_launches(cd.common, SHARDS)
     for name in ("prove_cold", "prove_warm"):   # K5 a shard, K6 once on the first
-        if (steps[name]["k5_launches"], steps[name]["k6_launches"]) != (SHARDS, 2):
+        if (steps[name]["k5_launches"], steps[name]["k6_launches"]) != \
+                expected_quotient_launches(cd.common, SHARDS):
             raise AssertionError(f"sharded/{name}: K5, K6 launches {steps[name]['k5_launches']}"
                                  f", {steps[name]['k6_launches']}, want {SHARDS}, 2")
         if steps[name]["k7_k9_launches"] != fri_want:
@@ -2922,12 +3105,14 @@ def phase_aggregate(state) -> None:
         fri_want = expected_fri_launches(lc.circuit_data.common)
         k1 = r["k1"]
         if (k1["tree"], k1["top"], k1["sponge"]) != (want["tree"], want["top"], r["sweeps"]) \
-                or r["k3"] != k3_want or r["host_witnesses"] or r["k5_k6"] != [1, 2] \
+                or r["k3"] != k3_want or r["host_witnesses"] \
+                or tuple(r["k5_k6"]) != expected_quotient_launches(lc.circuit_data.common) \
                 or r["plain_quotient"] or r["k7_k9"] != fri_want or r["plain_fri"]:
             raise AssertionError(f"aggregate level {i % depth + 1}: K1 {k1} (want {want}, "
                                  f"{r['sweeps']} sweeps), K3 {r['k3']} (want {k3_want}), "
                                  f"{r['host_witnesses']} host witnesses, K5/K6 {r['k5_k6']} "
-                                 f"(want [1, 2]), K7-K9 {r['k7_k9']} (want {fri_want}), "
+                                 f"(want {expected_quotient_launches(lc.circuit_data.common)}), "
+                                 f"K7-K9 {r['k7_k9']} (want {fri_want}), "
                                  f"{r['plain_quotient']} plain quotient and {r['plain_fri']} "
                                  f"plain FRI bodies on the card")
         proves.append({"run": "cold" if i < depth else "warm", "level": i % depth + 1,
@@ -3154,6 +3339,53 @@ def k5_work(common, batch: int, points: int) -> tuple[int, int]:
     return nbytes, batch * points * k5_products(common) * K4_MULS_PER_PRODUCT
 
 
+def k5_gate_common(gates: list, cfg, degree_bits: int):
+    """The port's CommonCircuitData of a circuit of these gate types at
+    2^degree_bits rows, with build_circuit_data's sort, selector groups
+    and filters: K5's table over them without building a circuit (as
+    tests/test_torch_quotient_kernel.py makes its commons)."""
+    from zk_circuits_torch.host import gl
+    from zk_circuits_torch.plonk import circuit_data as cd
+
+    gate_types = sorted(gates, key=lambda g: (-g.degree, g.id))
+    groups = cd._selector_groups(gate_types, cfg.max_quotient_degree_factor)
+    return cd.CommonCircuitData(
+        config=cfg, degree_bits=degree_bits, gate_types=gate_types, selector_groups=groups,
+        gate_to_group={gate_types[gi].id: k for k, grp in enumerate(groups) for gi in grp},
+        gate_to_index={g.id: i for i, g in enumerate(gate_types)},
+        num_gate_constraints=max(g.num_constraints for g in gate_types), num_public_inputs=0,
+        k_is=gl.powers(gl.MULTIPLICATIVE_GROUP_GENERATOR, cfg.num_routed_wires))
+
+
+def k5_gate_tables(common) -> list:
+    """(name, common) of K5's per-gate split at the wormhole's shape (its
+    config and degree): the wormhole's gate types, then tables of one
+    gate kind each beside a NoopGate (the level circuits' extension and
+    random-access gates among them), and the NoopGate alone (the L1 term,
+    the permutation argument and the scaling, which every table pays)."""
+    from zk_circuits_torch.iop import gates as G
+
+    one = [("poseidon", G.PoseidonGate()), ("arithmetic_20", G.ArithmeticGate(num_ops=20)),
+           ("base_sum_32", G.BaseSum2Gate(num_limbs=32)),
+           ("base_sum_5", G.BaseSum2Gate(num_limbs=5)),
+           ("constant_2", G.ConstantGate(num_consts=2)), ("public_input", G.PublicInputGate()),
+           ("arithmetic_extension_10", G.ArithmeticExtensionGate(num_ops=10)),
+           ("random_access_4x4", G.RandomAccessGate(bits=4, num_copies=4))]
+    cfg, bits = common.config, common.degree_bits
+    return ([("wormhole", common)] +
+            [(name, k5_gate_common([gate, G.NoopGate()], cfg, bits)) for name, gate in one] +
+            [("noop", k5_gate_common([G.NoopGate()], cfg, bits))])
+
+
+def five_challenges(common):
+    """``common`` with its config at five challenges (K5 and K6 in two
+    groups), no circuit built."""
+    import dataclasses
+
+    cfg = dataclasses.replace(common.config, num_challenges=5)
+    return k5_gate_common(list(common.gate_types), cfg, common.degree_bits)
+
+
 def k5_cases(state) -> list:
     """(name, circuit data, proofs) of the shapes K5 serves: one wormhole
     proof, a batch of BATCH, and a level-1 aggregation prove (a batch of
@@ -3207,6 +3439,12 @@ def phase_k5_check(state) -> None:
     for value in (0, 1, P - 1):
         inp = k5_inputs(common, gen, 2, 1 << 12, value=value)
         check(f"constant_{value}", common, k5_call(common, inp), k5_plain(common, inp))
+    five = five_challenges(common)             # two launches: challenges 0-3, then 4
+    inp = k5_inputs(five, gen, 3)
+    check("five_challenges", five, k5_call(five, inp), k5_plain(five, inp))
+    for name, table in k5_gate_tables(common)[1:]:   # k5_time's per-gate tables
+        inp = k5_inputs(table, gen, 1, 1 << 12)
+        check(f"gate_{name}", table, k5_call(table, inp), k5_plain(table, inp))
     state["k5_max_abs_err"] = 0
     emit({"phase": "k5_check", "equal_integers": True, "cases": checked,
           "launches": quotient_cuda.launches - before})
@@ -3255,12 +3493,13 @@ def k6_point_launch(data, inp: dict):
 
     from zk_circuits_torch.plonk import permutation_cuda
 
-    call, out, _ = permutation_cuda._prepare(data.common, inp["wv"], inp["sig"], inp["x"],
-                                             inp["betas"], inp["gammas"])
-    err = permutation_cuda._lib().k6_products(0, ctypes.byref(call), 0,
-                                              torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"k6_products (the point kernel) failed: CUDA error {err}")
+    calls, out, _ = permutation_cuda._prepare(data.common, inp["wv"], inp["sig"], inp["x"],
+                                              inp["betas"], inp["gammas"])
+    for call in calls:
+        err = permutation_cuda._lib().k6_products(0, ctypes.byref(call), 0,
+                                                  torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"k6_products (the point kernel) failed: CUDA error {err}")
     return out
 
 
@@ -3339,6 +3578,9 @@ def phase_k6_check(state) -> None:
         raise AssertionError("k6_check/zero_denominator: the zero did not close the scan")
     for value in (0, 1, P - 1):
         check(f"constant_{value}", cd, k6_inputs(cd, gen, 2, value=value))
+    five = types.SimpleNamespace(common=five_challenges(cd.common), prover_only=cd.prover_only)
+    check("five_challenges", five, k6_inputs(five, gen, 3))
+    check("five_challenges_zero_denominator", five, k6_inputs(five, gen, 2, zero_den=True))
     state["k6_max_abs_err"] = 0
     emit({"phase": "k6_check", "equal_integers": True, "cases": checked,
           "launches": permutation_cuda.launches - before})
@@ -3420,13 +3662,67 @@ def quotient_time_rows(state, kernel: str) -> list:
     return rows
 
 
+def k5_gate_split(state) -> list:
+    """K5's graph_ms at the wormhole's shape (one proof, 2^16 points) on each
+    of k5_gate_tables' tables, with the parent's beside it (paired_ms)
+    where the parent is at hand, and each table's products a point."""
+    import torch
+
+    parent = parent_kernels().get("k5")
+    gen = torch.Generator(device="cuda").manual_seed(2045)
+    rows = []
+    for name, common in k5_gate_tables(state["wormhole"][0].common):
+        ins = [k5_inputs(common, gen, 1) for _ in range(K5_TIMED_CALLS)]
+        calls = [lambda i=i: k5_call(common, i) for i in ins]
+        row = {"table": name, "gates": [g.id for g in common.gate_types],
+               "products_per_point": k5_products(common)}
+        if parent is None:
+            row.update(graph_ms(calls))
+        else:
+            row.update(paired_ms(calls, [lambda i=i: parent.vanishing(
+                common, i["cs"], i["wires"], i["zsp"], i["tables"], i["pi_hash"], i["betas"],
+                i["gammas"], i["alphas"]) for i in ins]))
+        rows.append(row)
+        del ins, calls
+    return rows
+
+
+def k5_paired(state) -> list:
+    """K5 against the parent's at k5_cases' shapes, paired_ms on the same
+    inputs (empty without the parent)."""
+    import torch
+
+    parent = parent_kernels().get("k5")
+    if parent is None:
+        return []
+    gen = torch.Generator(device="cuda").manual_seed(2046)
+    rows = []
+    for name, data, batch in k5_cases(state):
+        common = data.common
+        ins = [k5_inputs(common, gen, batch) for _ in range(K5_TIMED_CALLS)]
+        rows.append({"shape": name, "batch": batch, **paired_ms(
+            [lambda i=i: k5_call(common, i) for i in ins],
+            [lambda i=i: parent.vanishing(common, i["cs"], i["wires"], i["zsp"], i["tables"],
+                                          i["pi_hash"], i["betas"], i["gammas"], i["alphas"])
+             for i in ins])})
+        del ins
+    return rows
+
+
 def phase_k5_time(state) -> None:
     """K5's device time (graph_ms) at k5_cases' shapes beside its plain
-    version and bound; registers, spills and SASS counts."""
+    version and bound, and beside the parent's kernel (paired_ms); its
+    split by gate kind; registers, spills and SASS counts (the parent's
+    too)."""
     from zk_circuits_torch.plonk import quotient_cuda
 
     rows = quotient_time_rows(state, "k5")
+    parent = parent_kernels().get("k5")
     emit({"phase": "k5_time", "int32_mul_per_s": INT32_MUL_PER_S,
+          "paired_with_parent": k5_paired(state), "gate_split": k5_gate_split(state),
+          "parent": PARENT_COMMIT if parent else None,
+          "parent_sass": kernel_sass_counts(parent.build(), parent.build_log, "k5_")
+          if parent else None,
           "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "products_per_point": {r[0]: k5_products(r[1].common) for r in k5_cases(state)},
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {K5_TIMED_CALLS} "
@@ -3537,15 +3833,17 @@ def fri_fold_inputs(gen, common, batch: int) -> list:
     return out
 
 
-def fri_calls(inp: dict, plain: bool = False) -> dict:
+def fri_calls(inp: dict, plain: bool = False, kernels=None) -> dict:
     """K7's and K8's closures over ``inp`` (fri_inputs'), or their plain
-    versions': openings, the alpha reduction, the composition and both of
-    K8's launches."""
+    versions', or those of ``kernels`` (a fri_cuda module: the parent's):
+    openings, the alpha reduction, the composition and all of K8's
+    launches."""
     from zk_circuits_torch.fri import fri_cuda
     from zk_circuits_torch.fri import fri_device as fd
 
+    kernels = kernels or fri_cuda
     op, red, comp = ((fd._openings_plain, fd._reduce_alpha_plain, fd._compose_plain) if plain
-                     else (fri_cuda.openings, fri_cuda.reduce_alpha, fri_cuda.compose))
+                     else (kernels.openings, kernels.reduce_alpha, kernels.compose))
     rows, pts, alpha = inp["rows"], inp["pts"], inp["alpha"]
     comp_in = red(rows, alpha)
 
@@ -3652,7 +3950,13 @@ def phase_fri_check(state) -> None:
                          [0, 0, 0, 1, P - 1 - (1 << 64)]], dtype=torch.int64, device="cuda")
     inp["pts"], inp["alpha"] = torch.stack([edge, edge.flip(-1), edge]), edge[None]
     check_all("edge_points", inp)
-    for a in (1, 2, 3, 4):                    # every arity, batched and 1-D
+    # K8's segments of 256 points (and K7 beside it): n not a multiple of
+    # the segment or of the point kernel's tile, one short segment, a lone
+    # point, more segments than a scan block's threads (its Horner stride
+    # over the later segments), at B = 3
+    for n_odd, batch in ((5000, 3), (100, 3), (1, 2), ((1 << 16) + 3 * 256 + 7, 1)):
+        check_all(f"n_{n_odd}_b{batch}", fri_inputs(gen, (2, 3, 3, 2), n_odd, batch, nz))
+    for a in (1, 2, 3, 4, 5, 6):              # every arity, batched and 1-D
         c = (gl_random(gen, (BATCH, n)), gl_random(gen, (BATCH, n)))
         beta = (gl_random(gen, (BATCH,)), gl_random(gen, (BATCH,)))
         check(f"k9_{a}_bits", fri_cuda.fold(*c, *beta, a), fd._fold_plain(*c, *beta, a))
@@ -3714,7 +4018,8 @@ def phase_fri_time(state) -> None:
     from zk_circuits_torch.fri import fri_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(2053)
-    rows = []
+    parent = parent_kernels().get("fri")
+    rows, paired = [], []
     for name, common, widths, batch in fri_cases(state):
         n, nz = common.degree, common.config.num_challenges
         ins = [fri_inputs(gen, widths, n, batch, nz) for _ in range(FRI_TIMED_CALLS)]
@@ -3746,13 +4051,22 @@ def phase_fri_time(state) -> None:
             return run
 
         rows.append({"shape": name, "kernel": "k7_k8_k9", "batch": batch,
-                     "launches": 3 + len(folds[0]),
+                     "launches": sum(expected_fri_launches(common).values()),
                      **graph_ms([proof_calls(c, f) for c, f in zip(calls, folds)])})
+        if parent is not None:   # K8 against the parent's, on the same inputs
+            pcalls = [fri_calls(i, kernels=parent) for i in ins]
+            for k in ("k8_point", "k8_scan", "k8"):
+                paired.append({"shape": name, "kernel": k, "batch": batch, **paired_ms(
+                    [c[k] for c in calls], [c[k] for c in pcalls])})
+            del pcalls
         del ins, calls, folds
     over = [r for r in rows if r.get("share_of_bound", 0) > 1.05]
     if over:
         raise AssertionError(f"K7-K9 timed below their bound: {over}")
     emit({"phase": "fri_time", "int32_mul_per_s": INT32_MUL_PER_S,
+          "paired_with_parent": paired, "parent": PARENT_COMMIT if parent else None,
+          "parent_sass": kernel_sass_counts(parent.build(), parent.build_log, "k8_")
+          if parent else None,
           "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {FRI_TIMED_CALLS} "
                     f"calls on inputs of their own, L2 emptied first, per call, median of 8 "
@@ -4356,7 +4670,7 @@ def phase_native(state) -> None:
 
 
 PHASES = {"card": phase_card, "square": phase_square,
-          "wormhole": phase_wormhole, "batch": phase_batch,
+          "wide_configs": phase_wide_configs, "wormhole": phase_wormhole, "batch": phase_batch,
           "witness_check": phase_witness_check, "k1_check": phase_k1_check,
           "k4_check": phase_k4_check, "profile": phase_profile,
           "k2_check": phase_k2_check, "sharded": phase_sharded,

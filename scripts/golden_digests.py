@@ -26,7 +26,9 @@ It also prints the pins of the port's recursion and aggregation tests
 (tests/test_torch_jax_pins.py derives and checks them in tier-1): the JAX
 level circuit over two square proofs (gate rows, degree, common.bin and
 verifier.bin sha256), its chunk proof, and the 2-level mesh root and
-depth-1 root of tests/test_torch_aggregation.py.
+depth-1 root of tests/test_torch_aggregation.py; and
+``GOLDEN_MUL_CHAIN_SHA256``: chip_smoke's mul chain proved under FRI folds
+of arity 2^5 and under five challenges (``chip_smoke.WIDE_CONFIGS``).
 """
 
 import hashlib
@@ -112,9 +114,13 @@ def main() -> None:
              lambda: _digest(wormhole_proof(CircuitConfig.standard_recursion_config())[0])),
             ("GOLDEN_VOTE_SHA256", lambda: _digest(vote_proof())),
             ("GOLDEN_COMPAT_LAYOUT_SHA256", compat_layout_digest)]
-    from test_torch_jax_pins import JaxSquare
+    from test_torch_jax_pins import JaxSquare, mul_chain_sha256
+
+    import chip_smoke
 
     sq = JaxSquare()
+    jobs += [(f"GOLDEN_MUL_CHAIN_SHA256[{w}]", lambda w=w: mul_chain_sha256(w))
+             for w in chip_smoke.WIDE_CONFIGS]
     jobs += [("JAX_LEVEL", sq.level_pins), ("JAX_CHUNK_SHA256", sq.chunk_sha256),
              ("JAX_MESH_ROOT_SHA256", sq.mesh_root_sha256),
              ("JAX_CHUNK_ROOT_SHA256", sq.chunk_root_sha256)]

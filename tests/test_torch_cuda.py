@@ -547,8 +547,9 @@ def _k5_plain(common, inp):
 
 @pytest.mark.parametrize("batch", [1, 4])
 def test_k5_matches_plain(cuda, batch):
-    """K5 at the wormhole's gates and coset (2^16 points), one launch,
-    equal to plonk/prover.py's _device_vanishing_eval times 1/Z_H."""
+    """K5 at the wormhole's gates and coset (2^16 points), its two launches
+    (the permutation terms, then the gates), equal to plonk/prover.py's
+    _device_vanishing_eval times 1/Z_H."""
     from zk_circuits_torch.plonk import quotient_cuda
 
     common = _gate_common(_wormhole_gates())
@@ -557,7 +558,7 @@ def test_k5_matches_plain(cuda, batch):
     got = quotient_cuda.vanishing(common, inp["cs"], inp["wires"], inp["zsp"], inp["tables"],
                                   inp["pi_hash"], inp["betas"], inp["gammas"], inp["alphas"])
     torch.cuda.synchronize()
-    assert quotient_cuda.launches == before + 1
+    assert quotient_cuda.launches == before + quotient_cuda.LAUNCHES_PER_GROUP
     assert torch.equal(got, _k5_plain(common, inp))
 
 
@@ -663,8 +664,9 @@ def test_k7_matches_plain(cuda, batch):
 
 @pytest.mark.parametrize("batch", [1, 4])
 def test_k8_matches_plain(cuda, batch):
-    """K8's point kernel and scan at the wormhole's shapes, one launch each,
-    equal to _reduce_alpha_plain and _compose_plain."""
+    """K8's point kernel (one launch) and scan (fri_cuda.SCAN_LAUNCHES) at
+    the wormhole's shapes, equal to _reduce_alpha_plain and
+    _compose_plain."""
     from zk_circuits_torch.fri import fri_cuda
     from zk_circuits_torch.fri.fri_device import _compose_plain, _reduce_alpha_plain
 
@@ -677,11 +679,11 @@ def test_k8_matches_plain(cuda, batch):
     args = (*comps, pts)
     f = fri_cuda.compose(*args)
     torch.cuda.synchronize()
-    assert fri_cuda.launches_by_kernel["k8"] == before + 2
+    assert fri_cuda.launches_by_kernel["k8"] == before + 1 + fri_cuda.SCAN_LAUNCHES
     assert all(torch.equal(g, w) for g, w in zip(f, _compose_plain(*args), strict=True))
 
 
-@pytest.mark.parametrize("arity_bits", [1, 2, 3, 4])
+@pytest.mark.parametrize("arity_bits", [1, 2, 3, 4, 5, 6])
 def test_k9_matches_plain(cuda, arity_bits):
     """K9 at 2^13 coefficients, B = 4 and a 1-D shard piece, equal to
     _fold_plain."""
@@ -705,8 +707,9 @@ def test_k9_matches_plain(cuda, arity_bits):
 
 def test_k7_k8_k9_launches_on_a_proof(cuda):
     """A zk square circuit with FRI fold rounds proved on the card: K7 once,
-    K8 twice and K9 once a fold round, no plain FRI body on a CUDA tensor,
-    and the proof equal to the CPU's."""
+    K8 three times (its point kernel, its scan's two launches) and K9 once
+    a fold round, no plain FRI body on a CUDA tensor, and the proof equal
+    to the CPU's."""
     from zk_circuits_torch.fri import fri_cuda
     from zk_circuits_torch.fri import fri_device as fd
     from zk_circuits_torch.iop.builder import CircuitBuilder
@@ -738,6 +741,6 @@ def test_k7_k8_k9_launches_on_a_proof(cuda):
             rounds = len(cfg.fri_config.reduction_arities(data.common.degree_bits))
             assert rounds >= 1
             assert {k: v - before[k] for k, v in fri_cuda.launches_by_kernel.items()} == \
-                {"k7": 1, "k8": 2, "k9": rounds}
+                {"k7": 1, "k8": 1 + fri_cuda.SCAN_LAUNCHES, "k9": rounds}
     assert out[0] == out[1]
     assert [d for d, _ in plain] == ["cpu"] * len(plain) and plain

@@ -5,9 +5,10 @@ csrc/fri.cuh is __host__ __device__ code; here it is compiled with g++
 behind a host copy of fri.cu's C interface (k7_openings, k8_reduce,
 k8_scan, k9_fold and fri_call_size) and driven through the wrapper's own
 ``fri_cuda`` functions on CPU tensors.  A K7 call runs each (proof, row)
-block with its threads in turn between the barriers; K8's scan runs
-``k8_scan_block`` the same way (``shim_fri_set_threads`` picks the block
-sizes, 256 and 512 on the card).  Equal integers are required against the
+block with its threads in turn between the barriers; K8's point kernel and
+its scan's two kernels run their blocks the same way
+(``shim_fri_set_threads`` picks K7's block size and the scan's segment,
+256 and 256 on the card).  Equal integers are required against the
 port's plain versions (``fri/fri_device.py``'s ``_openings_plain``,
 ``_reduce_alpha_plain``, ``_compose_plain``, ``_fold_plain``) and the JAX
 package's programs on the CPU (``_make_openings_run``,
@@ -55,7 +56,7 @@ SHIM = r"""
 #include <vector>
 #include "fri.cuh"
 
-static int k7_threads = 256, scan_threads = 512;   // the blocks' threads, as on the card
+static int k7_threads = 256, scan_logs = K8_LOG_SEG;   // the blocks' threads, as on the card
 
 // A block on the host: each phase runs the block's threads in turn.
 struct ShimBlock {
@@ -67,6 +68,19 @@ struct ShimBlock {
   }
   void sync() const {}
 };
+
+// The scan's two launches at segments of 2^L points: every block of the
+// first, then every block of the second.
+template <int L>
+static void k8_scan_host(const K8ScanCall& c) {
+  ShimBlock blk{1 << L};
+  std::vector<uint64_t> sm(12 * (1 << L) + 4 * K8_ZTAB);
+  const long long nseg = k8_segs(c.n, L);
+  for (int b = 0; b < c.batch; b++)
+    for (long long g = 0; g < nseg; g++) k8_seg_block<L>(blk, c, b, g, sm.data());
+  for (int b = 0; b < c.batch; b++)
+    for (long long g = 0; g < nseg; g++) k8_finish_block<L>(blk, c, b, g, sm.data());
+}
 
 extern "C" {
 int k7_openings(int, const K7Call* call, void*) {
@@ -82,21 +96,27 @@ int k7_openings(int, const K7Call* call, void*) {
 int k8_reduce(int, const K8Call* call, void*) {
   const K8Call& c = *call;
   if (k8_valid(c)) return 1;
-  std::vector<uint64_t> apow(2 * K8_MAX_POW);
-  for (int b = 0; b < c.r.batch; b++) {
-    k8_alpha_table(c, b, apow.data(), 0, 1);
-    for (long long i = 0; i < c.r.n; i++) k8_point(c, b, i, apow.data());
-  }
+  ShimBlock blk{K8_PT_THREADS};
+  std::vector<uint64_t> sm(K8_PT_SMEM);
+  for (int b = 0; b < c.r.batch; b++)
+    for (long long t = 0; t * K8_PT_TILE < c.r.n; t++) k8_point_block(blk, c, b, t, sm.data());
   return 0;
 }
 
 int k8_scan(int, const K8ScanCall* call, void*) {
   const K8ScanCall& c = *call;
   if (k8_scan_valid(c)) return 1;
-  ShimBlock blk{scan_threads};
-  std::vector<uint64_t> buf(8 * scan_threads);
-  for (int b = 0; b < c.batch; b++) k8_scan_block(blk, c, b, buf.data());
+  switch (scan_logs) {
+    case 1: k8_scan_host<1>(c); break;
+    case 2: k8_scan_host<2>(c); break;
+    case 5: k8_scan_host<5>(c); break;
+    default: k8_scan_host<K8_LOG_SEG>(c); break;
+  }
   return 0;
+}
+
+long long k8_scan_scratch(long long n, int batch) {
+  return k8_scratch_words(n, batch, scan_logs);
 }
 
 int k9_fold(int, const K9Call* call, void*) {
@@ -117,9 +137,11 @@ int fri_call_size(int kind) {
   }
 }
 
+// K7's block size and the scan's segment (2, 4, 32 or 256 points)
 void shim_fri_set_threads(int k7, int scan) {
   k7_threads = k7;
-  scan_threads = scan;
+  scan_logs = 0;
+  while ((2 << scan_logs) <= scan) scan_logs++;
 }
 }
 """
@@ -147,7 +169,7 @@ def flib():
 def threads(flib):
     """Set the shim's block sizes for one test; the card's afterwards."""
     yield flib.shim_fri_set_threads
-    flib.shim_fri_set_threads(256, 512)
+    flib.shim_fri_set_threads(256, 256)
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -278,7 +300,7 @@ def test_k7_block_sizes(flib, threads):
     pts = _pts(_zs(rng, 2, 2), _zs(rng, 2, 3))
     want = fd._openings_plain(rows, pts)
     for k7 in (1, 2, 32, 256):
-        threads(k7, 512)
+        threads(k7, 256)
         assert _equal(fri_cuda.openings(rows, pts, lib=flib), want)
 
 
@@ -347,12 +369,13 @@ def test_k8_point_matches_plain(flib, log_n, widths, batch):
     assert len(got) == 1 and _equal(got[0], fd._reduce_alpha_plain(one, alpha)[0])
 
 
-@pytest.mark.parametrize("log_n,batch,scan", [(5, 1, 512), (6, 3, 512), (7, 2, 512),
-                                              (8, 2, 512), (8, 2, 4), (7, 1, 1),
-                                              (13, 1, 512)])
+@pytest.mark.parametrize("log_n,batch,scan", [(5, 1, 256), (6, 3, 256), (7, 2, 256),
+                                              (8, 2, 256), (8, 2, 4), (7, 1, 2),
+                                              (13, 1, 256)])
 def test_k8_scan_matches_plain(flib, threads, log_n, batch, scan):
-    """K8's scan == _compose_plain; blocks of 4 and 1 thread walk several
-    tiles with the carry, and one 2^13 scan is the wormhole's shape."""
+    """K8's scan == _compose_plain; segments of 4 and 2 points give many
+    segments (more than a block's threads: the later segments' Horner
+    stride), and one 2^13 scan is the wormhole's shape."""
     rng = np.random.default_rng(log_n * 7 + scan)
     threads(256, scan)
     comps, pts = _compose_inputs(rng, batch, 1 << log_n, log_n)
@@ -360,6 +383,52 @@ def test_k8_scan_matches_plain(flib, threads, log_n, batch, scan):
     want = fd._compose_plain(*comps, pts)
     assert got[0].shape == (batch, 1 << log_n) and _equal(got, want)
     assert int(got[0][0, -1]) == 0 and int(got[1][0, -1]) == 0
+
+
+@pytest.mark.parametrize("n,batch,scan", [(300, 3, 256), (1000, 2, 4), (1 << 14, 1, 256),
+                                          (37, 3, 32), (1, 2, 256), (4 * 33 + 3, 1, 4)])
+def test_k8_scan_segments(flib, threads, n, batch, scan):
+    """K8's scan over segments of 256 (the card's), 32 and 4 points: n not a
+    multiple of the segment, one short segment, a lone point, more
+    segments than a block's threads (the Horner stride over the later
+    segments), 2^14 points (the level circuits'), B = 3; == _compose_plain."""
+    rng = np.random.default_rng(n + scan)
+    threads(256, scan)
+    comps, pts = _compose_inputs(rng, batch, n, n % 5)
+    got = fri_cuda.compose(*comps, pts, lib=flib)
+    assert got[0].shape == (batch, n) and _equal(got, fd._compose_plain(*comps, pts))
+
+
+@pytest.mark.parametrize("value", [0, 1, P - 1])
+def test_k8_constant_inputs(flib, value):
+    """Every input of K8's two kernels (rows, alpha, comps, points) 0, 1 or
+    p - 1, over several tiles and segments."""
+    n, batch = 600, 2
+    rows = [(_t(np.full((3, n), value, dtype=U64)), 0, 0),
+            (_t(np.full((batch, 4, n), value, dtype=U64)), 0, 3),
+            (_t(np.full((batch, 2, n), value, dtype=U64)), 1, 0)]
+    ext = np.full((batch, 2), value, dtype=U64)
+    alpha = _pts(ext)
+    got, want = fri_cuda.reduce_alpha(rows, alpha, lib=flib), fd._reduce_alpha_plain(rows, alpha)
+    assert all(_equal(g, w) for g, w in zip(got, want, strict=True))
+    comps = [_pair(np.full((batch, n, 2), value, dtype=U64)) for _ in range(2)]
+    pts = _pts(ext, ext, ext)
+    assert _equal(fri_cuda.compose(*comps, pts, lib=flib), fd._compose_plain(*comps, pts))
+
+
+@pytest.mark.parametrize("n,batch,widths", [(100, 3, (3, 5, 4, 2)), (32 * 5 + 17, 2, (3, 5, 4, 2)),
+                                            (1 << 14, 1, (3, 5, 4, 2)),
+                                            (40, 2, (84, 139, 24, 20))])
+def test_k8_point_tiles(flib, n, batch, widths):
+    """K8's point kernel over tiles of 32 points with a short last tile (n
+    not a multiple), B = 3, 2^14 points, and the wormhole's oracle widths
+    (a warp's rows in batches of 8 loads, then the rest); ==
+    _reduce_alpha_plain."""
+    rng = np.random.default_rng(n)
+    rows = _rows(_oracles(rng, widths, n, batch), 2)
+    alpha = _pts(_zs(rng, batch, n))
+    got, want = fri_cuda.reduce_alpha(rows, alpha, lib=flib), fd._reduce_alpha_plain(rows, alpha)
+    assert all(_equal(g, w) for g, w in zip(got, want, strict=True))
 
 
 def test_k8_matches_the_jax_compose_program(flib):
@@ -396,7 +465,7 @@ def test_k8_matches_the_jax_compose_program(flib):
 # --- K9 ----------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arity_bits", [1, 2, 3, 4])
+@pytest.mark.parametrize("arity_bits", [1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize("batch", [1, 3])
 def test_k9_matches_plain_and_the_jax_fold(flib, arity_bits, batch):
     """K9 == _fold_plain and the JAX package's _fold_dev (jitted up to
@@ -447,7 +516,7 @@ def test_refusals(flib):
     b0, b1 = _pair(_ext(rng, 2))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fri_cuda.fold(c0, c1, b0, b1, 2)
-    for bits in (0, 5):
+    for bits in (0, 6):                   # 2^6 does not divide 32
         with pytest.raises(ValueError):
             fri_cuda.fold(c0, c1, b0, b1, bits, lib=flib)
     x = _t(_rand(rng, 2, 3, 32))
@@ -525,3 +594,20 @@ def test_batch_and_sharded_proofs_through_the_shim(through_shim):
     proof = prove_sharded(data, pw(7), make_mesh(2, device="cpu"))
     assert t_bytes(proof) == want[7]
     assert through_shim.k7 == 1 + 2 + 1 and through_shim.k8 == 2 + 2 + 2
+
+
+def test_arity_32_proof_through_the_shim(through_shim):
+    """chip_smoke's mul chain (degree 2^11) under FRI folds of arity 2^5
+    (arities [5, 1]), every FRI field operation through K7-K9's host
+    build: its bytes are the JAX host path's (the pin that
+    tests/test_torch_jax_pins.py derives from the JAX package)."""
+    import hashlib
+
+    import chip_smoke
+
+    data, pw = chip_smoke.mul_chain(t_builder, t_witness, t_config, "arity5", device="cpu")
+    assert data.common.config.fri_config.reduction_arities(data.common.degree_bits) == [5, 1]
+    proof = prove_batch(data, [pw], device="cpu")[0]
+    assert hashlib.sha256(t_bytes(proof)).hexdigest() == \
+        chip_smoke.GOLDEN_MUL_CHAIN_SHA256["arity5"]
+    assert vars(through_shim) == {"k7": 1, "k8": 2, "k9": 2}

@@ -9,13 +9,20 @@ JAX package is frozen).  This file derives each pin once, from the JAX
 package alone, in a file of its own so that it runs beside the port's
 proofs; scripts/golden_digests.py prints the same values.  Every
 derivation goes through one JAX level circuit over two square(JAX)
-proofs, built once (``LevelCircuit.cached``).
+proofs, built once (``LevelCircuit.cached``).  It also derives
+chip_smoke.py's pins of the mul chain's proofs under FRI folds of arity 2^5
+and under five challenges (GOLDEN_MUL_CHAIN_SHA256), which the port's
+card run and its CPU tests through the kernels' host builds
+(tests/test_torch_fri_kernel.py, tests/test_torch_quotient_kernel.py) are
+held to.
 """
 
 import hashlib
 
 import pytest
 from test_torch_aggregation import JAX_CHUNK_ROOT_SHA256
+
+import chip_smoke
 from test_torch_mesh_aggregate import JAX_MESH_ROOT_SHA256
 from test_torch_recursion import (
     JAX,
@@ -28,6 +35,9 @@ from test_torch_recursion import (
     square,
 )
 
+import zk_circuits_tpu.iop.builder as j_builder
+import zk_circuits_tpu.iop.witness as j_witness
+import zk_circuits_tpu.plonk.config as j_config
 from zk_circuits_tpu.aggregation import tree as j_tree
 from zk_circuits_tpu.aggregation.aggregator import WormholeProofAggregator
 from zk_circuits_tpu.api import artifacts as j_art
@@ -104,3 +114,15 @@ def test_mesh_root_pin(jax_square):
 
 def test_chunk_root_pin(jax_square):
     assert jax_square.chunk_root_sha256() == JAX_CHUNK_ROOT_SHA256
+
+
+def mul_chain_sha256(which: str) -> str:
+    """sha256 of the JAX host path's proof of chip_smoke's mul chain under
+    chip_smoke.WIDE_CONFIGS[which]."""
+    data, pw = chip_smoke.mul_chain(j_builder, j_witness, j_config, which)
+    return _sha256(data.prove(pw, use_device=False))
+
+
+@pytest.mark.parametrize("which", sorted(chip_smoke.WIDE_CONFIGS))
+def test_mul_chain_pins(which):
+    assert mul_chain_sha256(which) == chip_smoke.GOLDEN_MUL_CHAIN_SHA256[which]

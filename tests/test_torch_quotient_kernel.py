@@ -67,12 +67,17 @@ struct ShimBlock {
   void sync() const {}
 };
 
+// K5's two launches: every point's permutation terms, then its gates.
 template <int NC>
 static void k5_host(const K5Call& c) {
-  std::vector<uint64_t> apow(NC * K5_MAX_POW), bk(NC * PERM_MAX_ROUTED);
+  std::vector<uint64_t> apow(NC * K5_MAX_POW), am(NC), bk(NC * PERM_MAX_ROUTED);
   for (int b = 0; b < c.batch; b++) {
-    k5_tables<NC>(c, b, apow.data(), bk.data(), 0, 1);
-    for (long long i = 0; i < c.points; i++) k5_point<NC>(c, b, i, apow.data(), bk.data(), RC);
+    k5_perm_tables<NC>(c, b, am.data(), bk.data(), 0, 1);
+    for (long long i = 0; i < c.points; i++) k5_perm_point<NC>(c, b, i, am.data(), bk.data());
+  }
+  for (int b = 0; b < c.batch; b++) {
+    k5_alpha_table<NC>(c, b, apow.data(), 0, 1);
+    for (long long i = 0; i < c.points; i++) k5_gate_point<NC>(c, b, i, apow.data(), RC);
   }
 }
 
@@ -317,6 +322,16 @@ def test_k5_short_last_chunk_matches_plain_and_jax(qlib):
     assert np.array_equal(got, _k5_jax(jcommon, inp))
 
 
+def test_k5_odd_last_chunk_matches_plain_and_jax(qlib):
+    """77 routed wires in chunks of 8: a last chunk of 5, whose first
+    factor stands alone before the pairs (perm_chunk.cuh)."""
+    common, jcommon = _wormhole_commons(num_routed_wires=77)
+    inp = _k5_inputs(common, np.random.default_rng(77), 2, 64)
+    got = _k5(qlib, common, inp)
+    assert np.array_equal(got, _k5_plain(common, inp))
+    assert np.array_equal(got, _k5_jax(jcommon, inp))
+
+
 @pytest.mark.parametrize("shards", [2, 4])
 def test_k5_sharded_rows_with_halo_match_whole(qlib, shards):
     """The sharded path's calls: shard d's rows, row0 = d r, zs at g x
@@ -341,6 +356,55 @@ def test_k5_sharded_rows_with_halo_match_whole(qlib, shards):
             _t(inp["gammas"]), _t(inp["alphas"]), zs_next=_t(zs_next), row0=d * r, lib=qlib)
         parts.append(_u(out))
     assert np.array_equal(np.concatenate(parts, axis=-1), whole[:, 0])
+
+
+def test_k5_five_challenges_match_plain_and_jax(qlib):
+    """Five challenges: two launches through the wrapper (challenges 0-3,
+    then 4, their rows read in place), B = 2, equal to the plain version
+    and the JAX host path."""
+    common, jcommon = _wormhole_commons(num_challenges=5)
+    assert common.config.num_challenges == 5 > quotient_cuda.MAX_CH
+    inp = _k5_inputs(common, np.random.default_rng(55), 2, 64)
+    got = _k5(qlib, common, inp)
+    assert got.shape == (5, 2, 64)
+    assert np.array_equal(got, _k5_plain(common, inp))
+    assert np.array_equal(got, _k5_jax(jcommon, inp))
+
+
+def test_k5_poseidon_gate_at_edge_values(qlib):
+    """The Poseidon gate alone (beside a NoopGate), every wire, constant and
+    challenge drawn from 0, 1, p - 1 and p - 2 or seeded, B = 2."""
+    cfg = TORCH.C(zero_knowledge=True)
+    common = _common(t_cd, [t_gates.PoseidonGate(), t_gates.NoopGate()], cfg, 6)
+    jcommon = _common(j_cd, [j_gates.PoseidonGate(), j_gates.NoopGate()],
+                      JAX.C(zero_knowledge=True), 6)
+    rng = np.random.default_rng(12)
+    inp = _k5_inputs(common, rng, 2, 128)
+    edges = np.array([0, 1, P - 1, P - 2], dtype=U64)
+    for k, v in inp.items():
+        for a in (v if k == "tables" else (v,)):
+            pick = rng.integers(0, 2 * len(edges), a.shape)
+            a[pick < len(edges)] = edges[pick[pick < len(edges)]]
+    got = _k5(qlib, common, inp)
+    assert np.array_equal(got, _k5_plain(common, inp))
+    assert np.array_equal(got, _k5_jax(jcommon, inp))
+
+
+def test_k5_random_access_at_its_largest_bits(qlib):
+    """A random-access gate of 6 bits, the most a copy's index, claimed
+    element and 2^bits list take of the standard config's 80 routed wires
+    (one copy), beside a NoopGate, B = 2."""
+    cfg = TORCH.C(zero_knowledge=True)
+    common = _common(t_cd, [t_gates.RandomAccessGate(bits=6, num_copies=1),
+                            t_gates.NoopGate()], cfg, 6)
+    jcommon = _common(j_cd, [j_gates.RandomAccessGate(bits=6, num_copies=1),
+                             j_gates.NoopGate()], JAX.C(zero_knowledge=True), 6)
+    inp = _k5_inputs(common, np.random.default_rng(64), 2, 128)
+    bits = inp["wires"][:, 66:72]            # some rows' index bits boolean
+    bits[..., :64] = np.random.default_rng(65).integers(0, 2, bits[..., :64].shape, dtype=U64)
+    got = _k5(qlib, common, inp)
+    assert np.array_equal(got, _k5_plain(common, inp))
+    assert np.array_equal(got, _k5_jax(jcommon, inp))
 
 
 def test_k5_refuses_unknown_gates_and_bad_calls(qlib):
@@ -483,6 +547,22 @@ def test_k6_short_last_chunk_matches_plain_and_jax(qlib):
         assert np.array_equal(got[b], ref)
 
 
+def test_k6_odd_last_chunk_matches_plain(qlib):
+    """77 routed wires in chunks of 8 (a last chunk of 5) on random values,
+    B = 2, scan blocks of 4 threads."""
+    common = _common(t_cd, _wormhole_gates(t_gates), TORCH.C(zero_knowledge=True,
+                                                              num_routed_wires=77), 6)
+    n, rng = 64, np.random.default_rng(7)
+    wv = rng.integers(0, P, (2, 77, n), dtype=U64)
+    sig = rng.integers(0, P, (77, n), dtype=U64)
+    x = jgl.powers(jgl.primitive_root_of_unity(6), n)
+    betas, gammas = (rng.integers(0, P, (2, 2, 1), dtype=U64) for _ in range(2))
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, 4)
+    want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
+    assert got.shape == (2, 20, n)
+    assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+
+
 @pytest.mark.parametrize("value", [0, 1, P - 1])
 def test_k6_constant_rows_and_unbatched(qlib, value):
     """Every input 0, 1 or p - 1, one proof unbatched (the sharded
@@ -495,6 +575,50 @@ def test_k6_constant_rows_and_unbatched(qlib, value):
     want, want_finals = _k6_plain(common, full, full, full[0], ch, ch)
     assert got.shape == (20, n) and finals.shape == (2,)
     assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+
+
+def test_k6_five_challenges_match_plain_and_jax(qlib):
+    """Five challenges (two groups of launches, rows and closing products
+    written in place): a valid permutation witness of seeded pairs of
+    cells that swap places against the JAX package's
+    compute_zs_and_partial_products (every product closes to 1), and
+    random values with one zero denominator of challenge 4 against the
+    plain version."""
+    from types import SimpleNamespace
+
+    cfg_kw = dict(zero_knowledge=True, num_challenges=5)
+    common = _common(t_cd, _wormhole_gates(t_gates), TORCH.C(**cfg_kw), 6)
+    jcommon = _common(j_cd, _wormhole_gates(j_gates), JAX.C(**cfg_kw), 6)
+    n, routed = 64, 80
+    rng = np.random.default_rng(5)
+    x = jgl.powers(jgl.primitive_root_of_unity(6), n)
+    ids = jgl.mul(np.asarray(common.k_is, dtype=U64)[:, None], x[None, :]).reshape(-1)
+    wv = np.empty((2, routed * n), dtype=U64)
+    sig = np.empty(routed * n, dtype=U64)
+    pairs = rng.permutation(routed * n).reshape(-1, 2)
+    sig[pairs[:, 0]], sig[pairs[:, 1]] = ids[pairs[:, 1]], ids[pairs[:, 0]]
+    for b in range(2):
+        v = rng.integers(0, P, len(pairs), dtype=U64)
+        wv[b, pairs[:, 0]], wv[b, pairs[:, 1]] = v, v
+    wv, sig = wv.reshape(2, routed, n), sig.reshape(routed, n)
+    betas, gammas = (rng.integers(0, P, (5, 2, 1), dtype=U64) for _ in range(2))
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, 4)
+    want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
+    assert got.shape == (2, 50, n) and finals.shape == (2, 5)
+    assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+    assert (finals == 1).all()
+    po = SimpleNamespace(subgroup=x, sigmas_values=sig)
+    for b in range(2):
+        ref = j_prover.compute_zs_and_partial_products(
+            jcommon, po, wv[b].T, betas[:, b, 0], gammas[:, b, 0])
+        assert np.array_equal(got[b], ref)
+    rand = rng.integers(0, P, (2, routed, n), dtype=U64)
+    b, j, i = 1, 13, 7
+    rand[b, j, i] = (P - int(jgl.add(jgl.mul(betas[4, b, 0], sig[j, i]), gammas[4, b, 0]))) % P
+    got, finals = _k6(qlib, common, rand, sig, x, betas, gammas, 32)
+    want, want_finals = _k6_plain(common, rand, sig, x, betas, gammas)
+    assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+    assert finals[b, 4] == 0 and finals[b, 3] != 0
 
 
 def test_k6_inverse_chain(qlib):
@@ -528,3 +652,43 @@ def test_stage_bodies_route_by_device():
     assert _on(torch.zeros(2, dtype=torch.int64)) == "cpu"
     with pytest.raises(ValueError, match="CUDA or CPU"):
         _on(torch.zeros(2, dtype=torch.int64, device="meta"))
+
+
+def test_five_challenge_proof_through_the_shim(qlib, monkeypatch):
+    """chip_smoke's mul chain (degree 2^11) under five challenges, its
+    quotient and permutation products through K5's and K6's host build
+    (two groups of challenges each): its bytes are the JAX host path's
+    (the pin that tests/test_torch_jax_pins.py derives from the JAX
+    package)."""
+    import hashlib
+    import types
+
+    import chip_smoke
+    from zk_circuits_torch.iop import builder as t_builder
+    from zk_circuits_torch.iop import witness as t_witness
+    from zk_circuits_torch.plonk import config as t_config
+    from zk_circuits_torch.plonk import prover as t_prover
+    from zk_circuits_torch.plonk.prover import prove_batch
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    calls = types.SimpleNamespace(k5=0, k6=0)
+
+    def vanishing(*args, **kw):
+        calls.k5 += 1
+        return quotient_cuda.vanishing(*args, lib=qlib, **kw)
+
+    def products(*args, **kw):
+        calls.k6 += 1
+        return permutation_cuda.products(*args, lib=qlib, **kw)
+
+    # the stage bodies take their kernel branch, the kernels' host build
+    monkeypatch.setattr(t_prover, "_on", lambda t: "cuda")
+    monkeypatch.setattr(t_prover, "quotient_cuda", types.SimpleNamespace(vanishing=vanishing))
+    monkeypatch.setattr(t_prover, "permutation_cuda", types.SimpleNamespace(products=products))
+    data, pw = chip_smoke.mul_chain(t_builder, t_witness, t_config, "challenges5",
+                                    device="cpu")
+    assert data.common.config.num_challenges == 5
+    proof = prove_batch(data, [pw], device="cpu")[0]
+    assert hashlib.sha256(proof_to_bytes(proof)).hexdigest() == \
+        chip_smoke.GOLDEN_MUL_CHAIN_SHA256["challenges5"]
+    assert vars(calls) == {"k5": 1, "k6": 1}

@@ -6,46 +6,44 @@
 // commit (_make_compose_run :193: _reduce_alpha :70 and _ddl :96, jitted
 // :227, :237, :246) and the fold (_fold_dev :136 in _make_fold_commit_run
 // :255 and _final_fold_fn :289).  None is a Pallas kernel.  Eager torch
-// ran them as ~11.4k launches a proof; here they are four kernels (fri.cuh
-// gives the formulas), five launches for a proof or a batch of the
-// wormhole (K7 one, K8 two, K9 one a fold round):
+// ran them as ~11.4k launches a proof; here they are five kernels (fri.cuh
+// gives the formulas and what bounds each), six launches for a proof or a
+// batch of the wormhole (K7 one, K8 three, K9 one a fold round):
 //   k7_kernel: a block of 256 threads a (row, proof): the row's products
 //     with the powers of its point, summed by each thread over its strided
 //     coefficients (its powers a running product from its first, computed
 //     by squaring) and then by a tree in shared memory.  The
 //     oracles are read in place (no concatenation, the shared
 //     constants/sigmas oracle once for the batch);
-//   k8_point_kernel: a thread a (point, proof): both alpha reductions over
-//     the same rows as K7, the block's powers of alpha computed into shared
-//     memory first (each thread's first by squaring, then running
-//     products), the row loop unrolled so that its loads overlap;
-//   k8_scan_kernel: a block of 512 threads a proof: both suffix sums at
-//     once (16 points a thread, then a Hillis-Steele scan of the threads'
-//     sums in shared memory, tile by tile with a carry), the scaling by
-//     the inverse powers and the sum with alpha^nz, f padded with its zero;
-//     each thread computes its points' powers of zeta, g zeta and their
-//     inverses (an inverse a point by the norm's Fermat chain);
+//   k8_point_kernel: a block of 8 warps a tile of 32 points of a proof:
+//     the warps split the rows (both alpha reductions over the same rows
+//     as K7), 8 rows' loads in flight a lane, the warps' sums added in
+//     shared memory;
+//     alpha^e = alpha^(e mod 32) alpha^(32 (e div 32)) in shared memory;
+//   k8_seg_kernel, k8_finish_kernel: a block of 256 threads a segment of
+//     256 points of a proof: each segment's Horner sum, then the later
+//     segments' part and the scan within the segment, both divisions by a
+//     linear factor and the sum with alpha^nz, f padded with its zero, with
+//     no inverse (the proof's z^(2^k) from the first launch's block 0);
 //   k9_kernel: a thread a (output coefficient, proof): Horner over the
-//     arity with that proof's beta.
+//     arity (any) with that proof's beta.
 //
 // Bound on the H100 (chip_smoke.py's fri_work): K7 and K8's point kernel by
 // bytes, each reads every oracle row once (267 x 2^13 x 8 B = 17.5 MB a
 // wormhole proof) against two products a coefficient; they stream it with
 // neighbouring threads on neighbouring coefficients.  K7 spends an
-// extension product a coefficient more on its running power, K8's scan
-// an inverse and four powers a thread: the cost of not reading host power
-// tables.  K8's scan and K9 move under 0.4 MB a proof: their time is
-// latency (B blocks for the scan; a few thousand threads for a fold).
+// extension product a coefficient more on its running power.  K8's scan
+// and K9 move under 0.4 MB a proof: their time is latency (a few thousand
+// threads, a few dozen dependent extension products each).
 #include <cuda_runtime.h>
 
 #include "fri.cuh"
 
 constexpr int K7_THREADS = 256;
-constexpr int K8_POINT_THREADS = 128;
-constexpr int K8_SCAN_THREADS = 512;
 constexpr int K9_THREADS = 128;
+constexpr int K8_SEG_THREADS = 1 << K8_LOG_SEG;
 
-// A block of T threads in k7_row_block's and k8_scan_block's terms.
+// A block of T threads in the block functions' terms (fri.cuh).
 template <int T>
 struct FriBlock {
   __device__ __forceinline__ int threads() const { return T; }
@@ -60,20 +58,25 @@ __global__ void __launch_bounds__(K7_THREADS) k7_kernel(const __grid_constant__ 
   k7_row_block(blk, c, blockIdx.y, blockIdx.x, buf);
 }
 
-__global__ void __launch_bounds__(K8_POINT_THREADS)
+__global__ void __launch_bounds__(K8_PT_THREADS)
     k8_point_kernel(const __grid_constant__ K8Call c) {
-  __shared__ uint64_t apow[2 * K8_MAX_POW];
-  k8_alpha_table(c, blockIdx.y, apow, threadIdx.x, K8_POINT_THREADS);
-  __syncthreads();
-  const long long i = (long long)blockIdx.x * K8_POINT_THREADS + threadIdx.x;
-  if (i < c.r.n) k8_point(c, blockIdx.y, i, apow);
+  __shared__ uint64_t sm[K8_PT_SMEM];
+  FriBlock<K8_PT_THREADS> blk;
+  k8_point_block(blk, c, blockIdx.y, blockIdx.x, sm);
 }
 
-__global__ void __launch_bounds__(K8_SCAN_THREADS)
-    k8_scan_kernel(const __grid_constant__ K8ScanCall c) {
-  __shared__ uint64_t buf[8 * K8_SCAN_THREADS];
-  FriBlock<K8_SCAN_THREADS> blk;
-  k8_scan_block(blk, c, blockIdx.x, buf);
+__global__ void __launch_bounds__(K8_SEG_THREADS)
+    k8_seg_kernel(const __grid_constant__ K8ScanCall c) {
+  __shared__ uint64_t sm[4 * K8_SEG_THREADS + 4 * K8_LOG_SEG];
+  FriBlock<K8_SEG_THREADS> blk;
+  k8_seg_block<K8_LOG_SEG>(blk, c, blockIdx.y, blockIdx.x, sm);
+}
+
+__global__ void __launch_bounds__(K8_SEG_THREADS)
+    k8_finish_kernel(const __grid_constant__ K8ScanCall c) {
+  __shared__ uint64_t sm[12 * K8_SEG_THREADS + 4 * K8_ZTAB];
+  FriBlock<K8_SEG_THREADS> blk;
+  k8_finish_block<K8_LOG_SEG>(blk, c, blockIdx.y, blockIdx.x, sm);
 }
 
 __global__ void __launch_bounds__(K9_THREADS) k9_kernel(const __grid_constant__ K9Call c) {
@@ -115,17 +118,25 @@ int k8_reduce(int device, const K8Call* call, void* stream) {
   const K8Call& c = *call;
   if (k8_valid(c)) return (int)cudaErrorInvalidValue;
   return on_device(device, [&] {
-    k8_point_kernel<<<dim3(blocks(c.r.n, K8_POINT_THREADS), (unsigned)c.r.batch),
-                      K8_POINT_THREADS, 0, (cudaStream_t)stream>>>(c);
+    k8_point_kernel<<<dim3(blocks(c.r.n, K8_PT_TILE), (unsigned)c.r.batch), K8_PT_THREADS, 0,
+                      (cudaStream_t)stream>>>(c);
   });
 }
 
+// Both of the scan's launches (seg, then finish) on `stream`.
 int k8_scan(int device, const K8ScanCall* call, void* stream) {
   const K8ScanCall& c = *call;
   if (k8_scan_valid(c)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)k8_segs(c.n, K8_LOG_SEG), (unsigned)c.batch);
   return on_device(device, [&] {
-    k8_scan_kernel<<<(unsigned)c.batch, K8_SCAN_THREADS, 0, (cudaStream_t)stream>>>(c);
+    k8_seg_kernel<<<grid, K8_SEG_THREADS, 0, (cudaStream_t)stream>>>(c);
+    k8_finish_kernel<<<grid, K8_SEG_THREADS, 0, (cudaStream_t)stream>>>(c);
   });
+}
+
+// u64 of a K8ScanCall's scratch for n points and `batch` proofs.
+long long k8_scan_scratch(long long n, int batch) {
+  return k8_scratch_words(n, batch, K8_LOG_SEG);
 }
 
 int k9_fold(int device, const K9Call* call, void* stream) {

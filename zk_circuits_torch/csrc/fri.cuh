@@ -13,16 +13,35 @@
 // for the point z_t of proof b: zeta (t = 0) or g zeta (t = 1).  The
 // powers are computed in place (each thread its first power by squaring
 // and multiplying, then a running product), not read from a table.
-// K8's point kernel, the alpha reduction (k8_point, a thread a proof and
-// point):
+// K8's point kernel, the alpha reduction (k8_point_block, a block a tile of
+// 32 points of a proof):
 //   comp_t[b, i] = sum over the rows r of table t of alpha[b]^e_r row_r[b, i]
-// where row j of a set takes the exponent e = (the set's exp) + j; the
-// block's table of powers of alpha is computed in shared memory.
-// K8's scan, both divisions by a linear factor and their sum (k8_scan_block,
-// a block a proof), from comp_0 at zeta (z_0) and comp_1 at g zeta (z_1):
-//   E_t[i] = sum_{j > i} comp_t[j] z_t^j,  q_t[i] = E_t[i] z_t^-(i+1),
-//   f[i] = q_1[i] + s q_0[i] for i < n - 1,  f[n - 1] = 0  (s = alpha^nz),
-// the powers of z_t and of its inverse computed in place as in K7.
+// where row j of a set takes the exponent e = (the set's exp) + j.  K8's
+// scan (k8_seg_block, then k8_finish_block: a block a segment of 256 points
+// of a proof), both divisions by a linear factor and their sum, from comp_0
+// at zeta (z_0) and comp_1 at g zeta (z_1):
+//   q_t[i] = sum_{j > i} comp_t[j] z_t^(j - i - 1),
+//   f[i] = q_1[i] + s q_0[i] for i < n - 1,  f[n - 1] = 0  (s = alpha^nz).
+//
+// What bounds K8 on the H100, and what the design does about it.  Its
+// point kernel reads every oracle row once (17.5 MB a wormhole proof,
+// 0.0054 ms at 3.35 TB/s) against two products a coefficient: bytes.  A
+// thread a point walking all the rows in series, 64 blocks at one proof,
+// kept too few loads in flight (0.139 ms); here the 8 warps of a block
+// split a 32-point tile's rows (a warp's loads are 256 contiguous bytes),
+// each lane loading 8 rows before it uses one, so every SM has thousands
+// of independent loads in flight, and the warps' sums meet in shared
+// memory.  Two products a coefficient are also some 60 instructions when
+// each is reduced and added (the card's instruction rate then binds before its
+// bytes at B = 4); a lane keeps each set's sums unreduced (gl_acc_mac, 13
+// instructions a product) and reduces them once a set.
+// The scan moves 0.4 MB a proof: latency.  One block a proof spent an
+// inverse and four square-and-multiply powers a thread on one SM (0.164
+// ms); here Horner's form of the division needs no inverse and no power
+// but z_t^(2^k): a tree a segment (its level k multiplies by z_t^(2^k)),
+// the later segments' sums a tree by z_t^(256 2^k), and a Hillis-Steele
+// scan by z_t^(2^k) within the segment, over 32 blocks a proof at 2^13
+// points, from one table a proof (block 0 of the first launch writes it).
 // K9, the fold (k9_point, a thread a proof and output coefficient):
 //   new_c[m] = sum_j beta^j c[A m + j]  (Horner over j, A = 2^arity_bits).
 // Every value in between is any u64 congruent to it (gl_mul_m,
@@ -33,8 +52,8 @@
 
 #define FRI_MAX_SETS 8       // sets a FriRows holds
 #define FRI_W 7ULL           // x^2 = 7
-#define K8_SEG 16            // consecutive points a scan thread owns
-#define K8_MAX_POW 1024      // powers of alpha a K8 point block keeps
+#define K8_MAX_POW 1024      // powers of alpha a K8 point block keeps (32 x 32 products)
+#define K9_MAX_BITS 62       // a fold's arity bits: any arity of a u64-indexed codeword
 
 // A read-only input, through the read-only path on the card.
 GL_HD uint64_t fri_ld(const uint64_t* p) {
@@ -58,11 +77,6 @@ GL_HD FriExt fri_emul(FriExt x, FriExt y) {
           gl_add_lazy(gl_mul_m(x.a, y.b), gl_mul_m(x.b, y.a))};
 }
 
-// x + y s for base y.
-GL_HD FriExt fri_madd_base(FriExt x, uint64_t y, FriExt s) {
-  return {gl_add_lazy(x.a, gl_mul_m(y, s.a)), gl_add_lazy(x.b, gl_mul_m(y, s.b))};
-}
-
 GL_HD FriExt fri_pow(FriExt x, unsigned long long e) {
   FriExt r = {1, 0};
   for (; e; e >>= 1) {
@@ -70,27 +84,6 @@ GL_HD FriExt fri_pow(FriExt x, unsigned long long e) {
     x = fri_emul(x, x);
   }
   return r;
-}
-
-// 1/x (0 for 0): (a - b x) / (a^2 - 7 b^2), the norm's inverse as
-// norm^(p - 2) by k6_inverse's addition chain.
-GL_HD uint64_t fri_sqn(uint64_t a, int n) {
-  for (int k = 0; k < n; k++) a = gl_mul_m(a, a);
-  return a;
-}
-
-GL_HD FriExt fri_inverse(FriExt x) {
-  const uint64_t a = gl_sub_lazy(gl_mul_m(x.a, x.a), gl_mul_m(gl_mul_m(x.b, x.b), FRI_W));
-  const uint64_t x2 = gl_mul_m(fri_sqn(a, 1), a);
-  const uint64_t x3 = gl_mul_m(fri_sqn(x2, 1), a);
-  const uint64_t x6 = gl_mul_m(fri_sqn(x3, 3), x3);
-  const uint64_t x12 = gl_mul_m(fri_sqn(x6, 6), x6);
-  const uint64_t x24 = gl_mul_m(fri_sqn(x12, 12), x12);
-  const uint64_t x30 = gl_mul_m(fri_sqn(x24, 6), x6);
-  const uint64_t x31 = gl_mul_m(fri_sqn(x30, 1), a);
-  const uint64_t x32 = gl_mul_m(fri_sqn(x31, 1), a);
-  const uint64_t inv = gl_mul_m(fri_sqn(x31, 33), x32);
-  return {gl_mul_m(x.a, inv), gl_mul_m(gl_sub_lazy(0, x.b), inv)};
 }
 
 GL_HD FriExt fri_ld_ext(const uint64_t* p0, const uint64_t* p1, long long i) {
@@ -216,39 +209,104 @@ struct K8Call {
   int npow;                // powers of alpha the sets take: max of exp + rows
 };
 
-// Proof b's powers alpha^e, e < npow, by thread tid of nthr: component 0
-// at apow[e], 1 at apow[K8_MAX_POW + e].
-GL_HD void k8_alpha_table(const K8Call& c, int b, uint64_t* apow, int tid, int nthr) {
-  const FriExt a = fri_point(c.alpha, c.r.batch, 0, b);
-  const FriExt step = fri_pow(a, (unsigned long long)nthr);
-  FriExt p = fri_pow(a, (unsigned long long)tid);
-  for (int e = tid; e < c.npow; e += nthr) {
-    apow[e] = p.a;
-    apow[K8_MAX_POW + e] = p.b;
-    p = fri_emul(p, step);
-  }
-}
+// K8's point block: K8_PT_WARPS warps of 32 lanes over a tile of 32
+// consecutive points of one proof, lane l on point l (a warp's loads are
+// 256 contiguous bytes).  Warp w takes rows w, w + K8_PT_WARPS, ... of
+// every set, K8_PT_UNROLL of them loaded before any is used, so a point's
+// rows are read by all the block's warps at once with many loads in
+// flight; the warps' sums meet in shared memory.
+#define K8_PT_WARPS 8
+#define K8_PT_THREADS (32 * K8_PT_WARPS)
+#define K8_PT_TILE 32
+#define K8_PT_UNROLL 8                     // rows a warp loads at once
+#define K8_PT_VALS 4                       // a lane's sums: (table, component)
+// a point block's shared memory in u64: alpha's powers, the two small
+// tables they come from, the warps' sums
+#define K8_PT_SMEM (2 * K8_MAX_POW + 128 + K8_PT_WARPS * K8_PT_VALS * 32)
 
-// Point i of proof b: every table's sum over its rows.  apow:
-// k8_alpha_table's for proof b.
-GL_HD void k8_point(const K8Call& c, int b, long long i, const uint64_t* apow) {
-  FriExt acc0 = {0, 0}, acc1 = {0, 0};
-  for (int s = 0; s < c.r.nsets; s++) {
-    const FriSet& set = c.r.sets[s];
-    const uint64_t* x = set.ptr + b * set.bs + i;
-    const uint64_t* a = apow + set.exp;
-    FriExt acc = {0, 0};
-#pragma unroll 8
-    for (int j = 0; j < set.rows; j++)
-      acc = fri_madd_base(acc, fri_ld(x + j * set.rs), {a[j], a[K8_MAX_POW + j]});
-    if (set.table == 0)
-      acc0 = fri_eadd(acc0, acc);
-    else
-      acc1 = fri_eadd(acc1, acc);
-  }
-  const long long n = c.r.n, bn = (long long)c.r.batch * n;
-  fri_st_ext(c.out, c.out + bn, b * n + i, acc0);
-  if (c.tables > 1) fri_st_ext(c.out + 2 * bn, c.out + 3 * bn, b * n + i, acc1);
+// The point block of tile `tile` of proof b; blk.each(f) runs f(tid) for
+// each of its K8_PT_THREADS threads, blk.sync() is the barrier; sm:
+// K8_PT_SMEM u64 of shared memory.  alpha^e = alpha^(e mod 32) alpha^(32
+// (e div 32)): 64 threads compute those 64 powers, then every thread a
+// product for a few e, so the table costs the block two short steps.
+template <class Blk>
+GL_HD void k8_point_block(Blk& blk, const K8Call& c, int b, long long tile, uint64_t* sm) {
+  uint64_t* apow = sm;                     // alpha^e: component 0 at e, 1 at K8_MAX_POW + e
+  uint64_t* lohi = sm + 2 * K8_MAX_POW;    // alpha^l (l < 32) at l, alpha^(32 l) at 32 + l; +64: component 1
+  uint64_t* red = lohi + 128;              // the warps' sums: (warp, value, lane)
+  const FriExt a = fri_point(c.alpha, c.r.batch, 0, b);
+  blk.each([&](int tid) {
+    if (tid < 64) {
+      const FriExt p = fri_pow(a, tid < 32 ? (unsigned long long)tid : 32ULL * (tid - 32));
+      lohi[tid] = p.a;
+      lohi[64 + tid] = p.b;
+    }
+  });
+  blk.sync();
+  blk.each([&](int tid) {
+    for (int e = tid; e < c.npow; e += K8_PT_THREADS) {
+      const FriExt p = fri_emul({lohi[e & 31], lohi[64 + (e & 31)]},
+                                {lohi[32 + (e >> 5)], lohi[96 + (e >> 5)]});
+      apow[e] = p.a;
+      apow[K8_MAX_POW + e] = p.b;
+    }
+  });
+  blk.sync();
+  const long long n = c.r.n, base = tile * K8_PT_TILE;
+  blk.each([&](int tid) {
+    const int w = tid >> 5, lane = tid & 31;
+    const bool live = base + lane < n;
+    FriExt acc0 = {0, 0}, acc1 = {0, 0};
+    for (int s = 0; s < c.r.nsets; s++) {
+      const FriSet& set = c.r.sets[s];
+      const uint64_t* x = set.ptr + b * set.bs + base + lane;
+      const uint64_t* ap = apow + set.exp;
+      GlAcc sa = gl_acc_zero(), sb = gl_acc_zero();   // the set's sum, unreduced
+      // K8_PT_UNROLL of the warp's rows loaded at once, the set's last
+      // batch predicated (one round trip where a loop over the rest took one
+      // a row)
+      for (int j = w; j < set.rows; j += K8_PT_UNROLL * K8_PT_WARPS) {
+        uint64_t v[K8_PT_UNROLL];
+#pragma unroll
+        for (int u = 0; u < K8_PT_UNROLL; u++) {
+          const int r = j + u * K8_PT_WARPS;
+          v[u] = live && r < set.rows ? fri_ld(x + r * set.rs) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < K8_PT_UNROLL; u++) {
+          const int r = j + u * K8_PT_WARPS;
+          if (r < set.rows) {
+            gl_acc_mac(sa, v[u], ap[r]);
+            gl_acc_mac(sb, v[u], ap[K8_MAX_POW + r]);
+          }
+        }
+      }
+      const FriExt sum = {gl_acc_value(sa), gl_acc_value(sb)};
+      if (set.table == 0)
+        acc0 = fri_eadd(acc0, sum);
+      else
+        acc1 = fri_eadd(acc1, sum);
+    }
+    uint64_t* mine = red + w * K8_PT_VALS * 32 + lane;
+    mine[0] = acc0.a;
+    mine[32] = acc0.b;
+    mine[64] = acc1.a;
+    mine[96] = acc1.b;
+  });
+  blk.sync();
+  // thread (v, lane) adds value v = (table, component) of lane's point over the warps
+  blk.each([&](int tid) {
+    if (tid < K8_PT_VALS * 32) {
+      const int v = tid >> 5, lane = tid & 31, t = v >> 1, k = v & 1;
+      const long long i = base + lane;
+      if (t < c.tables && i < n) {
+        uint64_t s = 0;
+        for (int w = 0; w < K8_PT_WARPS; w++)
+          s = gl_add_lazy(s, red[(w * K8_PT_VALS + v) * 32 + lane]);
+        c.out[((long long)(2 * t + k) * c.r.batch + b) * n + i] = gl_canon(s);
+      }
+    }
+  });
 }
 
 GL_HD int k8_valid(const K8Call& c) {
@@ -258,117 +316,194 @@ GL_HD int k8_valid(const K8Call& c) {
   return 0;
 }
 
+// K8's scan: both divisions by a linear factor in Horner's form, which needs
+// no inverse: q_t[i] = sum_{j > i} comp_t[j] z_t^(j - i - 1) satisfies
+// q_t[n - 1] = 0 and q_t[i] = comp_t[i + 1] + z_t q_t[i + 1], the same
+// field elements as E_t[i] z_t^-(i+1).  The points are cut into segments
+// of S = 2^LOGS, a block a segment and proof, in two launches:
+//   seg (k8_seg_block): segment g's sum A_t,g = sum_{l < S} comp_t[g S + l]
+//     z_t^l, a tree whose level k multiplies by z_t^(2^k); block 0 of a
+//     proof also writes the proof's table z_t^(2^k), k < K8_ZTAB;
+//   finish (k8_finish_block): the later segments' part Y_t,g = q_t at the
+//     segment's last point = sum_{h > g} (z_t^S)^(h - g - 1) A_t,h (each
+//     thread Horner over every S-th later segment with z_t^(S^2), then a
+//     tree by powers of z_t^S), then the inclusive suffix scan of d[l] =
+//     comp_t[g S + l + 1] (l < S - 1), d[S - 1] = Y_t,g with the multiplier
+//     z_t^(2^k) at step k (Hillis-Steele), which gives q_t at each point;
+//     f = q_1 + s q_0, zero past n - 1 by the zeros it reads there.
+// At z_t = 0 the two forms part: E_t z_t^-(i+1) with 1/0 = 0 (the plain
+// version's) is 0, so q_t is set to 0 there.
+// Every power comes from the proof's table: z_t^(2^k), k <= 2 LOGS.
+#define K8_LOG_SEG 8          // the card's segments: 256 points, a block of 256 threads
+#define K8_ZTAB (2 * K8_LOG_SEG + 1)
+
 struct K8ScanCall {
   const uint64_t* comp[4]; // (batch, n) each: comp_0's components, then comp_1's
   const uint64_t* pts;     // (3, 2, batch): zeta, g zeta and alpha^nz, as K7Call's pts
   uint64_t* f[2];          // (batch, n)
+  uint64_t* scratch;       // k8_scratch_words: the segments' sums, then the z tables
   long long n;
   int batch;
 };
+
+GL_HD long long k8_segs(long long n, int logs) { return (n + (1LL << logs) - 1) >> logs; }
+
+// u64 of a call's scratch at segments of 2^logs points: (batch, segments,
+// 4) sums, then (batch, 2, K8_ZTAB, 2) tables.
+GL_HD long long k8_scratch_words(long long n, int batch, int logs) {
+  return (long long)batch * (4 * k8_segs(n, logs) + 4 * K8_ZTAB);
+}
+
+GL_HD uint64_t* k8_ztab(const K8ScanCall& c, long long nseg, int b, int t) {
+  return c.scratch + (long long)c.batch * nseg * 4 + ((long long)b * 2 + t) * K8_ZTAB * 2;
+}
 
 GL_HD FriExt k8_comp(const K8ScanCall& c, int t, long long o) {
   return fri_ld_ext(c.comp[2 * t], c.comp[2 * t + 1], o);
 }
 
-// The scan's phases over a tile of nthr K8_SEG points from base, for the
-// block of proof b.  Thread tid owns the points base + tid K8_SEG .. +
-// K8_SEG (those below n).  w_t[i] = comp_t[i] z_t^i.
-//
-// 1. Its points' sums of w_0 and w_1 into buf[k nthr + tid], k = 0..3.
-GL_HD void k8_seg_sum(const K8ScanCall& c, int b, long long base, int tid, int nthr,
-                      uint64_t* buf) {
-  FriExt s0 = {0, 0}, s1 = {0, 0};
-  const long long first = base + (long long)tid * K8_SEG;
-  const FriExt z0 = fri_point(c.pts, c.batch, 0, b), z1 = fri_point(c.pts, c.batch, 1, b);
-  FriExt p0 = fri_pow(z0, (unsigned long long)first), p1 = fri_pow(z1, (unsigned long long)first);
-#pragma unroll 4
-  for (int k = 0; k < K8_SEG; k++) {
-    const long long i = first + k;
-    if (i >= c.n) break;
-    const long long o = b * c.n + i;
-    s0 = fri_eadd(s0, fri_emul(k8_comp(c, 0, o), p0));
-    s1 = fri_eadd(s1, fri_emul(k8_comp(c, 1, o), p1));
-    p0 = fri_emul(p0, z0);
-    p1 = fri_emul(p1, z1);
-  }
-  buf[tid] = s0.a;
-  buf[nthr + tid] = s0.b;
-  buf[2 * nthr + tid] = s1.a;
-  buf[3 * nthr + tid] = s1.b;
+// Both tables' ext values of thread tid in shared memory: component k of
+// table t at buf[(2 t + k) S + tid].
+template <int LOGS>
+GL_HD FriExt k8_get(const uint64_t* buf, int t, int tid) {
+  return {buf[(2 * t) << LOGS | tid], buf[(2 * t + 1) << LOGS | tid]};
 }
 
-// 2. One step of the block's inclusive suffix sum of the threads' sums
-//    (Hillis-Steele, from src into dst, 4 nthr values each).
-GL_HD void k8_scan_step(const uint64_t* src, uint64_t* dst, int d, int tid, int nthr) {
-  for (int k = 0; k < 4; k++) {
-    const uint64_t* s = src + k * nthr;
-    dst[k * nthr + tid] = tid + d < nthr ? gl_add_lazy(s[tid], s[tid + d]) : s[tid];
-  }
+template <int LOGS>
+GL_HD void k8_put(uint64_t* buf, int t, int tid, FriExt v) {
+  buf[(2 * t) << LOGS | tid] = v.a;
+  buf[(2 * t + 1) << LOGS | tid] = v.b;
 }
 
-// 3. From e0 and e1, the sums of w_0 and w_1 over every point after the
-//    thread's last, f at its points from the last below n down: at point
-//    i the powers z_t^i (times 1/z_t a step) and z_t^-(i+1) (times z_t).
-GL_HD void k8_seg_finish(const K8ScanCall& c, int b, long long base, int tid, FriExt e0,
-                         FriExt e1) {
-  const long long first = base + (long long)tid * K8_SEG;
-  if (first >= c.n) return;
-  const long long last = first + K8_SEG <= c.n ? first + K8_SEG - 1 : c.n - 1;
-  const FriExt z0 = fri_point(c.pts, c.batch, 0, b), z1 = fri_point(c.pts, c.batch, 1, b);
-  const FriExt s = fri_point(c.pts, c.batch, 2, b);
-  const FriExt zi0 = fri_inverse(z0), zi1 = fri_inverse(z1);
-  FriExt p0 = fri_pow(z0, (unsigned long long)last), p1 = fri_pow(z1, (unsigned long long)last);
-  FriExt q0 = fri_pow(zi0, (unsigned long long)last + 1);
-  FriExt q1 = fri_pow(zi1, (unsigned long long)last + 1);
-#pragma unroll 4
-  for (long long i = last; i >= first; i--) {
-    const long long o = b * c.n + i;
-    FriExt f = {0, 0};
-    if (i + 1 < c.n) f = fri_eadd(fri_emul(e1, q1), fri_emul(s, fri_emul(e0, q0)));
-    fri_st_ext(c.f[0], c.f[1], o, f);
-    e0 = fri_eadd(e0, fri_emul(k8_comp(c, 0, o), p0));
-    e1 = fri_eadd(e1, fri_emul(k8_comp(c, 1, o), p1));
-    p0 = fri_emul(p0, zi0);
-    p1 = fri_emul(p1, zi1);
-    q0 = fri_emul(q0, z0);
-    q1 = fri_emul(q1, z1);
-  }
-}
-
-// The whole composition of proof b by one block of blk.threads() threads
-// (a power of two), tile by tile from the last, with the sums of the later
-// tiles carried: blk.each(f) runs f(tid) for each thread, blk.sync() is
-// the barrier; buf: 8 blk.threads() values of shared memory.
-template <class Blk>
-GL_HD void k8_scan_block(Blk& blk, const K8ScanCall& c, int b, uint64_t* buf) {
-  const int nthr = blk.threads();
-  const long long tile = (long long)nthr * K8_SEG;
-  uint64_t carry[4] = {0, 0, 0, 0};
-  for (long long base = (c.n - 1) / tile * tile; base >= 0; base -= tile) {
-    blk.each([&](int tid) { k8_seg_sum(c, b, base, tid, nthr, buf); });
-    blk.sync();
-    int src = 0;
-    for (int d = 1; d < nthr; d <<= 1) {
-      blk.each([&](int tid) {
-        k8_scan_step(buf + src * 4 * nthr, buf + (1 - src) * 4 * nthr, d, tid, nthr);
-      });
-      blk.sync();
-      src ^= 1;
-    }
-    const uint64_t* incl = buf + src * 4 * nthr;
+// In place, x (4 S values, the first 2^levels of them live) <- their sum
+// by Horner with base zk[t][0]: after level k the threads at multiples of
+// 2^(k+1) hold their window's sum; zk: z_t^(2^k) at (t zstride + k) 2 (the
+// level's multiplier).
+template <int LOGS, class Blk>
+GL_HD void k8_tree(Blk& blk, uint64_t* x, const uint64_t* zk, int zstride, int levels) {
+  for (int k = 0; k < levels; k++) {
+    const int d = 1 << k;
     blk.each([&](int tid) {
-      uint64_t e[4];
-      for (int k = 0; k < 4; k++)
-        e[k] = tid + 1 < nthr ? gl_add_lazy(carry[k], incl[k * nthr + tid + 1]) : carry[k];
-      k8_seg_finish(c, b, base, tid, {e[0], e[1]}, {e[2], e[3]});
+      if ((tid & (2 * d - 1)) == 0) {
+        for (int t = 0; t < 2; t++) {
+          const FriExt z = {zk[(t * zstride + k) * 2], zk[(t * zstride + k) * 2 + 1]};
+          k8_put<LOGS>(x, t, tid, fri_eadd(k8_get<LOGS>(x, t, tid),
+                                           fri_emul(z, k8_get<LOGS>(x, t, tid + d))));
+        }
+      }
     });
-    for (int k = 0; k < 4; k++) carry[k] = gl_add_lazy(carry[k], incl[k * nthr]);
     blk.sync();
   }
+}
+
+// Segment g of proof b by 2^LOGS threads; sm: 4 2^LOGS + 4 LOGS u64.
+template <int LOGS, class Blk>
+GL_HD void k8_seg_block(Blk& blk, const K8ScanCall& c, int b, long long g, uint64_t* sm) {
+  constexpr int S = 1 << LOGS;
+  uint64_t* x = sm;
+  uint64_t* zk = sm + 4 * S;               // z_t^(2^k), k < LOGS
+  const long long nseg = k8_segs(c.n, LOGS);
+  blk.each([&](int tid) {
+    const long long i = g * S + tid;
+    for (int t = 0; t < 2; t++)
+      k8_put<LOGS>(x, t, tid, i < c.n ? k8_comp(c, t, b * c.n + i) : FriExt{0, 0});
+    // threads 0 and 1 square z_t for the tree; in block 0 threads 2 and 3
+    // square it on into the proof's table, beside the tree
+    for (int q = tid; q < (g == 0 ? 4 : 2); q += S) {
+      const int t = q & 1;
+      FriExt z = fri_point(c.pts, c.batch, t, b);
+      uint64_t* tab = k8_ztab(c, nseg, b, t);
+      for (int k = 0; k < (q < 2 ? LOGS : K8_ZTAB); k++) {
+        if (q < 2) {
+          zk[(t * LOGS + k) * 2] = z.a;
+          zk[(t * LOGS + k) * 2 + 1] = z.b;
+        } else {
+          tab[2 * k] = z.a;
+          tab[2 * k + 1] = z.b;
+        }
+        z = fri_emul(z, z);
+      }
+    }
+  });
+  blk.sync();
+  k8_tree<LOGS>(blk, x, zk, LOGS, LOGS);
+  blk.each([&](int tid) {
+    for (int v = tid; v < 4; v += S) c.scratch[(b * nseg + g) * 4 + v] = x[v << LOGS];
+  });
+}
+
+// The rest of the scan for segment g of proof b by 2^LOGS threads; sm: 12
+// 2^LOGS + 4 K8_ZTAB u64.
+template <int LOGS, class Blk>
+GL_HD void k8_finish_block(Blk& blk, const K8ScanCall& c, int b, long long g, uint64_t* sm) {
+  constexpr int S = 1 << LOGS;
+  uint64_t* buf[2] = {sm, sm + 4 * S};     // the scan's two buffers
+  uint64_t* y = sm + 8 * S;
+  uint64_t* zt = sm + 12 * S;              // the proof's tables: z_t^(2^k) at (t K8_ZTAB + k) 2
+  const long long nseg = k8_segs(c.n, LOGS);
+  const uint64_t* sums = c.scratch + (long long)b * nseg * 4;
+  blk.each([&](int tid) {
+    const uint64_t* tabs = k8_ztab(c, nseg, b, 0);   // both tables
+    for (int e = tid; e < 4 * K8_ZTAB; e += S) zt[e] = fri_ld(tabs + e);
+    const long long i = g * S + tid + 1;
+    for (int t = 0; t < 2; t++) {
+      k8_put<LOGS>(buf[0], t, tid, tid < S - 1 && i < c.n ? k8_comp(c, t, b * c.n + i)
+                                                          : FriExt{0, 0});
+      // the later segments g + 1 + tid + S m, Horner from the last with z_t^(S^2)
+      const uint64_t* tab = k8_ztab(c, nseg, b, t);
+      const FriExt zss = {fri_ld(tab + 4 * LOGS), fri_ld(tab + 4 * LOGS + 1)};
+      FriExt acc = {0, 0};
+      const long long first = g + 1 + tid;
+      if (first < nseg)
+        for (long long h = first + (nseg - 1 - first) / S * S; h >= first; h -= S)
+          acc = fri_eadd(fri_emul(acc, zss), fri_ld_ext(sums + 4 * h + 2 * t,
+                                                        sums + 4 * h + 2 * t + 1, 0));
+      k8_put<LOGS>(y, t, tid, acc);
+    }
+  });
+  blk.sync();
+  // the later segments' sums sit at the first min(nseg - 1 - g, S) threads
+  const long long later = nseg - 1 - g < S ? nseg - 1 - g : S;
+  int levels = 0;
+  while ((1LL << levels) < later) levels++;
+  k8_tree<LOGS>(blk, y, zt + 2 * LOGS, K8_ZTAB, levels);   // multipliers z_t^(S 2^k)
+  blk.each([&](int tid) {
+    if (tid == S - 1)
+      for (int t = 0; t < 2; t++) k8_put<LOGS>(buf[0], t, tid, k8_get<LOGS>(y, t, 0));
+  });
+  blk.sync();
+  int src = 0;
+  for (int k = 0; k < LOGS; k++) {
+    const int d = 1 << k;
+    blk.each([&](int tid) {
+      for (int t = 0; t < 2; t++) {
+        FriExt v = k8_get<LOGS>(buf[src], t, tid);
+        if (tid + d < S) {
+          const FriExt z = {zt[(t * K8_ZTAB + k) * 2], zt[(t * K8_ZTAB + k) * 2 + 1]};
+          v = fri_eadd(v, fri_emul(z, k8_get<LOGS>(buf[src], t, tid + d)));
+        }
+        k8_put<LOGS>(buf[1 - src], t, tid, v);
+      }
+    });
+    blk.sync();
+    src ^= 1;
+  }
+  const FriExt s = fri_point(c.pts, c.batch, 2, b);
+  blk.each([&](int tid) {
+    const long long i = g * S + tid;
+    if (i < c.n) {
+      FriExt q[2];
+      for (int t = 0; t < 2; t++) {   // z_t = 0: q_t = 0, as 1/0 = 0 gives in the E_t form
+        const FriExt z = fri_point(c.pts, c.batch, t, b);
+        q[t] = gl_canon(z.a) | gl_canon(z.b) ? k8_get<LOGS>(buf[src], t, tid) : FriExt{0, 0};
+      }
+      fri_st_ext(c.f[0], c.f[1], b * c.n + i, fri_eadd(q[1], fri_emul(s, q[0])));
+    }
+  });
 }
 
 GL_HD int k8_scan_valid(const K8ScanCall& c) {
-  return c.n >= 1 && c.batch >= 1 && c.batch <= 65535 ? 0 : 1;
+  return c.n >= 1 && c.batch >= 1 && c.batch <= 65535 && c.scratch ? 0 : 1;
 }
 
 // --- K9: the fold ------------------------------------------------------------
@@ -384,17 +519,17 @@ struct K9Call {
 
 // Output coefficient k of proof b.
 GL_HD void k9_point(const K9Call& c, int b, long long k) {
-  const int arity = 1 << c.arity_bits;
+  const long long arity = 1LL << c.arity_bits;
   const long long o = b * c.c_bs + k * arity;
   const FriExt beta = {fri_ld(c.beta[0] + b), fri_ld(c.beta[1] + b)};
   FriExt acc = fri_ld_ext(c.c[0], c.c[1], o + arity - 1);
-  for (int j = arity - 2; j >= 0; j--)
+  for (long long j = arity - 2; j >= 0; j--)
     acc = fri_eadd(fri_emul(acc, beta), fri_ld_ext(c.c[0], c.c[1], o + j));
   fri_st_ext(c.out[0], c.out[1], b * c.m + k, acc);
 }
 
 GL_HD int k9_valid(const K9Call& c) {
-  return c.arity_bits >= 1 && c.arity_bits <= 4 && c.m >= 1 && c.batch >= 1 &&
+  return c.arity_bits >= 1 && c.arity_bits <= K9_MAX_BITS && c.m >= 1 && c.batch >= 1 &&
                  c.batch <= 65535
              ? 0
              : 1;

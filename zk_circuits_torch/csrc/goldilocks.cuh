@@ -185,3 +185,53 @@ GL_HD uint64_t gl_sub_lazy(uint64_t a, uint64_t b) {
   d = gl_sub_mask(d, m, &m);
   return d - m;
 }
+
+// A sum of 64x64-bit products kept unreduced: 160 bits in five 32-bit
+// words, w[0] the lowest.  gl_acc_mac adds a product in 13 multiply-adds
+// and carries (gl_mul_m and then gl_add_lazy take about twice as many
+// instructions); gl_acc_value reduces the sum once.  Exact for fewer than
+// 2^32 products.
+struct GlAcc {
+  uint32_t w[5];
+};
+
+GL_HD GlAcc gl_acc_zero() { return {{0, 0, 0, 0, 0}}; }
+
+// acc += a b for any u64 a, b.
+GL_HD void gl_acc_mac(GlAcc& acc, uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+  // the even partial products a0 b0 and a1 b1 in one carry chain, then a0
+  // b1 and a1 b0 from word 1 up
+  asm("mad.lo.cc.u32 %0, %5, %7, %0;\n\t"
+      "madc.hi.cc.u32 %1, %5, %7, %1;\n\t"
+      "madc.lo.cc.u32 %2, %6, %8, %2;\n\t"
+      "madc.hi.cc.u32 %3, %6, %8, %3;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      "mad.lo.cc.u32 %1, %5, %8, %1;\n\t"
+      "madc.hi.cc.u32 %2, %5, %8, %2;\n\t"
+      "addc.cc.u32 %3, %3, 0;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      "mad.lo.cc.u32 %1, %6, %7, %1;\n\t"
+      "madc.hi.cc.u32 %2, %6, %7, %2;\n\t"
+      "addc.cc.u32 %3, %3, 0;\n\t"
+      "addc.u32 %4, %4, 0;"
+      : "+r"(acc.w[0]), "+r"(acc.w[1]), "+r"(acc.w[2]), "+r"(acc.w[3]), "+r"(acc.w[4])
+      : "r"((uint32_t)a), "r"((uint32_t)(a >> 32)), "r"((uint32_t)b), "r"((uint32_t)(b >> 32)));
+#else
+  const unsigned __int128 p = (unsigned __int128)a * b;
+  const unsigned __int128 cur =
+      ((unsigned __int128)(((uint64_t)acc.w[3] << 32) | acc.w[2]) << 64) |
+      (((uint64_t)acc.w[1] << 32) | acc.w[0]);
+  const unsigned __int128 s = cur + p;
+  acc.w[4] += s < cur;
+  for (int k = 0; k < 4; k++) acc.w[k] = (uint32_t)(s >> (32 * k));
+#endif
+}
+
+// The sum mod p, any u64 out: 2^128 = -2^32 (mod p), so w[4] 2^128 comes
+// off the reduced low 128 bits as w[4] 2^32.
+GL_HD uint64_t gl_acc_value(const GlAcc& acc) {
+  const uint64_t lo = ((uint64_t)acc.w[1] << 32) | acc.w[0];
+  const uint64_t hi = ((uint64_t)acc.w[3] << 32) | acc.w[2];
+  return gl_sub_lazy(gl_reduce128_m(lo, hi), (uint64_t)acc.w[4] << 32);
+}

@@ -36,20 +36,48 @@ GL_HD void perm_bk_table(const uint64_t* kis, long long routed, const uint64_t* 
 
 // Chunk [lo, hi) at point x, every challenge: num[c] and den[c] (in [0,
 // 2^64)).  w_j = w[j w_rs] and s_j = s[j s_rs]; bk: perm_bk_table's; be,
-// ga: the point's proof's beta_c and gamma_c.  A chunk's first factor
-// starts its products.
+// ga: the point's proof's beta_c and gamma_c.  The factors are taken two
+// at a time, their product first, so each running product's chain is half
+// the chunk long (the same products, in another order).
+template <int NC>
+GL_HD void perm_factors(const uint64_t* w, long long w_rs, const uint64_t* s, long long s_rs,
+                        long long j, uint64_t x, const uint64_t* bk, const uint64_t* be,
+                        const uint64_t* ga, uint64_t* nj, uint64_t* dj) {
+  const uint64_t wj = gl_ld(w + j * w_rs), sj = gl_ld(s + j * s_rs);
+#pragma unroll
+  for (int ch = 0; ch < NC; ch++) {
+    const uint64_t u = gl_add_lazy(wj, ga[ch]);   // shared by the two factors
+    nj[ch] = gl_add_lazy(u, gl_mul_m(bk[ch * PERM_MAX_ROUTED + j], x));
+    dj[ch] = gl_add_lazy(u, gl_mul_m(be[ch], sj));
+  }
+}
+
 template <int NC>
 GL_HD void perm_chunk(const uint64_t* w, long long w_rs, const uint64_t* s, long long s_rs,
                       long long lo, long long hi, uint64_t x, const uint64_t* bk,
                       const uint64_t* be, const uint64_t* ga, uint64_t* num, uint64_t* den) {
-  for (long long j = lo; j < hi; j++) {
-    const uint64_t wj = gl_ld(w + j * w_rs), sj = gl_ld(s + j * s_rs);
+  long long j = lo;
+  if ((hi - lo) & 1) {
+    perm_factors<NC>(w, w_rs, s, s_rs, j++, x, bk, be, ga, num, den);
+  } else {
+    uint64_t n1[NC], d1[NC];
+    perm_factors<NC>(w, w_rs, s, s_rs, j, x, bk, be, ga, num, den);
+    perm_factors<NC>(w, w_rs, s, s_rs, j + 1, x, bk, be, ga, n1, d1);
 #pragma unroll
     for (int ch = 0; ch < NC; ch++) {
-      const uint64_t nj = gl_add_lazy(wj, gl_add_lazy(gl_mul_m(bk[ch * PERM_MAX_ROUTED + j], x), ga[ch]));
-      const uint64_t dj = gl_add_lazy(wj, gl_add_lazy(gl_mul_m(be[ch], sj), ga[ch]));
-      num[ch] = j == lo ? nj : gl_mul_m(num[ch], nj);
-      den[ch] = j == lo ? dj : gl_mul_m(den[ch], dj);
+      num[ch] = gl_mul_m(num[ch], n1[ch]);
+      den[ch] = gl_mul_m(den[ch], d1[ch]);
+    }
+    j += 2;
+  }
+  for (; j < hi; j += 2) {
+    uint64_t n0[NC], d0[NC], n1[NC], d1[NC];
+    perm_factors<NC>(w, w_rs, s, s_rs, j, x, bk, be, ga, n0, d0);
+    perm_factors<NC>(w, w_rs, s, s_rs, j + 1, x, bk, be, ga, n1, d1);
+#pragma unroll
+    for (int ch = 0; ch < NC; ch++) {
+      num[ch] = gl_mul_m(num[ch], gl_mul_m(n0[ch], n1[ch]));
+      den[ch] = gl_mul_m(den[ch], gl_mul_m(d0[ch], d1[ch]));
     }
   }
 }

@@ -20,12 +20,16 @@
 // the exclusive prefix product in place, multiplies the partial-product
 // rows by it, and writes the closing product (the inclusive product at the
 // last point, 1 for a valid witness).  Output rows (B, nc (1 + pp), n):
-// Z_0 .. Z_{nc-1}, then challenge 0's pp rows, challenge 1's, ...
+// Z_0 .. Z_{nc-1}, then challenge 0's pp rows, challenge 1's, ...  A call
+// takes at most K6_MAX_CH challenges; a circuit of more is launched once a
+// group, its pointers at the group's first challenge (Z row c of the call,
+// its partial products at rows pp_row + c pp, its closing products
+// fin_bs apart a proof; plonk/permutation_cuda.py).
 #pragma once
 
 #include "perm_chunk.cuh"
 
-#define K6_MAX_CH 4
+#define K6_MAX_CH 4          // challenges a launch (the point kernel's products in registers)
 #define K6_SEG 8             // consecutive points a scan thread owns
 
 struct K6Call {
@@ -37,9 +41,10 @@ struct K6Call {
   const uint64_t* kis;                    // (routed,) coset shifts
   const uint64_t* betas;                  // (nc, batch) each
   const uint64_t* gammas;
-  uint64_t* out;                          // (batch, nc (1 + pp), n), rows n apart
-  long long out_ps;
-  uint64_t* finals;                      // (batch, nc)
+  uint64_t* out;                          // (batch, rows, n), rows n apart
+  long long out_ps, pp_row;
+  uint64_t* finals;                       // (batch, fin_bs)
+  long long fin_bs;
   long long n;
   int routed, q, nc, batch;
 };
@@ -88,7 +93,7 @@ GL_HD void k6_point(const K6Call& c, int b, long long i, const uint64_t* bk) {
 #pragma unroll
     for (int ch = 0; ch < NC; ch++) {
       run[ch] = gl_mul_m(run[ch], gl_mul_m(num[ch], k6_inverse(den[ch])));
-      if (t < pp) out[(NC + ch * pp + t) * c.n] = gl_canon(run[ch]);
+      if (t < pp) out[(c.pp_row + ch * pp + t) * c.n] = gl_canon(run[ch]);
     }
   }
 #pragma unroll
@@ -125,7 +130,7 @@ GL_HD void k6_seg_finish(const K6Call& c, int b, int ch, long long base, int tid
                          uint64_t excl) {
   const int pp = k6_chunks(c) - 1;
   uint64_t* z = c.out + b * c.out_ps + ch * c.n;
-  uint64_t* rows = c.out + b * c.out_ps + (c.nc + ch * pp) * c.n;
+  uint64_t* rows = c.out + b * c.out_ps + (c.pp_row + ch * pp) * c.n;
   const long long first = base + (long long)tid * K6_SEG;
   for (long long i = first + K6_SEG - 1; i >= first; i--) {
     if (i >= c.n) continue;
@@ -160,13 +165,14 @@ GL_HD void k6_scan_block(Blk& blk, const K6Call& c, int b, int ch, uint64_t* buf
     blk.sync();
   }
   blk.each([&](int tid) {
-    if (tid == 0) c.finals[b * c.nc + ch] = gl_canon(carry);
+    if (tid == 0) c.finals[b * c.fin_bs + ch] = gl_canon(carry);
   });
 }
 
 // What the kernels refuse: 0 or 1 (cudaErrorInvalidValue).
 GL_HD int k6_valid(const K6Call& c) {
-  return c.nc >= 1 && c.nc <= K6_MAX_CH && c.n >= 1 && c.batch >= 1 && c.batch <= 65535 &&
+  return c.nc >= 1 && c.nc <= K6_MAX_CH && c.pp_row >= c.nc && c.fin_bs >= c.nc && c.n >= 1 &&
+                 c.batch >= 1 && c.batch <= 65535 &&
                  c.routed >= 1 && c.routed <= PERM_MAX_ROUTED && c.q >= 1
              ? 0
              : 1;

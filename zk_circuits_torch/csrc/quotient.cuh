@@ -9,19 +9,36 @@
 //     the M gate constraint slots (plonk/vanishing.py:43) ]
 // times 1/Z_H(x).  Horner over N terms is sum_j t_j alpha^(N-1-j), linear
 // in the slots, so no slot array is kept: the L1 and chunk terms fold by
-// Horner and are scaled by alpha^M, and each gate folds its own K
-// constraints by Horner, is scaled by its selector filter and by
-// alpha^(M - K) (the slots after its last), and is added in.  Field
-// arithmetic is exact, so this order gives the integers of the plain
-// version.  Values stay in [0, 2^64) (gl_mul_m, gl_add_lazy, gl_sub_lazy)
-// until the output is made canonical.
+// Horner and are scaled by alpha^M, and each gate's constraints t_k are
+// summed as t_k alpha^(M-1-k) (the slot of its k-th constraint is k),
+// scaled by its selector filter and added in.  Field arithmetic is exact,
+// so this order gives the integers of the plain version.  Values stay in
+// [0, 2^64) (gl_mul_m, gl_add_lazy, gl_sub_lazy) until the output is made
+// canonical.
+//
+// What bounds K5 on the H100, and what the design does about it.  A
+// wormhole point is ~1.6k products and ~70k integer instructions in
+// dependent chains (the permutation argument's running products, the
+// Poseidon gate's S-boxes and rounds, the fold), and the card holds 16
+// warps an SM at 128 registers: latency more than throughput.  Taking parts
+// away on the card (scripts/k5_variants.py) shows the permutation
+// argument ~30% of the time, the S-boxes ~20%, the fold ~7% and the MDS
+// layers ~2%.  So the design shortens chains and frees registers: each
+// gate's constraints go into an unreduced sum of products with alpha's
+// powers (gl_acc_mac: 13 instructions where Horner's product and add took
+// ~30, and no chain through a reduction), a chunk's factors are
+// multiplied in pairs (perm_chunk.cuh), w + gamma is shared by the two
+// factors of a wire, and a block of 256 threads is held to 128 registers
+// (uncapped the compiler took 159-182 and one block an SM; at 128 threads
+// the NC = 2 kernel spilled).
 //
 // The circuit blob (int64, built by plonk/quotient_cuda.py, once a
 // circuit and device): a header of K5_HEAD fields, the routed wires' coset
 // shifts k_j, then one record of K5_GATE_FIELDS a gate type: its kind and
 // parameters, its selector column, its filter constants (the other gates
 // of its selector group, and the unused-selector index when there are
-// several groups: the filter is the product of (f - s)) and M - K.
+// several groups: the filter is the product of (f - s)) and M - K (its
+// last constraint's power of alpha).
 #pragma once
 
 #include "goldilocks.cuh"
@@ -35,7 +52,7 @@
 #define K5_MEMBER inline
 #endif
 
-#define K5_MAX_CH 4          // challenges: a kernel each (the fold's accumulators in registers)
+#define K5_MAX_CH 4          // challenges a launch (the fold's accumulators in registers)
 #define K5_MAX_POW 256       // powers of alpha a block keeps: M up to 255 slots
 #define K5_MAX_FILT 8        // filter constants a gate
 #define K5_RA_MAX_BITS 16    // a random-access gate's index bits
@@ -69,23 +86,27 @@
 #define K5_G_P1 2
 #define K5_G_SEL 3
 #define K5_G_NFILT 4
-#define K5_G_SHIFT 5         // M - K: the power of alpha the gate's fold takes
+#define K5_G_SHIFT 5         // M - K: the power of alpha of the gate's last constraint
 #define K5_G_FILT 6          // K5_MAX_FILT constants
 
 // One call: the values of `points` coset points (rows row0 .. row0 +
-// points of the coset tables) for `batch` proofs.  Every matrix is
-// column-major, a row of points (stride 1), rows *_rs apart and proofs
-// *_ps apart.  zs at g x for point i is znext[b zn_ps + c zn_rs + (i +
-// zn_shift) mod zn_len]: the zs rows themselves shifted by 2^rate_bits
-// with wrap-around on one card, a shard's rows and its halo on a mesh.
+// points of the coset tables) for `batch` proofs and `nc` challenges.
+// Every matrix is column-major, a row of points (stride 1), rows *_rs
+// apart and proofs *_ps apart.  zs at g x for point i is znext[b zn_ps + c
+// zn_rs + (i + zn_shift) mod zn_len]: the zs rows themselves shifted by
+// 2^rate_bits with wrap-around on one card, a shard's rows and its halo on
+// a mesh.  Challenge c's zs row is zsp's row c and its partial products
+// rows pp_row + c pp ..: a circuit of more than K5_MAX_CH challenges is
+// launched once a group of at most K5_MAX_CH, the pointers at the group's
+// first challenge's rows (plonk/quotient_cuda.py).
 struct K5Call {
   const int64_t* circuit;                 // the circuit blob
   const uint64_t* cs;                     // selectors, constants, sigmas
   long long cs_rs;
   const uint64_t* wires;                  // (batch, wires, points)
   long long w_rs, w_ps;
-  const uint64_t* zsp;                    // (batch, nc (1 + pp), points): zs, partial products
-  long long z_rs, z_ps;
+  const uint64_t* zsp;                    // (batch, rows, points): zs, partial products
+  long long z_rs, z_ps, pp_row;
   const uint64_t* znext;                  // zs at g x
   long long zn_rs, zn_ps, zn_shift, zn_len;
   const uint64_t* x;                      // the coset tables, read at row0 + i
@@ -113,20 +134,27 @@ GL_HD uint64_t k5_pow(uint64_t a, long long e) {
   return r;
 }
 
-// The block's tables for proof b, thread tid of nthr: alpha_c^e for e <= M
-// (apow[c K5_MAX_POW + e]) and beta_c k_j (bk[c PERM_MAX_ROUTED + j]).
+// Proof b's alpha_c^e for e <= M (apow[c K5_MAX_POW + e]), thread tid of
+// nthr.
 template <int NC>
-GL_HD void k5_tables(const K5Call& c, int b, uint64_t* apow, uint64_t* bk, int tid,
-                     int nthr) {
+GL_HD void k5_alpha_table(const K5Call& c, int b, uint64_t* apow, int tid, int nthr) {
   const long long m = k5_field(c.circuit + K5_H_SLOTS);
-  const long long r = k5_field(c.circuit + K5_H_ROUTED);
   for (long long e = tid; e <= m; e += nthr) {
 #pragma unroll
     for (int ch = 0; ch < NC; ch++)
       apow[ch * K5_MAX_POW + e] = k5_pow(gl_ld(c.alphas + ch * c.batch + b), e);
   }
-  perm_bk_table<NC>((const uint64_t*)(c.circuit + K5_HEAD), r, c.betas, c.batch, b, bk, tid,
-                    nthr);
+}
+
+// Proof b's tables for the first launch, thread tid of nthr: beta_c k_j
+// (bk[c PERM_MAX_ROUTED + j]) and alpha_c^M (am[c]).
+template <int NC>
+GL_HD void k5_perm_tables(const K5Call& c, int b, uint64_t* am, uint64_t* bk, int tid,
+                          int nthr) {
+  const long long m = k5_field(c.circuit + K5_H_SLOTS);
+  for (int ch = tid; ch < NC; ch += nthr) am[ch] = k5_pow(gl_ld(c.alphas + ch * c.batch + b), m);
+  perm_bk_table<NC>((const uint64_t*)(c.circuit + K5_HEAD), k5_field(c.circuit + K5_H_ROUTED),
+                    c.betas, c.batch, b, bk, tid, nthr);
 }
 
 // Point i of proof b: its inputs.
@@ -146,15 +174,21 @@ struct K5Point {
   K5_MEMBER uint64_t pi(int k) const { return gl_ld(c.pi_hash + 4LL * b + k); }
 };
 
-// A gate's constraints folded by Horner, one accumulator a challenge.
+// A gate's constraints t_k, every challenge: sum_k t_k alpha_c^(M - 1 - k),
+// each product added to an unreduced sum (gl_acc_mac) from the block's
+// table of powers (apow: k5_alpha_table's), reduced once a gate.  (Horner's fold
+// by alpha, t_k alpha^(K-1-k) scaled by alpha^(M-K), gives the same field
+// elements at a reduced product and an add a constraint.)
 template <int NC>
 struct K5Fold {
-  uint64_t g[NC];
-  uint64_t al[NC];
+  GlAcc g[NC];
+  const uint64_t* apow;
+  int e;   // the power of alpha of the next constraint
 
   K5_MEMBER void put(uint64_t t) {
 #pragma unroll
-    for (int ch = 0; ch < NC; ch++) g[ch] = gl_add_lazy(gl_mul_m(g[ch], al[ch]), t);
+    for (int ch = 0; ch < NC; ch++) gl_acc_mac(g[ch], t, apow[ch * K5_MAX_POW + e]);
+    e--;
   }
 };
 
@@ -242,7 +276,9 @@ GL_HD void k5_random_access(const K5Point& p, long long bits, long long copies,
 
 // The width-12 Poseidon permutation in one row, in the naive partial-round
 // form (wire layout: iop/gates.py PoseidonGate).  rc: the 360 round
-// constants, round-major.
+// constants, round-major.  (The fast partial rounds of
+// compat/poseidon_fast.py, a dense layer and then a sparse one a round with
+// multiply-add sums, took as long on the H100: scripts/k5_variants.py.)
 template <int NC>
 GL_HD void k5_poseidon(const K5Point& p, const uint64_t* rc, K5Fold<NC>& f) {
   constexpr int W = POSEIDON_WIDTH, H = POSEIDON_HALF_FULL, R = POSEIDON_PARTIAL;
@@ -295,17 +331,17 @@ GL_HD void k5_poseidon(const K5Point& p, const uint64_t* rc, K5Fold<NC>& f) {
   for (int k = 0; k < W; k++) f.put(gl_sub_lazy(s[k], p.wire(12 + k)));
 }
 
-// The value of point i of proof b, every challenge, into c.out.  apow and
-// bk: k5_tables' for proof b; rc: the round constants.
+// K5's first launch at point i of proof b: the L1 term and the permutation
+// argument's chunk terms of every challenge, Horner's fold by alpha_c,
+// times alpha_c^M, into c.out (any u64 congruent to it).  bk: proof b's
+// perm_bk_table; am: its alpha_c^M.
 template <int NC>
-GL_HD void k5_point(const K5Call& c, int b, long long i, const uint64_t* apow,
-                    const uint64_t* bk, const uint64_t* rc) {
+GL_HD void k5_perm_point(const K5Call& c, int b, long long i, const uint64_t* am,
+                         const uint64_t* bk) {
   const int64_t* h = c.circuit;
-  const long long sel = k5_field(h + K5_H_SELECTORS), cst = sel;
-  const long long sig = sel + k5_field(h + K5_H_CONSTANTS);
+  const long long sig = k5_field(h + K5_H_SELECTORS) + k5_field(h + K5_H_CONSTANTS);
   const long long routed = k5_field(h + K5_H_ROUTED), q = k5_field(h + K5_H_Q);
   const long long chunks = k5_field(h + K5_H_CHUNKS), pp = k5_field(h + K5_H_PP);
-  const long long m = k5_field(h + K5_H_SLOTS), gates = k5_field(h + K5_H_GATES);
   const K5Point p{c, b, i};
   const uint64_t x = gl_ld(c.x + c.row0 + i), l1 = gl_ld(c.l1 + c.row0 + i);
   uint64_t al[NC], be[NC], ga[NC], acc[NC], prev[NC], num[NC], den[NC];
@@ -317,22 +353,37 @@ GL_HD void k5_point(const K5Call& c, int b, long long i, const uint64_t* apow,
     prev[ch] = p.zsp(ch);
     acc[ch] = gl_mul_m(l1, gl_sub_lazy(prev[ch], 1));
   }
-  // the permutation argument: a term a chunk of q routed wires
+  // a term a chunk of q routed wires
   for (long long t = 0; t < chunks; t++) {
     const long long lo = t * q, hi = lo + q < routed ? lo + q : routed;
     perm_chunk<NC>(c.wires + b * c.w_ps + i, c.w_rs, c.cs + sig * c.cs_rs + i, c.cs_rs, lo, hi,
                    x, bk, be, ga, num, den);
 #pragma unroll
     for (int ch = 0; ch < NC; ch++) {
-      const uint64_t cur = t < pp ? p.zsp(NC + ch * pp + t) : p.znext(ch);
+      const uint64_t cur = t < pp ? p.zsp(c.pp_row + ch * pp + t) : p.znext(ch);
       const uint64_t term = gl_sub_lazy(gl_mul_m(cur, den[ch]), gl_mul_m(prev[ch], num[ch]));
       acc[ch] = gl_add_lazy(gl_mul_m(acc[ch], al[ch]), term);
       prev[ch] = cur;
     }
   }
 #pragma unroll
-  for (int ch = 0; ch < NC; ch++) acc[ch] = gl_mul_m(acc[ch], apow[ch * K5_MAX_POW + m]);
-  // the gates
+  for (int ch = 0; ch < NC; ch++)
+    c.out[(ch * (long long)c.batch + b) * c.points + i] = gl_mul_m(acc[ch], am[ch]);
+}
+
+// K5's second launch at point i of proof b: every gate type's constraints
+// added to the first launch's value in c.out, times 1/Z_H(x), canonical.
+// apow: proof b's k5_alpha_table; rc: the round constants.
+template <int NC>
+GL_HD void k5_gate_point(const K5Call& c, int b, long long i, const uint64_t* apow,
+                         const uint64_t* rc) {
+  const int64_t* h = c.circuit;
+  const long long cst = k5_field(h + K5_H_SELECTORS), routed = k5_field(h + K5_H_ROUTED);
+  const long long m = k5_field(h + K5_H_SLOTS), gates = k5_field(h + K5_H_GATES);
+  const K5Point p{c, b, i};
+  uint64_t acc[NC];
+#pragma unroll
+  for (int ch = 0; ch < NC; ch++) acc[ch] = c.out[(ch * (long long)c.batch + b) * c.points + i];
   for (long long gi = 0; gi < gates; gi++) {
     const int64_t* g = h + K5_HEAD + routed + gi * K5_GATE_FIELDS;
     const long long kind = k5_field(g + K5_G_KIND);
@@ -340,10 +391,9 @@ GL_HD void k5_point(const K5Call& c, int b, long long i, const uint64_t* apow,
     const long long p0 = k5_field(g + K5_G_P0), p1 = k5_field(g + K5_G_P1);
     K5Fold<NC> f;
 #pragma unroll
-    for (int ch = 0; ch < NC; ch++) {
-      f.g[ch] = 0;
-      f.al[ch] = al[ch];
-    }
+    for (int ch = 0; ch < NC; ch++) f.g[ch] = gl_acc_zero();
+    f.apow = apow;
+    f.e = (int)m - 1;
     switch (kind) {
       case K5_CONSTANT: k5_constant<NC>(p, cst, p0, f); break;
       case K5_PUBLIC_INPUT: k5_public_input<NC>(p, f); break;
@@ -353,17 +403,19 @@ GL_HD void k5_point(const K5Call& c, int b, long long i, const uint64_t* apow,
       case K5_RANDOM_ACCESS: k5_random_access<NC>(p, p0, p1, f); break;
       default: k5_poseidon<NC>(p, rc, f); break;
     }
-    const long long nf = k5_field(g + K5_G_NFILT), shift = k5_field(g + K5_G_SHIFT);
-    uint64_t filt = 1;
+    const long long nf = k5_field(g + K5_G_NFILT);
     if (nf) {
       const uint64_t s = p.cs(k5_field(g + K5_G_SEL));
-      filt = gl_sub_lazy((uint64_t)k5_field(g + K5_G_FILT), s);
+      uint64_t filt = gl_sub_lazy((uint64_t)k5_field(g + K5_G_FILT), s);
       for (long long k = 1; k < nf; k++)
         filt = gl_mul_m(filt, gl_sub_lazy((uint64_t)k5_field(g + K5_G_FILT + k), s));
-    }
 #pragma unroll
-    for (int ch = 0; ch < NC; ch++)
-      acc[ch] = gl_add_lazy(acc[ch], gl_mul_m(f.g[ch], gl_mul_m(filt, apow[ch * K5_MAX_POW + shift])));
+      for (int ch = 0; ch < NC; ch++)
+        acc[ch] = gl_add_lazy(acc[ch], gl_mul_m(gl_acc_value(f.g[ch]), filt));
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < NC; ch++) acc[ch] = gl_add_lazy(acc[ch], gl_acc_value(f.g[ch]));
+    }
   }
   const uint64_t zi = gl_ld(c.zh_inv + c.row0 + i);
 #pragma unroll
@@ -373,7 +425,7 @@ GL_HD void k5_point(const K5Call& c, int b, long long i, const uint64_t* apow,
 
 // What the kernel refuses: 0 or a CUDA error code (cudaErrorInvalidValue).
 GL_HD int k5_valid(const K5Call& c) {
-  return c.nc >= 1 && c.nc <= K5_MAX_CH && c.points >= 1 && c.batch >= 1 &&
+  return c.nc >= 1 && c.nc <= K5_MAX_CH && c.pp_row >= c.nc && c.points >= 1 && c.batch >= 1 &&
                  c.batch <= 65535 && c.zn_len >= 1 && c.zn_shift >= 0 &&
                  c.zn_shift < c.zn_len
              ? 0

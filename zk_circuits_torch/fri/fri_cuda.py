@@ -9,15 +9,15 @@ _fold_dev`` in ``:255`` and ``:289``); none is a Pallas kernel.
   its table's point (zeta or g zeta) of its proof;
 - ``reduce_alpha`` (K8's point kernel, one launch): each table's rows
   summed with their powers of alpha, computed on the card;
-- ``compose`` (K8's scan, one launch): both divisions by a linear factor
+- ``compose`` (K8's scan, two launches): both divisions by a linear factor
   and their sum with alpha^num_zs, the FRI polynomial padded with its zero;
 
-K7 and K8 compute the powers of zeta, g zeta, their inverses and alpha on
-the card from the points (a table of T points a proof, (T, 2, B)), where
-the JAX program uploads host-computed tables: the integers are the same,
-and the host's numpy tables were most of the stages' time once the
-arithmetic left eager torch;
-- ``fold`` (K9, one launch a fold round).
+K7 and K8 compute the powers of zeta, g zeta and alpha on the card from
+the points (a table of T points a proof, (T, 2, B); K8's scan, in
+Horner's form, needs no inverse), where the JAX program uploads
+host-computed tables: the integers are the same, and the host's numpy
+tables were most of the stages' time once the arithmetic left eager torch;
+- ``fold`` (K9, one launch a fold round, at any arity).
 
 A set is ``(tensor, table)`` or ``(tensor, table, exp)``: a (k, n) tensor
 shared by the batch (the circuit's constants/sigmas oracle, read once for
@@ -47,6 +47,8 @@ HEADERS = ("goldilocks.cuh", "fri.cuh")
 MAX_SETS = 8          # csrc/fri.cuh FRI_MAX_SETS
 MAX_POW = 1024        # csrc/fri.cuh K8_MAX_POW
 MAX_BATCH = 65535     # the grid's y extent
+MAX_ARITY_BITS = 62   # csrc/fri.cuh K9_MAX_BITS
+SCAN_LAUNCHES = 2     # K8's scan: its segment sums, then the rest (csrc/fri.cu k8_scan)
 KERNELS = ("k7", "k8", "k9")
 
 launches = 0
@@ -86,7 +88,8 @@ class _K8Call(ctypes.Structure):
 
 class _K8ScanCall(ctypes.Structure):
     _fields_ = [("comp", ctypes.c_void_p * 4), ("pts", ctypes.c_void_p),
-                ("f", ctypes.c_void_p * 2), ("n", ctypes.c_longlong), ("batch", ctypes.c_int)]
+                ("f", ctypes.c_void_p * 2), ("scratch", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("batch", ctypes.c_int)]
 
 
 class _K9Call(ctypes.Structure):
@@ -108,12 +111,12 @@ def reset_launches() -> None:
         launches_by_device.clear()
 
 
-def _count(kernel: str, device) -> None:
+def _count(kernel: str, device, k: int) -> None:
     global launches
     with _LOCK:
-        launches += 1
-        launches_by_kernel[kernel] += 1
-        launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + 1
+        launches += k
+        launches_by_kernel[kernel] += k
+        launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + k
 
 
 def build():
@@ -131,6 +134,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     the tests a host build of it) and check the call mirrors' sizes."""
     lib.fri_call_size.argtypes = [ctypes.c_int]
     lib.fri_call_size.restype = ctypes.c_int
+    lib.k8_scan_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.k8_scan_scratch.restype = ctypes.c_longlong
     for kind, (name, mirror) in enumerate(CALLS):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -149,19 +154,17 @@ def _lib():
     return _LIB
 
 
-def _launch(kernel: str, name: str, call, dev: torch.device, lib, what: str) -> None:
-    """One launch of ``name`` on ``call``: the built library on a CUDA
-    device (counted), else ``lib``, a host build of the C interface."""
-    if dev.type == "cuda":
-        lib = _lib()
-        err = getattr(lib, name)(dev.index or 0, ctypes.byref(call),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        err = getattr(lib, name)(0, ctypes.byref(call), None)
+def _launch(kernel: str, name: str, call, dev: torch.device, lib, what: str,
+            count: int = 1) -> None:
+    """``name`` on ``call``, ``count`` launches: the built library on a
+    CUDA device (counted), else ``lib``, a host build of the C interface."""
+    lib = _lib() if dev.type == "cuda" else lib
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    err = getattr(lib, name)(dev.index or 0, ctypes.byref(call), stream)
     if err != 0:
         raise RuntimeError(f"{name} ({what}) failed: CUDA error {err}")
     if dev.type == "cuda":
-        _count(kernel, dev)
+        _count(kernel, dev, count)
 
 
 def _device(tensors: list, lib, kernel: str, plain: str) -> torch.device:
@@ -267,12 +270,12 @@ def reduce_alpha(sets: list, alpha: torch.Tensor, *, lib=None) -> list:
 
 
 def compose(comp0: tuple, comp1: tuple, pts: torch.Tensor, *, lib=None) -> tuple:
-    """K8's scan: the FRI polynomial f (B, n) as a component pair from the
-    alpha-reduced comp0 (at zeta) and comp1 (at g zeta), each a (B, n)
-    pair, and ``pts`` (3, 2, B): each proof's zeta, g zeta and s =
-    alpha^num_zs: f[i] = q1[i] + s q0[i] for i < n - 1 and f[n - 1] = 0,
-    where q[i] = z^-(i+1) sum_{j > i} comp[j] z^j; the powers and the
-    inverses are computed on the card."""
+    """K8's scan (two launches): the FRI polynomial f (B, n) as a component
+    pair from the alpha-reduced comp0 (at zeta) and comp1 (at g zeta), each
+    a (B, n) pair, and ``pts`` (3, 2, B): each proof's zeta, g zeta and s
+    = alpha^num_zs: f[i] = q1[i] + s q0[i] for i < n - 1 and f[n - 1] =
+    0, where q[i] = sum_{j > i} comp[j] z^(j - i - 1) (= z^-(i+1) sum_{j >
+    i} comp[j] z^j); the powers are computed on the card."""
     batch, n = comp0[0].shape
     ins = _pairs("compose", [comp0, comp1], (batch, n))
     pts, pb = _points(pts, (3,))
@@ -280,25 +283,29 @@ def compose(comp0: tuple, comp1: tuple, pts: torch.Tensor, *, lib=None) -> tuple
     if pb != batch:
         raise ValueError(f"{pb} points' proofs for {batch}")
     f = torch.empty((2, batch, n), dtype=torch.int64, device=dev)
+    scratch = torch.empty(((_lib() if dev.type == "cuda" else lib).k8_scan_scratch(n, batch),),
+                          dtype=torch.int64, device=dev)
     call = _K8ScanCall(comp=(ctypes.c_void_p * 4)(*(t.data_ptr() for t in ins)),
                        pts=pts.data_ptr(),
                        f=(ctypes.c_void_p * 2)(f[0].data_ptr(), f[1].data_ptr()),
-                       n=n, batch=batch)
-    _launch("k8", "k8_scan", call, dev, lib, f"B={batch}, n={n}")
+                       scratch=scratch.data_ptr(), n=n, batch=batch)
+    _launch("k8", "k8_scan", call, dev, lib, f"B={batch}, n={n}", count=SCAN_LAUNCHES)
     return f[0], f[1]
 
 
 def fold(c0: torch.Tensor, c1: torch.Tensor, b0: torch.Tensor, b1: torch.Tensor,
          arity_bits: int, *, lib=None) -> tuple:
-    """K9: new_c[m] = sum_j beta^j c[A m + j] (A = 2^arity_bits, 1-4 bits)
-    for c (..., N) as a component pair with one beta (...) a leading index
-    (``b0``, ``b1``); returns (..., N / A)."""
+    """K9: new_c[m] = sum_j beta^j c[A m + j] (A = 2^arity_bits, any
+    arity_bits >= 1 with A dividing N) for c (..., N) as a component pair
+    with one beta (...) a leading index (``b0``, ``b1``); returns (..., N /
+    A)."""
     *lead, size = c0.shape
-    arity = 1 << arity_bits
-    if not 1 <= arity_bits <= 4 or size % arity or len(lead) > 1 or c1.shape != c0.shape:
+    if not 1 <= arity_bits <= MAX_ARITY_BITS or size % (1 << arity_bits) or len(lead) > 1 \
+            or c1.shape != c0.shape:
         raise ValueError(f"K9 folds (N,) or (B, N) pairs with N a multiple of the arity "
-                         f"(1-4 bits); got {tuple(c0.shape)}, {tuple(c1.shape)} at "
+                         f"(arity bits >= 1); got {tuple(c0.shape)}, {tuple(c1.shape)} at "
                          f"{arity_bits} bits")
+    arity = 1 << arity_bits
     x0, x1 = (c.reshape(-1, size) for c in (c0, c1))
     batch = x0.shape[0]
     if x0.stride() != x1.stride() or (size > 1 and x0.stride(1) != 1):

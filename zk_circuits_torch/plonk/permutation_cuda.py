@@ -3,7 +3,8 @@
 Replaces the XLA program the JAX package jits for the Z and
 partial-product values (``plonk/prover.py:266 _zs_coeffs_body``, jitted at
 :349); it is no Pallas kernel.  ``products`` is two launches for a proof or
-a batch (a point kernel over H, then a scan block a proof and challenge):
+a batch (a point kernel over H, then a scan block a proof and challenge;
+two a group of at most ``MAX_CH`` challenges):
 the values (B, nc (1 + pp), n) that ``plonk/prover.py::_zs_coeffs_body``
 hands to the INTT on the card, and each challenge's closing product (B,
 nc).  The plain version is ``plonk/prover.py::_zs_values_plain``, which the
@@ -28,7 +29,7 @@ from ..field import goldilocks as gfd
 from ..utils.nvcc import build_library
 
 HEADERS = ("goldilocks.cuh", "perm_chunk.cuh", "permutation.cuh")
-MAX_CH = 4            # csrc/permutation.cuh K6_MAX_CH
+MAX_CH = 4            # csrc/permutation.cuh K6_MAX_CH: challenges a launch
 MAX_ROUTED = 256      # csrc/perm_chunk.cuh PERM_MAX_ROUTED
 MAX_BATCH = 65535     # the grid's y extent
 
@@ -47,8 +48,8 @@ class _Call(ctypes.Structure):
                 for name, kind in (
                     ("wv", "p"), ("wv_rs", "l"), ("wv_ps", "l"), ("sig", "p"),
                     ("sig_rs", "l"), ("x", "p"), ("kis", "p"), ("betas", "p"),
-                    ("gammas", "p"), ("out", "p"), ("out_ps", "l"), ("finals", "p"),
-                    ("n", "l"))] + [(name, ctypes.c_int)
+                    ("gammas", "p"), ("out", "p"), ("out_ps", "l"), ("pp_row", "l"),
+                    ("finals", "p"), ("fin_bs", "l"), ("n", "l"))] + [(name, ctypes.c_int)
                                     for name in ("routed", "q", "nc", "batch")]
 
 
@@ -110,9 +111,10 @@ def _k_is(common, device) -> torch.Tensor:
 
 def _prepare(common, wvals: torch.Tensor, sigmas: torch.Tensor, x: torch.Tensor,
             betas: torch.Tensor, gammas: torch.Tensor, *, lib=None) -> tuple:
-    """Checks ``products``' arguments and returns ``(call, out, finals)``:
-    the K6Call over them and its output tensors (B, nc (1 + pp), n) and
-    (B, nc), not yet written."""
+    """Checks ``products``' arguments and returns ``(calls, out, finals)``:
+    the K6Calls over them, one a group of at most MAX_CH challenges, and
+    their output tensors (B, nc (1 + pp), n) and (B, nc), not yet
+    written."""
     cfg = common.config
     nc, routed, q = cfg.num_challenges, cfg.num_routed_wires, common.quotient_degree_factor
     rows = nc * -(-routed // q)
@@ -120,9 +122,9 @@ def _prepare(common, wvals: torch.Tensor, sigmas: torch.Tensor, x: torch.Tensor,
     if lib is None and dev.type != "cuda":
         raise ValueError(f"K6 runs on CUDA tensors, got one on {dev} (the plain version is "
                          f"plonk/prover.py::_zs_values_plain)")
-    if not 1 <= nc <= MAX_CH or routed > MAX_ROUTED:
-        raise NotImplementedError(f"K6 takes 1-{MAX_CH} challenges and at most {MAX_ROUTED} "
-                                  f"routed wires; got {nc}, {routed}")
+    if nc < 1 or routed > MAX_ROUTED:
+        raise NotImplementedError(f"K6 takes challenges and at most {MAX_ROUTED} routed "
+                                  f"wires; got {nc}, {routed}")
     wv = wvals.unsqueeze(0) if wvals.dim() == 2 else wvals
     b, n = wv.shape[0], wv.shape[-1]
     if wv.dim() != 3 or wv.shape[1] < routed or wv.dtype != torch.int64 or \
@@ -142,19 +144,25 @@ def _prepare(common, wvals: torch.Tensor, sigmas: torch.Tensor, x: torch.Tensor,
         raise ValueError("K6's inputs must lie on one device")
     out = torch.empty((b, rows, n), dtype=torch.int64, device=dev)
     finals = torch.empty((b, nc), dtype=torch.int64, device=dev)
-    call = _Call(wv=wv.data_ptr(), wv_rs=wv.stride(1), wv_ps=wv.stride(0),
-                 sig=sigmas.data_ptr(), sig_rs=sigmas.stride(0), x=xs.data_ptr(),
-                 kis=kis.data_ptr(), betas=be.data_ptr(), gammas=ga.data_ptr(),
-                 out=out.data_ptr(), out_ps=rows * n, finals=finals.data_ptr(), n=n,
-                 routed=routed, q=q, nc=nc, batch=b)
-    # the tensors the call points into live as long as the call
-    call._keep = (wv, sigmas, xs, be, ga, kis)
-    return call, out, finals
+    pp = rows // nc - 1
+    calls = []
+    for c0 in range(0, nc, MAX_CH):
+        call = _Call(wv=wv.data_ptr(), wv_rs=wv.stride(1), wv_ps=wv.stride(0),
+                     sig=sigmas.data_ptr(), sig_rs=sigmas.stride(0), x=xs.data_ptr(),
+                     kis=kis.data_ptr(), betas=be[c0:].data_ptr(), gammas=ga[c0:].data_ptr(),
+                     out=out[:, c0:].data_ptr(), out_ps=rows * n, pp_row=nc - c0 + c0 * pp,
+                     finals=finals[:, c0:].data_ptr(), fin_bs=nc, n=n, routed=routed, q=q,
+                     nc=min(MAX_CH, nc - c0), batch=b)
+        # the tensors the call points into live as long as the call
+        call._keep = (wv, sigmas, xs, be, ga, kis)
+        calls.append(call)
+    return calls, out, finals
 
 
 def products(common, wvals: torch.Tensor, sigmas: torch.Tensor, x: torch.Tensor,
              betas: torch.Tensor, gammas: torch.Tensor, *, lib=None) -> tuple:
-    """K6's two launches: from the routed wires' values on H ``wvals`` (B,
+    """K6's two launches (two a group of at most MAX_CH challenges): from
+    the routed wires' values on H ``wvals`` (B,
     routed, n) (or (routed, n) for one proof), the circuit's ``sigmas``
     (routed, n), the subgroup ``x`` (n,) and the challenges (nc, B, 1), the
     Z and partial-product values (B, nc (1 + pp), n) and the closing
@@ -162,15 +170,16 @@ def products(common, wvals: torch.Tensor, sigmas: torch.Tensor, x: torch.Tensor,
     ``wvals``).  ``lib``, a host build of the kernels' C interface, runs the
     call on CPU tensors (the tests); without it every tensor lies on one
     CUDA device."""
-    call, out, finals = _prepare(common, wvals, sigmas, x, betas, gammas, lib=lib)
+    calls, out, finals = _prepare(common, wvals, sigmas, x, betas, gammas, lib=lib)
     dev = wvals.device
     lib = _lib() if dev.type == "cuda" else lib
     stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
-    for step in (0, 1):
-        err = lib.k6_products(dev.index or 0, ctypes.byref(call), step, stream)
-        if err != 0:
-            raise RuntimeError(f"k6_products (step {step}, B={call.batch}, n={call.n}) "
-                               f"failed: CUDA error {err}")
+    for call in calls:
+        for step in (0, 1):
+            err = lib.k6_products(dev.index or 0, ctypes.byref(call), step, stream)
+            if err != 0:
+                raise RuntimeError(f"k6_products (step {step}, B={call.batch}, n={call.n}) "
+                                   f"failed: CUDA error {err}")
     if dev.type == "cuda":
-        _count(dev, 2)
+        _count(dev, 2 * len(calls))
     return (out[0], finals[0]) if wvals.dim() == 2 else (out, finals)

@@ -3,10 +3,12 @@
 Replaces the XLA program the JAX package jits for the quotient
 (``plonk/prover.py:186 _quotient_commit_body``, jitted at :230, over
 ``plonk/vanishing.py:161 eval_vanishing``); it is no Pallas kernel.
-``vanishing`` is one launch for a proof or a batch: the vanishing
-polynomial of every challenge at every point of the LDE coset, times
-1/Z_H(x), (nc, B, points), which ``plonk/prover.py::_quotient_commit_body``
-hands to the coset INTT on the card.  The plain version is
+``vanishing`` is two launches for a proof or a batch (the permutation
+argument's terms, then the gates; two a group of at most ``MAX_CH``
+challenges): the vanishing polynomial of every challenge at every point of
+the LDE coset, times 1/Z_H(x), (nc, B, points), which
+``plonk/prover.py::_quotient_commit_body`` hands to the coset INTT on the
+card.  The plain version is
 ``plonk/prover.py::_device_vanishing_eval`` (times 1/Z_H), which the prover
 takes for a CPU tensor.
 
@@ -45,7 +47,8 @@ KINDS = {G.NoopGate: (0, ()), G.ConstantGate: (1, ("num_consts",)),
          G.RandomAccessGate: (6, ("bits", "num_copies")), G.PoseidonGate: (7, ())}
 HEAD = 16             # csrc/quotient.cuh K5_HEAD
 GATE_FIELDS = 16      # K5_GATE_FIELDS
-MAX_CH = 4            # K5_MAX_CH
+MAX_CH = 4            # K5_MAX_CH: challenges a launch
+LAUNCHES_PER_GROUP = 2   # csrc/quotient.cu k5_launch: the permutation kernel, then the gates
 MAX_POW = 256         # K5_MAX_POW: M + 1 powers of alpha
 MAX_ROUTED = 256      # csrc/perm_chunk.cuh PERM_MAX_ROUTED
 MAX_FILT = 8          # K5_MAX_FILT
@@ -68,6 +71,7 @@ class _Call(ctypes.Structure):
                 for name, kind in (
                     ("circuit", "p"), ("cs", "p"), ("cs_rs", "l"), ("wires", "p"),
                     ("w_rs", "l"), ("w_ps", "l"), ("zsp", "p"), ("z_rs", "l"), ("z_ps", "l"),
+                    ("pp_row", "l"),
                     ("znext", "p"), ("zn_rs", "l"), ("zn_ps", "l"), ("zn_shift", "l"),
                     ("zn_len", "l"), ("x", "p"), ("l1", "p"), ("zh_inv", "p"), ("row0", "l"),
                     ("pi_hash", "p"), ("betas", "p"), ("gammas", "p"), ("alphas", "p"),
@@ -82,11 +86,11 @@ def reset_launches() -> None:
         launches_by_device.clear()
 
 
-def _count(device) -> None:
+def _count(device, k: int) -> None:
     global launches
     with _LOCK:
-        launches += 1
-        launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + 1
+        launches += k
+        launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + k
 
 
 def build():
@@ -155,10 +159,10 @@ def circuit_blob(common) -> np.ndarray:
     q, routed = common.quotient_degree_factor, cfg.num_routed_wires
     chunks = -(-routed // q)
     m, nc = common.num_gate_constraints, cfg.num_challenges
-    if not 1 <= nc <= MAX_CH or m >= MAX_POW or routed > MAX_ROUTED:
-        raise NotImplementedError(f"K5 takes 1-{MAX_CH} challenges, fewer than {MAX_POW} "
-                                  f"constraint slots and at most {MAX_ROUTED} routed wires; "
-                                  f"got {nc}, {m}, {routed}")
+    if nc < 1 or m >= MAX_POW or routed > MAX_ROUTED:
+        raise NotImplementedError(f"K5 takes challenges, fewer than {MAX_POW} constraint "
+                                  f"slots and at most {MAX_ROUTED} routed wires; got {nc}, "
+                                  f"{m}, {routed}")
     head = [len(common.gate_types), common.num_selectors, cfg.num_constants, routed, q,
             chunks, chunks - 1, m, nc, cfg.num_wires]
     head += [0] * (HEAD - len(head))
@@ -217,9 +221,11 @@ def vanishing(common, cs: torch.Tensor, wires: torch.Tensor, zsp: torch.Tensor,
               tables: tuple, pi_hash: torch.Tensor, betas: torch.Tensor,
               gammas: torch.Tensor, alphas: torch.Tensor, *, zs_next=None, row0: int = 0,
               lib=None) -> torch.Tensor:
-    """One K5 launch: the vanishing polynomial of each challenge times
-    1/Z_H at ``points`` coset points, canonical, (nc, B, points) (or (nc,
-    points) for unbatched ``wires``).
+    """K5's launches, two a group of at most ``MAX_CH`` challenges (the
+    group's challenge, zs, partial-product and output rows read and written
+    in place): the vanishing polynomial of each challenge times 1/Z_H at
+    ``points`` coset points, canonical, (nc, B, points) (or (nc, points)
+    for unbatched ``wires``).
 
     ``cs`` (selectors, constants, sigmas: (k, points)) is the circuit's,
     ``wires`` (B, >= num_wires, points) and ``zsp`` (B, >= nc (1 + pp),
@@ -266,18 +272,23 @@ def vanishing(common, cs: torch.Tensor, wires: torch.Tensor, zsp: torch.Tensor,
     if any(t.device != dev for t in tensors):
         raise ValueError("K5's inputs must lie on one device")
     out = torch.empty((nc, b, points), dtype=torch.int64, device=dev)
-    call = _Call(circuit=table.data_ptr(), cs=csm.data_ptr(), cs_rs=csm.stride(0),
-                 wires=w.data_ptr(), w_rs=w.stride(1), w_ps=w.stride(0), zsp=z.data_ptr(),
-                 z_rs=z.stride(1), z_ps=z.stride(0), znext=zn.data_ptr(), zn_rs=zn.stride(1),
-                 zn_ps=zn.stride(0), zn_shift=shift, zn_len=points, x=x.data_ptr(),
-                 l1=l1.data_ptr(), zh_inv=zh_inv.data_ptr(), row0=row0,
-                 pi_hash=pis.data_ptr(), betas=be.data_ptr(), gammas=ga.data_ptr(),
-                 alphas=al.data_ptr(), out=out.data_ptr(), points=points, batch=b, nc=nc)
     lib = _lib() if dev.type == "cuda" else lib
     stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
-    err = lib.k5_vanishing(dev.index or 0, ctypes.byref(call), stream)
-    if err != 0:
-        raise RuntimeError(f"k5_vanishing (B={b}, {points} points) failed: CUDA error {err}")
-    if dev.type == "cuda":
-        _count(dev)
+    for c0 in range(0, nc, MAX_CH):
+        k = min(MAX_CH, nc - c0)
+        call = _Call(circuit=table.data_ptr(), cs=csm.data_ptr(), cs_rs=csm.stride(0),
+                     wires=w.data_ptr(), w_rs=w.stride(1), w_ps=w.stride(0),
+                     zsp=z[:, c0:].data_ptr(), z_rs=z.stride(1), z_ps=z.stride(0),
+                     pp_row=nc - c0 + c0 * pp, znext=zn[:, c0:].data_ptr(),
+                     zn_rs=zn.stride(1), zn_ps=zn.stride(0), zn_shift=shift, zn_len=points,
+                     x=x.data_ptr(), l1=l1.data_ptr(), zh_inv=zh_inv.data_ptr(), row0=row0,
+                     pi_hash=pis.data_ptr(), betas=be[c0:].data_ptr(),
+                     gammas=ga[c0:].data_ptr(), alphas=al[c0:].data_ptr(),
+                     out=out[c0:].data_ptr(), points=points, batch=b, nc=k)
+        err = lib.k5_vanishing(dev.index or 0, ctypes.byref(call), stream)
+        if err != 0:
+            raise RuntimeError(f"k5_vanishing (B={b}, {points} points, challenges {c0}.."
+                               f"{c0 + k - 1}) failed: CUDA error {err}")
+        if dev.type == "cuda":
+            _count(dev, LAUNCHES_PER_GROUP)
     return out[:, 0] if unbatched else out
