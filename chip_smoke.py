@@ -188,7 +188,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                card, equal integers: the same shapes on H, one proof
                unbatched (the sharded prover's call), a zero denominator
                in one chunk, inputs of 0, 1 and p - 1, five challenges
-               with and without a zero denominator.
+               with and without a zero denominator, zeros in two chunks
+               of a point, in each challenge and at the first and last
+               point of a tile (each closing the scan), n = 1000 (not a
+               multiple of the tile), a last chunk of 6 and of 5.
 18. k5_time -- K5's device time (graph_ms) at k5_check's three main-path
                shapes beside its plain version, its bound (bytes, or the
                64x64 products counted from the circuit's table: k5_work)
@@ -200,7 +203,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and tables of one gate kind each at the wormhole's shape
                (k5_gate_tables), each beside the parent's.  A share of
                the bound above 1.05 fails.
-19. k6_time -- the same for K6 (k6_work).
+19. k6_time -- the same for K6 (k6_work), and its point kernel alone,
+               each beside the parent's (paired_ms); the products a point
+               the bound counts and the kernel spends.
 20. fri_check -- K7, K8 and K9 against their plain versions
                (fri/fri_device.py's _openings_plain, _reduce_alpha_plain,
                _compose_plain, _fold_plain) on the card, equal integers:
@@ -210,7 +215,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                or p - 1; each proof's points at 0, 1, -1, x and -1 - x;
                n not a multiple of K8's tiles and segments, a short
                segment, a lone point and more segments than a scan
-               block's threads, at B = 3; arity bits 1-6, batched and 1-D; each shard's openings,
+               block's threads, at B = 3; K7's row groups of 1 and 3
+               rows, its tiles forced to 2048 at one proof and 256 at
+               B=4, n = 100; arity bits 1-6, batched and 1-D; each shard's openings,
                alpha reduction and fold on the sharded path (E=4) and the
                Z rows at g*zeta on the first shard.
 21. fri_time -- K7-K9's device time (graph_ms) at fri_check's three
@@ -219,7 +226,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                beside the plain versions, the bound (fri_work: bytes, or
                the products the functions need) and the host time of a
                wrapper call; ptxas's registers and spills and the SASS
-               counts of each kernel; K8's point kernel, scan and both
+               counts of each kernel; K7, and K8 (unchanged: a control),
                beside the parent commit's on the same inputs (paired_ms).
                A share of the bound above 1.05 fails.
 22. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
@@ -426,11 +433,11 @@ SIM_TIMEOUT = 240      # seconds the multihost phase gives its processes
 K2_TIMED_CALLS = 32    # back-to-back calls per K2 timing (graph_ms)
 
 
-# The port before K5's and K8's redesign, whose kernels k5_time and
-# fri_time time beside this tree's in the same run (paired_ms): its
+# The port before K6's and K7's redesign, whose kernels k5_time, k6_time
+# and fri_time time beside this tree's in the same run (paired_ms): its
 # zk_circuits_torch/ under PARENT_DIR (git-ignored), unpacked there from the
 # checkout's git history when it has the commit.
-PARENT_COMMIT = "6132f71be43958e45adb6e448674e58f03a3bfc9"
+PARENT_COMMIT = "0de745ac783e1836ba5ab2de5e21ac5cc22164f8"
 PARENT_DIR = "zk_circuits_torch/_build/parent"
 
 
@@ -548,9 +555,9 @@ def parent_port():
 
 
 def parent_kernels() -> dict:
-    """The parent's K5 and K7-K9 wrappers ({"k5": its quotient_cuda, "fri":
-    its fri_cuda}; empty without the parent); its K5 table knows this
-    tree's gate classes."""
+    """The parent's K5, K6 and K7-K9 wrappers ({"k5": its quotient_cuda,
+    "k6": its permutation_cuda, "fri": its fri_cuda}; empty without the
+    parent); its K5 table knows this tree's gate classes."""
     import importlib
 
     from zk_circuits_torch.plonk import quotient_cuda
@@ -560,7 +567,8 @@ def parent_kernels() -> dict:
     pq = importlib.import_module("zk_parent.plonk.quotient_cuda")
     by_name = {cls.__name__: kind for cls, kind in pq.KINDS.items()}
     pq.KINDS = {cls: by_name[cls.__name__] for cls in quotient_cuda.KINDS}
-    return {"k5": pq, "fri": importlib.import_module("zk_parent.fri.fri_cuda")}
+    return {"k5": pq, "k6": importlib.import_module("zk_parent.plonk.permutation_cuda"),
+            "fri": importlib.import_module("zk_parent.fri.fri_cuda")}
 
 
 def paired_ms(calls: list, parent_calls: list) -> dict:
@@ -609,7 +617,7 @@ def phase_card(state) -> None:
         return time.perf_counter() - t
 
     poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's, K3's, native's
-    parent = parent_kernels()   # the parent's K5 and K7-K9, timed beside this tree's
+    parent = parent_kernels()   # the parent's K5-K9, timed beside this tree's
     # one nvcc per source and g++ for the host runtime, all started together
     with ThreadPoolExecutor(10) as pool:
         k1, k2, k3, k4, k5, k6, k789, host, *parent_s = pool.map(timed, (
@@ -3450,29 +3458,35 @@ def phase_k5_check(state) -> None:
           "launches": quotient_cuda.launches - before})
 
 
-def k6_inputs(data, gen, batch: int, zero_den: bool = False, value=None) -> dict:
+def k6_inputs(data, gen, batch: int, zero_den: bool = False, value=None, zeros=(),
+              n: int | None = None) -> dict:
     """A K6 call's inputs on the card: seeded wire values on H (B, routed,
     n), the circuit's sigmas and subgroup, seeded challenges (nc, B, 1);
     with ``zero_den`` one denominator of proof 0, challenge 0, wire 13,
-    point 77 set to 0; every value ``value`` when it is given."""
+    point 77 set to 0, and one for each (proof, challenge, wire, point) of
+    ``zeros``; every value ``value`` when it is given; seeded sigmas and
+    points for ``n`` points (the circuit's degree by default) or where the
+    circuit's sigmas do not fit its routed wires."""
     from zk_circuits_torch.field import goldilocks as gf
 
     common, po = data.common, data.prover_only
     cfg = common.config
-    nc, routed, n = cfg.num_challenges, cfg.num_routed_wires, common.degree
+    nc, routed = cfg.num_challenges, cfg.num_routed_wires
+    own = n is None and po.sigmas_values.shape[0] == routed
+    n = common.degree if n is None else n
 
     def draw(*shape):
         return gl_random(gen, shape) if value is None else gl_full(shape, value)
 
-    inp = dict(wv=draw(batch, routed, n), sig=gf.from_u64(po.sigmas_values, "cuda"),
-               x=gf.from_u64(po.subgroup, "cuda"), betas=draw(nc, batch, 1),
-               gammas=draw(nc, batch, 1))
-    if value is not None:
+    inp = dict(wv=draw(batch, routed, n), betas=draw(nc, batch, 1), gammas=draw(nc, batch, 1))
+    if own and value is None:
+        inp["sig"], inp["x"] = (gf.from_u64(po.sigmas_values, "cuda"),
+                                gf.from_u64(po.subgroup, "cuda"))
+    else:
         inp["sig"], inp["x"] = draw(routed, n), draw(n)
-    if zero_den:
-        j, i = 13, 77
-        den = gf.add(gf.mul(inp["betas"][0, 0], inp["sig"][j, i:i + 1]), inp["gammas"][0, 0])
-        inp["wv"][0, j, i] = gf.neg(den)[0]
+    for b, c, j, i in ([(0, 0, 13, 77)] if zero_den else []) + list(zeros):
+        den = gf.add(gf.mul(inp["betas"][c, b], inp["sig"][j, i:i + 1]), inp["gammas"][c, b])
+        inp["wv"][b, j, i] = gf.neg(den)[0]
     return inp
 
 
@@ -3510,23 +3524,45 @@ def k6_plain(data, inp: dict):
                             inp["gammas"])
 
 
-def k6_point_products(common, fermat_per_chunk: bool = False) -> int:
+def k6_point_products(common, tile: int | None = None) -> int:
     """64x64 products at one point of one proof, every challenge: a
-    challenge costs 4 a routed wire less 2 a chunk (beta k_j x, beta s_j
-    and the chunk products, whose first factor starts them), 2 a chunk
-    (its ratio and the running product), and in the scan 2 and one a
-    partial product.  The point's nc x chunks denominators are inverted
-    as the function needs it: one batch inversion (3 products an element
-    less 3, and one inverse, K6_INVERSE_PRODUCTS) with each zero put as 1
-    and its inverse masked back to 0.  ``fermat_per_chunk``: what the
-    kernel spends instead, an inverse a chunk (its design cost)."""
+    challenge costs 3 a routed wire less 2 a chunk (beta s_j and the chunk
+    products, whose first factor starts them) and beta k_j x, one product
+    where the coset shifts are powers of the generator, k_j = 7^j (7 times the
+    previous wire's is a shift and a subtract) and else one a wire; 2 a
+    chunk (its ratio and the running product), and in the scan 2 and one a
+    partial product.  The point's nc x chunks denominators are inverted as
+    the function needs it: one batch inversion (3 products an element less
+    3, and one inverse, K6_INVERSE_PRODUCTS) with each zero put as 1 and
+    its inverse masked back to 0.  With ``tile`` (its points a block): what
+    K6 spends (csrc/permutation.cuh): beta k_j x a wire, a batch inversion
+    a challenge (the prefix products of num and den, an inverse, then a
+    ratio and the next inverse a chunk: 4 a chunk less 3, and one inverse)
+    and the tile's Hillis-Steele scan (log2 tile products) before Z."""
+    from zk_circuits_torch.host import gl
+
     cfg = common.config
-    nc, routed = cfg.num_challenges, cfg.num_routed_wires
-    chunks = -(-routed // common.quotient_degree_factor)
-    per = nc * (4 * routed - 2 * chunks + 2 * chunks + 2 + (chunks - 1))
-    if fermat_per_chunk:
-        return per + nc * chunks * K6_INVERSE_PRODUCTS
+    nc, routed, q = cfg.num_challenges, cfg.num_routed_wires, common.quotient_degree_factor
+    chunks = -(-routed // q)
+    pow7 = [int(k) for k in common.k_is] == [int(k) for k in gl.powers(7, routed)]
+    if tile is not None:
+        return nc * (4 * routed - 2 * chunks + K6_INVERSE_PRODUCTS + 4 * chunks - 3 +
+                     tile.bit_length() - 1 + 1 + chunks - 1)
+    kx = 1 if pow7 else routed
+    per = nc * (3 * routed + kx - 2 * chunks + 2 * chunks + 2 + (chunks - 1))
     return per + 3 * (nc * chunks - 1) + K6_INVERSE_PRODUCTS
+
+
+def k6_tile(common, batch: int) -> int:
+    """The points a block K6 takes for ``batch`` proofs of ``common`` on
+    this card (permutation_cuda.tile_shape)."""
+    import torch
+
+    from zk_circuits_torch.plonk import permutation_cuda
+
+    lib = permutation_cuda._lib()
+    sms = permutation_cuda._sm_count(torch.device("cuda", 0), lib)
+    return permutation_cuda.tile_shape(common, common.degree, batch, sms, lib)[0]
 
 
 def k6_work(common, batch: int) -> tuple[int, int]:
@@ -3547,8 +3583,11 @@ def phase_k6_check(state) -> None:
     """K6 against its plain version on the card, equal integers: the
     wormhole's shape alone, at B=BATCH and unbatched (the sharded prover's
     call), the level-1 circuit's at its batch, a zero denominator in one
-    chunk, inputs of 0, 1 and p - 1; and the main path's own values (the
-    golden witness's wires on H) closing to 1."""
+    chunk, inputs of 0, 1 and p - 1, five challenges, zeros where the
+    batch inversion masks them and at the tiles' edges, n not a multiple of
+    the tile, a short and an odd last chunk."""
+    import dataclasses
+
     import torch
 
     from zk_circuits_torch.plonk import permutation_cuda
@@ -3581,6 +3620,28 @@ def phase_k6_check(state) -> None:
     five = types.SimpleNamespace(common=five_challenges(cd.common), prover_only=cd.prover_only)
     check("five_challenges", five, k6_inputs(five, gen, 3))
     check("five_challenges_zero_denominator", five, k6_inputs(five, gen, 2, zero_den=True))
+    # the batch inversion's masked zeros and the tiles (as
+    # tests/test_torch_quotient_kernel.py's): zeros in two chunks of a
+    # point, in each challenge, at the first and last point of a tile;
+    # n not a multiple of the tile; a short and an odd last chunk
+    last, tile = cd.common.degree - 1, k6_tile(cd.common, 2)
+    for name, zeros, n in (("zeros_two_chunks_one_point", [(1, 0, 17, 37), (1, 0, 50, 37)], None),
+                           ("zero_each_challenge", [(0, 0, 3, 10), (0, 1, 70, 40),
+                                                    (1, 1, 79, last)], None),
+                           ("zeros_tile_edges", [(0, 0, 5, tile), (0, 1, 44, 2 * tile - 1),
+                                                 (1, 0, 9, 2 * tile), (1, 1, 60, last)], None),
+                           ("n_1000", [(0, 1, 21, 999), (1, 0, 0, 992)], 1000)):
+        got, finals = check(name, cd, k6_inputs(cd, gen, 2, zeros=zeros, n=n))
+        for b, c, j, i in zeros:
+            if int(finals[b, c]) != 0 or int(got[b, c, i + 1:].abs().sum()) != 0:
+                raise AssertionError(f"k6_check/{name}: the zero at {(b, c, j, i)} did not "
+                                     f"close the scan")
+    for routed in (78, 77):
+        cfg = dataclasses.replace(cd.common.config, num_routed_wires=routed)
+        short = types.SimpleNamespace(common=k5_gate_common(list(cd.common.gate_types), cfg,
+                                                            cd.common.degree_bits),
+                                      prover_only=cd.prover_only)
+        check(f"last_chunk_of_{routed % 8}", short, k6_inputs(short, gen, 2, zero_den=True))
     state["k6_max_abs_err"] = 0
     emit({"phase": "k6_check", "equal_integers": True, "cases": checked,
           "launches": permutation_cuda.launches - before})
@@ -3750,21 +3811,70 @@ def phase_k5_time(state) -> None:
         "ms_by_shape": {r["shape"]: r["ms"] for r in rows}})
 
 
+def k6_paired(state) -> list:
+    """K6 against the parent's at k5_cases' shapes, paired_ms on the same
+    inputs, and the point kernels alone the same way (empty without the
+    parent)."""
+    import ctypes
+
+    import torch
+
+    from zk_circuits_torch.plonk import permutation_cuda as mine
+
+    parent = parent_kernels().get("k6")
+    if parent is None:
+        return []
+    gen = torch.Generator(device="cuda").manual_seed(2047)
+    rows = []
+    for name, data, batch in k5_cases(state):
+        ins = [k6_inputs(data, gen, batch) for _ in range(K6_TIMED_CALLS)]
+
+        def via(mod, i, data=data):
+            return mod.products(data.common, i["wv"], i["sig"], i["x"], i["betas"], i["gammas"])
+
+        def point(mod, i, data=data):   # k6_point_launch through mod
+            calls, out, _ = mod._prepare(data.common, i["wv"], i["sig"], i["x"], i["betas"],
+                                         i["gammas"])
+            for call in calls:
+                if mod._lib().k6_products(0, ctypes.byref(call), 0,
+                                          torch.cuda.current_stream().cuda_stream):
+                    raise RuntimeError("k6_products (the point kernel) failed")
+            return out
+
+        rows.append({"shape": name, "batch": batch, **paired_ms(
+            [lambda i=i: via(mine, i) for i in ins], [lambda i=i: via(parent, i) for i in ins]),
+            "point": paired_ms([lambda i=i: point(mine, i) for i in ins],
+                               [lambda i=i: point(parent, i) for i in ins])})
+        del ins
+    return rows
+
+
 def phase_k6_time(state) -> None:
     """K6's device time (graph_ms) at k5_cases' shapes beside its plain
-    version and bound; registers, spills and SASS counts."""
+    version and bound, and beside the parent's kernel (paired_ms, both
+    launches and the point kernel alone); registers, spills and SASS
+    counts (the parent's too)."""
     from zk_circuits_torch.plonk import permutation_cuda
 
     rows = quotient_time_rows(state, "k6")
+    parent = parent_kernels().get("k6")
     emit({"phase": "k6_time", "int32_mul_per_s": INT32_MUL_PER_S,
           "hbm_bytes_per_s": HBM_BYTES_PER_S,
-          "products_per_point": {r[0]: {"bound": k6_point_products(r[1].common),
-                                        "kernel": k6_point_products(r[1].common, True)}
-                                 for r in k5_cases(state)},
+          "paired_with_parent": k6_paired(state),
+          "parent": PARENT_COMMIT if parent else None,
+          "parent_sass": kernel_sass_counts(parent.build(), parent.build_log, "k6_")
+          if parent else None,
+          "products_per_point": {name: {"bound": k6_point_products(data.common),
+                                        "kernel": k6_point_products(data.common, k6_tile(
+                                            data.common, batch))}
+                                 for name, data, batch in k5_cases(state)},
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {K6_TIMED_CALLS} "
                     f"calls (two launches each) on inputs of their own, L2 emptied first, "
                     f"per call, median of 8 replays; point_ms: the same with the point "
-                    f"kernel alone (scan_ms: the difference); plain_ms: CUDA events around one call "
+                    f"kernel alone (scan_ms: the difference); paired_with_parent: this "
+                    f"tree's and the parent's on the same inputs in turns (parent, this, "
+                    f"this, parent), both launches and the point kernel alone; plain_ms: "
+                    f"CUDA events around one call "
                     f"of the plain version (plonk/prover.py's _zs_values_plain), median of "
                     f"3; library_ms: none, no PyTorch call computes these products",
           "rows": rows, "sass": kernel_sass_counts(permutation_cuda.build(),
@@ -3962,6 +4072,24 @@ def phase_fri_check(state) -> None:
         check(f"k9_{a}_bits", fri_cuda.fold(*c, *beta, a), fd._fold_plain(*c, *beta, a))
         one = (c[0][1], c[1][1], beta[0][1], beta[1][1])
         check(f"k9_{a}_bits_1d", fri_cuda.fold(*one, a), fd._fold_plain(*one, a))
+    # K7's row groups and tiles: groups of 1 and 3 rows (ending inside the
+    # oracles' sets; the g*zeta rows a group of their own), tiles forced to
+    # 2048 coefficients at one proof and to 256 at B=4, n below one tile
+    saved = fri_cuda.K7_GROUP, fri_cuda.K7_MIN_TILE, fri_cuda.K7_MAX_TILE
+    try:
+        for name, group, tile, batch, n_k7 in (("group_1", 1, None, 2, n),
+                                               ("group_3", 3, None, BATCH, n),
+                                               ("tile_2048", 32, 2048, 1, n),
+                                               ("tile_256_b4", 32, 256, BATCH, n),
+                                               ("n_100_group_3", 3, None, 3, 100)):
+            fri_cuda.K7_GROUP = group
+            if tile:
+                fri_cuda.K7_MIN_TILE = fri_cuda.K7_MAX_TILE = tile
+            inp = fri_inputs(gen, widths, n_k7, batch, nz)
+            check(f"k7_{name}", fri_calls(inp)["k7"](), fri_calls(inp, plain=True)["k7"]())
+            fri_cuda.K7_GROUP, fri_cuda.K7_MIN_TILE, fri_cuda.K7_MAX_TILE = saved
+    finally:
+        fri_cuda.K7_GROUP, fri_cuda.K7_MIN_TILE, fri_cuda.K7_MAX_TILE = saved
     # the sharded path's calls (plonk/prover_sharded.py, fri/fri_sharded.py):
     # each shard's pieces of the four oracles at zeta and their alpha
     # reduction (zeros past an oracle's polynomials), the Z rows at g*zeta
@@ -4053,9 +4181,9 @@ def phase_fri_time(state) -> None:
         rows.append({"shape": name, "kernel": "k7_k8_k9", "batch": batch,
                      "launches": sum(expected_fri_launches(common).values()),
                      **graph_ms([proof_calls(c, f) for c, f in zip(calls, folds)])})
-        if parent is not None:   # K8 against the parent's, on the same inputs
+        if parent is not None:   # K7 against the parent's on the same inputs; K8, unchanged, as a control
             pcalls = [fri_calls(i, kernels=parent) for i in ins]
-            for k in ("k8_point", "k8_scan", "k8"):
+            for k in ("k7", "k8"):
                 paired.append({"shape": name, "kernel": k, "batch": batch, **paired_ms(
                     [c[k] for c in calls], [c[k] for c in pcalls])})
             del pcalls
@@ -4065,7 +4193,7 @@ def phase_fri_time(state) -> None:
         raise AssertionError(f"K7-K9 timed below their bound: {over}")
     emit({"phase": "fri_time", "int32_mul_per_s": INT32_MUL_PER_S,
           "paired_with_parent": paired, "parent": PARENT_COMMIT if parent else None,
-          "parent_sass": kernel_sass_counts(parent.build(), parent.build_log, "k8_")
+          "parent_sass": kernel_sass_counts(parent.build(), parent.build_log, "k[78]_")
           if parent else None,
           "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {FRI_TIMED_CALLS} "

@@ -3,12 +3,14 @@
 
 csrc/fri.cuh is __host__ __device__ code; here it is compiled with g++
 behind a host copy of fri.cu's C interface (k7_openings, k8_reduce,
-k8_scan, k9_fold and fri_call_size) and driven through the wrapper's own
-``fri_cuda`` functions on CPU tensors.  A K7 call runs each (proof, row)
-block with its threads in turn between the barriers; K8's point kernel and
-its scan's two kernels run their blocks the same way
-(``shim_fri_set_threads`` picks K7's block size and the scan's segment,
-256 and 256 on the card).  Equal integers are required against the
+k8_scan, k9_fold, fri_sm_count and fri_call_size) and driven through
+the wrapper's own ``fri_cuda`` functions on CPU tensors.  A K7 call runs
+each (proof, row group, tile) block, the tiles of a group in one order or
+the other, with its threads in turn between the barriers and a warp's
+lanes summed in turn for its shuffles; K8's point kernel and its scan's two
+kernels run their blocks the same way (``shim_fri_set_threads`` picks K7's
+block size and the scan's segment, 256 and 256 on the card;
+``shim_fri_set_sms`` the SM count K7's tiles are sized from, 132).  Equal integers are required against the
 port's plain versions (``fri/fri_device.py``'s ``_openings_plain``,
 ``_reduce_alpha_plain``, ``_compose_plain``, ``_fold_plain``) and the JAX
 package's programs on the CPU (``_make_openings_run``,
@@ -57,8 +59,10 @@ SHIM = r"""
 #include "fri.cuh"
 
 static int k7_threads = 256, scan_logs = K8_LOG_SEG;   // the blocks' threads, as on the card
+static int shim_sms = 132;
 
-// A block on the host: each phase runs the block's threads in turn.
+// A block on the host: each phase runs the block's threads in turn; a
+// warp's sums add its lanes' values in turn.
 struct ShimBlock {
   int n;
   int threads() const { return n; }
@@ -67,6 +71,17 @@ struct ShimBlock {
     for (int t = 0; t < n; t++) f(t);
   }
   void sync() const {}
+  template <int K, class F, class G>
+  void warp_sum(F f, G g) const {
+    for (int w0 = 0; w0 < n; w0 += 32) {
+      uint64_t s[K] = {}, v[K];
+      for (int t = w0; t < w0 + 32 && t < n; t++) {
+        f(t, v);
+        for (int k = 0; k < K; k++) s[k] = gl_add_lazy(s[k], v[k]);
+      }
+      g(w0, s);
+    }
+  }
 };
 
 // The scan's two launches at segments of 2^L points: every block of the
@@ -87,9 +102,12 @@ int k7_openings(int, const K7Call* call, void*) {
   const K7Call& c = *call;
   if (k7_valid(c)) return 1;
   ShimBlock blk{k7_threads};
-  std::vector<uint64_t> buf(2 * k7_threads);
+  std::vector<uint64_t> sm(k7_smem(c.tile, c.group));
+  const long long tiles = k7_tiles(c);
   for (int b = 0; b < c.r.batch; b++)
-    for (int r = 0; r < c.r.rows; r++) k7_row_block(blk, c, b, r, buf.data());
+    for (int g = 0; g < k7_groups(c); g++)
+      for (long long t = 0; t < tiles; t++)   // odd groups' tiles last to first
+        k7_block(blk, c, b, (b + g) % 2 ? tiles - 1 - t : t, g, sm.data());
   return 0;
 }
 
@@ -137,7 +155,24 @@ int fri_call_size(int kind) {
   }
 }
 
-// K7's block size and the scan's segment (2, 4, 32 or 256 points)
+int fri_sm_count(int) { return shim_sms; }
+int k7_row_groups(const K7Call* call) { return k7_groups(*call); }
+
+// x^2 by fri_esqr (its 7 b^2 by gl_mul7) and by fri_emul, each point's
+// components at out[4 i ...]
+void shim_fri_squares(const uint64_t* a, const uint64_t* b, uint64_t* out, long n) {
+  for (long i = 0; i < n; i++) {
+    const FriExt s = fri_esqr({a[i], b[i]}), m = fri_emul({a[i], b[i]}, {a[i], b[i]});
+    out[4 * i] = s.a;
+    out[4 * i + 1] = s.b;
+    out[4 * i + 2] = m.a;
+    out[4 * i + 3] = m.b;
+  }
+}
+void shim_fri_set_sms(int sms) { shim_sms = sms; }
+
+// K7's block size (a multiple of 32) and the scan's segment (2, 4, 32 or
+// 256 points)
 void shim_fri_set_threads(int k7, int scan) {
   k7_threads = k7;
   scan_logs = 0;
@@ -161,6 +196,8 @@ def flib():
     lib = ctypes.CDLL(str(so))
     fri_cuda.bind(lib)          # the wrapper's declarations and size checks
     lib.shim_fri_set_threads.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.shim_fri_set_sms.argtypes = [ctypes.c_int]
+    lib.shim_fri_squares.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long]
     yield lib
     shutil.rmtree(build, ignore_errors=True)
 
@@ -292,16 +329,125 @@ def test_k7_matches_plain(flib, log_n, widths, batch):
     assert _equal(got, fd._openings_plain(rows, pts))
 
 
-def test_k7_block_sizes(flib, threads):
-    """The tree reduction at blocks of 1, 2 and 32 threads (more threads
-    than coefficients at n = 2^5 with 256)."""
+@pytest.mark.parametrize("k7,tile", [(32, 32), (64, 256), (256, 2048)])
+def test_k7_block_sizes(flib, threads, monkeypatch, k7, tile):
+    """Blocks of 1, 2 and 8 warps over tiles of 32 (a lane's one
+    coefficient, 8 tiles), 256 (one tile) and 2048 coefficients (more than
+    n): each row's tile sum by a warp's lanes, the last block's sum over
+    the tiles."""
+    monkeypatch.setattr(fri_cuda, "K7_MIN_TILE", tile)
+    monkeypatch.setattr(fri_cuda, "K7_MAX_TILE", tile)
     rng = np.random.default_rng(5)
-    rows = _rows(_oracles(rng, (2, 3, 3, 1), 32, 2), 2)
+    rows = _rows(_oracles(rng, (2, 3, 3, 1), 256, 2), 2)
     pts = _pts(_zs(rng, 2, 2), _zs(rng, 2, 3))
-    want = fd._openings_plain(rows, pts)
-    for k7 in (1, 2, 32, 256):
-        threads(k7, 256)
-        assert _equal(fri_cuda.openings(rows, pts, lib=flib), want)
+    threads(k7, 256)
+    assert _equal(fri_cuda.openings(rows, pts, lib=flib), fd._openings_plain(rows, pts))
+
+
+# (name, log n, oracle widths, B, rows a group, K7's threads, SMs, row groups)
+K7_CASES = [
+    ("group_ends_inside_a_set", 7, (5, 7, 6, 4), 2, 4, 64, 132, 6 + 1),
+    ("zeta_next_rows_alone", 6, (3, 4, 3, 2), 1, 32, 256, 132, 1 + 1),
+    ("rows_fewer_than_a_group", 6, (1, 2, 2, 1), 3, 32, 256, 132, 2),
+    ("n_below_one_tile", 5, (4, 3, 5, 2), 2, 32, 256, 1, 2),
+    ("batch_4_shared_constants", 9, (6, 5, 4, 3), 4, 8, 256, 4, 3 + 1),
+    ("many_tiles", 10, (3, 4, 3, 2), 2, 32, 128, 132, 2),
+]
+
+
+@pytest.mark.parametrize("name,log_n,widths,batch,group,k7,sms,groups", K7_CASES,
+                         ids=[c[0] for c in K7_CASES])
+def test_k7_row_groups_and_tiles(flib, threads, monkeypatch, name, log_n, widths, batch,
+                                 group, k7, sms, groups):
+    """K7 == _openings_plain for row groups that end inside a set, the g*zeta
+    rows in a group of their own, fewer rows than a group, n below one tile,
+    B = 4 with the constants/sigmas oracle shared by the proofs (and the
+    JAX package's _make_openings_run, jitted, proof by proof), and many
+    tiles a group (n = 2^10 in tiles of 256); every block counter is back
+    at 0 after the call."""
+    monkeypatch.setattr(fri_cuda, "K7_GROUP", group)
+    flib.shim_fri_set_sms(sms)
+    threads(k7, 256)
+    try:
+        rng = np.random.default_rng(log_n * 7 + batch)
+        n, num_zs = 1 << log_n, 2
+        oracles = _oracles(rng, widths, n, batch)
+        rows = _rows(oracles, num_zs)
+        zeta, zeta_next = _zs(rng, batch, log_n), _zs(rng, batch, log_n + 1)
+        pts = _pts(zeta, zeta_next)
+        got = fri_cuda.openings(rows, pts, lib=flib)
+        assert _row_groups(flib, rows, batch) == groups
+    finally:
+        flib.shim_fri_set_sms(132)
+    assert _equal(got, fd._openings_plain(rows, pts))
+    assert not fri_cuda._COUNTS["cpu"].any()
+    if name != "batch_4_shared_constants":
+        return
+    zp, znp = fd.ext_powers_each(zeta, n), fd.ext_powers_each(zeta_next, n)
+    run = jax.jit(jfd._make_openings_run(num_zs))
+    k = sum(widths)
+    for b in range(batch):
+        sets = tuple(_gf(o if i == 0 else o[b]) for i, o in enumerate(oracles))
+        je0, je1, jz0, jz1 = _jax_u64(*run(sets, _gf(zp[b, :, 0]), _gf(zp[b, :, 1]),
+                                           _gf(znp[b, :, 0]), _gf(znp[b, :, 1])))
+        assert np.array_equal(_u(got[0][b, :k]), je0) and np.array_equal(_u(got[1][b, :k]), je1)
+        assert np.array_equal(_u(got[0][b, k:]), jz0) and np.array_equal(_u(got[1][b, k:]), jz1)
+
+
+@pytest.mark.parametrize("group", [1, 3, 32])
+def test_k7_edge_points_in_groups(flib, monkeypatch, group):
+    """Each proof of a batch of 5 at one of EDGE_POINTS (0, 1, p - 1, x,
+    -1 - x) at zeta and g*zeta, the rows in groups of 1, 3 and 32: K7 ==
+    _openings_plain."""
+    monkeypatch.setattr(fri_cuda, "K7_GROUP", group)
+    rng = np.random.default_rng(group)
+    rows = _rows(_oracles(rng, (2, 2, 3, 1), 64, len(EDGE_POINTS)), 2)
+    pts = _pts(EDGE_POINTS, EDGE_POINTS[::-1])
+    assert _equal(fri_cuda.openings(rows, pts, lib=flib), fd._openings_plain(rows, pts))
+
+
+def test_fri_esqr_takes_any_u64(flib):
+    """fri_esqr ((a^2 + 7 b^2) + 2 a b x, its 7 y as 8 y - y by a shift)
+    on edge lanes and lanes in [p, 2^64): congruent to fri_emul(x, x) and
+    to the square taken here."""
+    eps = (1 << 32) - 1
+    lanes = [0, 1, 2, eps, eps + 1, P - 1, P, P + 1, (1 << 61) - 1, 1 << 61, 1 << 63,
+             (1 << 64) - eps, (1 << 64) - 1]
+    rng = np.random.default_rng(7)
+    a = np.array(lanes + [int(v) for v in rng.integers(0, 1 << 64, 64, dtype=U64,
+                                                        endpoint=False)], dtype=U64)
+    b = np.concatenate([a[::-1][: len(lanes)], rng.integers(0, 1 << 64, 64, dtype=U64,
+                                                            endpoint=False)])
+    out = np.empty(4 * len(a), dtype=U64)
+    flib.shim_fri_squares(a.ctypes.data_as(ctypes.c_void_p), b.ctypes.data_as(ctypes.c_void_p),
+                          out.ctypes.data_as(ctypes.c_void_p), len(a))
+    for i, (x, y) in enumerate(zip(a.tolist(), b.tolist())):
+        want = ((x * x + 7 * y * y) % P, 2 * x * y % P)
+        got = [int(v) % P for v in out[4 * i: 4 * i + 4]]
+        assert (got[0], got[1]) == want and (got[2], got[3]) == want, (x, y)
+
+
+def _row_groups(flib, sets, batch: int = 1) -> int:
+    """K7's row groups over ``sets`` of ``batch`` proofs (csrc/fri.cuh
+    k7_groups)."""
+    rows, _, _ = fri_cuda._rows(sets, batch)
+    return flib.k7_row_groups(ctypes.byref(fri_cuda._K7Call(r=rows, group=fri_cuda.K7_GROUP)))
+
+
+def test_k7_openings_shape(flib):
+    """K7's coefficients a block at the main path's shapes on 132 SMs: 256
+    at one wormhole proof (320 blocks), 1024 at B = 4 (320), 2048 for the
+    level-1 batch; K7_MIN_TILE below two blocks an SM, K7_MAX_TILE at
+    most."""
+    wormhole = [(torch.zeros((k, 1), dtype=torch.int64), 0) for k in (84, 139, 24, 20)] + \
+        [(torch.zeros((2, 1), dtype=torch.int64), 1)]
+    groups = _row_groups(flib, wormhole)
+    assert groups == 9 + 1
+    assert fri_cuda.openings_shape(1 << 13, groups, 1, 132) == 256
+    assert fri_cuda.openings_shape(1 << 13, groups, 4, 132) == 1024
+    assert fri_cuda.openings_shape(1 << 14, groups, 4, 132) == 2048
+    assert fri_cuda.openings_shape(1 << 5, 1, 1, 132) == 256
+    assert fri_cuda.openings_shape(1 << 20, 1, 1, 1) == 2048
 
 
 def test_k7_and_k8_at_every_edge_point(flib):

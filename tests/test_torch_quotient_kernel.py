@@ -7,9 +7,12 @@ permutation.cu's C interfaces (k5_vanishing, k6_products and their
 K5Call/K6Call sizes) and driven through the wrappers' own
 ``quotient_cuda.vanishing`` and ``permutation_cuda.products`` on CPU
 tensors.  A K5 call runs each proof's block tables, then its points one
-after another; K6's scan runs ``k6_scan_block`` with the block's threads
-in turn in each phase (``shim_k6_set_threads`` picks the block size, 1024
-on the card).  Equal integers are required against the port's plain
+after another; K6's two launches run ``k6_point_block`` and
+``k6_scan_block`` block by block, each block's threads in turn in each
+phase (``shim_k6_set_shape`` picks the point and scan blocks' threads and
+the SM count the tiles are sized from: 320, 256 and 132 on the card; the
+tests force tiles of 1 to 256 points through the wrapper's
+``MIN_TILE``/``MAX_TILE``).  Equal integers are required against the port's plain
 versions (``plonk/prover.py::_device_vanishing_eval`` times 1/Z_H,
 ``_zs_values_plain``) and the JAX package's host path
 (``plonk/prover.py::compute_quotient_values(..., use_device=False)`` and
@@ -54,7 +57,7 @@ SHIM = r"""
 #include "permutation.cuh"
 
 static const uint64_t RC[POSEIDON_WIDTH * POSEIDON_ROUNDS] = POSEIDON_RC_INIT;
-static int shim_threads = 1024;   // the scan block's threads
+static int shim_point = 320, shim_scan = 256, shim_sms = 132;   // K6's blocks and SMs, as on the card
 
 // A block on the host: each phase runs the block's threads in turn.
 struct ShimBlock {
@@ -81,13 +84,13 @@ static void k5_host(const K5Call& c) {
   }
 }
 
+// K6's point launch: every tile of every proof.
 template <int NC>
 static void k6_points_host(const K6Call& c) {
-  std::vector<uint64_t> bk(NC * PERM_MAX_ROUTED);
-  for (int b = 0; b < c.batch; b++) {
-    perm_bk_table<NC>(c.kis, c.routed, c.betas, c.batch, b, bk.data(), 0, 1);
-    for (long long i = 0; i < c.n; i++) k6_point<NC>(c, b, i, bk.data());
-  }
+  ShimBlock blk{shim_point};
+  std::vector<uint64_t> sm(k6_point_smem(k6_chunks(c), NC, c.tile));
+  for (int b = 0; b < c.batch; b++)
+    for (long long g = 0; g < k6_tiles(c); g++) k6_point_block<NC>(blk, c, b, g, sm.data());
 }
 
 extern "C" {
@@ -106,7 +109,7 @@ int k5_call_size(void) { return (int)sizeof(K5Call); }
 
 int k6_products(int, const K6Call* call, int step, void*) {
   const K6Call& c = *call;
-  if (k6_valid(c) || step < 0 || step > 1) return 1;
+  if (k6_valid(c) || shim_point % k6_lanes(c.tile) || step < 0 || step > 1) return 1;
   if (step == 0) {
     switch (c.nc) {
       case 1: k6_points_host<1>(c); break;
@@ -116,15 +119,23 @@ int k6_products(int, const K6Call* call, int step, void*) {
     }
     return 0;
   }
-  ShimBlock blk{shim_threads};
-  std::vector<uint64_t> buf(2 * shim_threads);
+  ShimBlock blk{shim_scan};
+  std::vector<uint64_t> sm(k6_scan_smem(c.nc, shim_scan, c.tile));
   for (int b = 0; b < c.batch; b++)
-    for (int ch = 0; ch < c.nc; ch++) k6_scan_block(blk, c, b, ch, buf.data());
+    for (long long g = 0; g < k6_tiles(c); g++) k6_scan_block(blk, c, b, g, sm.data());
   return 0;
 }
 int k6_call_size(void) { return (int)sizeof(K6Call); }
 
-void shim_k6_set_threads(int t) { shim_threads = t; }
+int k6_challenges(int routed, int q, int tile) { return k6_max_ch(routed, q, tile); }
+int k6_sm_count(int) { return shim_sms; }
+int k6_point_threads(void) { return shim_point; }
+
+void shim_k6_set_shape(int point, int scan, int sms) {
+  shim_point = point;
+  shim_scan = scan;
+  shim_sms = sms;
+}
 void shim_k6_inverse(const uint64_t* a, uint64_t* out, long n) {
   for (long i = 0; i < n; i++) out[i] = gl_canon(k6_inverse(a[i]));
 }
@@ -147,7 +158,7 @@ def qlib():
     lib = ctypes.CDLL(str(so))
     quotient_cuda.bind(lib)        # the wrappers' declarations and mirror checks
     permutation_cuda.bind(lib)
-    lib.shim_k6_set_threads.argtypes = [ctypes.c_int]
+    lib.shim_k6_set_shape.argtypes = [ctypes.c_int] * 3
     lib.shim_k6_inverse.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
     yield lib
     shutil.rmtree(build, ignore_errors=True)
@@ -453,10 +464,23 @@ def test_k5_table_records(gate_circuits):
 # --- K6 ------------------------------------------------------------------------------
 
 
-def _k6(qlib, common, wv, sig, x, betas, gammas, threads=1024):
-    qlib.shim_k6_set_threads(threads)
-    values, finals = permutation_cuda.products(common, _t(wv), _t(sig), _t(x), _t(betas),
-                                               _t(gammas), lib=qlib)
+CARD_SHAPE = (None, 320, 256)   # K6's tile (None: sized by the wrapper), point and scan threads
+
+
+def _k6(qlib, common, wv, sig, x, betas, gammas, shape=CARD_SHAPE):
+    """K6 through the wrapper on the host shim, its blocks of ``shape``
+    (points a tile, point-block threads, scan-block threads)."""
+    tile, point, scan = shape
+    saved = permutation_cuda.MIN_TILE, permutation_cuda.MAX_TILE
+    if tile:
+        permutation_cuda.MIN_TILE = permutation_cuda.MAX_TILE = tile
+    qlib.shim_k6_set_shape(point, scan, 132)
+    try:
+        values, finals = permutation_cuda.products(common, _t(wv), _t(sig), _t(x), _t(betas),
+                                                   _t(gammas), lib=qlib)
+    finally:
+        permutation_cuda.MIN_TILE, permutation_cuda.MAX_TILE = saved
+        qlib.shim_k6_set_shape(*CARD_SHAPE[1:], 132)
     return _u(values), _u(finals)
 
 
@@ -478,7 +502,8 @@ def test_k6_valid_witness_matches_plain_and_jax(qlib, gate_circuits, name):
     wv = np.stack([wires.T[:routed]] * 2)
     rng = np.random.default_rng(len(name) + 100)
     betas, gammas = (rng.integers(0, P, (2, 2, 1), dtype=U64) for _ in range(2))
-    got, finals = _k6(qlib, common, wv, po.sigmas_values, po.subgroup, betas, gammas, 4)
+    got, finals = _k6(qlib, common, wv, po.sigmas_values, po.subgroup, betas, gammas,
+                       (4, 12, 8))
     want, want_finals = _k6_plain(common, wv, po.sigmas_values, po.subgroup, betas, gammas)
     assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
     assert (finals == 1).all()
@@ -488,12 +513,18 @@ def test_k6_valid_witness_matches_plain_and_jax(qlib, gate_circuits, name):
         assert np.array_equal(got[b], ref)
 
 
+# scan threads -> the blocks' shape: tiles of 1 to 256 points (one run of
+# lanes or several), point blocks of 1 to 8 runs, scan blocks of 1 to 1024
+SHAPES = {1: (1, 1, 1), 4: (4, 8, 4), 32: (64, 96, 32), 1024: (256, 320, 1024)}
+
+
 @pytest.mark.parametrize("threads", [1, 4, 32, 1024])
 def test_k6_random_values_and_zero_denominator(qlib, threads):
     """Random values on H (the product does not close), with one
-    denominator of one chunk of one point 0: its inverse is 0, as the
-    plain version's, and that chunk's ratio zeroes the rest of the
-    scan; scan blocks of 1 to 1024 threads (one tile or many)."""
+    denominator of one chunk of one point 0: its inverse is masked to 0, as
+    the plain version's 1/0, and that chunk's ratio zeroes the rest of the
+    scan; tiles of 1 to 256 points (256 tiles to 1), point blocks of 1 to
+    8 runs of lanes, scan blocks of 1 to 1024 threads."""
     common, _ = _wormhole_commons()
     n, routed, nc = 256, 80, 2
     rng = np.random.default_rng(threads)
@@ -503,7 +534,7 @@ def test_k6_random_values_and_zero_denominator(qlib, threads):
     betas, gammas = (rng.integers(0, P, (nc, 3, 1), dtype=U64) for _ in range(2))
     b, j, i = 1, 13, 77
     wv[b, j, i] = (P - int(jgl.add(jgl.mul(betas[0, b, 0], sig[j, i]), gammas[0, b, 0]))) % P
-    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, threads)
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, SHAPES[threads])
     want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
     assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
     assert (got[b, 0, i + 1:] == 0).all() and got[b, 0, i] != 0 and finals[b, 0] == 0
@@ -535,7 +566,7 @@ def test_k6_short_last_chunk_matches_plain_and_jax(qlib):
         wv[b, pairs[:, 0]], wv[b, pairs[:, 1]] = v, v
     wv, sig = wv.reshape(2, routed, n), sig.reshape(routed, n)
     betas, gammas = (rng.integers(0, P, (2, 2, 1), dtype=U64) for _ in range(2))
-    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, 4)
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, (4, 8, 4))
     want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
     assert got.shape == (2, 20, n)
     assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
@@ -549,7 +580,7 @@ def test_k6_short_last_chunk_matches_plain_and_jax(qlib):
 
 def test_k6_odd_last_chunk_matches_plain(qlib):
     """77 routed wires in chunks of 8 (a last chunk of 5) on random values,
-    B = 2, scan blocks of 4 threads."""
+    B = 2, tiles of 4 points."""
     common = _common(t_cd, _wormhole_gates(t_gates), TORCH.C(zero_knowledge=True,
                                                               num_routed_wires=77), 6)
     n, rng = 64, np.random.default_rng(7)
@@ -557,7 +588,7 @@ def test_k6_odd_last_chunk_matches_plain(qlib):
     sig = rng.integers(0, P, (77, n), dtype=U64)
     x = jgl.powers(jgl.primitive_root_of_unity(6), n)
     betas, gammas = (rng.integers(0, P, (2, 2, 1), dtype=U64) for _ in range(2))
-    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, 4)
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, (4, 8, 4))
     want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
     assert got.shape == (2, 20, n)
     assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
@@ -602,7 +633,7 @@ def test_k6_five_challenges_match_plain_and_jax(qlib):
         wv[b, pairs[:, 0]], wv[b, pairs[:, 1]] = v, v
     wv, sig = wv.reshape(2, routed, n), sig.reshape(routed, n)
     betas, gammas = (rng.integers(0, P, (5, 2, 1), dtype=U64) for _ in range(2))
-    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, 4)
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, (4, 8, 4))
     want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
     assert got.shape == (2, 50, n) and finals.shape == (2, 5)
     assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
@@ -615,10 +646,107 @@ def test_k6_five_challenges_match_plain_and_jax(qlib):
     rand = rng.integers(0, P, (2, routed, n), dtype=U64)
     b, j, i = 1, 13, 7
     rand[b, j, i] = (P - int(jgl.add(jgl.mul(betas[4, b, 0], sig[j, i]), gammas[4, b, 0]))) % P
-    got, finals = _k6(qlib, common, rand, sig, x, betas, gammas, 32)
+    got, finals = _k6(qlib, common, rand, sig, x, betas, gammas, (8, 24, 32))
     want, want_finals = _k6_plain(common, rand, sig, x, betas, gammas)
     assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
     assert finals[b, 4] == 0 and finals[b, 3] != 0
+
+
+def _zero_den(wv, sig, betas, gammas, b, c, j, i):
+    """Sets wire j of proof b at point i so that challenge c's denominator
+    factor w + beta s + gamma there is 0."""
+    wv[b, j, i] = (P - int(jgl.add(jgl.mul(betas[c, b, 0], sig[j, i]), gammas[c, b, 0]))) % P
+
+
+# (name, n, the blocks' shape, zeros as (proof, challenge, wire, point))
+K6_ZERO_CASES = [
+    ("two_chunks_one_point", 64, (8, 24, 16), [(1, 0, 17, 37), (1, 0, 50, 37)]),
+    ("each_challenge", 64, (8, 24, 16), [(0, 0, 3, 10), (0, 1, 70, 40), (1, 1, 79, 63)]),
+    ("tile_edges", 256, (64, 64, 256), [(0, 0, 5, 64), (0, 1, 44, 127), (1, 0, 9, 128),
+                                        (1, 1, 60, 255)]),
+    ("n_not_a_tile_multiple", 100, (32, 320, 256), [(0, 1, 21, 99), (1, 0, 0, 96)]),
+    ("tiles_of_one_point", 64, (1, 4, 8), [(0, 0, 8, 0), (1, 1, 33, 31)]),
+]
+
+
+@pytest.mark.parametrize("name,n,shape,zeros", K6_ZERO_CASES, ids=[c[0] for c in K6_ZERO_CASES])
+def test_k6_zero_denominators_and_tiles(qlib, name, n, shape, zeros):
+    """Random values with chunk denominators of 0 where the batch inversion
+    has to mask them: two chunks of one point, a zero in each challenge,
+    the first and last point of a tile, n not a multiple of the tile (the
+    last tile short), tiles of one point; B = 2, against the plain
+    version (1/0 = 0), and every running product from the first zero on
+    is 0."""
+    common, _ = _wormhole_commons()
+    routed, nc = 80, 2
+    rng = np.random.default_rng(n + len(name))
+    wv = rng.integers(0, P, (2, routed, n), dtype=U64)
+    sig = rng.integers(0, P, (routed, n), dtype=U64)
+    x = rng.integers(0, P, n, dtype=U64)
+    betas, gammas = (rng.integers(0, P, (nc, 2, 1), dtype=U64) for _ in range(2))
+    for z in zeros:
+        _zero_den(wv, sig, betas, gammas, *z)
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas, shape)
+    want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
+    assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+    for b, c, j, i in zeros:
+        t = j // 8                                  # the zero's chunk
+        assert finals[b, c] == 0 and (got[b, c, i + 1:] == 0).all()
+        pps = got[b, nc + c * 9: nc + (c + 1) * 9, i]
+        assert (pps[t:] == 0).all()
+
+
+@pytest.mark.parametrize("routed,q,n,batch,tile,group", [
+    (80, 8, 1 << 13, 1, 32, 4), (80, 8, 1 << 13, 4, 128, 4), (80, 8, 1 << 14, 4, 128, 4),
+    (256, 8, 1 << 13, 4, 128, 3), (256, 2, 1 << 13, 4, 32, 3), (256, 1, 32, 1, 32, 1)])
+def test_k6_tile_shape(qlib, routed, q, n, batch, tile, group):
+    """The tile and the challenges a launch on 132 SMs and point blocks of
+    320 threads: 32 points at one wormhole proof, 128 at B = 4 and for the
+    level-1 batch (its 2 x 128 chains fill the block); where a tile's
+    chunk values would pass a block's shared memory, smaller tiles until
+    the circuit's two challenges fit a launch, or tiles of 32 and fewer
+    challenges a launch (k6_max_ch); at 256 routed wires in chunks of 1
+    (one challenge a launch, two launch pairs) K6 equals the plain
+    version."""
+    cfg = TORCH.C(zero_knowledge=True, num_wires=max(135, routed), num_routed_wires=routed,
+                  max_quotient_degree_factor=q)
+    common = _common(t_cd, _wormhole_gates(t_gates), cfg, 5)
+    assert permutation_cuda.tile_shape(common, n, batch, 132, qlib) == (tile, group)
+    if q != 1:
+        return
+    rng = np.random.default_rng(routed)
+    wv = rng.integers(0, P, (1, routed, n), dtype=U64)
+    sig = rng.integers(0, P, (routed, n), dtype=U64)
+    x = rng.integers(0, P, n, dtype=U64)
+    betas, gammas = (rng.integers(0, P, (2, 1, 1), dtype=U64) for _ in range(2))
+    _zero_den(wv, sig, betas, gammas, 0, 1, 200, 7)
+    got, finals = _k6(qlib, common, wv, sig, x, betas, gammas)
+    want, want_finals = _k6_plain(common, wv, sig, x, betas, gammas)
+    assert got.shape == (1, 2 * 256, n)
+    assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+
+
+def test_k6_other_coset_shifts(qlib):
+    """Coset shifts that are not the generator's powers 7^j, each beta k_j x read
+    from the block's table, against the plain version, with a zero
+    denominator."""
+    import dataclasses
+
+    common, _ = _wormhole_commons()
+    n, rng = 64, np.random.default_rng(11)
+    other = dataclasses.replace(common, k_is=rng.integers(1, P, 80, dtype=U64))
+    permutation_cuda._KIS.clear()   # the shifts are cached by routed wires and device
+    try:
+        wv = rng.integers(0, P, (2, 80, n), dtype=U64)
+        sig = rng.integers(0, P, (80, n), dtype=U64)
+        x = rng.integers(0, P, n, dtype=U64)
+        betas, gammas = (rng.integers(0, P, (2, 2, 1), dtype=U64) for _ in range(2))
+        _zero_den(wv, sig, betas, gammas, 1, 1, 42, 9)
+        got, finals = _k6(qlib, other, wv, sig, x, betas, gammas, (8, 24, 16))
+        want, want_finals = _k6_plain(other, wv, sig, x, betas, gammas)
+        assert np.array_equal(got, want) and np.array_equal(finals, want_finals)
+    finally:
+        permutation_cuda._KIS.clear()
 
 
 def test_k6_inverse_chain(qlib):

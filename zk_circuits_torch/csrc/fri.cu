@@ -9,12 +9,15 @@
 // ran them as ~11.4k launches a proof; here they are five kernels (fri.cuh
 // gives the formulas and what bounds each), six launches for a proof or a
 // batch of the wormhole (K7 one, K8 three, K9 one a fold round):
-//   k7_kernel: a block of 256 threads a (row, proof): the row's products
-//     with the powers of its point, summed by each thread over its strided
-//     coefficients (its powers a running product from its first, computed
-//     by squaring) and then by a tree in shared memory.  The
-//     oracles are read in place (no concatenation, the shared
-//     constants/sigmas oracle once for the batch);
+//   k7_kernel: a block of 256 threads a (tile of coefficients, group of up
+//     to 32 rows of one point, proof), tiles sized from the SM count
+//     (fri_cuda.openings_shape): the tile's powers of the point once for
+//     the group's rows, each row's sum over the tile as unreduced
+//     multiply-adds a lane and a warp's shuffles, the tile's row sums to a
+//     scratch; the last block of a (proof, group) to finish adds the
+//     tiles' sums (a counter a group, after a fence).  The oracles are
+//     read in place (no concatenation, the shared constants/sigmas oracle
+//     once for the batch);
 //   k8_point_kernel: a block of 8 warps a tile of 32 points of a proof:
 //     the warps split the rows (both alpha reductions over the same rows
 //     as K7), 8 rows' loads in flight a lane, the warps' sums added in
@@ -31,10 +34,11 @@
 // Bound on the H100 (chip_smoke.py's fri_work): K7 and K8's point kernel by
 // bytes, each reads every oracle row once (267 x 2^13 x 8 B = 17.5 MB a
 // wormhole proof) against two products a coefficient; they stream it with
-// neighbouring threads on neighbouring coefficients.  K7 spends an
-// extension product a coefficient more on its running power.  K8's scan
-// and K9 move under 0.4 MB a proof: their time is latency (a few thousand
-// threads, a few dozen dependent extension products each).
+// neighbouring threads on neighbouring coefficients.  K7's powers cost
+// a block one extension product a coefficient for up to 32 rows (its
+// parent built them once a row: 0.0496 ms a wormhole proof, PERF.md).
+// K8's scan and K9 move under 0.4 MB a proof: their time is latency (a
+// few thousand threads, a few dozen dependent extension products each).
 #include <cuda_runtime.h>
 
 #include "fri.cuh"
@@ -50,12 +54,26 @@ struct FriBlock {
   template <class F>
   __device__ __forceinline__ void each(F f) const { f((int)threadIdx.x); }
   __device__ __forceinline__ void sync() const { __syncthreads(); }
+  // f's K values of each thread summed over its warp by shuffles; g at lane 0
+  template <int K, class F, class G>
+  __device__ __forceinline__ void warp_sum(F f, G g) const {
+    uint64_t v[K];
+    f((int)threadIdx.x, v);
+#pragma unroll
+    for (int d = 16; d >= 1; d >>= 1)
+#pragma unroll
+      for (int k = 0; k < K; k++)
+        v[k] = gl_add_lazy(v[k], __shfl_xor_sync(0xffffffffu, v[k], d));
+    if ((threadIdx.x & 31) == 0) g((int)threadIdx.x, v);
+  }
 };
 
-__global__ void __launch_bounds__(K7_THREADS) k7_kernel(const __grid_constant__ K7Call c) {
-  __shared__ uint64_t buf[2 * K7_THREADS];
+// Three blocks an SM (at most 85 registers): one wave of K7's blocks at
+// openings_shape's sizes.
+__global__ void __launch_bounds__(K7_THREADS, 3) k7_kernel(const __grid_constant__ K7Call c) {
+  extern __shared__ uint64_t k7_smem[];
   FriBlock<K7_THREADS> blk;
-  k7_row_block(blk, c, blockIdx.y, blockIdx.x, buf);
+  k7_block(blk, c, blockIdx.z, blockIdx.x, blockIdx.y, k7_smem);
 }
 
 __global__ void __launch_bounds__(K8_PT_THREADS)
@@ -107,10 +125,12 @@ extern "C" {
 // not take).
 int k7_openings(int device, const K7Call* call, void* stream) {
   const K7Call& c = *call;
-  if (k7_valid(c)) return (int)cudaErrorInvalidValue;
+  const int smem = k7_smem(c.tile, c.group) * (int)sizeof(uint64_t);
+  if (k7_valid(c) || smem > 48 * 1024 || k7_tiles(c) >= (1LL << 31) || k7_groups(c) > 65535)
+    return (int)cudaErrorInvalidValue;
   return on_device(device, [&] {
-    k7_kernel<<<dim3((unsigned)c.r.rows, (unsigned)c.r.batch), K7_THREADS, 0,
-                (cudaStream_t)stream>>>(c);
+    k7_kernel<<<dim3((unsigned)k7_tiles(c), (unsigned)k7_groups(c), (unsigned)c.r.batch),
+                K7_THREADS, smem, (cudaStream_t)stream>>>(c);
   });
 }
 
@@ -132,6 +152,17 @@ int k8_scan(int device, const K8ScanCall* call, void* stream) {
     k8_seg_kernel<<<grid, K8_SEG_THREADS, 0, (cudaStream_t)stream>>>(c);
     k8_finish_kernel<<<grid, K8_SEG_THREADS, 0, (cudaStream_t)stream>>>(c);
   });
+}
+
+// K7's row groups of a call (the blocks of a tile of coefficients).
+int k7_row_groups(const K7Call* call) { return k7_groups(*call); }
+
+// The SMs of `device` (K7's tiles are sized from it), or -1.
+int fri_sm_count(int device) {
+  int sms = -1;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return -1;
+  return sms;
 }
 
 // u64 of a K8ScanCall's scratch for n points and `batch` proofs.

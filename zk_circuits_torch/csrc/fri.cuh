@@ -8,11 +8,13 @@
 // constants/sigmas, one copy for every proof) and a table t (0 or 1).  Row
 // r of a call is row r - (rows of the sets before) of its set.
 //
-// K7, the openings (k7_row_block, a block a proof and row):
+// K7, the openings (k7_block, a block a tile of coefficients, a group of
+// rows of one point and a proof):
 //   e[b, r] = sum_i row_r[b, i] z_t[b]^i
-// for the point z_t of proof b: zeta (t = 0) or g zeta (t = 1).  The
-// powers are computed in place (each thread its first power by squaring
-// and multiplying, then a running product), not read from a table.
+// for the point z_t of proof b: zeta (t = 0) or g zeta (t = 1).  A block
+// computes the powers of its tile once for its group of rows (no table
+// from the host), each row's sum over the tile is unreduced, and the last
+// block of a group adds the tiles' sums.
 // K8's point kernel, the alpha reduction (k8_point_block, a block a tile of
 // 32 points of a proof):
 //   comp_t[b, i] = sum over the rows r of table t of alpha[b]^e_r row_r[b, i]
@@ -64,6 +66,23 @@ GL_HD uint64_t fri_ld(const uint64_t* p) {
 #endif
 }
 
+// Orders this thread's earlier writes before its later ones for every
+// block of the launch (a no-op on the host, whose blocks run in turn).
+GL_HD void fri_fence() {
+#ifdef __CUDA_ARCH__
+  __threadfence();
+#endif
+}
+
+// *p += 1; returns the old value.
+GL_HD unsigned int fri_ticket(unsigned int* p) {
+#ifdef __CUDA_ARCH__
+  return atomicAdd(p, 1u);
+#else
+  return (*p)++;
+#endif
+}
+
 struct FriExt {
   uint64_t a, b;   // a + b x
 };
@@ -77,11 +96,17 @@ GL_HD FriExt fri_emul(FriExt x, FriExt y) {
           gl_add_lazy(gl_mul_m(x.a, y.b), gl_mul_m(x.b, y.a))};
 }
 
+// x^2 = (a^2 + 7 b^2) + 2 a b x: three products side by side, one deep.
+GL_HD FriExt fri_esqr(FriExt x) {
+  const uint64_t ab = gl_mul_m(x.a, x.b);
+  return {gl_add_lazy(gl_mul_m(x.a, x.a), gl_mul7(gl_mul_m(x.b, x.b))), gl_add_lazy(ab, ab)};
+}
+
 GL_HD FriExt fri_pow(FriExt x, unsigned long long e) {
   FriExt r = {1, 0};
   for (; e; e >>= 1) {
     if (e & 1) r = fri_emul(r, x);
-    x = fri_emul(x, x);
+    x = fri_esqr(x);
   }
   return r;
 }
@@ -141,7 +166,10 @@ struct K7Call {
   FriRows r;
   const uint64_t* pts;     // (tables, 2, batch): component k of z_t[b] at (t 2 + k) batch + b
   uint64_t* out;           // (2, batch, rows): component k of e[b, r] at (k batch + b) rows + r
+  uint64_t* part;          // scratch (batch, groups, tiles, group, 2): each block's row sums
+  unsigned int* counts;    // (batch, groups): blocks of a row group done, 0 between calls
   int tables;              // 1 or 2
+  int tile, group;         // coefficients a block (a multiple of 32), rows a group
 };
 
 // Point t of proof b.
@@ -149,51 +177,179 @@ GL_HD FriExt fri_point(const uint64_t* pts, int batch, int t, int b) {
   return {fri_ld(pts + 2 * t * batch + b), fri_ld(pts + (2 * t + 1) * batch + b)};
 }
 
-// Row r of proof b by a block of blk.threads() threads (a power of two):
-// each thread sums its coefficients' products with the powers of the
-// row's point (the coefficients tid, tid + threads, ...: z^tid, then
-// times z^threads), then a tree in buf (2 blk.threads() values) adds the
-// threads' sums.
-template <class Blk>
-GL_HD void k7_row_block(Blk& blk, const K7Call& c, int b, int r, uint64_t* buf) {
-  const int nthr = blk.threads();
-  blk.each([&](int tid) {
-    int t;
-    const uint64_t* row = fri_row(c.r, b, r, &t);
-    const FriExt z = fri_point(c.pts, c.r.batch, t, b);
-    const FriExt step = fri_pow(z, (unsigned long long)nthr);
-    FriExt p = fri_pow(z, (unsigned long long)tid);
-    uint64_t s0 = 0, s1 = 0;
-#pragma unroll 4
-    for (long long i = tid; i < c.r.n; i += nthr) {
-      const uint64_t x = fri_ld(row + i);
-      s0 = gl_add_lazy(s0, gl_mul_m(x, p.a));
-      s1 = gl_add_lazy(s1, gl_mul_m(x, p.b));
-      p = fri_emul(p, step);
+// The row groups: the rows in order, cut where the table changes and every
+// c.group rows after, so a group's rows share one point.
+GL_HD int k7_groups(const K7Call& c) {
+  int groups = 0;
+  for (int s = 0; s < c.r.nsets;) {
+    int run = 0;
+    for (const int t = c.r.sets[s].table; s < c.r.nsets && c.r.sets[s].table == t; s++)
+      run += c.r.sets[s].rows;
+    groups += (run + c.group - 1) / c.group;
+  }
+  return groups;
+}
+
+// Group gi's first row and rows; returns its table.
+GL_HD int k7_group_rows(const K7Call& c, int gi, int* first, int* rows) {
+  int row0 = 0;
+  for (int s = 0; s < c.r.nsets;) {
+    const int t = c.r.sets[s].table;
+    int run = 0;
+    for (; s < c.r.nsets && c.r.sets[s].table == t; s++) run += c.r.sets[s].rows;
+    const int g = (run + c.group - 1) / c.group;
+    if (gi < g) {
+      *first = row0 + gi * c.group;
+      *rows = run - gi * c.group < c.group ? run - gi * c.group : c.group;
+      return t;
     }
-    buf[tid] = s0;
-    buf[nthr + tid] = s1;
+    gi -= g;
+    row0 += run;
+  }
+  *first = *rows = 0;
+  return 0;   // not reached for gi < k7_groups
+}
+
+GL_HD long long k7_tiles(const K7Call& c) { return (c.r.n + c.tile - 1) / c.tile; }
+
+// u64 of a block's shared memory: z^l (l < 32) and z^(base + 32 k) (k <
+// tile / 32), the tile's powers z^(base + i), the group's row pointers, the
+// last-block flag.
+GL_HD int k7_smem(int tile, int group) { return 64 + 2 * (tile / 32) + 2 * tile + group + 1; }
+
+// A load of data another block wrote in this launch: past the SM's own
+// (incoherent) L1 on the card.
+GL_HD uint64_t fri_ld_cg(const uint64_t* p) {
+#ifdef __CUDA_ARCH__
+  return (uint64_t)__ldcg((const unsigned long long*)p);
+#else
+  return *p;
+#endif
+}
+
+// The block of coefficient tile ti, row group gi and proof b, by
+// blk.threads() threads in warps of 32 (a multiple of 32): blk.each(f) runs
+// f(tid) for each thread, blk.sync() is the barrier, blk.warp_sum<K>(f, g)
+// runs f(tid, v) for each thread (K values each) and g(tid, sums) for lane
+// 0 of each warp with the warp's sums; sm: k7_smem(c.tile, c.group) u64.
+//   1. The tile's powers of the group's point, once for every row: z^l (l
+//      < 32) and z^(base + 32 k) by squaring, then one extension product a
+//      coefficient, z^(base + i) = z^(i mod 32) z^(base + 32 (i div 32)).
+//   2. Warp w sums rows w, w + warps, ... two at a time: lane l takes
+//      coefficients base + l + 32 k (k < tile / 32), each row's products
+//      with both components of the powers unreduced (gl_acc_mac), reduced
+//      once a row; the warp's lanes meet in warp_sum; the row sums go to
+//      c.part.
+//   3. The block that finishes its (proof, group) last (a counter a group,
+//      after a fence) sums the group's rows over the tiles into c.out and
+//      sets the counter back to 0.
+template <class Blk>
+GL_HD void k7_block(Blk& blk, const K7Call& c, int b, long long ti, int gi, uint64_t* sm) {
+  const int nthr = blk.threads(), warps = nthr / 32, hk = c.tile / 32;
+  const long long n = c.r.n, base = ti * c.tile, tiles = k7_tiles(c);
+  int first, nrows;
+  const int table = k7_group_rows(c, gi, &first, &nrows);
+  uint64_t* lo = sm;                       // z^l: component 0 at l, 1 at 32 + l
+  uint64_t* hi = sm + 64;                  // z^(base + 32 k): component 0 at k, 1 at hk + k
+  uint64_t* pw = hi + 2 * hk;              // z^(base + i): component 0 at i, 1 at tile + i
+  uint64_t* rowp = pw + 2 * c.tile;        // the group's rows of proof b
+  uint64_t* last = rowp + c.group;
+  const long long slot = (long long)b * k7_groups(c) + gi;   // (proof, group)
+  blk.each([&](int tid) {
+    const FriExt z = fri_point(c.pts, c.r.batch, table, b);
+    for (int v = tid; v < 32 + hk + nrows; v += nthr) {
+      if (v < 32 + hk) {
+        const FriExt p = fri_pow(z, v < 32 ? (unsigned long long)v : base + 32LL * (v - 32));
+        uint64_t* d = v < 32 ? lo + v : hi + (v - 32);
+        d[0] = p.a;
+        d[v < 32 ? 32 : hk] = p.b;
+      } else {
+        int t;
+        rowp[v - 32 - hk] = (uint64_t)(uintptr_t)fri_row(c.r, b, first + v - 32 - hk, &t);
+      }
+    }
   });
   blk.sync();
-  for (int h = nthr / 2; h >= 1; h /= 2) {
-    blk.each([&](int tid) {
-      if (tid < h) {
-        buf[tid] = gl_add_lazy(buf[tid], buf[tid + h]);
-        buf[nthr + tid] = gl_add_lazy(buf[nthr + tid], buf[nthr + tid + h]);
-      }
-    });
-    blk.sync();
-  }
   blk.each([&](int tid) {
-    if (tid == 0) {
-      c.out[(long long)b * c.r.rows + r] = gl_canon(buf[0]);
-      c.out[((long long)c.r.batch + b) * c.r.rows + r] = gl_canon(buf[nthr]);
+    for (int i = tid; i < c.tile; i += nthr) {
+      const FriExt p = fri_emul({lo[i & 31], lo[32 + (i & 31)]}, {hi[i >> 5], hi[hk + (i >> 5)]});
+      pw[i] = p.a;
+      pw[c.tile + i] = p.b;
     }
+  });
+  blk.sync();
+  uint64_t* part = c.part + slot * tiles * c.group * 2 + ti * c.group * 2;
+  const int per_warp = (nrows + warps - 1) / warps;
+  for (int j = 0; j < per_warp; j += 2) {
+    blk.template warp_sum<4>(
+        [&](int tid, uint64_t* v) {
+          const int w = tid >> 5, lane = tid & 31;
+          const int r0 = w + j * warps, r1 = r0 + warps;
+          const uint64_t* x0 = (const uint64_t*)(uintptr_t)rowp[r0 < nrows ? r0 : 0];
+          const uint64_t* x1 = (const uint64_t*)(uintptr_t)rowp[r1 < nrows ? r1 : 0];
+          GlAcc a0 = gl_acc_zero(), b0 = gl_acc_zero(), a1 = gl_acc_zero(), b1 = gl_acc_zero();
+          for (int k0 = 0; k0 < hk; k0 += 8) {
+            uint64_t y0[8], y1[8];
+#pragma unroll
+            for (int u = 0; u < 8; u++) {
+              const int k = k0 + u;
+              const long long i = base + lane + 32LL * k;
+              const bool live = k < hk && i < n;
+              y0[u] = live && r0 < nrows ? fri_ld(x0 + i) : 0;
+              y1[u] = live && r1 < nrows ? fri_ld(x1 + i) : 0;
+            }
+#pragma unroll
+            for (int u = 0; u < 8; u++) {
+              const int k = k0 + u;
+              if (k < hk) {
+                const uint64_t pa = pw[lane + 32 * k], pb = pw[c.tile + lane + 32 * k];
+                gl_acc_mac(a0, y0[u], pa);
+                gl_acc_mac(b0, y0[u], pb);
+                gl_acc_mac(a1, y1[u], pa);
+                gl_acc_mac(b1, y1[u], pb);
+              }
+            }
+          }
+          v[0] = gl_acc_value(a0);
+          v[1] = gl_acc_value(b0);
+          v[2] = gl_acc_value(a1);
+          v[3] = gl_acc_value(b1);
+        },
+        [&](int tid, const uint64_t* v) {
+          const int r0 = (tid >> 5) + j * warps;
+          for (int h = 0; h < 2; h++) {
+            const int r = r0 + h * warps;
+            if (r < nrows) {
+              part[2 * r] = v[2 * h];
+              part[2 * r + 1] = v[2 * h + 1];
+            }
+          }
+          fri_fence();
+        });
+  }
+  blk.sync();
+  blk.each([&](int tid) {
+    if (tid == 0) *last = fri_ticket(c.counts + slot) == (unsigned int)(tiles - 1);
+  });
+  blk.sync();
+  if (!*last) return;
+  blk.each([&](int tid) {
+    fri_fence();
+    const uint64_t* all = c.part + slot * tiles * c.group * 2;
+    for (int v = tid; v < 2 * nrows; v += nthr) {
+      uint64_t s = 0;
+#pragma unroll 8
+      for (long long t = 0; t < tiles; t++) s = gl_add_lazy(s, fri_ld_cg(all + t * c.group * 2 + v));
+      c.out[((long long)(v & 1) * c.r.batch + b) * c.r.rows + first + (v >> 1)] = gl_canon(s);
+    }
+    if (tid == 0) c.counts[slot] = 0;
   });
 }
 
 GL_HD int k7_valid(const K7Call& c) {
-  if (fri_rows_valid(c.r) || c.tables < 1 || c.tables > 2) return 1;
+  if (fri_rows_valid(c.r) || c.tables < 1 || c.tables > 2 || c.tile < 32 || c.tile % 32 ||
+      c.group < 1 || !c.part || !c.counts)
+    return 1;
   for (int s = 0; s < c.r.nsets; s++)
     if (c.r.sets[s].table >= c.tables) return 1;
   return 0;

@@ -186,6 +186,10 @@ GL_HD uint64_t gl_sub_lazy(uint64_t a, uint64_t b) {
   return d - m;
 }
 
+// 7 y = 8 y - y mod p for any u64 y; any u64 out: a shift and two
+// reductions, no multiply.
+GL_HD uint64_t gl_mul7(uint64_t y) { return gl_sub_lazy(gl_reduce96(y << 3, y >> 61), y); }
+
 // A sum of 64x64-bit products kept unreduced: 160 bits in five 32-bit
 // words, w[0] the lowest.  gl_acc_mac adds a product in 13 multiply-adds
 // and carries (gl_mul_m and then gl_add_lazy take about twice as many

@@ -6,7 +6,9 @@ round-0 commit (``:193 _make_compose_run``) and the fold (``:136
 _fold_dev`` in ``:255`` and ``:289``); none is a Pallas kernel.
 
 - ``openings`` (K7, one launch): every row of a list of sets evaluated at
-  its table's point (zeta or g zeta) of its proof;
+  its table's point (zeta or g zeta) of its proof, a block a tile of
+  coefficients (``openings_shape``), a group of rows of one point and a
+  proof, the last block of a group summing the tiles;
 - ``reduce_alpha`` (K8's point kernel, one launch): each table's rows
   summed with their powers of alpha, computed on the card;
 - ``compose`` (K8's scan, two launches): both divisions by a linear factor
@@ -49,6 +51,10 @@ MAX_POW = 1024        # csrc/fri.cuh K8_MAX_POW
 MAX_BATCH = 65535     # the grid's y extent
 MAX_ARITY_BITS = 62   # csrc/fri.cuh K9_MAX_BITS
 SCAN_LAUNCHES = 2     # K8's scan: its segment sums, then the rest (csrc/fri.cu k8_scan)
+K7_GROUP = 32         # K7's rows a block: 4 a warp of its 8
+K7_MIN_TILE = 256     # K7's coefficients a block: 8 a lane, up to
+K7_MAX_TILE = 2048    # 64 a lane (its shared memory stays below 48 KB)
+K7_BLOCKS_PER_SM = 2  # the least blocks an SM openings_shape aims for
 KERNELS = ("k7", "k8", "k9")
 
 launches = 0
@@ -56,7 +62,9 @@ launches_by_kernel = dict.fromkeys(KERNELS, 0)
 launches_by_device: dict = {}
 build_log = ""   # nvcc's output of the last build (ptxas register report)
 _LIB = None
-_LOCK = threading.Lock()   # the build and the counters
+_LOCK = threading.Lock()   # the build, the counters and the caches
+_SMS: dict = {}            # SMs by device
+_COUNTS: dict = {}         # K7's block counters by device, zero between calls
 
 
 def _fields(spec: str, names: str) -> list:
@@ -77,8 +85,7 @@ class _Rows(ctypes.Structure):
 
 
 class _K7Call(ctypes.Structure):
-    _fields_ = [("r", _Rows), ("pts", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("tables", ctypes.c_int)]
+    _fields_ = [("r", _Rows)] + _fields("ppppiii", "pts out part counts tables tile group")
 
 
 class _K8Call(ctypes.Structure):
@@ -136,6 +143,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fri_call_size.restype = ctypes.c_int
     lib.k8_scan_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int]
     lib.k8_scan_scratch.restype = ctypes.c_longlong
+    lib.fri_sm_count.argtypes = [ctypes.c_int]
+    lib.fri_sm_count.restype = ctypes.c_int
+    lib.k7_row_groups.argtypes = [ctypes.c_void_p]
+    lib.k7_row_groups.restype = ctypes.c_int
     for kind, (name, mirror) in enumerate(CALLS):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -229,6 +240,46 @@ def _points(pts: torch.Tensor, counts: tuple) -> tuple:
     return pts.contiguous(), pts.shape[2]
 
 
+def openings_shape(n: int, groups: int, batch: int, sms: int) -> int:
+    """K7's coefficients a block for n coefficients, ``groups`` row groups
+    and ``batch`` proofs on a card of ``sms`` SMs: the largest power of two
+    from K7_MIN_TILE to K7_MAX_TILE that still gives K7_BLOCKS_PER_SM blocks
+    an SM (fewer, larger blocks spend less on their powers and partial
+    sums), K7_MIN_TILE where none does."""
+    tile = K7_MIN_TILE
+    while tile < K7_MAX_TILE and \
+            -(-n // (2 * tile)) * groups * batch >= K7_BLOCKS_PER_SM * sms:
+        tile *= 2
+    return tile
+
+
+def _sm_count(dev: torch.device, lib) -> int:
+    key = str(dev)
+    with _LOCK:
+        sms = _SMS.get(key)
+    if sms is None:
+        sms = lib.fri_sm_count(dev.index or 0)
+        if sms < 1:
+            raise RuntimeError(f"fri_sm_count({dev}) failed")
+        if dev.type == "cuda":     # the shim's count may change between calls
+            with _LOCK:
+                _SMS[key] = sms
+    return sms
+
+
+def _counts(dev: torch.device, size: int) -> torch.Tensor:
+    """K7's block counters on ``dev`` (int32, at least ``size``): zero
+    between calls, since each call's last blocks set theirs back to 0; so
+    calls on one card run in stream order."""
+    key = str(dev)
+    with _LOCK:
+        t = _COUNTS.get(key)
+        if t is None or t.numel() < size:
+            t = torch.zeros(max(size, 1 << 16), dtype=torch.int32, device=dev)
+            _COUNTS[key] = t
+    return t
+
+
 def openings(sets: list, pts: torch.Tensor, *, lib=None) -> tuple:
     """K7: ``e`` (B, R) as a component pair, row r of the sets (in order,
     R rows in all) evaluated at its table's point of its proof:
@@ -243,8 +294,15 @@ def openings(sets: list, pts: torch.Tensor, *, lib=None) -> tuple:
     if any(t >= pts.shape[0] for _, t, *_ in sets):
         raise ValueError(f"a set names table {max(t for _, t, *_ in sets)} of "
                          f"{pts.shape[0]}")
+    lib = _lib() if dev.type == "cuda" else lib
+    call = _K7Call(r=rows, pts=pts.data_ptr(), tables=pts.shape[0], group=K7_GROUP)
+    groups = lib.k7_row_groups(ctypes.byref(call))   # csrc/fri.cuh k7_groups
+    call.tile = openings_shape(n, groups, batch, _sm_count(dev, lib))
     out = torch.empty((2, batch, total), dtype=torch.int64, device=dev)
-    call = _K7Call(r=rows, pts=pts.data_ptr(), out=out.data_ptr(), tables=pts.shape[0])
+    part = torch.empty((batch * groups * -(-n // call.tile) * K7_GROUP * 2,),
+                       dtype=torch.int64, device=dev)
+    counts = _counts(dev, batch * groups)
+    call.out, call.part, call.counts = out.data_ptr(), part.data_ptr(), counts.data_ptr()
     _launch("k7", "k7_openings", call, dev, lib, f"B={batch}, {total} rows of {n}")
     return out[0], out[1]
 

@@ -85,7 +85,7 @@ def _quotient_commit_body(common, blinding: bool, cs_vals, wires_vals,
     cfg = common.config
     n = common.degree
     tables = _coset_tables(common, cs_vals.device)
-    if _on(cs_vals) == "cuda":      # K5, one launch
+    if _on(cs_vals) == "cuda":      # K5, two launches a group of challenges
         vals = quotient_cuda.vanishing(common, cs_vals, wires_vals, zsp_vals, tables,
                                        pi_hash, betas, gammas, alphas)
     else:
