@@ -18,7 +18,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                standard_recursion_zk_config at FRI arity 2^5 and at five
                challenges, built and proved on the card: each proof's
                sha256 == the JAX host path's (pinned below), verified; K9
-               once a fold round, K5 and K6 twice a group of at most four
+               once a fold round (its round mode, at arity 2^5 first, then
+               its fold mode), K5 and K6 twice a group of at most four
                challenges, no plain quotient or FRI body on the card.
 4. wormhole -- the zk wormhole proof as bench.py proves it (circuit built
                on the card, one cold and three warm proves), verified,
@@ -34,8 +35,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (two) and K6's (two) a proof, and no call of the quotient's
                or the permutation argument's plain version on the card
                (plain_quotient_on_card); K7's (one), K8's (three) and K9's
-               (one a fold round) a proof, and no plain FRI body on the
-               card (plain_fri_on_card).
+               (one a fold round: its round mode, with the next codeword's
+               coset NTT and leaves, in all but the last) a proof, and no
+               plain FRI body on the card (plain_fri_on_card).
 5. batch    -- the batched prover: prove_batch of B=4 zk wormhole proofs
                (one cold batch, two warm), each proof's sha256 == the pinned
                digest, proof 0 verified and a tampered copy refused; K1's
@@ -93,7 +95,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                device operations, busy time and most frequent operations;
                K5 once and K6 twice a proof, no plain quotient body;
                K7-K9 as in wormhole, no plain FRI body; prove/openings+fri's
-               device operations beside OPENINGS_FRI_OPS_BEFORE.
+               device operations beside OPENINGS_FRI_OPS_BEFORE, and the
+               proof's beside DEVICE_OPS_BEFORE_K9 (before K9's round
+               mode).
 10. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
                card (and spread over the cards when there are several):
                copy with even and odd block sizes and edge values, and at E=4 every fiber regroup and
@@ -117,8 +121,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                proof launches K5 once a shard (its rows, row0 and its halo)
                and K6 twice, with no plain quotient body on the card, and
                K7 and K8's point kernel a shard and once more on the first
-               (the Z rows at g*zeta), K8's scan once, K9 a shard a round
-               (expected_fri_launches), with no plain FRI body.
+               (the Z rows at g*zeta), K8's scan once, K9's fold mode a
+               shard a round (expected_fri_launches), with no plain FRI
+               body.
                Then the device operations of one profiled 2^22 four-step,
                fused and as the sequence it replaced (K2 copies with eager
                torch field operations between them), each with its K2
@@ -167,7 +172,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                prove (a batch of 4, a batch of 2, one proof) launches K1 by
                mode and K3 by kernel as many times as its level circuit
                gives, K5 once and K6 twice, K7 once, K8 twice and K9 once
-               a fold round, with no host witness and no plain quotient or
+               a fold round (its round mode but in the last), with no host
+               witness and no plain quotient or
                FRI body on the card.  Then the host's part of a
                level-1 prove (the chunk witnesses, seed_batch), one warm
                level-1 prove_level under torch.profiler, and K1 (the
@@ -208,27 +214,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the bound counts and the kernel spends.
 20. fri_check -- K7, K8 and K9 against their plain versions
                (fri/fri_device.py's _openings_plain, _reduce_alpha_plain,
-               _compose_plain, _fold_plain) on the card, equal integers:
-               one wormhole proof, B=4 and the level-1 batch at 2^14 (three
-               fold rounds, the last of arity 2), each with the circuit's
+               _compose_plain, _fold_plain, _fold_round_plain) on the card,
+               equal integers: one wormhole proof, B=4 and the level-1
+               batch at 2^14 (three fold rounds, the last of arity 2; K9's
+               round mode in every round but the last), each with the circuit's
                constants/sigmas shared (batch stride 0); every input 0, 1
                or p - 1; each proof's points at 0, 1, -1, x and -1 - x;
                n not a multiple of K8's tiles and segments, a short
                segment, a lone point and more segments than a scan
                block's threads, at B = 3; K7's row groups of 1 and 3
                rows, its tiles forced to 2048 at one proof and 256 at
-               B=4, n = 100; arity bits 1-6, batched and 1-D; each shard's openings,
-               alpha reduction and fold on the sharded path (E=4) and the
-               Z rows at g*zeta on the first shard.
+               B=4, n = 100; K9's fold mode at arity bits 1-6, batched and
+               1-D, and its round mode at arity bits 1-6, at every input 0,
+               1 or p - 1, at each group of 1, 2, 4 and 8 cosets that fold
+               once (clusters) at the wormhole's round and at a 2^16
+               codeword, over a strided batch, and at K9_MAX_BATCH + 2
+               proofs (two launches, as its fold mode); each shard's
+               openings, alpha reduction and fold on the sharded path
+               (E=4) and the Z rows at g*zeta on the first shard.
 21. fri_time -- K7-K9's device time (graph_ms) at fri_check's three
                main-path shapes: K7, K8's point kernel, its scan, both,
-               each fold round, and a proof's launches of all three,
-               beside the plain versions, the bound (fri_work: bytes, or
-               the products the functions need) and the host time of a
-               wrapper call; ptxas's registers and spills and the SASS
-               counts of each kernel; K7, and K8 (unchanged: a control),
-               beside the parent commit's on the same inputs (paired_ms).
-               A share of the bound above 1.05 fails.
+               each fold round (K9's round mode, the last its fold mode),
+               and a proof's launches of all three, beside the plain
+               versions, the bound (fri_work: bytes, or the products the
+               functions need) and the host time of a wrapper call;
+               ptxas's registers and spills and the SASS counts of each
+               kernel; K9's rounds beside the parent commit's sequence on
+               the same inputs (its K9, torch.stack, K4's coset NTT and
+               the fiber regroup copy; its final fold), and K8 (unchanged:
+               a control) beside the parent's (paired_ms).  A share of the
+               bound above 1.05 fails.
 22. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
                over make_mesh(4) (shard i on cuda:(i % cards); the four
                shards prove in turn, on one card or on four), cold and
@@ -424,6 +439,7 @@ K3_PRODUCTS = {"const": 0, "arith": 3, "arith_ext": 9, "eq_inv": 127, "ext_inv":
 K3_CHAIN_DEPTH = 128   # levels of the arith chain circuit that times a narrow level
 # a warm wormhole proof's device operations with the host witness (PERF.md)
 DEVICE_OPS_BEFORE = 64251   # a warm proof's device operations before K5 and K6 (PERF.md)
+DEVICE_OPS_BEFORE_K9 = 380  # ... before K9's round mode (PERF.md §5)
 DEVICE_OPS_BEFORE_FRI = 11462        # ... before K7-K9 (PERF.md)
 OPENINGS_FRI_OPS_BEFORE = 11390      # prove/openings+fri's of them (stage_device_ops)
 SHARDS = 4             # E of the sharded phase
@@ -437,7 +453,7 @@ K2_TIMED_CALLS = 32    # back-to-back calls per K2 timing (graph_ms)
 # and fri_time time beside this tree's in the same run (paired_ms): its
 # zk_circuits_torch/ under PARENT_DIR (git-ignored), unpacked there from the
 # checkout's git history when it has the commit.
-PARENT_COMMIT = "0de745ac783e1836ba5ab2de5e21ac5cc22164f8"
+PARENT_COMMIT = "fc58c66bceadc587e00ad7ef5ff9260d8f4ca068"
 PARENT_DIR = "zk_circuits_torch/_build/parent"
 
 
@@ -555,9 +571,10 @@ def parent_port():
 
 
 def parent_kernels() -> dict:
-    """The parent's K5, K6 and K7-K9 wrappers ({"k5": its quotient_cuda,
-    "k6": its permutation_cuda, "fri": its fri_cuda}; empty without the
-    parent); its K5 table knows this tree's gate classes."""
+    """The parent's K4, K5, K6 and K7-K9 wrappers ({"k4": its ntt_cuda,
+    "k5": its quotient_cuda, "k6": its permutation_cuda, "fri": its
+    fri_cuda}; empty without the parent); its K5 table knows this tree's
+    gate classes.  Its fri/fri_device.py is ``parent_fri_device()``."""
     import importlib
 
     from zk_circuits_torch.plonk import quotient_cuda
@@ -567,8 +584,17 @@ def parent_kernels() -> dict:
     pq = importlib.import_module("zk_parent.plonk.quotient_cuda")
     by_name = {cls.__name__: kind for cls, kind in pq.KINDS.items()}
     pq.KINDS = {cls: by_name[cls.__name__] for cls in quotient_cuda.KINDS}
-    return {"k5": pq, "k6": importlib.import_module("zk_parent.plonk.permutation_cuda"),
+    return {"k4": importlib.import_module("zk_parent.ntt.ntt_cuda"), "k5": pq,
+            "k6": importlib.import_module("zk_parent.plonk.permutation_cuda"),
             "fri": importlib.import_module("zk_parent.fri.fri_cuda")}
+
+
+def parent_fri_device():
+    """The parent's fri/fri_device.py (its K9's round sequence: K9, K4's
+    coset NTT, the fiber regroup), or None without the parent."""
+    import importlib
+
+    return importlib.import_module("zk_parent.fri.fri_device") if parent_port() else None
 
 
 def paired_ms(calls: list, parent_calls: list) -> dict:
@@ -617,7 +643,7 @@ def phase_card(state) -> None:
         return time.perf_counter() - t
 
     poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's, K3's, native's
-    parent = parent_kernels()   # the parent's K5-K9, timed beside this tree's
+    parent = parent_kernels()   # the parent's K4-K9, timed beside this tree's
     # one nvcc per source and g++ for the host runtime, all started together
     with ThreadPoolExecutor(10) as pool:
         k1, k2, k3, k4, k5, k6, k789, host, *parent_s = pool.map(timed, (
@@ -1276,22 +1302,37 @@ def expected_k3_launches(cd) -> dict:
     return {"walk": kernels.count("walk"), "ops": kernels.count("ops"), "cells": 1}
 
 
+def fri_rounds(common) -> list:
+    """(coefficients folded, arity bits, round mode) of each fold round of
+    a proof of ``common``: K9's round mode (the fold, the next codeword's
+    coset NTT and its leaves in one launch) for every round but the last
+    where ``fri_cuda.round_fits`` holds, else its fold mode."""
+    from zk_circuits_torch.fri import fri_cuda
+
+    arities = common.config.fri_config.reduction_arities(common.degree_bits)
+    out, n = [], common.degree
+    for r, a in enumerate(arities):
+        out.append((n, a, r + 1 < len(arities) and fri_cuda.round_fits(n, a)))
+        n >>= a
+    return out
+
+
 def expected_k4_launches(common) -> dict:
     """K4's launches a proof, or a batch of proofs (a call serves the
     batch's rows), by mode: two a call that takes the four-step, one a
     row-path call.  The wires INTT, the zs stage's NTT and INTT, the three
     commits' LDEs, the quotient's coset INTT (every challenge in one call),
-    and FRI's coset NTT of a fold round (both components in one call)."""
+    and FRI's coset NTT (both components in one call) of the round-0
+    codeword and of each later one that K9's round mode does not make."""
     from zk_circuits_torch.ntt import ntt_cuda
 
     def k(n):
         return 2 if ntt_cuda.plan(n) else 1
 
-    n, lde, cfg = common.degree, common.lde_size, common.config
-    sizes, size = [], lde
-    for a_bits in cfg.fri_config.reduction_arities(common.degree_bits):
-        sizes.append(size)
-        size >>= a_bits
+    n, lde, rate = common.degree, common.lde_size, common.config.fri_config.rate_bits
+    rounds = fri_rounds(common)
+    sizes = [lde] if rounds else []
+    sizes += [(c >> a) << rate for c, a, mode in rounds[:-1] if not mode]
     return {"ntt": k(n), "intt": 2 * k(n), "coset_ntt": sum(k(s) for s in sizes),
             "coset_intt": k(lde), "lde": 3 * k(lde)}
 
@@ -1346,19 +1387,21 @@ def plain_quotient_on_card():
 def plain_fri_on_card():
     """The calls of the openings' and FRI's plain versions (fri/fri_device.py's
     ``_openings_plain``, ``_reduce_alpha_plain``, ``_compose_plain``,
-    ``_fold_plain``) on CUDA tensors inside the block: on the card the main
-    path takes K7, K8 and K9."""
+    ``_fold_plain``, ``_fold_round_plain``) on CUDA tensors inside the
+    block: on the card the main path takes K7, K8 and K9."""
     from zk_circuits_torch.fri import fri_device
 
     return plain_calls_on_card(fri_device, ("_openings_plain", "_reduce_alpha_plain",
-                                            "_compose_plain", "_fold_plain"))
+                                            "_compose_plain", "_fold_plain",
+                                            "_fold_round_plain"))
 
 
 def fri_launches() -> dict:
-    """K7's, K8's and K9's launches so far."""
+    """K7's, K8's and K9's launches so far, and K9's in its round mode
+    (``k9_round``, among K9's)."""
     from zk_circuits_torch.fri import fri_cuda
 
-    return dict(fri_cuda.launches_by_kernel)
+    return {**fri_cuda.launches_by_kernel, "k9_round": fri_cuda.k9_by_mode["round"]}
 
 
 def fri_since(before: dict) -> dict:
@@ -1374,23 +1417,26 @@ def reset_fri_launches() -> None:
 def expected_fri_launches(common, shards: int | None = None) -> dict:
     """K7's, K8's and K9's launches a proof, or a batch of proofs of one
     circuit: K7 once, K8 three times (its point kernel, and its scan's
-    segment sums and finish), K9 once a fold round.  For a sharded proof
-    over ``shards`` shards: K7 and K8's point kernel once a shard and once
-    more for the Z rows at g*zeta, K8's scan once (two launches), K9 once a
-    shard a fold round while every shard holds a multiple of the arity,
-    else once (fri_sharded._fold gathers)."""
+    segment sums and finish), K9 once a fold round, in its round mode
+    (``k9_round``) where fri_rounds says.  For a sharded proof over
+    ``shards`` shards: K7 and K8's point kernel once a shard and once more
+    for the Z rows at g*zeta, K8's scan once (two launches), K9's fold mode
+    once a shard a fold round while every shard holds a multiple of the
+    arity, else once (fri_sharded._fold gathers)."""
     from zk_circuits_torch.fri import fri_cuda
 
-    arities = common.config.fri_config.reduction_arities(common.degree_bits)
+    rounds = fri_rounds(common)
     if shards is None:
-        return {"k7": 1, "k8": 1 + fri_cuda.SCAN_LAUNCHES, "k9": len(arities)}
+        return {"k7": 1, "k8": 1 + fri_cuda.SCAN_LAUNCHES, "k9": len(rounds),
+                "k9_round": sum(mode for _, _, mode in rounds)}
     pieces, k9 = [common.degree // shards] * shards, 0
-    for a in arities:
+    for _, a, _ in rounds:
         if any(p % (1 << a) for p in pieces):
             pieces = [sum(pieces)]
         k9 += len(pieces)
         pieces = [p >> a for p in pieces]
-    return {"k7": shards + 1, "k8": shards + 1 + fri_cuda.SCAN_LAUNCHES, "k9": k9}
+    return {"k7": shards + 1, "k8": shards + 1 + fri_cuda.SCAN_LAUNCHES, "k9": k9,
+            "k9_round": 0}
 
 
 def expected_quotient_launches(common, shards: int = 1) -> tuple[int, int]:
@@ -2013,6 +2059,7 @@ def phase_profile(state) -> None:
     state["device_ops_by_stage"] = by_stage
     emit({"phase": "profile", **prof, "device_ops_before": DEVICE_OPS_BEFORE,
           "device_ops_shed": DEVICE_OPS_BEFORE - prof["device_ops"],
+          "device_ops_before_k9_round": DEVICE_OPS_BEFORE_K9,
           "device_ops_before_fri": DEVICE_OPS_BEFORE_FRI,
           "openings_fri_device_ops": by_stage["prove/openings+fri"]["device_ops"],
           "openings_fri_device_ops_before": OPENINGS_FRI_OPS_BEFORE,
@@ -3932,14 +3979,26 @@ def fri_inputs(gen, widths, n: int, batch: int, num_zs: int, value=None) -> dict
     return dict(rows=rows, alpha=draw(1, 2, batch), pts=draw(3, 2, batch))
 
 
+def host_betas(gen, batch: int):
+    """(batch, 2) canonical random ext elements on the host (K9 takes its
+    betas there), seeded from the card's ``gen``."""
+    from zk_circuits_torch.field import goldilocks as gf
+
+    return gf.to_u64(gl_random(gen, (batch, 2)))
+
+
 def fri_fold_inputs(gen, common, batch: int) -> list:
-    """(arity bits, c pair (B, N), beta pair (B,)) of each fold round of a
-    proof of ``common``, seeded."""
-    out, size = [], common.degree
-    for a in common.config.fri_config.reduction_arities(common.degree_bits):
-        out.append((a, (gl_random(gen, (batch, size)), gl_random(gen, (batch, size))),
-                    (gl_random(gen, (batch,)), gl_random(gen, (batch,)))))
-        size >>= a
+    """(arity bits, c pair (B, N), betas (B, 2) on the host, the round
+    mode's (next arity bits, rate bits, next shift) or None) of each fold
+    round of a proof of ``common`` (fri_rounds), seeded."""
+    from zk_circuits_torch.host import gl
+
+    rounds, rate = fri_rounds(common), common.config.fri_config.rate_bits
+    out, shift = [], gl.MULTIPLICATIVE_GROUP_GENERATOR
+    for r, (n, a, mode) in enumerate(rounds):
+        shift = pow(shift, 1 << a, P)
+        out.append((a, (gl_random(gen, (batch, n)), gl_random(gen, (batch, n))),
+                    host_betas(gen, batch), (rounds[r + 1][1], rate, shift) if mode else None))
     return out
 
 
@@ -3964,13 +4023,30 @@ def fri_calls(inp: dict, plain: bool = False, kernels=None) -> dict:
             "k8_scan": lambda: compose(comp_in), "k8": lambda: compose(red(rows, alpha))}
 
 
-def fri_fold_call(case, plain: bool = False):
+def fri_fold_call(case, plain: bool = False, parent=None):
+    """A closure over K9's call on ``case`` (fri_fold_inputs'): its round
+    mode or its fold mode, or their plain versions
+    (``_fold_round_plain``, ``_fold_plain``), or those of ``parent`` (the
+    parent port's fri/fri_device.py: its K9, then for a round its K4 coset
+    NTT and the fiber regroup, the sequence the round mode replaced)."""
+    from zk_circuits_torch.field import goldilocks as gf
     from zk_circuits_torch.fri import fri_cuda
     from zk_circuits_torch.fri import fri_device as fd
 
-    a, c, beta = case
-    fold = fd._fold_plain if plain else fri_cuda.fold
-    return lambda: fold(*c, *beta, a)
+    a, c, beta, nxt = case
+    if not plain and parent is None:
+        return (lambda: fri_cuda.fold_round(*c, beta, a, *nxt)) if nxt else \
+            (lambda: fri_cuda.fold(*c, beta, a))
+    b = gf.ext_pair(beta, c[0].device)   # the plain versions and the parent's take tensors
+    if parent is None:
+        return (lambda: fd._fold_round_plain(*c, *b, a, *nxt)) if nxt else \
+            (lambda: fd._fold_plain(*c, *b, a))
+    if nxt is None:
+        return lambda: parent.fold(*c, *b, a)
+    nb, rate, shift = nxt
+    size = (c[0].shape[-1] >> a) << rate
+    return lambda: parent._fiber_leaves(
+        *parent._ext_coset_ntt_dev(*parent.fold(*c, *b, a), shift, size), 1 << nb)
 
 
 def _flat(out) -> list:
@@ -3983,7 +4059,7 @@ def _flat(out) -> list:
 
 
 def fri_work(kernel: str, widths: tuple, n: int, batch: int, num_zs: int,
-             arity_bits: int = 0) -> tuple[int, int]:
+             arity_bits: int = 0, nxt: tuple | None = None) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) of one call of a K7-K9 function, each
     input read once and each output written once, 8 multiplies a 64x64
     product (an extension product 4, its times 7 shifts and adds):
@@ -3996,9 +4072,12 @@ def fri_work(kernel: str, widths: tuple, n: int, batch: int, num_zs: int,
     k8_scan: comp0 and comp1 ((B, n) pairs) and the points in, f out; nine
     extension products a point (comp z^i twice, the two inverse powers,
     alpha^num_zs, the powers of both points and of their inverses) and
-    two inverses a proof (FRI_INVERSE_PRODUCTS each).  k9 at
-    ``arity_bits``: c (B, N) in, (B, N / A) out, A - 1 extension products
-    an output."""
+    two inverses a proof (FRI_INVERSE_PRODUCTS each).  k9_fold at
+    ``arity_bits``: c (B, N) and the betas in, (B, N / A) out, A - 1
+    extension products an output.  k9_round (``nxt``: next arity bits,
+    rate bits, shift): k9_fold's, and the leaves (B, m', 2 A') out; and for
+    each component of each proof the 2^rate_bits cosets' NTTs of N / A
+    points with their shift powers (k4_work's coset_ntt products)."""
     k = sum(widths)
     oracle = 8 * n * (widths[0] + batch * (k - widths[0]))
     rows = batch * (k + num_zs)
@@ -4015,21 +4094,28 @@ def fri_work(kernel: str, widths: tuple, n: int, batch: int, num_zs: int,
         b1, m1 = fri_work("k8_point", widths, n, batch, num_zs)
         b2, m2 = fri_work("k8_scan", widths, n, batch, num_zs)
         return b1 + b2, m1 + m2
-    arity = 1 << arity_bits
-    return 16 * batch * (n + n // arity) + 16 * batch, \
-        batch * (n // arity) * (arity - 1) * 4 * K4_MULS_PER_PRODUCT
+    arity, m = 1 << arity_bits, n >> arity_bits
+    nbytes = 16 * batch * (n + m) + 16 * batch
+    muls = batch * m * (arity - 1) * 4 * K4_MULS_PER_PRODUCT
+    if kernel == "k9_round":
+        _, rate, _ = nxt
+        nbytes += 16 * batch * (m << rate)
+        muls += 2 * batch * (1 << rate) * k4_work("coset_ntt", (1, m), m)[1]
+    return nbytes, muls
 
 
 def phase_fri_check(state) -> None:
     """K7, K8 and K9 against their plain versions on the card, equal
     integers (see the module doc)."""
+    import numpy as np
     import torch
 
+    from zk_circuits_torch.field import goldilocks as gf
     from zk_circuits_torch.fri import fri_cuda
     from zk_circuits_torch.fri import fri_device as fd
 
     gen = torch.Generator(device="cuda").manual_seed(2051)
-    before = dict(fri_cuda.launches_by_kernel)
+    before = fri_launches()
     checked = []
 
     def check(name, got, want):
@@ -4048,9 +4134,10 @@ def phase_fri_check(state) -> None:
     for name, common, widths, batch in fri_cases(state):
         nz = common.config.num_challenges
         check_all(name, fri_inputs(gen, widths, common.degree, batch, nz))
-        for case in fri_fold_inputs(gen, common, batch):
-            check(f"{name}/k9_{case[0]}_bits_{case[1][0].shape[-1]}", fri_fold_call(case)(),
-                  fri_fold_call(case, plain=True)())
+        for case in fri_fold_inputs(gen, common, batch):   # the round mode, then the last fold
+            mode = "round" if case[3] else "fold"
+            check(f"{name}/k9_{mode}_{case[0]}_bits_{case[1][0].shape[-1]}",
+                  fri_fold_call(case)(), fri_fold_call(case, plain=True)())
     common = state["wormhole"][0].common
     widths, n, nz = fri_widths(state["wormhole_proof"]), common.degree, 2
     for value in (0, 1, P - 1):               # every input the same edge value
@@ -4066,12 +4153,46 @@ def phase_fri_check(state) -> None:
     # over the later segments), at B = 3
     for n_odd, batch in ((5000, 3), (100, 3), (1, 2), ((1 << 16) + 3 * 256 + 7, 1)):
         check_all(f"n_{n_odd}_b{batch}", fri_inputs(gen, (2, 3, 3, 2), n_odd, batch, nz))
+    shift = pow(7, 16, P)                      # the wormhole's round-1 shift
     for a in (1, 2, 3, 4, 5, 6):              # every arity, batched and 1-D
         c = (gl_random(gen, (BATCH, n)), gl_random(gen, (BATCH, n)))
-        beta = (gl_random(gen, (BATCH,)), gl_random(gen, (BATCH,)))
-        check(f"k9_{a}_bits", fri_cuda.fold(*c, *beta, a), fd._fold_plain(*c, *beta, a))
-        one = (c[0][1], c[1][1], beta[0][1], beta[1][1])
-        check(f"k9_{a}_bits_1d", fri_cuda.fold(*one, a), fd._fold_plain(*one, a))
+        beta = host_betas(gen, BATCH)
+        b = gf.ext_pair(beta, "cuda")
+        check(f"k9_{a}_bits", fri_cuda.fold(*c, beta, a), fd._fold_plain(*c, *b, a))
+        one = (c[0][1], c[1][1])
+        check(f"k9_{a}_bits_1d", fri_cuda.fold(*one, beta[1], a),
+              fd._fold_plain(*one, b[0][1], b[1][1], a))
+        check(f"k9_round_{a}_bits", fri_cuda.fold_round(*c, beta, a, 4, 3, shift),
+              fd._fold_round_plain(*c, *b, a, 4, 3, shift))
+    # the round mode at the edges: every coefficient and beta 0, 1 or p - 1,
+    # and each group of cosets that folds once (1, 2, 4, 8 blocks of a
+    # cluster) at the wormhole's round and at a 2^16 codeword; a strided
+    # batch; more proofs than a launch's betas (two launches)
+    for value in (0, 1, P - 1):
+        c = (gl_full((2, n), value), gl_full((2, n), value))
+        beta = np.full((2, 2), value, dtype=np.uint64)
+        check(f"k9_round_constant_{value}", fri_cuda.fold_round(*c, beta, 4, 4, 3, shift),
+              fd._fold_round_plain(*c, *gf.ext_pair(beta, "cuda"), 4, 4, 3, shift))
+    for g in range(4):
+        for size, a in ((n, 4), (1 << 17, 4)):
+            c = (gl_random(gen, (2, size)), gl_random(gen, (2, size)))
+            beta = host_betas(gen, 2)
+            check(f"k9_round_group_{g}_n_{size}",
+                  fri_cuda.fold_round(*c, beta, a, 4, 3, shift, group_log=g),
+                  fd._fold_round_plain(*c, *gf.ext_pair(beta, "cuda"), a, 4, 3, shift))
+    c = (gl_random(gen, (6, n)), gl_random(gen, (6, n)))
+    beta = host_betas(gen, 6)
+    check("k9_round_strided", fri_cuda.fold_round(c[0][::2], c[1][::2], beta[::2], 4, 4, 3,
+                                                  shift),
+          fd._fold_round_plain(c[0][::2], c[1][::2], *gf.ext_pair(beta[::2], "cuda"), 4, 4, 3,
+                               shift))
+    many = fri_cuda.K9_MAX_BATCH + 2
+    c = (gl_random(gen, (many, 1 << 10)), gl_random(gen, (many, 1 << 10)))
+    beta = host_betas(gen, many)
+    check("k9_round_two_launches", fri_cuda.fold_round(*c, beta, 4, 4, 3, shift),
+          fd._fold_round_plain(*c, *gf.ext_pair(beta, "cuda"), 4, 4, 3, shift))
+    check("k9_fold_two_launches", fri_cuda.fold(*c, beta, 4),
+          fd._fold_plain(*c, *gf.ext_pair(beta, "cuda"), 4))
     # K7's row groups and tiles: groups of 1 and 3 rows (ending inside the
     # oracles' sets; the g*zeta rows a group of their own), tiles forced to
     # 2048 coefficients at one proof and to 256 at B=4, n below one tile
@@ -4113,15 +4234,16 @@ def phase_fri_check(state) -> None:
         check(f"sharded_{j}/k8_point", fri_cuda.reduce_alpha(reduced, alpha),
               fd._reduce_alpha_plain(reduced, alpha))
         c = (gl_random(gen, (n // e,)), gl_random(gen, (n // e,)))
-        beta = (gl_random(gen, ()), gl_random(gen, ()))
-        check(f"sharded_{j}/k9", fri_cuda.fold(*c, *beta, 4), fd._fold_plain(*c, *beta, 4))
+        beta = host_betas(gen, 1)[0]
+        check(f"sharded_{j}/k9", fri_cuda.fold(*c, beta, 4),
+              fd._fold_plain(*c, *gf.ext_pair(beta, "cuda"), 4))
     zs = [(gl_random(gen, (nz, n)), 0, 0)]
     check("sharded_zs_next/k7", fri_cuda.openings(zs, zp), fd._openings_plain(zs, zp))
     check("sharded_zs_next/k8_point", fri_cuda.reduce_alpha(zs, alpha),
           fd._reduce_alpha_plain(zs, alpha))
     state["fri_max_abs_err"] = 0
     emit({"phase": "fri_check", "equal_integers": True, "cases": checked,
-          "launches": {k: v - before[k] for k, v in fri_cuda.launches_by_kernel.items()}})
+          "launches": {k: v - before[k] for k, v in fri_launches().items()}})
 
 
 # (kernel, name on the kernels line, what it computes, the JAX program, the
@@ -4131,9 +4253,11 @@ FRI_KERNELS = (("k7", "fri_openings", "openings at zeta and g*zeta",
                ("k8", "fri_compose", "alpha reduction (point kernel) and divide-by-linear "
                 "(scan)", "_make_compose_run :193 (_reduce_alpha :70, _ddl :96), jitted "
                 ":227, :237, :246, without its round-0 NTT and commit", "k8"),
-               ("k9", "fri_fold", "fold, one launch a round",
-                "_fold_dev :136 in _make_fold_commit_run :255 and _final_fold_fn :289",
-                "k9_round"))
+               ("k9", "fri_fold", "fold rounds: the fold, the next codeword's coset NTT and "
+                "its fiber leaves in one launch a round, the last round's fold alone",
+                "_make_fold_commit_run :255 without its Merkle levels (_fold_dev :136, "
+                "_ext_coset_ntt_dev :108, _fiber_leaves :120) and _final_fold_fn :289",
+                "k9_r"))
 
 
 def phase_fri_time(state) -> None:
@@ -4146,7 +4270,7 @@ def phase_fri_time(state) -> None:
     from zk_circuits_torch.fri import fri_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(2053)
-    parent = parent_kernels().get("fri")
+    parent, parent_fd = parent_kernels().get("fri"), parent_fri_device()
     rows, paired = [], []
     for name, common, widths, batch in fri_cases(state):
         n, nz = common.degree, common.config.num_challenges
@@ -4157,11 +4281,18 @@ def phase_fri_time(state) -> None:
         timed = [(k, [c[k] for c in calls], plain[k], fri_work(k, widths, n, batch, nz),
                   {"n": n}) for k in ("k7", "k8_point", "k8_scan", "k8")]
         for r, case in enumerate(folds[0]):
-            a, size = case[0], case[1][0].shape[-1]
-            timed.append((f"k9_round{r + 1}", [fri_fold_call(f[r]) for f in folds],
+            a, size, nxt = case[0], case[1][0].shape[-1], case[3]
+            mode = "round" if nxt else "fold"
+            shape = {"n": size, "arity_bits": a}
+            if nxt:
+                log_m = size.bit_length() - 1 - a
+                group = fri_cuda.round_group_log(nxt[1], log_m, a)
+                shape.update(next_arity_bits=nxt[0], rate_bits=nxt[1], group_log=group,
+                             blocks=batch << (nxt[1] + 1),
+                             smem_bytes=fri_cuda.round_smem(log_m, group))
+            timed.append((f"k9_r{r + 1}_{mode}", [fri_fold_call(f[r]) for f in folds],
                           fri_fold_call(case, plain=True),
-                          fri_work("k9", widths, size, batch, nz, a),
-                          {"n": size, "arity_bits": a}))
+                          fri_work(f"k9_{mode}", widths, size, batch, nz, a, nxt), shape))
         for kernel, fns, plain_fn, (nbytes, muls), shape in timed:
             g = graph_ms(fns)
             bound, by = k4_bound_ms(nbytes, muls)
@@ -4173,19 +4304,27 @@ def phase_fri_time(state) -> None:
                          "host_us_per_call": host_us_per_call(fns[0])})
 
         def proof_calls(c, f):
+            folds_f = [fri_fold_call(x) for x in f]
+
             def run():
                 comp = c["k8"]()
-                return c["k7"](), comp, [fri_fold_call(x)() for x in f]
+                return c["k7"](), comp, [fn() for fn in folds_f]
             return run
 
         rows.append({"shape": name, "kernel": "k7_k8_k9", "batch": batch,
                      "launches": sum(expected_fri_launches(common).values()),
                      **graph_ms([proof_calls(c, f) for c, f in zip(calls, folds)])})
-        if parent is not None:   # K7 against the parent's on the same inputs; K8, unchanged, as a control
+        if parent is not None:   # K9 against the parent's sequence on the same inputs; K8, unchanged, as a control
             pcalls = [fri_calls(i, kernels=parent) for i in ins]
-            for k in ("k7", "k8"):
-                paired.append({"shape": name, "kernel": k, "batch": batch, **paired_ms(
-                    [c[k] for c in calls], [c[k] for c in pcalls])})
+            paired.append({"shape": name, "kernel": "k8", "batch": batch, **paired_ms(
+                [c["k8"] for c in calls], [c["k8"] for c in pcalls])})
+            for r, case in enumerate(folds[0]):
+                paired.append({
+                    "shape": name, "kernel": f"k9_r{r + 1}_{'round' if case[3] else 'fold'}",
+                    "batch": batch, "parent_is": "K9, torch.stack, K4's coset NTT, the fiber "
+                    "regroup copy" if case[3] else "K9", **paired_ms(
+                        [fri_fold_call(f[r]) for f in folds],
+                        [fri_fold_call(f[r], parent=parent_fd) for f in folds])})
             del pcalls
         del ins, calls, folds
     over = [r for r in rows if r.get("share_of_bound", 0) > 1.05]
@@ -4193,28 +4332,33 @@ def phase_fri_time(state) -> None:
         raise AssertionError(f"K7-K9 timed below their bound: {over}")
     emit({"phase": "fri_time", "int32_mul_per_s": INT32_MUL_PER_S,
           "paired_with_parent": paired, "parent": PARENT_COMMIT if parent else None,
-          "parent_sass": kernel_sass_counts(parent.build(), parent.build_log, "k[78]_")
+          "parent_sass": kernel_sass_counts(parent.build(), parent.build_log, "k9_")
           if parent else None,
           "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {FRI_TIMED_CALLS} "
                     f"calls on inputs of their own, L2 emptied first, per call, median of 8 "
                     f"replays (min_ms/max_ms: their range); k8 is both of K8's launches, "
+                    f"k9_rN_round K9's round mode in fold round N, k9_rN_fold its fold mode, "
                     f"k7_k8_k9 a proof's (or batch's) launches of all three; plain_ms: CUDA "
                     f"events around one call of the plain version (fri/fri_device.py's "
-                    f"_openings_plain, _reduce_alpha_plain, _compose_plain, _fold_plain), "
+                    f"_openings_plain, _reduce_alpha_plain, _compose_plain, _fold_plain, "
+                    f"_fold_round_plain); paired_with_parent: paired_ms, the parent's K9 "
+                    f"round as its sequence of K9, torch.stack, K4 and the regroup copy, "
                     f"median of 3; host_us_per_call: perf_counter around 100 wrapper calls; "
                     f"library_ms: none, no PyTorch call computes these functions",
           "rows": rows, "sass": kernel_sass_counts(fri_cuda.build(), fri_cuda.build_log,
                                                    "k[789]_")})
     for kernel, name, what, replaces, prefix in FRI_KERNELS:
         mine = [r for r in rows if r["kernel"] == prefix or
-                (prefix == "k9_round" and r["kernel"].startswith(prefix))]
+                (prefix == "k9_r" and r["kernel"].startswith(prefix))]
         main = [r for r in mine if r["shape"] == "wormhole"]
         ms, plain_ms, bound = (sum(r[k] for r in main) for k in ("ms", "plain_ms", "bound_ms"))
         state.setdefault("kernels", []).append({
             "name": name, "route": "cuda", "source": FRI_SOURCE,
             "replaces": f"{FRI_REPLACES} {replaces}; no Pallas kernel ({what})",
             "launches": state["fri_launches"][kernel],
+            **({"round_mode_launches": state["fri_launches"]["k9_round"]}
+               if kernel == "k9" else {}),
             "launches_by_path": {"wormhole": state["fri_launches"][kernel],
                                  "batch": state["fri_launches_batch"][kernel],
                                  "sharded": state["fri_launches_sharded"][kernel],

@@ -685,19 +685,19 @@ def test_k8_matches_plain(cuda, batch):
 
 @pytest.mark.parametrize("arity_bits", [1, 2, 3, 4, 5, 6])
 def test_k9_matches_plain(cuda, arity_bits):
-    """K9 at 2^13 coefficients, B = 4 and a 1-D shard piece, equal to
-    _fold_plain."""
+    """K9's fold mode at 2^13 coefficients, B = 4 and a 1-D shard piece,
+    the betas on the host, equal to _fold_plain."""
     from zk_circuits_torch.fri import fri_cuda
     from zk_circuits_torch.fri.fri_device import _fold_plain
 
     rng = np.random.default_rng(90 + arity_bits)
     c0, c1 = (gf.from_u64(rng.integers(0, P, (4, 1 << 13), dtype=np.uint64), cuda)
               for _ in range(2))
-    b0, b1 = (gf.from_u64(np.array([P - 1, 0, 1, 12345], dtype=np.uint64), cuda)
-              for _ in range(2))
+    beta = np.array([[P - 1, P - 1], [0, 0], [1, 1], [12345, 12345]], dtype=np.uint64)
+    b0, b1 = gf.ext_pair(beta, cuda)
     before = fri_cuda.launches_by_kernel["k9"]
-    got = fri_cuda.fold(c0, c1, b0, b1, arity_bits)
-    piece = fri_cuda.fold(c0[2], c1[2], b0[2], b1[2], arity_bits)
+    got = fri_cuda.fold(c0, c1, beta, arity_bits)
+    piece = fri_cuda.fold(c0[2], c1[2], beta[2], arity_bits)
     torch.cuda.synchronize()
     assert fri_cuda.launches_by_kernel["k9"] == before + 2
     want = _fold_plain(c0, c1, b0, b1, arity_bits)
@@ -705,11 +705,35 @@ def test_k9_matches_plain(cuda, arity_bits):
     assert all(torch.equal(g, w[2]) for g, w in zip(piece, want, strict=True))
 
 
+@pytest.mark.parametrize("arity_bits,next_bits,log_m,group_log", [
+    (4, 4, 9, 3), (4, 4, 9, 0), (4, 4, 10, 3), (4, 1, 6, 3), (5, 1, 6, 3), (1, 5, 13, 3),
+    (6, 2, 13, 0), (2, 2, 2, 2), (3, 1, 1, 1)])
+def test_k9_round_matches_plain(cuda, arity_bits, next_bits, log_m, group_log):
+    """K9's round mode at B = 4 and rate 2^3 (clusters of 1-8 blocks, the
+    wormhole's and level circuits' rounds, the mul chain's arity 2^5, a
+    2^16 codeword) equal to _fold_round_plain, one launch."""
+    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri.fri_device import _fold_round_plain
+
+    rng = np.random.default_rng(log_m * 10 + arity_bits)
+    c0, c1 = (gf.from_u64(rng.integers(0, P, (4, 1 << (log_m + arity_bits)), dtype=np.uint64),
+                          cuda) for _ in range(2))
+    beta = np.array([[P - 1, 0], [0, 1], [1, P - 1], [12345, 678]], dtype=np.uint64)
+    shift = pow(7, 1 << arity_bits, P)
+    before = fri_cuda.k9_by_mode["round"]
+    got = fri_cuda.fold_round(c0, c1, beta, arity_bits, next_bits, 3, shift,
+                              group_log=group_log)
+    torch.cuda.synchronize()
+    assert fri_cuda.k9_by_mode["round"] == before + 1
+    want = _fold_round_plain(c0, c1, *gf.ext_pair(beta, cuda), arity_bits, next_bits, 3, shift)
+    assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+
+
 def test_k7_k8_k9_launches_on_a_proof(cuda):
     """A zk square circuit with FRI fold rounds proved on the card: K7 once,
     K8 three times (its point kernel, its scan's two launches) and K9 once
-    a fold round, no plain FRI body on a CUDA tensor, and the proof equal
-    to the CPU's."""
+    a fold round (its round mode in every round but the last), no plain
+    FRI body on a CUDA tensor, and the proof equal to the CPU's."""
     from zk_circuits_torch.fri import fri_cuda
     from zk_circuits_torch.fri import fri_device as fd
     from zk_circuits_torch.iop.builder import CircuitBuilder
@@ -728,8 +752,10 @@ def test_k7_k8_k9_launches_on_a_proof(cuda):
         pw = PartialWitness()
         pw.set_target(x, 5)
         before = dict(fri_cuda.launches_by_kernel)
+        rounds_before = fri_cuda.k9_by_mode["round"]
         real = {k: getattr(fd, k) for k in ("_openings_plain", "_reduce_alpha_plain",
-                                            "_compose_plain", "_fold_plain")}
+                                            "_compose_plain", "_fold_plain",
+                                            "_fold_round_plain")}
         for k, fn in real.items():
             setattr(fd, k, lambda *a, _k=k, _fn=fn: plain.append((device, _k)) or _fn(*a))
         try:
@@ -742,5 +768,6 @@ def test_k7_k8_k9_launches_on_a_proof(cuda):
             assert rounds >= 1
             assert {k: v - before[k] for k, v in fri_cuda.launches_by_kernel.items()} == \
                 {"k7": 1, "k8": 1 + fri_cuda.SCAN_LAUNCHES, "k9": rounds}
+            assert fri_cuda.k9_by_mode["round"] - rounds_before == rounds - 1
     assert out[0] == out[1]
     assert [d for d, _ in plain] == ["cpu"] * len(plain) and plain

@@ -1,21 +1,29 @@
 """K7 (the openings), K8 (the alpha reduction and the composition) and K9
-(the fold), built for the host.
+(the fold, and a fold round), built for the host.
 
-csrc/fri.cuh is __host__ __device__ code; here it is compiled with g++
-behind a host copy of fri.cu's C interface (k7_openings, k8_reduce,
-k8_scan, k9_fold, fri_sm_count and fri_call_size) and driven through
-the wrapper's own ``fri_cuda`` functions on CPU tensors.  A K7 call runs
-each (proof, row group, tile) block, the tiles of a group in one order or
-the other, with its threads in turn between the barriers and a warp's
-lanes summed in turn for its shuffles; K8's point kernel and its scan's two
-kernels run their blocks the same way (``shim_fri_set_threads`` picks K7's
-block size and the scan's segment, 256 and 256 on the card;
-``shim_fri_set_sms`` the SM count K7's tiles are sized from, 132).  Equal integers are required against the
-port's plain versions (``fri/fri_device.py``'s ``_openings_plain``,
-``_reduce_alpha_plain``, ``_compose_plain``, ``_fold_plain``) and the JAX
-package's programs on the CPU (``_make_openings_run``,
-``_make_compose_run(num_zs, None)`` and ``_fold_dev``, jitted), and whole
-proofs through the shim against the JAX host path's bytes.
+csrc/fri.cuh (and csrc/ntt.cuh under K9's round mode) is __host__
+__device__ code; here it is compiled with g++ behind a host copy of
+fri.cu's C interface (k7_openings, k8_reduce, k8_scan, k9_fold, k9_round,
+fri_sm_count and fri_call_size) and driven through the wrapper's own
+``fri_cuda`` functions on CPU tensors.  A K7 call runs each (proof, row
+group, tile) block, the tiles of a group in one order or the other, with
+its threads in turn between the barriers and a warp's lanes summed in turn
+for its shuffles; K8's point kernel and its scan's two kernels run their
+blocks the same way (``shim_fri_set_threads`` picks K7's block size and
+the scan's segment, 256 and 256 on the card; ``shim_fri_set_sms`` the SM
+count K7's tiles are sized from, 132).  K9's fold mode runs its blocks so,
+a group of lanes summed in turn; its round mode runs a group of cosets
+(a cluster on the card) as every block's fold, then each block's gather
+and K4's rounds (k4_block, each thread's 16 values kept between the
+phases), each block over its own shared memory with a guard band after it
+(``shim_k9_set_threads``: 128 and the round's 256, 512 at 2^13 points, on
+the card).  Equal integers are
+required against the port's plain versions (``fri/fri_device.py``'s
+``_openings_plain``, ``_reduce_alpha_plain``, ``_compose_plain``,
+``_fold_plain``, ``_fold_round_plain``) and the JAX package's programs on
+the CPU (``_make_openings_run``, ``_make_compose_run(num_zs, None)``,
+``_fold_dev`` and ``_make_fold_commit_run``, jitted), and whole proofs
+through the shim against the JAX host path's bytes.
 """
 
 import ctypes
@@ -35,6 +43,7 @@ import zk_circuits_torch.plonk.config as t_config
 import zk_circuits_tpu.iop.builder as j_builder
 import zk_circuits_tpu.iop.witness as j_witness
 import zk_circuits_tpu.plonk.config as j_config
+from zk_circuits_torch.field import goldilocks as gfd
 from zk_circuits_torch.fri import fri_cuda
 from zk_circuits_torch.fri import fri_device as fd
 from zk_circuits_torch.parallel.mesh import make_mesh
@@ -65,7 +74,12 @@ static int shim_sms = 132;
 // warp's sums add its lanes' values in turn.
 struct ShimBlock {
   int n;
+  std::vector<uint64_t> r = {};   // each thread's registers across the phases
   int threads() const { return n; }
+  uint64_t* regs(int tid) {
+    if (r.size() < (std::size_t)n * K9_REGS) r.assign((std::size_t)n * K9_REGS, 0xA5A5A5A5A5A5A5A5ULL);
+    return r.data() + (std::size_t)tid * K9_REGS;
+  }
   template <class F>
   void each(F f) const {
     for (int t = 0; t < n; t++) f(t);
@@ -73,9 +87,13 @@ struct ShimBlock {
   void sync() const {}
   template <int K, class F, class G>
   void warp_sum(F f, G g) const {
-    for (int w0 = 0; w0 < n; w0 += 32) {
+    group_sum<K>(5, f, g);
+  }
+  template <int K, class F, class G>
+  void group_sum(int lb, F f, G g) const {
+    for (int w0 = 0; w0 < n; w0 += 1 << lb) {
       uint64_t s[K] = {}, v[K];
-      for (int t = w0; t < w0 + 32 && t < n; t++) {
+      for (int t = w0; t < w0 + (1 << lb) && t < n; t++) {
         f(t, v);
         for (int k = 0; k < K; k++) s[k] = gl_add_lazy(s[k], v[k]);
       }
@@ -83,6 +101,15 @@ struct ShimBlock {
     }
   }
 };
+
+static int k9_fold_threads = K9_FOLD_THREADS, k9_round_shim_threads = 0;   // 0: the card's
+static const uint64_t K9_FILL = 0x5A5A5A5A5A5A5A5AULL;
+
+template <int L>
+static void shim_k9_ntt(ShimBlock& blk, const K9RoundCall& c, uint64_t* sm, int b, int y,
+                        int coset) {
+  k9_ntt<L, 0>(blk, c, sm, b, y, coset);
+}
 
 // The scan's two launches at segments of 2^L points: every block of the
 // first, then every block of the second.
@@ -140,8 +167,43 @@ long long k8_scan_scratch(long long n, int batch) {
 int k9_fold(int, const K9Call* call, void*) {
   const K9Call& c = *call;
   if (k9_valid(c)) return 1;
+  ShimBlock blk{k9_fold_threads};
   for (int b = 0; b < c.batch; b++)
-    for (long long k = 0; k < c.m; k++) k9_point(c, b, k);
+    for (long long x = 0; x < k9_fold_blocks(c, k9_fold_threads); x++)
+      k9_fold_block(blk, c, b, x);
+  return 0;
+}
+
+// A group's blocks: every rank's fold, then each rank's gather and NTT
+// (last rank first), each over its own shared memory with a guard band
+// after it that must stay untouched.
+int k9_round(int, const K9RoundCall* call, void*) {
+  const K9RoundCall& c = *call;
+  const long long elems = k9_round_smem(c), guard = 64;
+  if (k9_round_valid(c) || elems * 8 > 227 * 1024) return 1;
+  const int nthr = k9_round_shim_threads ? k9_round_shim_threads : k9_round_threads(c.log_m);
+  if ((long long)nthr * K9_REGS < (1LL << c.log_m)) return 703;   // a thread's NTT values
+  ShimBlock blk{nthr};
+  const int G = 1 << c.group_log;
+  std::vector<std::vector<uint64_t>> sm(G);
+  const uint64_t* shares[1 << K9_MAX_GROUP_LOG];
+  for (int b = 0; b < c.batch; b++)
+    for (int y = 0; y < 2; y++)
+      for (int g0 = 0; g0 < (1 << c.rate_bits); g0 += G) {
+        for (int r = 0; r < G; r++) {
+          sm[r].assign(elems + guard, K9_FILL);
+          k9_round_prefetch(blk, c, g0 + r, sm[r].data());
+          k9_round_fold(blk, c, b, y, g0 + r, sm[r].data());
+          shares[r] = sm[r].data();
+        }
+        for (int r = G - 1; r >= 0; r--) {
+          k9_round_gather(blk, c, shares, sm[r].data());
+          K4_BY_LEN(c.log_m, shim_k9_ntt, blk, c, sm[r].data(), b, y, g0 + r)
+        }
+        for (int r = 0; r < G; r++)
+          for (long long i = elems; i < elems + guard; i++)
+            if (sm[r][i] != K9_FILL) return 700;   // out of the block's shared memory
+      }
   return 0;
 }
 
@@ -151,6 +213,7 @@ int fri_call_size(int kind) {
     case 1: return (int)sizeof(K8Call);
     case 2: return (int)sizeof(K8ScanCall);
     case 3: return (int)sizeof(K9Call);
+    case 4: return (int)sizeof(K9RoundCall);
     default: return -1;
   }
 }
@@ -170,6 +233,11 @@ void shim_fri_squares(const uint64_t* a, const uint64_t* b, uint64_t* out, long 
   }
 }
 void shim_fri_set_sms(int sms) { shim_sms = sms; }
+long long shim_k9_round_smem(const K9RoundCall* c) { return k9_round_smem(*c); }
+void shim_k9_set_threads(int fold, int round) {
+  k9_fold_threads = fold;
+  k9_round_shim_threads = round;
+}
 
 // K7's block size (a multiple of 32) and the scan's segment (2, 4, 32 or
 // 256 points)
@@ -197,6 +265,9 @@ def flib():
     fri_cuda.bind(lib)          # the wrapper's declarations and size checks
     lib.shim_fri_set_threads.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.shim_fri_set_sms.argtypes = [ctypes.c_int]
+    lib.shim_k9_set_threads.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.shim_k9_round_smem.argtypes = [ctypes.c_void_p]
+    lib.shim_k9_round_smem.restype = ctypes.c_longlong
     lib.shim_fri_squares.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long]
     yield lib
     shutil.rmtree(build, ignore_errors=True)
@@ -614,9 +685,9 @@ def test_k8_matches_the_jax_compose_program(flib):
 @pytest.mark.parametrize("arity_bits", [1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize("batch", [1, 3])
 def test_k9_matches_plain_and_the_jax_fold(flib, arity_bits, batch):
-    """K9 == _fold_plain and the JAX package's _fold_dev (jitted up to
-    JIT_FOLD_MAX_BITS, op by op above) at every arity, lanes of 0, 1 and
-    p - 1, betas at p - 1."""
+    """K9's fold mode == _fold_plain and the JAX package's _fold_dev
+    (jitted up to JIT_FOLD_MAX_BITS, op by op above) at every arity, lanes
+    of 0, 1 and p - 1, betas at p - 1, the betas on the host."""
     rng = np.random.default_rng(90 + arity_bits + batch)
     size = 64
     c = _ext(rng, batch, size, edges=True)
@@ -624,10 +695,9 @@ def test_k9_matches_plain_and_the_jax_fold(flib, arity_bits, batch):
     beta = _ext(rng, batch)
     beta[0] = P - 1
     c0, c1 = _pair(c)
-    b0, b1 = _pair(beta)
-    got = fri_cuda.fold(c0, c1, b0, b1, arity_bits, lib=flib)
+    got = fri_cuda.fold(c0, c1, beta, arity_bits, lib=flib)
     assert got[0].shape == (batch, size >> arity_bits)
-    assert _equal(got, fd._fold_plain(c0, c1, b0, b1, arity_bits))
+    assert _equal(got, fd._fold_plain(c0, c1, *_pair(beta), arity_bits))
     run = _JAX_FOLD if arity_bits <= JIT_FOLD_MAX_BITS else jfd._fold_dev
     for b in range(batch):
         j0, j1 = _jax_u64(*run(_gf(c[b, :, 0]), _gf(c[b, :, 1]), _gf(beta[b, 0]),
@@ -636,18 +706,145 @@ def test_k9_matches_plain_and_the_jax_fold(flib, arity_bits, batch):
 
 
 def test_k9_shard_form_and_strides(flib):
-    """The sharded path's call, a 1-D piece with a scalar beta, and a
-    strided batch (a view of every other row): equal to _fold_plain."""
+    """The sharded path's call, a 1-D piece with one beta, and a strided
+    batch (a view of every other row): equal to _fold_plain."""
     rng = np.random.default_rng(99)
     c = _ext(rng, 4, 256, edges=True)
     beta = _ext(rng, 4)
     c0, c1 = _pair(c)
     b0, b1 = _pair(beta)
-    got = fri_cuda.fold(c0[1], c1[1], b0[1], b1[1], 4, lib=flib)
+    got = fri_cuda.fold(c0[1], c1[1], beta[1], 4, lib=flib)
     assert got[0].shape == (16,)
     assert _equal(got, fd._fold_plain(c0[1], c1[1], b0[1], b1[1], 4))
-    got = fri_cuda.fold(c0[::2], c1[::2], b0[::2], b1[::2], 2, lib=flib)
+    got = fri_cuda.fold(c0[::2], c1[::2], beta[::2], 2, lib=flib)
     assert _equal(got, fd._fold_plain(c0[::2], c1[::2], b0[::2], b1[::2], 2))
+
+
+@pytest.mark.parametrize("arity_bits,lanes_threads", [(1, 32), (4, 64), (6, 128), (8, 32)])
+def test_k9_fold_lanes_and_blocks(flib, arity_bits, lanes_threads):
+    """The fold mode's lanes: blocks of 32-128 threads (outputs split over
+    blocks), arity 2^8 (each lane's Horner over 8 coefficients with
+    gamma = beta^32), a batch of K9_MAX_BATCH + 3 proofs (two launches),
+    every coefficient and beta 0, 1 or p - 1 in turn."""
+    rng = np.random.default_rng(arity_bits)
+    flib.shim_k9_set_threads(lanes_threads, 0)
+    try:
+        batch, size = fri_cuda.K9_MAX_BATCH + 3, 1 << 9
+        c = _ext(rng, batch, size, edges=True)
+        beta = _ext(rng, batch)
+        for k, v in enumerate(EDGES):
+            c[k] = v
+            beta[k] = v
+        c0, c1 = _pair(c)
+        got = fri_cuda.fold(c0, c1, beta, arity_bits, lib=flib)
+    finally:
+        flib.shim_k9_set_threads(128, 0)
+    assert _equal(got, fd._fold_plain(c0, c1, *_pair(beta), arity_bits))
+
+
+# (arity bits, next arity bits, rate bits, B, log2 of the folded length)
+K9_ROUNDS = [(1, 1, 1, 1, 1), (2, 1, 3, 3, 3), (3, 2, 2, 1, 4), (4, 4, 3, 1, 9),
+             (4, 4, 3, 3, 5), (5, 1, 3, 1, 6), (5, 5, 1, 3, 5), (6, 3, 2, 1, 7),
+             (6, 5, 3, 3, 6), (2, 2, 1, 1, 13), (4, 1, 3, 1, 2), (1, 4, 2, 3, 4)]
+
+
+@pytest.mark.parametrize("arity_bits,next_bits,rate_bits,batch,log_m", K9_ROUNDS)
+def test_k9_round_matches_plain(flib, arity_bits, next_bits, rate_bits, batch, log_m):
+    """K9's round mode == _fold_round_plain (the fold, the coset NTT, the
+    fiber leaves): arity bits 1-6, next arity bits 1-5, rate bits 1-3, B = 1
+    and 3, folded lengths 2-2^13 (one K4 round up to 2^4, two, three, the
+    2^13 pass of four), coefficients with lanes of 0, 1 and p - 1 and proof
+    0 a constant p - 1, betas at the edges."""
+    rng = np.random.default_rng(arity_bits * 100 + next_bits * 10 + rate_bits + batch)
+    size = 1 << (log_m + arity_bits)
+    c = _ext(rng, batch, size, edges=True)
+    if batch > 1:
+        c[1] = P - 1
+    beta = _ext(rng, batch, edges=True)
+    shift = pow(7, 1 << (arity_bits + 1), P)
+    c0, c1 = _pair(c)
+    got = fri_cuda.fold_round(c0, c1, beta, arity_bits, next_bits, rate_bits, shift, lib=flib)
+    want = fd._fold_round_plain(c0, c1, *_pair(beta), arity_bits, next_bits, rate_bits, shift)
+    assert got[2].shape == (batch, (1 << (log_m + rate_bits - next_bits)), 2 << next_bits)
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("value", [0, 1, P - 1])
+@pytest.mark.parametrize("group_log", [0, 1, 2, 3])
+def test_k9_round_groups_and_edges(flib, value, group_log):
+    """Every coefficient and beta 0, 1 or p - 1, each group of cosets that
+    folds once (1, 2, 4, 8 blocks: a cluster on the card) at rate 2^3 and
+    the wormhole's arity, over a strided batch (every other row of a
+    view) of 2 and a batch of K9_MAX_BATCH + 1 (two launches); ==
+    _fold_round_plain."""
+    rng = np.random.default_rng(group_log)
+    c = np.full((4, 1 << 8, 2), value, dtype=U64)
+    beta = np.full((4, 2), value, dtype=U64)
+    c0, c1 = _pair(c)
+    args = (4, 2, 3, pow(7, 16, P))
+    got = fri_cuda.fold_round(c0[::2], c1[::2], beta[::2], *args, lib=flib, group_log=group_log)
+    want = fd._fold_round_plain(c0[::2], c1[::2], *_pair(beta[::2]), *args)
+    assert _equal(got, want)
+    batch = fri_cuda.K9_MAX_BATCH + 1
+    c = _ext(rng, batch, 1 << 7, edges=True)
+    beta = _ext(rng, batch, edges=True)
+    c0, c1 = _pair(c)
+    got = fri_cuda.fold_round(c0, c1, beta, *args, lib=flib, group_log=group_log)
+    assert _equal(got, fd._fold_round_plain(c0, c1, *_pair(beta), *args))
+
+
+# (arity bits, next arity bits, rate bits, log2 of the folded length): the
+# JAX program jitted, its unrolled Horner kept to arity bits 2 (XLA's CPU
+# compile of arity 8 took 32 s here)
+K9_JAX_ROUNDS = [(1, 2, 2, 3), (2, 1, 1, 2), (2, 2, 3, 4)]
+
+
+@pytest.mark.parametrize("arity_bits,next_bits,rate_bits,log_m", K9_JAX_ROUNDS)
+def test_k9_round_matches_the_jax_fold_commit_run(flib, arity_bits, next_bits, rate_bits,
+                                                  log_m):
+    """K9's round mode == the JAX package's _make_fold_commit_run (jitted):
+    its f0, f1 and leaves, proof by proof of a batch of 3."""
+    rng = np.random.default_rng(log_m + 7 * arity_bits)
+    batch, size = 3, 1 << (log_m + arity_bits)
+    c = _ext(rng, batch, size, edges=True)
+    beta = _ext(rng, batch, edges=True)
+    shift = pow(7, 1 << arity_bits, P)
+    c0, c1 = _pair(c)
+    f0, f1, leaves = fri_cuda.fold_round(c0, c1, beta, arity_bits, next_bits, rate_bits, shift,
+                                         lib=flib)
+    rows = 1 << (log_m + rate_bits - next_bits)
+    run = jax.jit(jfd._make_fold_commit_run(arity_bits, next_bits, rows.bit_length() - 1,
+                                            shift, rate_bits))
+    for b in range(batch):
+        jf0, jf1, jl = _jax_u64(*run(_gf(c[b, :, 0]), _gf(c[b, :, 1]), _gf(beta[b, 0]),
+                                     _gf(beta[b, 1]))[:3])
+        assert np.array_equal(_u(f0[b]), jf0) and np.array_equal(_u(f1[b]), jf1)
+        assert np.array_equal(_u(leaves[b]), jl)
+
+
+def test_k9_round_size_rule(flib):
+    """round_fits: folded polynomials up to 2^13 coefficients (the wormhole's
+    2^9 and 2^5, the level circuits' 2^10 and 2^6, a 2^16 codeword at rate
+    2^3), not 2^14; the clusters' cosets and shared memory at the main
+    path's shapes; the round mode refuses what the rule refuses."""
+    assert fri_cuda.round_fits(1 << 13, 4) and fri_cuda.round_fits(1 << 14, 4)
+    assert fri_cuda.round_fits(1 << 17, 4) and not fri_cuda.round_fits(1 << 18, 4)
+    # clusters: the fewest cosets whose blocks fold in one pass (64 outputs
+    # a block of 256 threads at arity 16): the wormhole's 2^9 over 8, the
+    # level circuits' 2^10 over 8 and 2^6 in one block, arity 2^5's 2^6
+    # over 2, 2^13 at arity 2 over 8 blocks of 512 threads
+    assert [fri_cuda.round_threads(m) for m in (9, 12, 13)] == [256, 256, 512]
+    assert [fri_cuda.round_group_log(3, m, a) for m, a in ((9, 4), (10, 4), (6, 4), (6, 5),
+                                                           (13, 1), (1, 1))] == [3, 3, 0, 1, 3, 0]
+    for log_m, group_log in ((9, 3), (10, 3), (13, 0), (13, 3), (1, 1), (5, 2)):
+        call = fri_cuda._K9RoundCall(log_m=log_m, group_log=group_log)
+        assert fri_cuda.round_smem(log_m, group_log) == \
+            8 * flib.shim_k9_round_smem(ctypes.byref(call))
+    assert fri_cuda.round_smem(9, 3) == 8 * (64 + 512 + 32 + (512 + 64) + 64)
+    assert fri_cuda.round_smem(13, 0) <= 227 * 1024
+    c = _pair(_ext(np.random.default_rng(1), 1, 1 << 18))
+    with pytest.raises(ValueError, match="round mode"):
+        fri_cuda.fold_round(*c, np.zeros((1, 2), dtype=U64), 4, 4, 3, 7, lib=flib)
 
 
 # --- refusals ------------------------------------------------------------------------
@@ -659,12 +856,21 @@ def test_refusals(flib):
     plain fallback."""
     rng = np.random.default_rng(3)
     c0, c1 = _pair(_ext(rng, 2, 32))
-    b0, b1 = _pair(_ext(rng, 2))
+    beta = _ext(rng, 2)
+    b0, b1 = _pair(beta)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fri_cuda.fold(c0, c1, b0, b1, 2)
+        fri_cuda.fold(c0, c1, beta, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fri_cuda.fold_round(c0, c1, beta, 2, 1, 3, 7)
+    with pytest.raises(ValueError, match="on the host"):   # a tensor would cost a sync
+        fri_cuda.fold(c0, c1, b0, 2, lib=flib)
+    with pytest.raises(ValueError, match="betas for"):
+        fri_cuda.fold(c0, c1, beta[:1], 2, lib=flib)
     for bits in (0, 6):                   # 2^6 does not divide 32
         with pytest.raises(ValueError):
-            fri_cuda.fold(c0, c1, b0, b1, bits, lib=flib)
+            fri_cuda.fold(c0, c1, beta, bits, lib=flib)
+    with pytest.raises(ValueError, match="round mode"):   # next arity above the fold
+        fri_cuda.fold_round(c0, c1, beta, 2, 4, 3, 7, lib=flib)
     x = _t(_rand(rng, 2, 3, 32))
     pts = _pts(_ext(rng, 2))
     with pytest.raises(ValueError, match="table"):
@@ -678,7 +884,9 @@ def test_refusals(flib):
     with pytest.raises(ValueError, match="powers of alpha"):
         fri_cuda.reduce_alpha([(x, 0, fri_cuda.MAX_POW - 2)], pts, lib=flib)
     with pytest.raises(ValueError):
-        fd.fold(c0.to("meta"), c1.to("meta"), b0, b1, 2)
+        fd.fold(c0.to("meta"), c1.to("meta"), beta, 2)
+    with pytest.raises(ValueError):
+        fd.fold_round(c0.to("meta"), c1.to("meta"), beta, 2, 1, 3, 7)
 
 
 # --- the slice: whole proofs through the shim -----------------------------------------
@@ -706,19 +914,24 @@ def _square(builder, witness, config, **build_kw):
 @pytest.fixture
 def through_shim(flib, monkeypatch):
     """fri_device's plain versions replaced by the kernels through the
-    shim, each call counted by kernel."""
-    calls = types.SimpleNamespace(k7=0, k8=0, k9=0)
+    shim, each call counted by kernel (K9's round mode as ``k9_round``
+    too); the betas go to K9 on the host, as on the card."""
+    calls = types.SimpleNamespace(k7=0, k8=0, k9=0, k9_round=0)
 
     def via(name, kernel):
         def run(*args):
             setattr(calls, kernel, getattr(calls, kernel) + 1)
+            if kernel == "k9":   # (c0, c1, b0, b1, ...): the betas back to the host
+                calls.k9_round += name == "fold_round"
+                args = (*args[:2], gfd.to_ext(*args[2:4]), *args[4:])
             return getattr(fri_cuda, name)(*args, lib=flib)
         return run
 
     for plain, name, kernel in (("_openings_plain", "openings", "k7"),
                                 ("_reduce_alpha_plain", "reduce_alpha", "k8"),
                                 ("_compose_plain", "compose", "k8"),
-                                ("_fold_plain", "fold", "k9")):
+                                ("_fold_plain", "fold", "k9"),
+                                ("_fold_round_plain", "fold_round", "k9")):
         monkeypatch.setattr(fd, plain, via(name, kernel))
     return calls
 
@@ -727,8 +940,9 @@ def test_batch_and_sharded_proofs_through_the_shim(through_shim):
     """A zk square circuit with FRI fold rounds: a batch of 2 and a
     sharded proof over a 2-shard CPU mesh, every FRI field operation
     through K7-K9's host build, byte-equal to the JAX host path's proofs;
-    K7 once, K8 twice and K9 once a fold round for the batch, and a call a
-    shard for the sharded proof."""
+    K7 once, K8 twice and K9 once a fold round for the batch (the round
+    mode but in the last round), and a call a shard for the sharded
+    proof (the fold mode alone)."""
     ref, ref_pw = _square(j_builder, j_witness, j_config)
     want = {v: j_bytes(j_prove(ref, ref_pw(v), use_device=False)) for v in (3, 7)}
     data, pw = _square(t_builder, t_witness, t_config, device="cpu")
@@ -736,10 +950,11 @@ def test_batch_and_sharded_proofs_through_the_shim(through_shim):
     assert rounds >= 1
     proofs = prove_batch(data, [pw(3), pw(7)], device="cpu")
     assert [t_bytes(p) for p in proofs] == [want[3], want[7]]
-    assert vars(through_shim) == {"k7": 1, "k8": 2, "k9": rounds}
+    assert vars(through_shim) == {"k7": 1, "k8": 2, "k9": rounds, "k9_round": rounds - 1}
     proof = prove_sharded(data, pw(7), make_mesh(2, device="cpu"))
     assert t_bytes(proof) == want[7]
     assert through_shim.k7 == 1 + 2 + 1 and through_shim.k8 == 2 + 2 + 2
+    assert through_shim.k9_round == rounds - 1
 
 
 def test_arity_32_proof_through_the_shim(through_shim):
@@ -756,4 +971,4 @@ def test_arity_32_proof_through_the_shim(through_shim):
     proof = prove_batch(data, [pw], device="cpu")[0]
     assert hashlib.sha256(t_bytes(proof)).hexdigest() == \
         chip_smoke.GOLDEN_MUL_CHAIN_SHA256["arity5"]
-    assert vars(through_shim) == {"k7": 1, "k8": 2, "k9": 2}
+    assert vars(through_shim) == {"k7": 1, "k8": 2, "k9": 2, "k9_round": 1}

@@ -44,13 +44,24 @@
 // the later segments' sums a tree by z_t^(256 2^k), and a Hillis-Steele
 // scan by z_t^(2^k) within the segment, over 32 blocks a proof at 2^13
 // points, from one table a proof (block 0 of the first launch writes it).
-// K9, the fold (k9_point, a thread a proof and output coefficient):
-//   new_c[m] = sum_j beta^j c[A m + j]  (Horner over j, A = 2^arity_bits).
+// K9, the fold, new_c[m] = sum_j beta^j c[A m + j] (A = 2^arity_bits),
+// with lanes that share an output (k9_fold_block); and a fold round
+// (k9_round_fold, k9_round_gather, k9_ntt: a block a coset, component and
+// proof): the fold, the next codeword's coset NTT and its fiber leaves,
+// what the JAX package's _make_fold_commit_run computes but the Merkle
+// levels.  A round's work is small (0.2 MB a wormhole proof) and its time
+// latency: the design keeps its steps few and wide, one pass of loads, one
+// barrier over a cluster, and NTT rounds of radix 8 (scripts/k9_variants.py).
 // Every value in between is any u64 congruent to it (gl_mul_m,
 // gl_add_lazy); the stores canonicalise.
 #pragma once
 
 #include "goldilocks.cuh"
+#include "ntt.cuh"
+
+#ifdef __CUDACC__
+#include <cuda_pipeline.h>
+#endif
 
 #define FRI_MAX_SETS 8       // sets a FriRows holds
 #define FRI_W 7ULL           // x^2 = 7
@@ -662,31 +673,337 @@ GL_HD int k8_scan_valid(const K8ScanCall& c) {
   return c.n >= 1 && c.batch >= 1 && c.batch <= 65535 && c.scratch ? 0 : 1;
 }
 
-// --- K9: the fold ------------------------------------------------------------
+// --- K9: the fold, and a fold round ----------------------------------------
+//
+// A fold's lanes: L = 2^k9_lane_bits lanes an output coefficient (the
+// arity, at most a warp), lane g of output m taking the inputs j = g + L q
+// (q < A / L) of c[A m + j]: s_g = sum_q c[A m + g + L q] gamma^q by Horner
+// (gamma = beta^L; one term, no product, up to arity 32), then
+// new_c[m] = sum_g beta^g s_g, the lanes met by shuffles (group_sum:
+// log2 L levels of adds).  The lanes' loads of c are contiguous.  In the
+// round mode each thread issues its loads into its registers (blk.regs)
+// first; the block's first warp then computes the table of beta^g in
+// shared memory while they are in flight; a barrier; the products and the
+// sums.  In the fold mode each lane computes its own beta^g.
 
-struct K9Call {
+#define K9_MAX_BATCH 32      // proofs a launch: their betas ride in its parameters
+#define K9_FOLD_THREADS 128  // the fold mode's block
+#define K9_ROUND_THREADS 256 // the round mode's block (512 at 2^13 points: k9_round_threads)
+#define K9_UNROLL 4          // outputs a lane folds at once in the round mode
+#define K9_ROUND_MAX_LOG 13  // the round mode's folded polynomial: 2^13 at most (its shared memory)
+#define K9_MAX_GROUP_LOG 3   // a cluster's blocks: 8 cosets at most (portable)
+#define K9_POW_WORDS 64      // the table of beta^g: 32 pairs
+#define K9_RADIX_LOG 3       // the round NTT's radix: 8
+#define K9_REGS 16           // u64 a thread keeps in registers across the phases
+
+// Copies one u64 from global to shared memory without waiting for it (cp.async
+// on the card); fri_copy_wait waits for this thread's copies.
+GL_HD void fri_copy_async(uint64_t* dst, const uint64_t* src) {
+#ifdef __CUDA_ARCH__
+  __pipeline_memcpy_async(dst, src, sizeof(uint64_t));
+#else
+  *dst = *src;
+#endif
+}
+
+GL_HD void fri_copy_wait() {
+#ifdef __CUDA_ARCH__
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+#endif
+}
+
+struct K9Call {            // the fold mode
   const uint64_t* c[2];    // (batch, m 2^arity_bits) components, rows c_bs apart
   long long c_bs;
-  const uint64_t* beta[2]; // (batch,)
   uint64_t* out[2];        // (batch, m) components
   long long m;
   int arity_bits, batch;
+  uint64_t beta[K9_MAX_BATCH][2];   // proof b's beta
 };
 
-// Output coefficient k of proof b.
-GL_HD void k9_point(const K9Call& c, int b, long long k) {
-  const long long arity = 1LL << c.arity_bits;
-  const long long o = b * c.c_bs + k * arity;
-  const FriExt beta = {fri_ld(c.beta[0] + b), fri_ld(c.beta[1] + b)};
-  FriExt acc = fri_ld_ext(c.c[0], c.c[1], o + arity - 1);
-  for (long long j = arity - 2; j >= 0; j--)
-    acc = fri_eadd(fri_emul(acc, beta), fri_ld_ext(c.c[0], c.c[1], o + j));
-  fri_st_ext(c.out[0], c.out[1], b * c.m + k, acc);
+// The round mode: the fold, the next codeword's coset NTT (2^rate_bits
+// cosets of 2^log_m points) and its fiber leaves.  Block (coset, y, b)
+// holds component y of proof b's coset `coset`: v[coset + 2^r t] for
+// t < 2^log_m is the 2^log_m-point NTT of x_i = f_i (shift w_S^coset)^i
+// (w_S the 2^(log_m + r)-th root of unity), and v[k m' + j] goes to leaf j
+// at 2 k + y (m' = 2^(log_m + r - next_bits) leaves of 2^(next_bits + 1)).
+// A group of 2^group_log cosets (a thread-block cluster on the card) folds
+// once: each of its blocks folds 2^(log_m - group_log) of the f_m and reads
+// the others' from their shared memory.
+struct K9RoundCall {
+  const uint64_t* c[2];    // (batch, 2^(log_m + arity_bits)) components, rows c_bs apart
+  long long c_bs;
+  uint64_t* f[2];          // (batch, 2^log_m): the folded coefficients
+  uint64_t* leaves;        // (batch, m', 2^(next_bits + 1))
+  const uint64_t* tw;      // the NTT's tables of 2^log_m points (k9_ntt_table_elems)
+  const uint64_t* pre;     // (2^rate_bits, 2^log_m): (shift w_S^coset)^i
+  int arity_bits, log_m, next_bits, rate_bits, group_log, batch;
+  uint64_t beta[K9_MAX_BATCH][2];
+};
+
+GL_HD int k9_lane_bits(int arity_bits) { return arity_bits < 5 ? arity_bits : 5; }
+
+// The round mode's threads at 2^l points a coset: K9_ROUND_THREADS, or
+// as many as keep a thread's NTT values within K9_REGS.
+GL_HD constexpr int k9_round_threads(int l) {
+  return (K9_ROUND_THREADS * K9_REGS) >> l ? K9_ROUND_THREADS : (1 << l) / K9_REGS;
+}
+
+// The schedule of the round mode's NTT at 2^L points (k9_ntt).
+template <int L>
+struct K9Ntt {
+  static constexpr int rounds = L <= K9_RADIX_LOG ? 1 : (L + K9_RADIX_LOG - 1) / K9_RADIX_LOG;
+  static constexpr int radix_log(int r) {
+    return r < rounds - 1 ? K9_RADIX_LOG : L - K9_RADIX_LOG * (rounds - 1);
+  }
+  static constexpr int done_log(int r) { return K9_RADIX_LOG * r; }
+  // round r's table, w_(L_r)^(j k) at k M_r + j: after the earlier rounds' L_q
+  static constexpr long long table(int r) {
+    long long t = 0;
+    for (int q = 0; q < r; q++) t += 1LL << (L - done_log(q));
+    return t;
+  }
+};
+
+// u64 of the NTT's tables at 2^l points: each round's but the last.
+GL_HD long long k9_ntt_table_elems(int l) {
+  const int rounds = l <= K9_RADIX_LOG ? 1 : (l + K9_RADIX_LOG - 1) / K9_RADIX_LOG;
+  long long t = 0;
+  for (int q = 0; q < rounds - 1; q++) t += 1LL << (l - K9_RADIX_LOG * q);
+  return t;
+}
+
+// s_g of output m of the row at c0 + row, c1 + row (lane g), gamma =
+// beta^L (read only above arity 32).
+GL_HD FriExt k9_lane_sum(const uint64_t* c0, const uint64_t* c1, long long row, long long m,
+                         int arity_bits, int g, FriExt gamma) {
+  const int lb = k9_lane_bits(arity_bits);
+  const long long base = row + (m << arity_bits) + g, steps = 1LL << (arity_bits - lb);
+  FriExt s = fri_ld_ext(c0, c1, base + ((steps - 1) << lb));
+  for (long long q = steps - 2; q >= 0; q--)
+    s = fri_eadd(fri_emul(s, gamma), fri_ld_ext(c0, c1, base + (q << lb)));
+  return s;
+}
+
+// gamma = beta^L where a lane takes more than one input, else unused.
+GL_HD FriExt k9_gamma(FriExt beta, int arity_bits) {
+  return arity_bits > 5 ? fri_pow(beta, 32) : FriExt{1, 0};
+}
+
+// The table of beta^g for each lane g < L (pw, K9_POW_WORDS u64), by the
+// first threads: at pw[2 g] the pair (u0, u1) with component y of beta^g s
+// = u0 s.a + u1 s.b: (beta^g.a, 7 beta^g.b) for y = 0, (beta^g.b, beta^g.a)
+// for y = 1.  The caller's barrier follows.
+template <class Blk>
+GL_HD void k9_pow_table(Blk& blk, FriExt beta, int arity_bits, int y, uint64_t* pw) {
+  blk.each([&](int tid) {
+    for (int g = tid; g < (1 << k9_lane_bits(arity_bits)); g += blk.threads()) {
+      const FriExt p = fri_pow(beta, (unsigned long long)g);
+      pw[2 * g] = y ? p.b : p.a;
+      pw[2 * g + 1] = y ? p.a : gl_mul7(p.b);
+    }
+  });
+}
+
+// The fold mode: block x of proof b folds outputs x P .. x P + P - 1
+// (P = threads / L).  With a few warps a block, each lane computes its
+// beta^g itself while its loads are in flight: no table, no barrier.
+template <class Blk>
+GL_HD void k9_fold_block(Blk& blk, const K9Call& c, int b, long long x) {
+  const int lb = k9_lane_bits(c.arity_bits);
+  const long long first = x * (blk.threads() >> lb);
+  const FriExt beta = {c.beta[b][0], c.beta[b][1]};
+  blk.template group_sum<2>(lb, [&](int tid, uint64_t* v) {
+    const long long m = first + (tid >> lb);
+    const int g = tid & ((1 << lb) - 1);
+    FriExt t = {0, 0};
+    if (m < c.m)
+      t = fri_emul(k9_lane_sum(c.c[0], c.c[1], b * c.c_bs, m, c.arity_bits, g,
+                               k9_gamma(beta, c.arity_bits)),
+                   fri_pow(beta, (unsigned long long)g));
+    v[0] = t.a;
+    v[1] = t.b;
+  }, [&](int tid, const uint64_t* v) {
+    const long long m = first + (tid >> lb);
+    if (m < c.m) fri_st_ext(c.out[0], c.out[1], b * c.m + m, FriExt{v[0], v[1]});
+  });
+}
+
+GL_HD long long k9_fold_blocks(const K9Call& c, int threads) {
+  const long long per = threads >> k9_lane_bits(c.arity_bits);
+  return (c.m + per - 1) / per;
 }
 
 GL_HD int k9_valid(const K9Call& c) {
   return c.arity_bits >= 1 && c.arity_bits <= K9_MAX_BITS && c.m >= 1 && c.batch >= 1 &&
-                 c.batch <= 65535
+                 c.batch <= K9_MAX_BATCH
+             ? 0
+             : 1;
+}
+
+// The round mode's shared memory, in u64: the block's share of f, the
+// NTT's column (K4's row pitch; the coset's powers, then x_i, first sit at
+// i there), the NTT's tables, the table of beta^g.
+GL_HD long long k9_round_share(const K9RoundCall& c) { return 1LL << (c.log_m - c.group_log); }
+GL_HD long long k9_round_col(const K9RoundCall& c) { return k9_round_share(c); }
+GL_HD long long k9_round_tw(const K9RoundCall& c) {
+  return k9_round_col(c) + k4_pitch(c.log_m, K4_PASS_ROW);
+}
+GL_HD long long k9_round_pw(const K9RoundCall& c) {
+  return k9_round_tw(c) + k9_ntt_table_elems(c.log_m);
+}
+GL_HD long long k9_round_smem(const K9RoundCall& c) { return k9_round_pw(c) + K9_POW_WORDS; }
+
+// Phase 0 of block `coset`: the coset's powers pre[coset][i] into the
+// column and the NTT's tables behind it, copies that run on while the
+// block folds (each thread waits for its own before phase 2's barrier).
+template <class Blk>
+GL_HD void k9_round_prefetch(Blk& blk, const K9RoundCall& c, int coset, uint64_t* sm) {
+  const uint64_t* pre = c.pre + ((long long)coset << c.log_m);
+  uint64_t* col = sm + k9_round_col(c);
+  uint64_t* tw = sm + k9_round_tw(c);
+  const long long n = 1LL << c.log_m, ntw = k9_ntt_table_elems(c.log_m);
+  blk.each([&](int tid) {
+    for (long long i = tid; i < n; i += blk.threads()) fri_copy_async(col + i, pre + i);
+    for (long long i = tid; i < ntw; i += blk.threads()) fri_copy_async(tw + i, c.tw + i);
+  });
+}
+
+// Phase 1 of block (coset, y, b): component y of f_m (any u64) for the
+// block's share of m, rank Mg .. rank Mg + Mg - 1 (rank = coset mod the
+// group, Mg = k9_round_share), to share[m - rank Mg] at sm; the first
+// group's blocks also store it, canonical, to f.  sm: k9_round_smem u64.
+template <class Blk>
+GL_HD void k9_round_fold(Blk& blk, const K9RoundCall& c, int b, int y, int coset, uint64_t* sm) {
+  const int lb = k9_lane_bits(c.arity_bits);
+  const long long mg = k9_round_share(c), per = blk.threads() >> lb;
+  const long long first = (long long)(coset & ((1 << c.group_log) - 1)) * mg;
+  const FriExt beta = {c.beta[b][0], c.beta[b][1]};
+  uint64_t* pw = sm + k9_round_pw(c);
+  for (long long base = 0; base < mg; base += per * K9_UNROLL) {
+    blk.each([&](int tid) {   // every load before a product
+      const FriExt gamma = k9_gamma(beta, c.arity_bits);
+#pragma unroll
+      for (int u = 0; u < K9_UNROLL; u++) {
+        const long long ml = base + (tid >> lb) + u * per;
+        const FriExt s = ml < mg ? k9_lane_sum(c.c[0], c.c[1], b * c.c_bs, first + ml,
+                                               c.arity_bits, tid & ((1 << lb) - 1), gamma)
+                                 : FriExt{0, 0};
+        blk.regs(tid)[2 * u] = s.a;
+        blk.regs(tid)[2 * u + 1] = s.b;
+      }
+    });
+    if (base == 0) k9_pow_table(blk, beta, c.arity_bits, y, pw);
+    blk.sync();
+    blk.template group_sum<K9_UNROLL>(lb, [&](int tid, uint64_t* v) {
+      const int g = tid & ((1 << lb) - 1);
+      const uint64_t u0 = pw[2 * g], u1 = pw[2 * g + 1];
+#pragma unroll
+      for (int u = 0; u < K9_UNROLL; u++)
+        v[u] = gl_add_lazy(gl_mul_m(u0, blk.regs(tid)[2 * u]),
+                           gl_mul_m(u1, blk.regs(tid)[2 * u + 1]));
+    }, [&](int tid, const uint64_t* v) {
+#pragma unroll
+      for (int u = 0; u < K9_UNROLL; u++) {
+        const long long ml = base + (tid >> lb) + u * per;
+        if (ml >= mg) continue;
+        sm[ml] = v[u];
+        if (coset >> c.group_log == 0) c.f[y][((long long)b << c.log_m) + first + ml] = gl_canon(v[u]);
+      }
+    });
+  }
+}
+
+// Phase 2, after the prefetch's copies and a barrier over the group: x_i
+// = f_i pre[coset][i] in the column, f_i from the share of rank i / Mg
+// (shares[rank]: that block's share, in its shared memory on the card).
+template <class Blk>
+GL_HD void k9_round_gather(Blk& blk, const K9RoundCall& c, const uint64_t* const* shares,
+                           uint64_t* sm) {
+  const int ls = c.log_m - c.group_log;
+  uint64_t* col = sm + k9_round_col(c);
+  blk.each([&](int tid) {
+    for (long long i = tid; i < (1LL << c.log_m); i += blk.threads())
+      col[i] = gl_mul_m(shares[i >> ls][i & ((1LL << ls) - 1)], col[i]);
+  });
+  blk.sync();
+}
+
+// The round's NTT over the column, 2^L points in rounds of radix
+// 2^K9_RADIX_LOG (the last round takes what is left), K4's Stockham
+// formulation (ntt.cuh): round r takes Y_r[d][j + M_r m] (Y_0 = x), a
+// task (d, j < M_r) its 2^b values, their DFT in registers (K4's k4_dft,
+// whose twiddles are powers of w_16, shifts), and hands on
+// Y_(r+1)[d + S_r k][j] = A[k] w_(L_r)^(j k) (tables from the wrapper,
+// k9_ntt_table_elems); the last round's A[k] is X[d + S k].  Radix 16
+// leaves a 2^9-point coset 32 tasks a round, one warp of a block; radix 4,
+// 128 a round in more rounds (scripts/k9_variants.py times both).
+// Phase 3, round R of the NTT of block (coset, y, b) and the rounds after
+// it: each thread's tasks tid, tid + T, ... in its registers (blk.regs), a
+// barrier before and after each exchange through the column; round 0
+// reads x_i at i, the last round stores X[t] = v[coset + 2^r t],
+// canonical, to leaf coset + 2^r (t mod M / A') at 2 (t div M / A') + y
+// of proof b.
+template <int L, int R, class Blk>
+GL_HD void k9_ntt(Blk& blk, const K9RoundCall& c, uint64_t* sm, int b, int y, int coset) {
+  using N = K9Ntt<L>;
+  constexpr int B = N::radix_log(R), ld = N::done_log(R), lm = L - ld - B;
+  constexpr bool last = R == N::rounds - 1;
+  constexpr int tasks = 1 << (L - B), per = K9_REGS >> B;
+  uint64_t* col = sm + k9_round_col(c);
+  const uint64_t* tab = sm + k9_round_tw(c) + N::table(R);
+  blk.each([&](int tid) {
+    uint64_t* v = blk.regs(tid);
+    const int lq = c.log_m - c.next_bits, lw = c.next_bits + 1;
+    uint64_t* out = c.leaves + ((long long)b << (c.log_m + c.rate_bits + 1)) + y;
+#pragma unroll
+    for (int u = 0; u < per; u++) {
+      const int tau = tid + blk.threads() * u;
+      if (tau >= tasks) continue;
+      const int j = tau & ((1 << lm) - 1), d = tau >> lm;
+      uint64_t* a = v + (u << B);
+#pragma unroll
+      for (int m = 0; m < (1 << B); m++)
+        a[m] = R == 0 ? col[j + (m << lm)] : col[k4_pad((d << (L - ld)) + j + (m << lm))];
+      k4_dft<B, B>(a);
+#pragma unroll
+      for (int k = 0; k < (1 << B); k++) {
+        if (last) {
+          const long long t = d + ((long long)k << ld);
+          const long long row = coset + ((t & ((1LL << lq) - 1)) << c.rate_bits);
+          out[(row << lw) + 2 * (t >> lq)] = gl_canon(a[k]);
+        } else if (k) {
+          a[k] = gl_mul_m(a[k], tab[(k << lm) + j]);
+        }
+      }
+    }
+  });
+  if constexpr (!last) {
+    blk.sync();   // every read of the column done
+    blk.each([&](int tid) {
+      const uint64_t* v = blk.regs(tid);
+#pragma unroll
+      for (int u = 0; u < per; u++) {
+        const int tau = tid + blk.threads() * u;
+        if (tau >= tasks) continue;
+        const int j = tau & ((1 << lm) - 1), d = tau >> lm;
+#pragma unroll
+        for (int k = 0; k < (1 << B); k++) col[k4_pad(((d + (k << ld)) << lm) + j)] = v[(u << B) + k];
+      }
+    });
+    blk.sync();
+    k9_ntt<L, R + 1>(blk, c, sm, b, y, coset);
+  }
+}
+
+GL_HD int k9_round_valid(const K9RoundCall& c) {
+  return c.arity_bits >= 1 && c.arity_bits <= K9_MAX_BITS && c.log_m >= 1 &&
+                 c.log_m <= K9_ROUND_MAX_LOG && c.next_bits >= 1 && c.next_bits <= c.log_m &&
+                 c.rate_bits >= 0 && c.rate_bits <= 16 && c.group_log >= 0 &&
+                 c.group_log <= K9_MAX_GROUP_LOG && c.group_log <= c.rate_bits &&
+                 c.group_log <= c.log_m && c.batch >= 1 && c.batch <= K9_MAX_BATCH &&
+                 c.log_m + c.arity_bits <= 62
              ? 0
              : 1;
 }

@@ -19,7 +19,13 @@ the points (a table of T points a proof, (T, 2, B); K8's scan, in
 Horner's form, needs no inverse), where the JAX program uploads
 host-computed tables: the integers are the same, and the host's numpy
 tables were most of the stages' time once the arithmetic left eager torch;
-- ``fold`` (K9, one launch a fold round, at any arity).
+- ``fold_round`` (K9's round mode, one launch a fold round but the last):
+  the fold, the next codeword's coset NTT and its fiber leaves, exactly
+  ``fri_device._fold_round_plain``; ``fold`` (K9's fold mode, one launch):
+  the fold alone, for the last round and the sharded path's shards, at any
+  arity.  Both fold with lanes (``csrc/fri.cuh``), and both take the betas
+  on the host and pass them in the launch's parameters (up to
+  ``K9_MAX_BATCH`` proofs a launch, a launch a chunk of them above).
 
 A set is ``(tensor, table)`` or ``(tensor, table, exp)``: a (k, n) tensor
 shared by the batch (the circuit's constants/sigmas oracle, read once for
@@ -27,11 +33,12 @@ every proof) or (B, k, n), read in place through its strides (the last
 axis contiguous); K8's point kernel gives its row j the power exp + j of
 alpha (exp 0 when left out).  The plain
 versions are ``fri/fri_device.py``'s ``_openings_plain``,
-``_reduce_alpha_plain``, ``_compose_plain`` and ``_fold_plain``, which the
-prover takes for CPU tensors.
+``_reduce_alpha_plain``, ``_compose_plain``, ``_fold_plain`` and
+``_fold_round_plain``, which the prover takes for CPU tensors.
 
 Bound on the H100: bytes (chip_smoke.py's fri_work).  Counters:
-``launches``, in all, by kernel (``k7``, ``k8``, ``k9``) and by card.
+``launches``, in all, by kernel (``k7``, ``k8``, ``k9``), K9's by mode
+(``k9_by_mode``: ``round``, ``fold``) and by card.
 Build: nvcc for sm_90a into ``zk_circuits_torch/_build`` at first use, a
 plain C interface loaded with ctypes.
 """
@@ -41,11 +48,15 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
+from ..field import goldilocks as gfd
+from ..host import gl
+from ..ntt import ntt as nttm
 from ..utils.nvcc import build_library
 
-HEADERS = ("goldilocks.cuh", "fri.cuh")
+HEADERS = ("goldilocks.cuh", "ntt.cuh", "fri.cuh")
 MAX_SETS = 8          # csrc/fri.cuh FRI_MAX_SETS
 MAX_POW = 1024        # csrc/fri.cuh K8_MAX_POW
 MAX_BATCH = 65535     # the grid's y extent
@@ -56,9 +67,18 @@ K7_MIN_TILE = 256     # K7's coefficients a block: 8 a lane, up to
 K7_MAX_TILE = 2048    # 64 a lane (its shared memory stays below 48 KB)
 K7_BLOCKS_PER_SM = 2  # the least blocks an SM openings_shape aims for
 KERNELS = ("k7", "k8", "k9")
+K9_MAX_BATCH = 32     # csrc/fri.cuh K9_MAX_BATCH: the betas a launch's parameters hold
+ROUND_MAX_LOG = 13    # csrc/fri.cuh K9_ROUND_MAX_LOG: the round mode's largest folded polynomial
+ROUND_GROUP_LOG = 3   # the round mode's cosets a cluster, at most (csrc/fri.cuh K9_MAX_GROUP_LOG)
+ROUND_THREADS = 256   # csrc/fri.cuh K9_ROUND_THREADS (more at 2^13 points: round_threads)
+ROUND_UNROLL = 4      # csrc/fri.cuh K9_UNROLL
+ROUND_REGS = 16       # csrc/fri.cuh K9_REGS
+RADIX_LOG = 3         # csrc/fri.cuh K9_RADIX_LOG: the round NTT's radix
+POW_WORDS = 64        # csrc/fri.cuh K9_POW_WORDS: the table of beta^g
 
 launches = 0
 launches_by_kernel = dict.fromkeys(KERNELS, 0)
+k9_by_mode = {"round": 0, "fold": 0}
 launches_by_device: dict = {}
 build_log = ""   # nvcc's output of the last build (ptxas register report)
 _LIB = None
@@ -101,12 +121,21 @@ class _K8ScanCall(ctypes.Structure):
 
 class _K9Call(ctypes.Structure):
     _fields_ = [("c", ctypes.c_void_p * 2), ("c_bs", ctypes.c_longlong),
-                ("beta", ctypes.c_void_p * 2), ("out", ctypes.c_void_p * 2),
-                ("m", ctypes.c_longlong), ("arity_bits", ctypes.c_int), ("batch", ctypes.c_int)]
+                ("out", ctypes.c_void_p * 2), ("m", ctypes.c_longlong),
+                ("arity_bits", ctypes.c_int), ("batch", ctypes.c_int),
+                ("beta", ctypes.c_uint64 * 2 * K9_MAX_BATCH)]
+
+
+class _K9RoundCall(ctypes.Structure):
+    _fields_ = [("c", ctypes.c_void_p * 2), ("c_bs", ctypes.c_longlong),
+                ("f", ctypes.c_void_p * 2), ("leaves", ctypes.c_void_p),
+                ("tw", ctypes.c_void_p), ("pre", ctypes.c_void_p)] + \
+        _fields("iiiiii", "arity_bits log_m next_bits rate_bits group_log batch") + \
+        [("beta", ctypes.c_uint64 * 2 * K9_MAX_BATCH)]
 
 
 CALLS = (("k7_openings", _K7Call), ("k8_reduce", _K8Call), ("k8_scan", _K8ScanCall),
-         ("k9_fold", _K9Call))
+         ("k9_fold", _K9Call), ("k9_round", _K9RoundCall))
 
 
 def reset_launches() -> None:
@@ -115,14 +144,18 @@ def reset_launches() -> None:
         launches = 0
         for k in launches_by_kernel:
             launches_by_kernel[k] = 0
+        for k in k9_by_mode:
+            k9_by_mode[k] = 0
         launches_by_device.clear()
 
 
-def _count(kernel: str, device, k: int) -> None:
+def _count(kernel: str, device, k: int, mode: str | None) -> None:
     global launches
     with _LOCK:
         launches += k
         launches_by_kernel[kernel] += k
+        if mode:
+            k9_by_mode[mode] += k
         launches_by_device[str(device)] = launches_by_device.get(str(device), 0) + k
 
 
@@ -166,16 +199,17 @@ def _lib():
 
 
 def _launch(kernel: str, name: str, call, dev: torch.device, lib, what: str,
-            count: int = 1) -> None:
+            count: int = 1, mode: str | None = None) -> None:
     """``name`` on ``call``, ``count`` launches: the built library on a
-    CUDA device (counted), else ``lib``, a host build of the C interface."""
+    CUDA device (counted, K9's also by ``mode``), else ``lib``, a host
+    build of the C interface."""
     lib = _lib() if dev.type == "cuda" else lib
     stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
     err = getattr(lib, name)(dev.index or 0, ctypes.byref(call), stream)
     if err != 0:
         raise RuntimeError(f"{name} ({what}) failed: CUDA error {err}")
     if dev.type == "cuda":
-        _count(kernel, dev, count)
+        _count(kernel, dev, count, mode)
 
 
 def _device(tensors: list, lib, kernel: str, plain: str) -> torch.device:
@@ -351,32 +385,177 @@ def compose(comp0: tuple, comp1: tuple, pts: torch.Tensor, *, lib=None) -> tuple
     return f[0], f[1]
 
 
-def fold(c0: torch.Tensor, c1: torch.Tensor, b0: torch.Tensor, b1: torch.Tensor,
-         arity_bits: int, *, lib=None) -> tuple:
-    """K9: new_c[m] = sum_j beta^j c[A m + j] (A = 2^arity_bits, any
-    arity_bits >= 1 with A dividing N) for c (..., N) as a component pair
-    with one beta (...) a leading index (``b0``, ``b1``); returns (..., N /
-    A)."""
+def _betas(beta, batch: int) -> np.ndarray:
+    """Host betas as (batch, 2) u64: one a proof (a (2,) array for one)."""
+    if isinstance(beta, torch.Tensor):
+        raise ValueError("K9 takes its betas on the host (a (B, 2) array), not as a tensor")
+    b = np.asarray(beta, dtype=np.uint64).reshape(-1, 2)
+    if b.shape[0] != batch:
+        raise ValueError(f"{b.shape[0]} betas for {batch} proofs")
+    return b
+
+
+def _rows2(c0: torch.Tensor, c1: torch.Tensor) -> tuple:
+    """c (N,) or (B, N) as (B, N) views sharing one stride, the last axis
+    contiguous (copied where not)."""
+    size = c0.shape[-1]
+    x0, x1 = (c.reshape(-1, size) for c in (c0, c1))
+    if x0.stride() != x1.stride() or (size > 1 and x0.stride(1) != 1):
+        x0, x1 = x0.contiguous(), x1.contiguous()
+    return x0, x1
+
+
+def _chunks(batch: int):
+    """The proofs of each launch: K9_MAX_BATCH at most."""
+    return [(b, min(batch, b + K9_MAX_BATCH)) for b in range(0, batch, K9_MAX_BATCH)]
+
+
+def fold(c0: torch.Tensor, c1: torch.Tensor, beta, arity_bits: int, *, lib=None) -> tuple:
+    """K9's fold mode: new_c[m] = sum_j beta^j c[A m + j] (A =
+    2^arity_bits, any arity_bits >= 1 with A dividing N) for c (N,) or
+    (B, N) as a component pair, with each proof's beta on the host (a (B, 2)
+    array, or (2,) for c (N,)), passed in the launch's parameters; returns
+    (..., N / A).  One launch a chunk of K9_MAX_BATCH proofs."""
     *lead, size = c0.shape
     if not 1 <= arity_bits <= MAX_ARITY_BITS or size % (1 << arity_bits) or len(lead) > 1 \
             or c1.shape != c0.shape:
         raise ValueError(f"K9 folds (N,) or (B, N) pairs with N a multiple of the arity "
                          f"(arity bits >= 1); got {tuple(c0.shape)}, {tuple(c1.shape)} at "
                          f"{arity_bits} bits")
-    arity = 1 << arity_bits
-    x0, x1 = (c.reshape(-1, size) for c in (c0, c1))
+    x0, x1 = _rows2(c0, c1)
     batch = x0.shape[0]
-    if x0.stride() != x1.stride() or (size > 1 and x0.stride(1) != 1):
-        x0, x1 = x0.contiguous(), x1.contiguous()
-    beta = _pairs("beta", [(b0.reshape(-1), b1.reshape(-1))], (batch,))
-    dev = _device([x0, x1] + beta, lib, "K9", "_fold_plain")
+    dev = _device([x0, x1], lib, "K9", "_fold_plain")
     if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"expected 1-{MAX_BATCH} proofs, got {batch}")
-    m = size // arity
+    betas = _betas(beta, batch)
+    m = size >> arity_bits
     out = torch.empty((2, batch, m), dtype=torch.int64, device=dev)
-    call = _K9Call(c=(ctypes.c_void_p * 2)(x0.data_ptr(), x1.data_ptr()), c_bs=x0.stride(0),
-                   beta=(ctypes.c_void_p * 2)(*(t.data_ptr() for t in beta)),
-                   out=(ctypes.c_void_p * 2)(out[0].data_ptr(), out[1].data_ptr()),
-                   m=m, arity_bits=arity_bits, batch=batch)
-    _launch("k9", "k9_fold", call, dev, lib, f"B={batch}, N={size}, {arity_bits} bits")
+    for lo, hi in _chunks(batch):
+        call = _K9Call(c=(ctypes.c_void_p * 2)(x0[lo].data_ptr(), x1[lo].data_ptr()),
+                       c_bs=x0.stride(0),
+                       out=(ctypes.c_void_p * 2)(out[0, lo].data_ptr(), out[1, lo].data_ptr()),
+                       m=m, arity_bits=arity_bits, batch=hi - lo)
+        for i, (a, b) in enumerate(betas[lo:hi]):
+            call.beta[i][0], call.beta[i][1] = int(a), int(b)
+        _launch("k9", "k9_fold", call, dev, lib, f"B={hi - lo}, N={size}, {arity_bits} bits",
+                mode="fold")
     return out[0].reshape(*lead, m), out[1].reshape(*lead, m)
+
+
+def round_fits(n: int, arity_bits: int) -> bool:
+    """The round mode's size rule (``fri_device.commit_phase`` takes it
+    where this holds, else K9's fold mode, K4's coset NTT and the eager
+    fiber regroup): a folded polynomial of at most 2^ROUND_MAX_LOG
+    coefficients, whose NTT a coset, its share of f and its tables fit one
+    block's shared memory; with the configs' rate of 2^3, next codewords
+    up to 2^16 points."""
+    return n >> arity_bits <= 1 << ROUND_MAX_LOG
+
+
+def round_threads(log_m: int) -> int:
+    """A round block's threads at 2^log_m points a coset (csrc/fri.cuh
+    k9_round_threads): ROUND_THREADS, or as many as keep a thread's NTT
+    values within ROUND_REGS."""
+    return max(ROUND_THREADS, (1 << log_m) // ROUND_REGS)
+
+
+def round_group_log(rate_bits: int, log_m: int, arity_bits: int) -> int:
+    """log2 of the cosets a cluster (a group that folds once): the fewest
+    whose blocks fold their shares of the 2^log_m outputs in one pass of
+    round_threads' lanes folding ROUND_UNROLL outputs each (a
+    cluster's barriers and remote reads cost more than a second pass of a
+    small fold; scripts/k9_variants.py), at most every coset and
+    2^ROUND_GROUP_LOG."""
+    per_pass = (round_threads(log_m) >> min(arity_bits, 5)) * ROUND_UNROLL
+    need = max(0, (log_m - per_pass.bit_length() + 1))
+    return min(rate_bits, ROUND_GROUP_LOG, log_m, need)
+
+
+def _ntt_radix_logs(log_m: int) -> list:
+    """log2 of each round's radix in the round mode's NTT (csrc/fri.cuh
+    K9Ntt): RADIX_LOG, the last round what is left."""
+    rounds = max(1, -(-log_m // RADIX_LOG))
+    return [RADIX_LOG] * (rounds - 1) + [log_m - RADIX_LOG * (rounds - 1)]
+
+
+def ntt_tables(log_m: int) -> np.ndarray:
+    """The round mode's NTT tables (csrc/fri.cuh k9_ntt): for each round
+    but the last, of radix 2^b over sub-transforms of L_r points,
+    w_(L_r)^(j k) at k L_r / 2^b + j; then a 1 (at least one value)."""
+    segs, lr = [], log_m
+    for b in _ntt_radix_logs(log_m)[:-1]:
+        e = np.arange(1 << b)[:, None] * np.arange(1 << (lr - b))[None, :]
+        segs.append(gl.powers(gl.primitive_root_of_unity(lr), 1 << lr)[e.reshape(-1)])
+        lr -= b
+    return np.concatenate(segs + [np.ones(1, dtype=np.uint64)])
+
+
+def round_smem(log_m: int, group_log: int) -> int:
+    """A round block's shared memory in bytes (csrc/fri.cuh
+    k9_round_smem): its share of f, the NTT's column, its tables and the
+    table of beta^g."""
+    n = 1 << log_m
+    return 8 * ((n >> group_log) + n + (n >> 4) + ntt_tables(log_m).size - 1 + POW_WORDS)
+
+
+def coset_powers(shift: int, log_m: int, rate_bits: int, device) -> torch.Tensor:
+    """(2^rate_bits, 2^log_m): (shift w_S^c)^i for coset c of the
+    2^(log_m + rate_bits)-point codeword (w_S its root of unity), uploaded
+    once a shape and card."""
+    def make():
+        w = gl.primitive_root_of_unity(log_m + rate_bits)
+        return gfd.from_u64(np.stack([
+            gl.powers(shift * pow(w, c, gl.P_INT) % gl.P_INT, 1 << log_m)
+            for c in range(1 << rate_bits)]), device)
+
+    return nttm._cached(("k9_pre", int(shift) % gl.P_INT, log_m, rate_bits, str(device)), make)
+
+
+def fold_round(c0: torch.Tensor, c1: torch.Tensor, beta, arity_bits: int, next_bits: int,
+               rate_bits: int, shift: int, *, lib=None, group_log: int | None = None) -> tuple:
+    """K9's round mode, one launch (a chunk of K9_MAX_BATCH proofs): from c
+    (B, N) as a component pair and each proof's beta on the host (B, 2),
+    the fold f = fold(c, beta) (B, N / A) and the leaves of the next
+    codeword, f's coset NTT on shift * <w> at 2^rate_bits times its length,
+    in fiber rows of arity 2^next_bits (B, m', 2^(next_bits + 1)), the
+    components interleaved: ``_fiber_leaves(*_ext_coset_ntt_dev(f, shift,
+    size), 2^next_bits)``.  Returns (f0, f1, leaves).  Takes the rounds of
+    ``round_fits``; ``group_log`` (default ``round_group_log``) sets the
+    cosets that fold once together (a cluster on the card)."""
+    if c0.dim() != 2 or c1.shape != c0.shape:
+        raise ValueError(f"K9's round mode takes (B, N) pairs, got {tuple(c0.shape)}, "
+                         f"{tuple(c1.shape)}")
+    batch, size = c0.shape
+    log_m = size.bit_length() - 1 - arity_bits
+    group_log = round_group_log(rate_bits, log_m, arity_bits) if group_log is None \
+        else group_log
+    if size & (size - 1) or not 1 <= arity_bits <= MAX_ARITY_BITS or \
+            not 1 <= next_bits <= log_m or not round_fits(size, arity_bits) or \
+            not 0 <= rate_bits <= 16 or not 0 <= group_log <= min(rate_bits, ROUND_GROUP_LOG, log_m):
+        raise ValueError(f"K9's round mode: N={size} at {arity_bits} bits, next arity "
+                         f"{next_bits} bits, rate {rate_bits} bits, group {group_log}: the "
+                         f"folded polynomial must hold 2-2^{ROUND_MAX_LOG} coefficients and "
+                         f"the next arity at most that")
+    x0, x1 = _rows2(c0, c1)
+    dev = _device([x0, x1], lib, "K9", "_fold_round_plain")
+    betas = _betas(beta, batch)
+    m = 1 << log_m
+    f = torch.empty((2, batch, m), dtype=torch.int64, device=dev)
+    rows = (m << rate_bits) >> next_bits
+    leaves = torch.empty((batch, rows, 2 << next_bits), dtype=torch.int64, device=dev)
+    tw = nttm._cached(("k9_tw", log_m, RADIX_LOG, str(dev)),
+                      lambda: gfd.from_u64(ntt_tables(log_m), dev))
+    pre = coset_powers(shift, log_m, rate_bits, dev)
+    for lo, hi in _chunks(batch):
+        call = _K9RoundCall(c=(ctypes.c_void_p * 2)(x0[lo].data_ptr(), x1[lo].data_ptr()),
+                            c_bs=x0.stride(0),
+                            f=(ctypes.c_void_p * 2)(f[0, lo].data_ptr(), f[1, lo].data_ptr()),
+                            leaves=leaves[lo].data_ptr(), tw=tw.data_ptr(), pre=pre.data_ptr(),
+                            arity_bits=arity_bits, log_m=log_m, next_bits=next_bits,
+                            rate_bits=rate_bits, group_log=group_log, batch=hi - lo)
+        for i, (a, b) in enumerate(betas[lo:hi]):
+            call.beta[i][0], call.beta[i][1] = int(a), int(b)
+        _launch("k9", "k9_round", call, dev, lib,
+                f"B={hi - lo}, N={size}, {arity_bits} -> {next_bits} bits, rate {rate_bits}",
+                mode="round")
+    return f[0], f[1], leaves

@@ -12,15 +12,17 @@ stage fetches the whole batch's caps or evaluations in one transfer):
   g*zeta; ``reduce_alpha``: K8's point kernel) with the divide-by-linear
   (``compose``: K8's scan), then the round-0 codeword NTT and Merkle
   commit;
-- fold rounds: coefficient-space fold (new_c[m] = sum_j beta^j c[A*m+j];
-  ``fold``: K9) + next codeword NTT + Merkle commit;
+- fold rounds: coefficient-space fold (new_c[m] = sum_j beta^j c[A*m+j]),
+  the next codeword's coset NTT and its fiber leaves (``fold_round``: K9's
+  round mode, one launch), then the Merkle commit; the last round's fold
+  alone (``fold``: K9's fold mode);
 - query phase: every oracle and every commit-phase tree gathered on the
   device and fetched in one transfer.
 
 On a CUDA tensor the field arithmetic takes the kernels of ``fri_cuda``; on
 a CPU tensor their plain versions (``_openings_plain``,
-``_reduce_alpha_plain``, ``_compose_plain``, ``_fold_plain``); any other
-device raises.
+``_reduce_alpha_plain``, ``_compose_plain``, ``_fold_plain``,
+``_fold_round_plain``); any other device raises.
 
 The Fiat-Shamir challenger stays on the host; only caps, the final
 polynomial and query rows leave the device.  Extension elements travel as
@@ -104,6 +106,17 @@ def _fold_plain(c0, c1, b0, b1, arity_bits: int):
         acc0, acc1 = _emul(acc0, acc1, b0, b1)
         acc0, acc1 = _eadd(acc0, acc1, r0[..., j], r1[..., j])
     return acc0, acc1
+
+
+def _fold_round_plain(c0, c1, b0, b1, arity_bits: int, next_bits: int, rate_bits: int,
+                      shift: int):
+    """K9's round mode's plain version: the fold, the next codeword's coset
+    NTT (``shift``, 2^rate_bits times the folded length; the NTT's stage
+    loop, on any device) and its fiber leaves of arity 2^next_bits;
+    returns (f0, f1, leaves)."""
+    f0, f1 = _fold_plain(c0, c1, b0, b1, arity_bits)
+    v = nttm.coset_ntt_plain(torch.stack([f0, f1]), shift, f0.shape[-1] << rate_bits)
+    return f0, f1, _fiber_leaves(v[0], v[1], 1 << next_bits)
 
 
 def _over_batch(x, batch: int):
@@ -202,19 +215,30 @@ def reduce_alpha(sets: list, alpha) -> list:
     return body(sets, _points([alpha], sets[0][0].device))
 
 
-def fold(c0, c1, b0, b1, arity_bits: int):
-    """new_c[m] = sum_j beta^j c[A*m + j]; c (N,) or (B, N) with one beta
-    (a scalar, or (B,)) per leading index."""
-    body = fri_cuda.fold if _on_card(c0) else _fold_plain
-    return body(c0, c1, b0, b1, arity_bits)
+def fold(c0, c1, beta, arity_bits: int):
+    """new_c[m] = sum_j beta^j c[A*m + j]; c (N,) or (B, N) with each
+    proof's beta on the host ((2,) or (B, 2))."""
+    if _on_card(c0):
+        return fri_cuda.fold(c0, c1, beta, arity_bits)
+    return _fold_plain(c0, c1, *gfd.ext_pair(beta, c0.device), arity_bits)
 
 
-def _commit_codeword(f0, f1, shift: int, size: int, arity_bits: int,
-                     cap_height: int):
-    """NTT an ext coefficient pair onto its coset and commit the fiber tree."""
+def fold_round(c0, c1, beta, arity_bits: int, next_bits: int, rate_bits: int, shift: int):
+    """One fold round but the last: (f0, f1, leaves) with f the fold of c
+    (B, N) by each proof's host beta (B, 2) and leaves the fiber rows of
+    arity 2^next_bits of f's coset NTT on shift * <w> at 2^rate_bits times
+    its length."""
+    if _on_card(c0):
+        return fri_cuda.fold_round(c0, c1, beta, arity_bits, next_bits, rate_bits, shift)
+    return _fold_round_plain(c0, c1, *gfd.ext_pair(beta, c0.device), arity_bits, next_bits,
+                             rate_bits, shift)
+
+
+def _commit_codeword(f0, f1, shift: int, size: int, arity_bits: int):
+    """NTT an ext coefficient pair onto its coset and regroup it into
+    fiber leaves."""
     v0, v1 = _ext_coset_ntt_dev(f0, f1, shift, size)
-    leaves = _fiber_leaves(v0, v1, 1 << arity_bits)
-    return leaves, merklem.device_merkle_levels(leaves, cap_height)
+    return _fiber_leaves(v0, v1, 1 << arity_bits)
 
 
 def take_rows_batch(x: torch.Tensor, idx: np.ndarray, colmajor: bool) -> torch.Tensor:
@@ -309,17 +333,21 @@ def compose(comp0, comp1, zeta, zeta_next, alpha, num_zs: int):
 
 def commit_phase(f0, f1, fri_config, degree_bits: int, chs: list):
     """The FRI commit chain on one device for B proofs, from their (B, n)
-    ext coefficient pair f and one Challenger a proof: per fold round, NTT
-    onto the round's coset, commit the B fiber trees at once, fetch their
-    caps in one transfer, observe each proof's cap, draw its beta, fold.
-    Returns (caps, trees, betas, final f0, final f1): per round the caps
-    (B, m, 4), the trees' (leaves, levels) and the betas (B, 2)."""
+    ext coefficient pair f and one Challenger a proof: the round-0 codeword
+    (K4's coset NTT and the fiber regroup), then per fold round commit the B
+    fiber trees at once, fetch their caps in one transfer, observe each
+    proof's cap, draw its beta, and fold: with the next codeword's leaves
+    in one K9 round launch where a round follows and ``round_fits`` holds
+    on the card, else the fold alone and, where a round follows, K4 and the
+    regroup.  Returns (caps, trees, betas, final f0, final f1): per round
+    the caps (B, m, 4), the trees' (leaves, levels) and the betas (B, 2)."""
     size = f0.shape[-1] << fri_config.rate_bits
     shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    arities = fri_config.reduction_arities(degree_bits)
     caps, trees, betas = [], [], []
-    for a_bits in fri_config.reduction_arities(degree_bits):
-        leaves, levels = _commit_codeword(f0, f1, shift, size, a_bits,
-                                          fri_config.cap_height)
+    leaves = _commit_codeword(f0, f1, shift, size, arities[0]) if arities else None
+    for r, a_bits in enumerate(arities):
+        levels = merklem.device_merkle_levels(leaves, fri_config.cap_height)
         cap = gfd.to_u64(levels[-1])
         caps.append(cap)
         trees.append((leaves, levels))
@@ -329,10 +357,16 @@ def commit_phase(f0, f1, fri_config, degree_bits: int, chs: list):
             beta.append(ch.get_extension_challenge())
         beta = np.stack(beta)
         betas.append(beta)
-        b0, b1 = gfd.ext_pair(beta, f0.device)
-        f0, f1 = fold(f0, f1, b0, b1, a_bits)
         shift = pow(shift, 1 << a_bits, gl.P_INT)
         size >>= a_bits
+        if r + 1 == len(arities):
+            f0, f1 = fold(f0, f1, beta, a_bits)
+        elif not _on_card(f0) or fri_cuda.round_fits(f0.shape[-1], a_bits):
+            f0, f1, leaves = fold_round(f0, f1, beta, a_bits, arities[r + 1],
+                                        fri_config.rate_bits, shift)
+        else:
+            f0, f1 = fold(f0, f1, beta, a_bits)
+            leaves = _commit_codeword(f0, f1, shift, size, arities[r + 1])
     return caps, trees, betas, f0, f1
 
 

@@ -12,7 +12,8 @@ contiguous slice, in order):
   destination d's leaf rows is one strided block;
 - leaves are hashed per shard with K1 and the tree is built row-sharded
   (hash/merkle.py::sharded_merkle_levels); only the cap is fetched;
-- the fold (new_c[m] = sum_j beta^j c[arity*m + j], K9 on the card)
+- the fold (new_c[m] = sum_j beta^j c[arity*m + j], K9's fold mode on the
+  card, beta in the launch's parameters)
   reads contiguous arity-groups, so it is shard-local while every shard holds a multiple of
   arity coefficients; once it does not (a short last round), the few
   coefficients left are folded on the first shard's device.
@@ -67,7 +68,7 @@ def _fold(p0: list, p1: list, beta, a_bits: int):
         p0, p1 = [gather(p0)], [gather(p1)]
     out0, out1 = [], []
     for a, b in zip(p0, p1):
-        f0, f1 = fold(a, b, *gfd.ext_pair(beta, a.device), a_bits)
+        f0, f1 = fold(a, b, beta, a_bits)
         out0.append(f0)
         out1.append(f1)
     return out0, out1
