@@ -8,9 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. card     -- the card's name and power limit; build the Poseidon kernel
                (K1), the block exchange (K2), the witness schedule (K3),
                the NTT (K4), the vanishing polynomial (K5), the
-               permutation products (K6) and the openings' and FRI's
-               arithmetic (K7-K9, one library) from csrc/, one nvcc each,
-               all started together, timed.
+               permutation products (K6), the openings' and FRI's
+               arithmetic (K7-K9, one library) and the query gather (K10)
+               from csrc/, one nvcc each, all started together, timed.
 2. square   -- a one-gate square circuit under both standard configs: the
                proof from device="cuda" must equal the proof from
                device="cpu" byte for byte, and verify.
@@ -37,7 +37,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (plain_quotient_on_card); K7's (one), K8's (three) and K9's
                (one a fold round: its round mode, with the next codeword's
                coset NTT and leaves, in all but the last) a proof, and no
-               plain FRI body on the card (plain_fri_on_card).
+               plain FRI body on the card (plain_fri_on_card); K10 once a
+               proof and no plain gather on the card
+               (plain_gather_on_card); K4's leaf mode for the round-0
+               codeword (its coset NTT stored as fiber leaves).
 5. batch    -- the batched prover: prove_batch of B=4 zk wormhole proofs
                (one cold batch, two warm), each proof's sha256 == the pinned
                digest, proof 0 verified and a tampered copy refused; K1's
@@ -45,8 +48,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and the PoW sweeps the found witnesses need, K3's == those of
                one proof, no host witness, K4's == those of one proof
                and no plain NTT on the card, K5 once and K6 twice a batch
-               and no plain quotient body on the card, K7-K9 as a proof
-               and no plain FRI body; stage times, the
+               and no plain quotient body on the card, K7-K10 as a proof
+               and no plain FRI body or gather; stage times, the
                second warm batch under torch.profiler and bench.py's JSON
                keys; then the square circuit at B=4 with distinct witnesses
                under a zk config with FRI fold rounds, each proof == a
@@ -80,7 +83,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                proof (the wires INTT, the zs NTT and INTT, the three LDEs
                with their salt polys, the quotient's coset INTT of every
                challenge in one call, FRI's padded coset NTT of each fold
-               round, both components in one call), the B=4 wires LDE and
+               round, both components in one call), the leaf mode (FRI's
+               round-0 codeword as fiber leaves, both components read in
+               place) at one proof, B=4 and the level-1 batch, at arity
+               2^1-2^5 on both paths, on rows of 0, 1 and p - 1 and with
+               the components apart, against the stage loop regrouped and
+               against K4's coset NTT and the regroup
+               (_commit_codeword_plain), the B=4 wires LDE and
                quotient coset INTT, a level circuit's 2^14 -> 2^17 wires
                LDE, the sharded path's 2^20-point row NTT and the
                2^22-point NTT; rows of 0, 1 and p - 1 in every mode on both
@@ -94,9 +103,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                under a profiler window of its own (stage_device_ops): its
                device operations, busy time and most frequent operations;
                K5 once and K6 twice a proof, no plain quotient body;
-               K7-K9 as in wormhole, no plain FRI body; prove/openings+fri's
-               device operations beside OPENINGS_FRI_OPS_BEFORE, and the
-               proof's beside DEVICE_OPS_BEFORE_K9 (before K9's round
+               K7-K10 as in wormhole, no plain FRI body or gather;
+               prove/openings+fri's device operations beside
+               OPENINGS_FRI_OPS_BEFORE and OPENINGS_FRI_OPS_BEFORE_K10, and
+               the proof's beside DEVICE_OPS_BEFORE_K9 (before K9's round
+               mode) and DEVICE_OPS_BEFORE_K10 (before K10 and K4's leaf
                mode).
 10. k2_check -- K2 against its plain versions at E = 2, 4, 8 shards on one
                card (and spread over the cards when there are several):
@@ -160,7 +171,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and resident blocks an SM; ptxas's registers and spills and
                the kernel's IMAD.WIDE, LDS and STS counts from its SASS
                (cuobjdump); no PyTorch call computes a Goldilocks NTT, so
-               no library time.  A share of the bound above 1.05 fails.
+               no library time; the leaf mode at the round-0 codewords of
+               one proof, B=4 and the level-1 batch, beside the parent
+               commit's torch.stack, K4 coset NTT and regroup on the same
+               inputs (paired_ms).  A share of the bound above 1.05 fails.
 15. aggregate -- the reference's default tree aggregation (b=2, d=3: 8
                leaves) of the wormhole phase's zk proof through the
                port's WormholeProofAggregator on the card: 3 pushes, 5
@@ -172,9 +186,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                prove (a batch of 4, a batch of 2, one proof) launches K1 by
                mode and K3 by kernel as many times as its level circuit
                gives, K5 once and K6 twice, K7 once, K8 twice and K9 once
-               a fold round (its round mode but in the last), with no host
-               witness and no plain quotient or
-               FRI body on the card.  Then the host's part of a
+               a fold round (its round mode but in the last), K10 once,
+               with no host witness and no plain quotient or
+               FRI body or gather on the card.  Then the host's part of a
                level-1 prove (the chunk witnesses, seed_batch), one warm
                level-1 prove_level under torch.profiler, and K1 (the
                level-1 wires tree, alone and at B=4) and K3 (the level-1
@@ -239,12 +253,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
                versions, the bound (fri_work: bytes, or the products the
                functions need) and the host time of a wrapper call;
                ptxas's registers and spills and the SASS counts of each
-               kernel; K9's rounds beside the parent commit's sequence on
-               the same inputs (its K9, torch.stack, K4's coset NTT and
-               the fiber regroup copy; its final fold), and K8 (unchanged:
-               a control) beside the parent's (paired_ms).  A share of the
+               kernel; K8 and K9 (unchanged: controls) beside the parent
+               commit's on the same inputs (paired_ms).  A share of the
                bound above 1.05 fails.
-22. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
+22. gather_check -- K10 against its plain version (fri/fri_device.py's
+               _gather_plain: a take a leaf matrix and a level) on the
+               card, equal integers: the query gather of one wormhole
+               proof, of B=4 and of the level-1 batch (its three FRI
+               trees), each with the constants/sigmas tree shared (batch
+               stride 0), every word any u64 (in [p, 2^64) too), indices
+               0, N - 1 and repeated; a tree with no sibling level;
+               gather_trees_batch's host arrays against the CPU's.
+23. gather_time -- K10's device time (graph_ms of its one launch on
+               prepared calls) at those three shapes beside its plain
+               version, its bound (gather_work: each gathered word read
+               and written once) and the host time of one
+               gather_trees_batch call; that call's device operations
+               under torch.profiler; both beside the parent commit's
+               eager gather on the same trees (host ms in turns: parent,
+               this, this, parent).  A share of the bound above 1.05
+               fails.
+24. batch_mesh -- prove_batch of 8 zk wormhole proofs of the golden inputs
                over make_mesh(4) (shard i on cuda:(i % cards); the four
                shards prove in turn, on one card or on four), cold and
                warm, beside an unsharded batch of 8 cold
@@ -257,7 +286,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                utils/profiling.device_trace (torch.profiler, a Chrome
                trace written under ZKT_PROFILE_DIR), each card's busy
                time and idle share.
-23. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
+25. aggregate_mesh -- the aggregate phase's tree over make_mesh(4),
                with its cached level circuits (none built again), once
                on one card and twice (first, warm) on several:
                level 1's 4 chunks split one a shard, level 2 (B=2, not a
@@ -266,7 +295,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                leaves extracted; K1/K3 launches a level prove as its
                split gives; seconds per level beside the aggregate
                phase's warm unsharded ones.
-24. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
+26. multihost -- scripts/torch_multihost_sim.py with 2 processes of 2
                shards: with 4 cards or more each process owns 2 cards
                and the backend is nccl, else both share cuda:0 under
                gloo (NCCL refuses two ranks on one card); the backend
@@ -280,13 +309,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     With four cards or more, k1_time also times the wires tree on each
     card alone and on all at once, and k2_time each K2 mode at 2^22
     points with its shards on four cards (NVLink peers).
-25. voting  -- the vote circuit of tests/test_voting.py under
+27. voting  -- the vote circuit of tests/test_voting.py under
                standard_recursion_config built and proved on the card (cold
                and warm), sha256 == the JAX host path's (pinned below),
                verified, tamper-checked, K1's and K3's launches as the
                circuit gives, no host witness; a vote with the wrong
                Merkle depth refused by the device witness on the card.
-26. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
+28. api     -- the zk wormhole's common.bin, verifier.bin and prover.bin
                written to a temporary directory; WormholeProver.new_from_files
                proves the golden inputs on the card (sha256 == the pinned
                zk digest) and WormholeVerifier.new_from_files verifies it;
@@ -294,7 +323,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                decodes to a proof with the JAX host path's sha256 (pinned
                below), which a freshly built verifier accepts, whose public
                inputs are the golden fixture's.
-27. compat  -- the reference-format layer (zk_circuits_torch/compat, host
+29. compat  -- the reference-format layer (zk_circuits_torch/compat, host
                numpy): its import runs the fast-Poseidon self-check; K1's
                hash_rows of 4096 seeded rows of 8 felts (one permutation
                each, state = row || 0^4) on the card equals its plain
@@ -305,7 +334,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and its polys' sha256 is the JAX package's (pinned below).
                Its K1 launch is a cross-check, counted apart under
                launches_by_path["compat"].
-28. native  -- the host runtime (zk_circuits_torch.native: g++ builds
+30. native  -- the host runtime (zk_circuits_torch.native: g++ builds
                csrc/host_native.cpp in the card phase, beside the nvcc
                builds; its seconds and library name): every function
                equal to its numpy plain version at the circuit's sizes
@@ -425,6 +454,10 @@ FRI_SOURCE = "zk_circuits_torch/csrc/fri.cu"   # K7, K8 and K9
 FRI_REPLACES = "zk_circuits_tpu/fri/fri_device.py"
 FRI_TIMED_CALLS = 8    # back-to-back calls per K7-K9 timing (graph_ms)
 FRI_INVERSE_PRODUCTS = 78   # an extension inverse: the norm (3), a 73-product chain, 2
+K10_SOURCE = "zk_circuits_torch/csrc/gather.cu"
+K10_REPLACES = "zk_circuits_tpu/fri/fri_device.py:312"
+K10_TIMED_CALLS = 8    # back-to-back launches per K10 timing (graph_ms), each its own indices
+K10_HOST_CALLS = 20    # gather_trees_batch calls per host timing (paired with the parent)
 # graph_ms of the first, radix-2 K4 on an H100 (PERF.md's table, "ms before"), by
 # k4_time's shape
 K4_BEFORE_MS = {"wires_lde": 0.369428, "batch_wires_lde": 1.340142, "wires_intt": 0.071562,
@@ -440,8 +473,10 @@ K3_CHAIN_DEPTH = 128   # levels of the arith chain circuit that times a narrow l
 # a warm wormhole proof's device operations with the host witness (PERF.md)
 DEVICE_OPS_BEFORE = 64251   # a warm proof's device operations before K5 and K6 (PERF.md)
 DEVICE_OPS_BEFORE_K9 = 380  # ... before K9's round mode (PERF.md §5)
+DEVICE_OPS_BEFORE_K10 = 371  # ... before K10 and K4's leaf mode (PERF.md §5)
 DEVICE_OPS_BEFORE_FRI = 11462        # ... before K7-K9 (PERF.md)
 OPENINGS_FRI_OPS_BEFORE = 11390      # prove/openings+fri's of them (stage_device_ops)
+OPENINGS_FRI_OPS_BEFORE_K10 = 305    # prove/openings+fri's before K10 (the parent's, PERF.md §6)
 SHARDS = 4             # E of the sharded phase
 BATCH = 4              # proofs per prove_batch call (bench.py's ZKT_BENCH_BATCH)
 NTT_LOG = 22           # SCALING.md's size of one sharded polynomial
@@ -449,11 +484,12 @@ SIM_TIMEOUT = 240      # seconds the multihost phase gives its processes
 K2_TIMED_CALLS = 32    # back-to-back calls per K2 timing (graph_ms)
 
 
-# The port before K6's and K7's redesign, whose kernels k5_time, k6_time
-# and fri_time time beside this tree's in the same run (paired_ms): its
+# The port before K10 and K4's leaf mode, whose kernels k4_time, k5_time,
+# k6_time, fri_time and gather_time time beside this tree's in the same run
+# (paired_ms; gather_time its eager gather on the host clock): its
 # zk_circuits_torch/ under PARENT_DIR (git-ignored), unpacked there from the
 # checkout's git history when it has the commit.
-PARENT_COMMIT = "fc58c66bceadc587e00ad7ef5ff9260d8f4ca068"
+PARENT_COMMIT = "3f6d5643636e99e40b66d5938d64f52dae5f0d32"
 PARENT_DIR = "zk_circuits_torch/_build/parent"
 
 
@@ -620,12 +656,19 @@ def leaf_matrix(rng, n: int, cols: int):
 
 
 def phase_card(state) -> None:
+    import os
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
+    # Keep CUPTI set up between torch.profiler windows.  By default each
+    # window tears it down at its end; once CUDA graphs have been captured
+    # (graph_ms), a later window has at times recorded no device event.
+    # torch.profiler makes the same setting itself where it knows of graphs.
+    os.environ["TEARDOWN_CUPTI"] = "0"
+
     from zk_circuits_torch import native
-    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri import fri_cuda, gather_cuda
     from zk_circuits_torch.hash import poseidon_cuda
     from zk_circuits_torch.iop import witness_cuda
     from zk_circuits_torch.ntt import ntt_cuda
@@ -645,23 +688,23 @@ def phase_card(state) -> None:
     poseidon_cuda.write_constants_header(poseidon_cuda.BUILD_DIR)   # K1's, K3's, native's
     parent = parent_kernels()   # the parent's K4-K9, timed beside this tree's
     # one nvcc per source and g++ for the host runtime, all started together
-    with ThreadPoolExecutor(10) as pool:
-        k1, k2, k3, k4, k5, k6, k789, host, *parent_s = pool.map(timed, (
+    with ThreadPoolExecutor(16) as pool:
+        k1, k2, k3, k4, k5, k6, k789, k10, host, *parent_s = pool.map(timed, (
             poseidon_cuda.build, exchange_cuda.build, witness_cuda.build, ntt_cuda.build,
-            quotient_cuda.build, permutation_cuda.build, fri_cuda.build, native.build,
-            *(m.build for m in parent.values())))
+            quotient_cuda.build, permutation_cuda.build, fri_cuda.build, gather_cuda.build,
+            native.build, *(m.build for m in parent.values())))
     native.available()
     state["native_build"] = {"build_s": host, "library": native.build().name,
                              "compiler_output": native.build_log}
     ptxas = [ln.strip() for mod in (poseidon_cuda, exchange_cuda, witness_cuda, ntt_cuda,
-                                    quotient_cuda, permutation_cuda, fri_cuda)
+                                    quotient_cuda, permutation_cuda, fri_cuda, gather_cuda)
              for ln in mod.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "card", "nvidia_smi": state["smi"],
           "name": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "k1_build_s": k1, "k2_build_s": k2, "k3_build_s": k3, "k4_build_s": k4,
-          "k5_build_s": k5, "k6_build_s": k6, "k7_k8_k9_build_s": k789,
+          "k5_build_s": k5, "k6_build_s": k6, "k7_k8_k9_build_s": k789, "k10_build_s": k10,
           "native_build_s": host, "parent": PARENT_COMMIT if parent else None,
           "parent_build_s": dict(zip(parent, parent_s)),
           "ptxas": ptxas})
@@ -1180,7 +1223,8 @@ def phase_wormhole(state) -> None:
 
     profiling.reset_timings()
     with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts, \
-            plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
+            plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri, \
+            plain_gather_on_card() as plain_gather:
         poseidon_cuda.reset_launches()      # main path starts here
         witness_cuda.reset_launches()
         ntt_cuda.reset_launches()
@@ -1224,9 +1268,10 @@ def phase_wormhole(state) -> None:
                              f"on the card: {plain_quotient}")
     fri_want = expected_fri_launches(cd.common)
     if fri_per_proof != fri_want or fri_all != {k: 4 * v for k, v in fri_want.items()} \
-            or plain_fri:
-        raise AssertionError(f"K7-K9 launches {fri_per_proof} per proof ({fri_all} in all), "
-                             f"want {fri_want}; plain FRI bodies on the card: {plain_fri}")
+            or plain_fri or plain_gather:
+        raise AssertionError(f"K7-K10 launches {fri_per_proof} per proof ({fri_all} in all), "
+                             f"want {fri_want}; plain FRI bodies on the card: {plain_fri}; "
+                             f"plain gathers: {plain_gather}")
 
     data = proof_to_bytes(proof)
     if proof_to_bytes(proof_w) != data:
@@ -1268,6 +1313,8 @@ def phase_wormhole(state) -> None:
           "k6_launches_per_proof": k56_per_proof[1], "k6_launches": k6_launches,
           "plain_quotient_on_card": 0, "k7_k9_launches_per_proof": fri_per_proof,
           "k7_k9_launches": fri_all, "plain_fri_on_card": 0,
+          "k10_launches_per_proof": fri_per_proof["k10"], "k10_launches": fri_all["k10"],
+          "plain_gather_on_card": 0,
           "host_witnesses": len(host_witnesses), "stage_median_s": timings})
 
 
@@ -1322,8 +1369,9 @@ def expected_k4_launches(common) -> dict:
     batch's rows), by mode: two a call that takes the four-step, one a
     row-path call.  The wires INTT, the zs stage's NTT and INTT, the three
     commits' LDEs, the quotient's coset INTT (every challenge in one call),
-    and FRI's coset NTT (both components in one call) of the round-0
-    codeword and of each later one that K9's round mode does not make."""
+    and FRI's codewords in the leaf mode (both components in one call, the
+    values stored as fiber leaves): the round-0 codeword and each later
+    one that K9's round mode does not make; no plain coset NTT."""
     from zk_circuits_torch.ntt import ntt_cuda
 
     def k(n):
@@ -1333,8 +1381,8 @@ def expected_k4_launches(common) -> dict:
     rounds = fri_rounds(common)
     sizes = [lde] if rounds else []
     sizes += [(c >> a) << rate for c, a, mode in rounds[:-1] if not mode]
-    return {"ntt": k(n), "intt": 2 * k(n), "coset_ntt": sum(k(s) for s in sizes),
-            "coset_intt": k(lde), "lde": 3 * k(lde)}
+    return {"ntt": k(n), "intt": 2 * k(n), "coset_ntt": 0, "coset_intt": k(lde),
+            "lde": 3 * k(lde), ntt_cuda.LEAF_MODE: sum(k(s) for s in sizes)}
 
 
 @contextlib.contextmanager
@@ -1387,21 +1435,32 @@ def plain_quotient_on_card():
 def plain_fri_on_card():
     """The calls of the openings' and FRI's plain versions (fri/fri_device.py's
     ``_openings_plain``, ``_reduce_alpha_plain``, ``_compose_plain``,
-    ``_fold_plain``, ``_fold_round_plain``) on CUDA tensors inside the
-    block: on the card the main path takes K7, K8 and K9."""
+    ``_fold_plain``, ``_fold_round_plain``, and K4's leaf mode's
+    ``_commit_codeword_plain``) on CUDA tensors inside the block: on the
+    card the main path takes K7, K8, K9 and K4's leaf mode."""
     from zk_circuits_torch.fri import fri_device
 
     return plain_calls_on_card(fri_device, ("_openings_plain", "_reduce_alpha_plain",
                                             "_compose_plain", "_fold_plain",
-                                            "_fold_round_plain"))
+                                            "_fold_round_plain", "_commit_codeword_plain"))
+
+
+def plain_gather_on_card():
+    """The calls of the query gather's plain version (fri/fri_device.py's
+    ``_gather_plain`` and its ``take_rows_batch``) on CUDA tensors inside
+    the block: on the card the main path takes K10."""
+    from zk_circuits_torch.fri import fri_device
+
+    return plain_calls_on_card(fri_device, ("_gather_plain", "take_rows_batch"))
 
 
 def fri_launches() -> dict:
-    """K7's, K8's and K9's launches so far, and K9's in its round mode
-    (``k9_round``, among K9's)."""
-    from zk_circuits_torch.fri import fri_cuda
+    """K7's, K8's and K9's launches so far, K9's in its round mode
+    (``k9_round``, among K9's), and K10's (the query gather)."""
+    from zk_circuits_torch.fri import fri_cuda, gather_cuda
 
-    return {**fri_cuda.launches_by_kernel, "k9_round": fri_cuda.k9_by_mode["round"]}
+    return {**fri_cuda.launches_by_kernel, "k9_round": fri_cuda.k9_by_mode["round"],
+            "k10": gather_cuda.launches}
 
 
 def fri_since(before: dict) -> dict:
@@ -1409,26 +1468,29 @@ def fri_since(before: dict) -> dict:
 
 
 def reset_fri_launches() -> None:
-    from zk_circuits_torch.fri import fri_cuda
+    from zk_circuits_torch.fri import fri_cuda, gather_cuda
 
     fri_cuda.reset_launches()
+    gather_cuda.reset_launches()
 
 
 def expected_fri_launches(common, shards: int | None = None) -> dict:
-    """K7's, K8's and K9's launches a proof, or a batch of proofs of one
-    circuit: K7 once, K8 three times (its point kernel, and its scan's
+    """K7's, K8's, K9's and K10's launches a proof, or a batch of proofs of
+    one circuit: K7 once, K8 three times (its point kernel, and its scan's
     segment sums and finish), K9 once a fold round, in its round mode
-    (``k9_round``) where fri_rounds says.  For a sharded proof over
-    ``shards`` shards: K7 and K8's point kernel once a shard and once more
-    for the Z rows at g*zeta, K8's scan once (two launches), K9's fold mode
-    once a shard a fold round while every shard holds a multiple of the
-    arity, else once (fri_sharded._fold gathers)."""
+    (``k9_round``) where fri_rounds says, K10 once (every tree's query
+    rows and paths).  For a sharded proof over ``shards`` shards: K7 and
+    K8's point kernel once a shard and once more for the Z rows at g*zeta,
+    K8's scan once (two launches), K9's fold mode once a shard a fold round
+    while every shard holds a multiple of the arity, else once
+    (fri_sharded._fold gathers); no K10 (the shards' rows are taken where
+    they lie, prover_sharded._take_sharded)."""
     from zk_circuits_torch.fri import fri_cuda
 
     rounds = fri_rounds(common)
     if shards is None:
         return {"k7": 1, "k8": 1 + fri_cuda.SCAN_LAUNCHES, "k9": len(rounds),
-                "k9_round": sum(mode for _, _, mode in rounds)}
+                "k9_round": sum(mode for _, _, mode in rounds), "k10": 1}
     pieces, k9 = [common.degree // shards] * shards, 0
     for _, a, _ in rounds:
         if any(p % (1 << a) for p in pieces):
@@ -1436,7 +1498,7 @@ def expected_fri_launches(common, shards: int | None = None) -> dict:
         k9 += len(pieces)
         pieces = [p >> a for p in pieces]
     return {"k7": shards + 1, "k8": shards + 1 + fri_cuda.SCAN_LAUNCHES, "k9": k9,
-            "k9_round": 0}
+            "k9_round": 0, "k10": 0}
 
 
 def expected_quotient_launches(common, shards: int = 1) -> tuple[int, int]:
@@ -1493,6 +1555,7 @@ def profiled(fn) -> tuple:
         "ntt_kernel_s": sum(v[0] for k, v in by_name.items() if "k4_" in k),
         "fri_kernel_s": sum(v[0] for k, v in by_name.items()
                             if any(f"k{i}_" in k for i in (7, 8, 9))),
+        "gather_kernel_s": sum(v[0] for k, v in by_name.items() if "k10_" in k),
         "top_device_ops": [{"name": k[:100], "s": v[0], "count": v[1]}
                            for k, v in top]}
 
@@ -1599,7 +1662,8 @@ def phase_batch(state) -> None:
         k56_before = quotient_launches()
         fri_before = fri_launches()
         with host_witness_calls() as host_witnesses, plain_ntts_on_card() as plain_ntts, \
-                plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
+                plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri, \
+                plain_gather_on_card() as plain_gather:
             if i < 2:
                 proofs, dt = _synced(lambda: prove_batch(cd, pws))
                 batch_s.append(dt)
@@ -1628,9 +1692,10 @@ def phase_batch(state) -> None:
                                  f"{expected_quotient_launches(cd.common)}; plain quotient "
                                  f"bodies on the card: {plain_quotient}")
         fri = fri_since(fri_before)
-        if fri != fri_want or plain_fri:
-            raise AssertionError(f"K7-K9 launches per batch {fri}, want {fri_want}; plain FRI "
-                                 f"bodies on the card: {plain_fri}")
+        if fri != fri_want or plain_fri or plain_gather:
+            raise AssertionError(f"K7-K10 launches per batch {fri}, want {fri_want}; plain FRI "
+                                 f"bodies on the card: {plain_fri}; plain gathers: "
+                                 f"{plain_gather}")
         digests = [hashlib.sha256(proof_to_bytes(p)).hexdigest() for p in proofs]
         if len(proofs) != BATCH or set(digests) != {GOLDEN_WORMHOLE_ZK_SHA256}:
             raise AssertionError(f"batched wormhole sha256s {digests} != pinned "
@@ -1693,6 +1758,8 @@ def phase_batch(state) -> None:
           "k6_launches": state["k6_launches_batch"],
           "plain_quotient_on_card": 0, "k7_k9_launches_per_batch": fri_want,
           "k7_k9_launches": state["fri_launches_batch"], "plain_fri_on_card": 0,
+          "k10_launches_per_batch": fri_want["k10"],
+          "k10_launches": state["fri_launches_batch"]["k10"], "plain_gather_on_card": 0,
           "host_witnesses": 0,
           "device_ops_before": DEVICE_OPS_BEFORE,
           "stage_median_s": stages, "stage_s": timings, "profile_warm_batch": prof,
@@ -2040,13 +2107,14 @@ def phase_profile(state) -> None:
     before, k4_before = witness_cuda.launches, dict(ntt_cuda.launches_by_mode)
     k56_before = quotient_launches()
     fri_before = fri_launches()
-    with plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
+    with plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri, \
+            plain_gather_on_card() as plain_gather:
         _, prof = profiled(prove)
         with stage_device_ops() as by_stage:
             prove()
-    if plain_quotient or plain_fri:
+    if plain_quotient or plain_fri or plain_gather:
         raise AssertionError(f"plain quotient bodies on the card: {plain_quotient}; plain "
-                             f"FRI bodies: {plain_fri}")
+                             f"FRI bodies: {plain_fri}; plain gathers: {plain_gather}")
     k56 = [a - b for a, b in zip(quotient_launches(), k56_before)]
     if k56 != [2 * k for k in expected_quotient_launches(cd.common)]:
         raise AssertionError(f"K5, K6 launches {k56} over two proofs, want twice "
@@ -2054,14 +2122,17 @@ def phase_profile(state) -> None:
     fri = fri_since(fri_before)
     fri_want = {k: 2 * v for k, v in expected_fri_launches(cd.common).items()}
     if fri != fri_want:
-        raise AssertionError(f"K7-K9 launches {fri} over two proofs, want {fri_want}")
+        raise AssertionError(f"K7-K10 launches {fri} over two proofs, want {fri_want}")
     state["device_ops"] = prof["device_ops"]
     state["device_ops_by_stage"] = by_stage
     emit({"phase": "profile", **prof, "device_ops_before": DEVICE_OPS_BEFORE,
           "device_ops_shed": DEVICE_OPS_BEFORE - prof["device_ops"],
+          "device_ops_before_k10": DEVICE_OPS_BEFORE_K10,
+          "device_ops_shed_by_k10": DEVICE_OPS_BEFORE_K10 - prof["device_ops"],
           "device_ops_before_k9_round": DEVICE_OPS_BEFORE_K9,
           "device_ops_before_fri": DEVICE_OPS_BEFORE_FRI,
           "openings_fri_device_ops": by_stage["prove/openings+fri"]["device_ops"],
+          "openings_fri_device_ops_before_k10": OPENINGS_FRI_OPS_BEFORE_K10,
           "openings_fri_device_ops_before": OPENINGS_FRI_OPS_BEFORE,
           "device_ops_by_stage": by_stage,
           "device_ops_in_stages": sum(v["device_ops"] for v in by_stage.values()),
@@ -2071,6 +2142,7 @@ def phase_profile(state) -> None:
           "k5_launches": k56[0] // 2, "k6_launches": k56[1] // 2,
           "plain_quotient_on_card": 0,
           "k7_k9_launches": {k: v // 2 for k, v in fri.items()}, "plain_fri_on_card": 0,
+          "plain_gather_on_card": 0,
           "by_stage_note": "a second warm proof, each prove/* stage under its own "
                            "torch.profiler window (card only), ending in a synchronise; "
                            "k5/k6 and k7-k9 launches per proof"})
@@ -2795,6 +2867,28 @@ def k4_cases(common) -> list:
     return cases
 
 
+def k4_leaf_cases(common) -> list:
+    """(name, proofs, coefficients, points, arity bits) of K4's leaf mode on
+    the main path: FRI's round-0 codeword of one wormhole proof, of a batch
+    of BATCH and of the level-1 aggregation batch (a level circuit of twice
+    the wormhole's degree, AGG_CONFIG[0] ** (depth - 1) proofs)."""
+    fri = common.config.fri_config
+    a = fri.reduction_arities(common.degree_bits)[0]
+    n, lde = common.degree, common.lde_size
+    return [("fri_leaves_0", 1, n, lde, a), ("batch_fri_leaves_0", BATCH, n, lde, a),
+            ("level_fri_leaves_0", AGG_CONFIG[0] ** (AGG_CONFIG[1] - 1), 2 * n, 2 * lde, a)]
+
+
+def k4_leaf_plain(f, size: int, arity_bits: int, shift: int = 7):
+    """K4's leaf mode's plain version on the card: the stage loop's coset
+    NTT of both components of f (2, B, n), regrouped into fiber leaves."""
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.ntt import ntt as nttm
+
+    v = nttm.coset_ntt_plain(f, shift, size)
+    return fd._fiber_leaves(v[0], v[1], 1 << arity_bits)
+
+
 def k4_plain(mode: str, x, **kw):
     """ntt/ntt.py's plain version of one K4 mode (its stage loop)."""
     from zk_circuits_torch.ntt import ntt as nttm
@@ -2876,6 +2970,7 @@ def phase_k4_check(state) -> None:
     import numpy as np
     import torch
 
+    from zk_circuits_torch.fri import fri_device as fd
     from zk_circuits_torch.ntt import ntt_cuda
     from zk_circuits_torch.ntt import ntt_mxu as mxu
 
@@ -2895,8 +2990,39 @@ def phase_k4_check(state) -> None:
                         "points": got.shape[-1], "log_n1": kw.get("log_n1",
                                                                   ntt_cuda.plan(got.shape[-1]))})
 
+    def check_leaves(name, c0, c1, size, a):
+        got = ntt_cuda.coset_leaves(c0, c1, 7, size, a)
+        f = torch.stack([c0, c1])
+        same = [torch.equal(got, k4_leaf_plain(f, size, a)),
+                torch.equal(got, fd._commit_codeword_plain(c0, c1, 7, size, a))]
+        torch.cuda.synchronize()
+        if not all(same):
+            raise AssertionError(f"k4_check/{name}: K4's leaf mode {tuple(c0.shape)} -> {size} "
+                                 f"at arity 2^{a} != the stage loop regrouped ({same[0]}) or "
+                                 f"K4's coset NTT and the regroup ({same[1]})")
+        checked.append({"name": name, "mode": ntt_cuda.LEAF_MODE, "shape": [2, *c0.shape],
+                        "points": size, "arity_bits": a, "leaves": list(got.shape),
+                        "log_n1": ntt_cuda.plan(size)})
+
     for name, mode, shape, kw in k4_cases(cd.common):
         check(name, mode, k4_inputs(rng, shape)[0], **kw)
+    # the leaf mode: both components read from K8's (2, B, n) buffer, each
+    # value at its fiber-leaf slot; against the stage loop regrouped and
+    # against K4's coset NTT and the regroup (_commit_codeword_plain, the
+    # sequence it replaces): the main path's codewords, arities 2^1-2^5 on
+    # both paths, rows of 0, 1 and p - 1, components apart
+    leaf_cases = k4_leaf_cases(cd.common) + [
+        (f"arity_{a}_{size}", 2, size >> 3, size, a) for a in range(1, 6)
+        for size in (1 << 12, 1 << 16)]
+    for name, b, n_in, size, a in leaf_cases:
+        f = k4_inputs(rng, (2, b, n_in))[0]
+        check_leaves(name, f[0], f[1], size, a)
+    for value in (0, 1, P - 1):
+        f = torch.full((2, 2, 1 << 13), value - (1 << 64) if value >= 1 << 63 else value,
+                       dtype=torch.int64, device="cuda")
+        check_leaves(f"leaves_constant_{value}", f[0], f[1], 1 << 16, 4)
+    f = k4_inputs(rng, (2, 3, 1 << 13))[0]
+    check_leaves("leaves_apart", f[0][:2], f[1][1:].clone(), 1 << 16, 4)
     n = cd.common.degree
     for value in (0, 1, P - 1):                    # constant rows, both paths
         for size in (32, 1 << 16):
@@ -2968,6 +3094,33 @@ def phase_k4_time(state) -> None:
                          "host_us_per_call": host_us_per_call(
                              lambda: ntt_cuda.transform(xs[0], mode, **kw))})
         del xs
+    # the leaf mode at the main path's round-0 codewords, beside the
+    # parent's sequence on the same inputs (torch.stack, its K4 coset NTT,
+    # the fiber regroup copy: its fri_device._commit_codeword)
+    parent_fd = parent_fri_device()
+    for name, b, n_in, size, a in k4_leaf_cases(cd.common):
+        fs = k4_inputs(rng, (2, b, n_in), K4_TIMED_CALLS)
+        calls = [lambda f=f: ntt_cuda.coset_leaves(f[0], f[1], 7, size, a) for f in fs]
+        g = graph_ms(calls)
+        nbytes, muls = k4_work("coset_ntt", (2, b, n_in), size)
+        bound, by = k4_bound_ms(nbytes, muls)
+        log_n1 = ntt_cuda.plan(size)
+        cols = ntt_cuda.tiles(2 * b, size, log_n1, ntt_cuda._sm_count(
+            ntt_cuda._lib(), torch.device("cuda:0")))
+        rows_out.append({
+            "shape": name, "mode": ntt_cuda.LEAF_MODE, "input": [2, b, n_in], "points": size,
+            "arity_bits": a, "leaves": [b, size >> a, 2 << a],
+            "launches_per_call": 2 if log_n1 else 1,
+            "factors": list(ntt_cuda.split(size)) if log_n1 else None, "log_cols": list(cols),
+            **g, "before_ms": None, "ms_over_before": None,
+            "plain_ms": cuda_ms(lambda: k4_leaf_plain(fs[0], size, a), reps=3, warmup=1),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "muls": muls,
+            "share_of_bound": bound / g["ms"], "library_ms": None,
+            "host_us_per_call": host_us_per_call(calls[0]),
+            "paired_with_parent": paired_ms(calls, [
+                lambda f=f: parent_fd._commit_codeword(f[0], f[1], 7, size, a) for f in fs])
+            if parent_fd is not None else None})
+        del fs, calls
     emit({"phase": "k4_time", "int32_mul_per_s": INT32_MUL_PER_S,
           "hbm_bytes_per_s": HBM_BYTES_PER_S, "sms": sms,
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {K4_TIMED_CALLS} "
@@ -2979,7 +3132,9 @@ def phase_k4_time(state) -> None:
                     f"launch: each launch's blocks, threads and shared bytes "
                     f"(ntt_cuda.launch_shape) and resident blocks an SM "
                     f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor); library_ms: none, no "
-                    f"PyTorch call computes a Goldilocks NTT",
+                    f"PyTorch call computes a Goldilocks NTT; the coset_leaves rows: K4's "
+                    f"leaf mode, plain_ms the stage loop and the regroup, paired_with_parent "
+                    f"paired_ms against the parent's torch.stack, K4 coset NTT and regroup",
           "rows": rows_out, "sass": kernel_sass_counts(
               ntt_cuda.build(), ntt_cuda.build_log, "k4_kernel",
               key=lambda name: "L" + re.match(r"_Z\d+k4_kernelILi(\d+)E", name).group(1))})
@@ -3025,7 +3180,8 @@ def level_prove_records():
             k56 = quotient_launches()
             fri = fri_launches()
             with host_witness_calls() as host_witnesses, \
-                    plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
+                    plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri, \
+                    plain_gather_on_card() as plain_gather:
                 out, secs = _synced(lambda: real(self, proofs, inner_vo, *args, **kw))
             outs = out if isinstance(out, list) else [out]
             records.append({
@@ -3035,7 +3191,7 @@ def level_prove_records():
                 "k3": {k: v - k3[k] for k, v in witness_cuda.launches_by_kernel.items()},
                 "k5_k6": [a - b for a, b in zip(quotient_launches(), k56)],
                 "plain_quotient": len(plain_quotient), "k7_k9": fri_since(fri),
-                "plain_fri": len(plain_fri),
+                "plain_fri": len(plain_fri) + len(plain_gather),
                 "sweeps": max(p.proof.opening_proof.pow_witness for p in outs) // GRIND_ROWS + 1,
                 "pow_sweeps": [p.proof.opening_proof.pow_witness // GRIND_ROWS + 1
                                for p in outs]})
@@ -3167,9 +3323,9 @@ def phase_aggregate(state) -> None:
                                  f"{r['sweeps']} sweeps), K3 {r['k3']} (want {k3_want}), "
                                  f"{r['host_witnesses']} host witnesses, K5/K6 {r['k5_k6']} "
                                  f"(want {expected_quotient_launches(lc.circuit_data.common)}), "
-                                 f"K7-K9 {r['k7_k9']} (want {fri_want}), "
+                                 f"K7-K10 {r['k7_k9']} (want {fri_want}), "
                                  f"{r['plain_quotient']} plain quotient and {r['plain_fri']} "
-                                 f"plain FRI bodies on the card")
+                                 f"plain FRI bodies or gathers on the card")
         proves.append({"run": "cold" if i < depth else "warm", "level": i % depth + 1,
                        "batch": r["batch"], "s": r["s"], "agg_level_prove_s": level_prove_s[i],
                        "k1_launches_by_mode": k1, "k1_expected": want, "sweeps": r["sweeps"],
@@ -3270,7 +3426,7 @@ def phase_aggregate(state) -> None:
           "level_circuits": circuits, "cold_aggregate_s": cold_s, "warm_aggregate_s": warm_s,
           "level_proves": proves, "k1_launches": k1_launches, "k1_launches_by_mode": k1_by_mode,
           "k3_launches": k3_launches, "k5_launches": k5_launches, "k6_launches": k6_launches,
-          "k7_k9_launches": fri_all, "plain_fri_on_card": 0,
+          "k7_k9_launches": fri_all, "plain_fri_on_card": 0, "plain_gather_on_card": 0,
           "host_witnesses": 0, "plain_quotient_on_card": 0,
           "level1_host": {"chunk_witnesses_s": chunk_witness_s, "seed_batch_cold_s": seed_cold_s,
                           "seed_batch_warm_s": statistics.median(seed_warm_s)},
@@ -4027,26 +4183,20 @@ def fri_fold_call(case, plain: bool = False, parent=None):
     """A closure over K9's call on ``case`` (fri_fold_inputs'): its round
     mode or its fold mode, or their plain versions
     (``_fold_round_plain``, ``_fold_plain``), or those of ``parent`` (the
-    parent port's fri/fri_device.py: its K9, then for a round its K4 coset
-    NTT and the fiber regroup, the sequence the round mode replaced)."""
+    parent port's fri/fri_device.py: its K9's round and fold modes, with
+    the betas on the host)."""
     from zk_circuits_torch.field import goldilocks as gf
     from zk_circuits_torch.fri import fri_cuda
     from zk_circuits_torch.fri import fri_device as fd
 
     a, c, beta, nxt = case
-    if not plain and parent is None:
-        return (lambda: fri_cuda.fold_round(*c, beta, a, *nxt)) if nxt else \
-            (lambda: fri_cuda.fold(*c, beta, a))
-    b = gf.ext_pair(beta, c[0].device)   # the plain versions and the parent's take tensors
-    if parent is None:
-        return (lambda: fd._fold_round_plain(*c, *b, a, *nxt)) if nxt else \
-            (lambda: fd._fold_plain(*c, *b, a))
-    if nxt is None:
-        return lambda: parent.fold(*c, *b, a)
-    nb, rate, shift = nxt
-    size = (c[0].shape[-1] >> a) << rate
-    return lambda: parent._fiber_leaves(
-        *parent._ext_coset_ntt_dev(*parent.fold(*c, *b, a), shift, size), 1 << nb)
+    if not plain:
+        k9 = parent or fri_cuda
+        return (lambda: k9.fold_round(*c, beta, a, *nxt)) if nxt else \
+            (lambda: k9.fold(*c, beta, a))
+    b = gf.ext_pair(beta, c[0].device)   # the plain versions take tensors
+    return (lambda: fd._fold_round_plain(*c, *b, a, *nxt)) if nxt else \
+        (lambda: fd._fold_plain(*c, *b, a))
 
 
 def _flat(out) -> list:
@@ -4312,17 +4462,17 @@ def phase_fri_time(state) -> None:
             return run
 
         rows.append({"shape": name, "kernel": "k7_k8_k9", "batch": batch,
-                     "launches": sum(expected_fri_launches(common).values()),
+                     "launches": sum(v for k, v in expected_fri_launches(common).items()
+                                     if k in ("k7", "k8", "k9")),
                      **graph_ms([proof_calls(c, f) for c, f in zip(calls, folds)])})
-        if parent is not None:   # K9 against the parent's sequence on the same inputs; K8, unchanged, as a control
+        if parent is not None:   # K8 and K9, unchanged, against the parent's as controls
             pcalls = [fri_calls(i, kernels=parent) for i in ins]
             paired.append({"shape": name, "kernel": "k8", "batch": batch, **paired_ms(
                 [c["k8"] for c in calls], [c["k8"] for c in pcalls])})
             for r, case in enumerate(folds[0]):
                 paired.append({
                     "shape": name, "kernel": f"k9_r{r + 1}_{'round' if case[3] else 'fold'}",
-                    "batch": batch, "parent_is": "K9, torch.stack, K4's coset NTT, the fiber "
-                    "regroup copy" if case[3] else "K9", **paired_ms(
+                    "batch": batch, "parent_is": "its K9 in the same mode", **paired_ms(
                         [fri_fold_call(f[r]) for f in folds],
                         [fri_fold_call(f[r], parent=parent_fd) for f in folds])})
             del pcalls
@@ -4342,9 +4492,8 @@ def phase_fri_time(state) -> None:
                     f"k7_k8_k9 a proof's (or batch's) launches of all three; plain_ms: CUDA "
                     f"events around one call of the plain version (fri/fri_device.py's "
                     f"_openings_plain, _reduce_alpha_plain, _compose_plain, _fold_plain, "
-                    f"_fold_round_plain); paired_with_parent: paired_ms, the parent's K9 "
-                    f"round as its sequence of K9, torch.stack, K4 and the regroup copy, "
-                    f"median of 3; host_us_per_call: perf_counter around 100 wrapper calls; "
+                    f"_fold_round_plain), median of 3; paired_with_parent: paired_ms, the "
+                    f"parent's K8 and K9 (unchanged: controls); host_us_per_call: perf_counter around 100 wrapper calls; "
                     f"library_ms: none, no PyTorch call computes these functions",
           "rows": rows, "sass": kernel_sass_counts(fri_cuda.build(), fri_cuda.build_log,
                                                    "k[789]_")})
@@ -4366,6 +4515,202 @@ def phase_fri_time(state) -> None:
             "max_abs_err": state["fri_max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": main[0]["bound_by"], "library_ms": None,
             "ms_by_shape": {f"{r['shape']}/{r['kernel']}": r["ms"] for r in mine}})
+
+
+def gather_trees_of(gen, common, widths, batch: int) -> tuple:
+    """The query gather's inputs at a proof's shapes (the call of
+    fri_device.open_and_fri_device_batch): the four oracles' trees (the
+    constants/sigmas (w, N) shared, the others (B, w, N), column-major) and
+    each fold round's FRI tree ((B, m, 2 A) row-major), every word any u64
+    (in [p, 2^64) too), levels as K1's tree mode lays them out (views of
+    one buffer, leaf digests first, the cap last); and the (B, Q) query
+    indices, as fri_device.query_indices draws them, 0, N - 1 and a repeat
+    leading each proof's.  Returns (trees, idxs, shared, colmajor)."""
+    import numpy as np
+    import torch
+
+    fri = common.config.fri_config
+    lde, cap = common.lde_size, fri.cap_height
+
+    def words(*shape):
+        return torch.randint(-(1 << 63), (1 << 63) - 1, shape, generator=gen, device="cuda",
+                             dtype=torch.int64)
+
+    def tree(lead, leaf_shape, n):
+        sizes = [n >> lv for lv in range(n.bit_length() - cap)]
+        return words(*lead, *leaf_shape), list(torch.split(words(*lead, sum(sizes), 4), sizes,
+                                                           dim=-2))
+
+    trees = [tree((), (widths[0], lde), lde)] + [tree((batch,), (w, lde), lde)
+                                                 for w in widths[1:]]
+    size, ms = lde, []
+    for a in fri.reduction_arities(common.degree_bits):
+        size >>= a
+        trees.append(tree((batch,), (size, 2 << a), size))
+        ms.append(size)
+    rng = np.random.default_rng(int(torch.randint(1 << 62, (1,), generator=gen,
+                                                  device="cuda").item()))
+    idx = rng.integers(0, lde, (batch, fri.num_query_rounds))
+    idx[:, :3] = [0, lde - 1, 0]
+    idxs = [idx] * 4 + [idx % m for m in ms]
+    return trees, idxs, [True] + [False] * (len(trees) - 1), [True] * 4 + [False] * len(ms)
+
+
+def gather_work(trees: list, idxs: list, colmajor: list) -> int:
+    """Bytes of one query gather: each gathered word read once and written
+    once, and the query indices read once (K10's descriptors are not the
+    function's)."""
+    words = 0
+    for (leaves, levels), idx, cm in zip(trees, idxs, colmajor):
+        w = leaves.shape[-2] if cm else leaves.shape[-1]
+        words += idx.size * (w + 4 * (len(levels) - 1))
+    return 16 * words + 8 * sum(i.size for i in idxs)
+
+
+def phase_gather_check(state) -> None:
+    """K10 against its plain version (fri/fri_device.py's _gather_plain) on
+    the card, equal integers: the query gather of one wormhole proof, of
+    B=4 and of the level-1 batch (its three FRI trees), each with the
+    constants/sigmas tree shared, every word any u64, indices 0, N - 1 and
+    repeated; a tree with no sibling level; gather_trees_batch's host arrays
+    against the CPU's.  One launch a call."""
+    import torch
+
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.fri import gather_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(2061)
+    before = gather_cuda.launches
+    checked = []
+
+    def check(name, trees, idxs, shared, colmajor):
+        got = gather_cuda.gather(trees, idxs, shared, colmajor)
+        want = fd._gather_plain(trees, idxs, shared, colmajor)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"gather_check/{name}: K10 != its plain version")
+        checked.append({"name": name, "trees": len(trees), "batch": int(idxs[0].shape[0]),
+                        "queries": int(idxs[0].shape[1]), "words": got.numel()})
+
+    for name, common, widths, batch in fri_cases(state):
+        trees, idxs, shared, cm = gather_trees_of(gen, common, widths, batch)
+        check(name, trees, idxs, shared, cm)
+        if name == "wormhole_batch":    # the host arrays of the whole call, against the CPU's
+            cpu = [(lf.cpu(), [lv.cpu() for lv in lvs]) for lf, lvs in trees]
+            for (gr, gs), (wr, ws) in zip(fd.gather_trees_batch(trees, idxs, shared, cm),
+                                          fd.gather_trees_batch(cpu, idxs, shared, cm)):
+                if not (gr.shape == wr.shape and (gr == wr).all() and gs.shape == ws.shape
+                        and (gs == ws).all()):
+                    raise AssertionError("gather_check: gather_trees_batch on the card != "
+                                         "on the CPU")
+            checked.append({"name": "gather_trees_batch_host_arrays", "batch": batch})
+        del trees
+    common = state["wormhole"][0].common
+    widths = fri_widths(state["wormhole_proof"])
+    trees, idxs, shared, cm = gather_trees_of(gen, common, widths, 2)
+    capped = (torch.randint(-(1 << 63), (1 << 63) - 1, (2, 16, 8), generator=gen,
+                            device="cuda", dtype=torch.int64), [])
+    capped[1].append(torch.randint(-(1 << 63), (1 << 63) - 1, (2, 16, 4), generator=gen,
+                                   device="cuda", dtype=torch.int64))
+    check("tree_without_sibling_level", trees[:2] + [capped] + trees[2:],
+          idxs[:2] + [idxs[-1] % 16] + idxs[2:], shared[:2] + [False] + shared[2:],
+          cm[:2] + [False] + cm[2:])
+    state["k10_max_abs_err"] = 0
+    emit({"phase": "gather_check", "equal_integers": True, "cases": checked,
+          "launches": gather_cuda.launches - before})
+
+
+def host_paired_ms(fn, parent_fn, calls: int = K10_HOST_CALLS) -> dict:
+    """Host milliseconds a call of ``fn`` and of ``parent_fn`` (each ending
+    in its fetch), in turns: parent, this, this, parent; each turn the
+    median of ``calls`` calls after one."""
+    def turn(f):
+        f()
+        times = []
+        for _ in range(calls):
+            t = time.perf_counter()
+            f()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    runs = [turn(f) for f in (parent_fn, fn, fn, parent_fn)]
+    return {"ms": runs[1:3], "parent_ms": [runs[0], runs[3]]}
+
+
+def phase_gather_time(state) -> None:
+    """K10's device time (graph_ms of its launch on prepared calls, each its
+    own indices) at the main path's three shapes beside the plain version
+    (CUDA events around one call), the bound (gather_work) and the host
+    time of one gather_trees_batch call (its upload, launch and fetch),
+    paired on the host clock with the parent's eager gather on the same
+    trees.  A call's device operations are scripts/gather_device_ops.py's
+    count, made in a process of its own."""
+    import numpy as np
+    import torch
+
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.fri import gather_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(2063)
+    parent_fd = parent_fri_device()
+    rows = []
+    for name, common, widths, batch in fri_cases(state):
+        trees, idxs, shared, cm = gather_trees_of(gen, common, widths, batch)
+        q, lde = common.config.fri_config.num_query_rounds, common.lde_size
+        one = lambda: fd.gather_trees_batch(trees, idxs, shared, cm)   # noqa: E731
+        draws = []
+        for k in range(K10_TIMED_CALLS):    # each launch its own queries
+            rng = np.random.default_rng(k)
+            i = rng.integers(0, lde, (batch, q))
+            draws.append([i] * 4 + [i % (lf.shape[-2]) for lf, _ in trees[4:]])
+        preps = [gather_cuda.prepare(trees, d, shared, cm) for d in draws]
+        g = graph_ms([lambda p=p: gather_cuda.launch(p) for p in preps])
+        nbytes = gather_work(trees, idxs, cm)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"shape": name, "batch": batch, "trees": len(trees), "queries": q,
+               "words": int(preps[0].out.numel()), "blob_words": int(preps[0].blob.numel()),
+               "blocks_per_tree": preps[0].call.blocks, **g,
+               "plain_ms": cuda_ms(lambda: fd._gather_plain(trees, idxs, shared, cm), reps=3,
+                                   warmup=1),
+               "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+               "share_of_bound": bound / g["ms"], "library_ms": None,
+               "host_us_per_call": host_us_per_call(one)}
+        if parent_fd is not None:
+            row["paired_with_parent"] = host_paired_ms(
+                one, lambda: parent_fd.gather_trees_batch(trees, idxs, shared, cm))
+        rows.append(row)
+        del trees, preps
+    over = [r for r in rows if r["share_of_bound"] > 1.05]
+    if over:
+        raise AssertionError(f"K10 timed below its bound: {over}")
+    emit({"phase": "gather_time", "hbm_bytes_per_s": HBM_BYTES_PER_S,
+          "parent": PARENT_COMMIT if parent_fd else None,
+          "timing": f"ms: CUDA events around the replay of a CUDA graph of {K10_TIMED_CALLS} "
+                    f"K10 launches on prepared calls (their blobs uploaded before), each its "
+                    f"own query indices, L2 emptied first, per launch, median of 8 replays "
+                    f"(min_ms/max_ms: their range); plain_ms: CUDA events around one call of "
+                    f"fri/fri_device.py's _gather_plain (its uploads among it), median of 3; "
+                    f"host_us_per_call: perf_counter around 100 gather_trees_batch calls, each "
+                    f"its blob's upload, K10 and the fetch; paired_with_parent: "
+                    f"host ms a gather_trees_batch call, this tree's and the parent's eager "
+                    f"gather on the same trees, in turns (parent, this, this, parent), each "
+                    f"the median of {K10_HOST_CALLS}; library_ms: none, no PyTorch call "
+                    f"gathers rows and sibling paths of several trees",
+          "rows": rows, "sass": kernel_sass_counts(gather_cuda.build(), gather_cuda.build_log,
+                                                   "k10_")})
+    main = next(r for r in rows if r["shape"] == "wormhole")
+    state.setdefault("kernels", []).append({
+        "name": "fri_query_gather", "route": "cuda", "source": K10_SOURCE,
+        "replaces": f"{K10_REPLACES} _gather_fn and :384 _gather_batch_fn (called at :597 and "
+                    f":790); no Pallas kernel (every tree's query rows and sibling paths)",
+        "launches": state["fri_launches"]["k10"],
+        "launches_by_path": {"wormhole": state["fri_launches"]["k10"],
+                             "batch": state["fri_launches_batch"]["k10"],
+                             "sharded": state["fri_launches_sharded"]["k10"],
+                             "aggregate": state["aggregate_launches"]["k10"]},
+        "max_abs_err": state["k10_max_abs_err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "ms_by_shape": {r["shape"]: r["ms"] for r in rows}})
     state.pop("level1_cd", None)
     state.pop("level1_proof", None)
 
@@ -4951,6 +5296,7 @@ PHASES = {"card": phase_card, "square": phase_square,
           "k5_check": phase_k5_check, "k6_check": phase_k6_check,
           "k5_time": phase_k5_time, "k6_time": phase_k6_time,
           "fri_check": phase_fri_check, "fri_time": phase_fri_time,
+          "gather_check": phase_gather_check, "gather_time": phase_gather_time,
           "batch_mesh": phase_batch_mesh, "aggregate_mesh": phase_aggregate_mesh,
           "multihost": phase_multihost, "voting": phase_voting, "api": phase_api,
           "compat": phase_compat, "native": phase_native}

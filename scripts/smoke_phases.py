@@ -2,10 +2,11 @@
 JSON line; exits non-zero at the first phase that fails.
 
     python scripts/smoke_phases.py wormhole k6_check k6_time fri_check fri_time
+    python scripts/smoke_phases.py wormhole gather_check gather_time
 
 The card phase (the builds, the card's name and power limit) always runs
 first.  Without the aggregate phase, the phases that read its level-1
-circuit and proof (k5_check to fri_time) get the wormhole's in their place,
+circuit and proof (k5_check to gather_time) get the wormhole's in their place,
 and a launch count that only a skipped phase records reads 0.  Full runs of
 chip_smoke.py give the figures of every shape; this gives a few phases'
 quickly.

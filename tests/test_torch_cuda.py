@@ -771,3 +771,113 @@ def test_k7_k8_k9_launches_on_a_proof(cuda):
             assert fri_cuda.k9_by_mode["round"] - rounds_before == rounds - 1
     assert out[0] == out[1]
     assert [d for d, _ in plain] == ["cpu"] * len(plain) and plain
+
+
+def _gather_forest(cuda, rng, batch):
+    """The query gather's kinds at small main-path shapes: a shared
+    column-major oracle (20, 2^12), a batched one (B, 30, 2^12), a FRI tree
+    (B, 256, 32) row-major, and a tree of 16 leaves that are its cap (no
+    sibling level); every word any u64 (in [p, 2^64) too); levels of K1's
+    layout (views of one buffer), cap height 4."""
+    def words(*shape):
+        return gf.from_u64(rng.integers(0, 2**64 - 1, shape, dtype=np.uint64, endpoint=True),
+                           cuda)
+
+    def tree(lead, leaf_shape, n, cap):
+        sizes = [n >> lv for lv in range(n.bit_length() - cap)]
+        return words(*lead, *leaf_shape), list(torch.split(words(*lead, sum(sizes), 4), sizes,
+                                                           dim=-2))
+
+    trees = [tree((), (20, 1 << 12), 1 << 12, 4), tree((batch,), (30, 1 << 12), 1 << 12, 4),
+             tree((batch,), (256, 32), 256, 4), tree((batch,), (16, 8), 16, 4)]
+    idxs = []
+    for n in (1 << 12, 1 << 12, 256, 16):
+        i = rng.integers(0, n, (batch, 28))
+        i[:, :3] = [0, n - 1, 0]
+        idxs.append(i)
+    return trees, idxs, [True, False, False, False], [True, True, False, False]
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_k10_matches_plain(cuda, batch):
+    """K10 on the card: one launch for every tree and proof, the same words
+    as the plain version (a take a leaf matrix and a level) on the card,
+    and gather_trees_batch's host arrays equal to the CPU's."""
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.fri import gather_cuda
+
+    trees, idxs, shared, colmajor = _gather_forest(cuda, np.random.default_rng(batch), batch)
+    before = gather_cuda.launches
+    got = gather_cuda.gather(trees, idxs, shared, colmajor)
+    torch.cuda.synchronize()
+    assert gather_cuda.launches == before + 1
+    assert torch.equal(got, fd._gather_plain(trees, idxs, shared, colmajor))
+    on_card = fd.gather_trees_batch(trees, idxs, shared, colmajor)
+    cpu = [(lf.cpu(), [lv.cpu() for lv in lvs]) for lf, lvs in trees]
+    for (gr, gs), (wr, ws) in zip(on_card, fd.gather_trees_batch(cpu, idxs, shared, colmajor),
+                                  strict=True):
+        assert np.array_equal(gr, wr) and np.array_equal(gs, ws)
+    assert gather_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("arity_bits", [1, 2, 3, 4, 5])
+def test_k4_leaf_mode_matches_plain(cuda, arity_bits, batch):
+    """K4's leaf mode on the card at FRI's round-0 shape (2^13 -> 2^16, the
+    four-step, two launches) and on the row path (2^9 -> 2^12), the two
+    components read from K8's (2, B, n) buffer: equal to the plain stage
+    loop's coset NTT regrouped into fiber leaves, and to K4's coset NTT and
+    the regroup (``_commit_codeword_plain`` on the card)."""
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.ntt import ntt as nttm
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    rng = np.random.default_rng(10 * arity_bits + batch)
+    for n, size in ((1 << 13, 1 << 16), (1 << 9, 1 << 12)):
+        f = gf.from_u64(rng.integers(0, P, (2, batch, n), dtype=np.uint64), cuda)
+        before = ntt_cuda.launches_by_mode[ntt_cuda.LEAF_MODE]
+        got = ntt_cuda.coset_leaves(f[0], f[1], 7, size, arity_bits)
+        torch.cuda.synchronize()
+        assert ntt_cuda.launches_by_mode[ntt_cuda.LEAF_MODE] - before == \
+            (2 if ntt_cuda.plan(size) else 1)
+        v = nttm.coset_ntt_plain(f, 7, size)
+        assert torch.equal(got, fd._fiber_leaves(v[0], v[1], 1 << arity_bits))
+        assert torch.equal(got, fd._commit_codeword_plain(f[0], f[1], 7, size, arity_bits))
+
+
+def test_k10_and_leaf_mode_on_a_proof(cuda):
+    """A zk square circuit with FRI fold rounds proved on the card: K10
+    once, K4's leaf mode for the round-0 codeword, no plain gather or plain
+    codeword on a CUDA tensor, and the proof equal to the CPU's."""
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.fri import gather_cuda
+    from zk_circuits_torch.iop.builder import CircuitBuilder
+    from zk_circuits_torch.iop.witness import PartialWitness
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_torch.plonk.config import CircuitConfig, FriConfig
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    cfg = CircuitConfig(zero_knowledge=True, fri_config=FriConfig(
+        proof_of_work_bits=2, num_query_rounds=3, reduction_arity_bits=2, final_poly_bits=1))
+    out, plain = [], []
+    for device in ("cuda", "cpu"):
+        b = CircuitBuilder(cfg)
+        x = b.add_virtual_target()
+        b.register_public_input(b.square(x))
+        data = b.build(device=device)
+        pw = PartialWitness()
+        pw.set_target(x, 5)
+        before = gather_cuda.launches, ntt_cuda.launches_by_mode[ntt_cuda.LEAF_MODE]
+        real = {k: getattr(fd, k) for k in ("_gather_plain", "_commit_codeword_plain")}
+        for k, fn in real.items():
+            setattr(fd, k, lambda *a, _k=k, _fn=fn: plain.append((device, _k)) or _fn(*a))
+        try:
+            out.append(proof_to_bytes(data.prove(pw, device=device)))
+        finally:
+            for k, fn in real.items():
+                setattr(fd, k, fn)
+        if device == "cuda":
+            assert gather_cuda.launches - before[0] == 1
+            assert ntt_cuda.launches_by_mode[ntt_cuda.LEAF_MODE] > before[1]
+    assert out[0] == out[1]
+    assert [d for d, _ in plain] == ["cpu"] * len(plain) and plain

@@ -12,7 +12,9 @@ the twiddle and interleave index maps, and the copy's tile walk (its
 blocks run one at a time).  K3: the witness walk (see K3_SHIM).  K4
 (csrc/ntt.cuh behind ntt.cu's C interface): the row path's blocks and
 both four-step passes tile by tile, every mode, through the wrapper's
-``ntt_cuda.transform``, against both packages' host NTTs.
+``ntt_cuda.transform``, against both packages' host NTTs; its leaf mode
+(``ntt_cuda.coset_leaves``: two components in, fiber leaves out) against
+``fri/fri_device.py``'s ``_fiber_leaves(*_ext_coset_ntt_dev(...))``.
 """
 
 import ctypes
@@ -1447,3 +1449,126 @@ def test_k4_views_and_refusals(k4_lib):
         ntt_cuda.transform(t, "coset_ntt", size=32, lib=k4_lib)   # size below n_in
     with pytest.raises(ValueError):
         ntt_cuda.transform(t, "ntt")   # a CPU tensor without a host library
+
+
+def _leaf_inputs(rng, batch, n_in, layout):
+    """An extension polynomial's two (B, n_in) components as CPU tensors:
+    "stacked", views of one (2, B, n_in) buffer (K8's scan's output);
+    "apart", tensors of their own; "strided", every other row of wider
+    buffers, read in place; "mixed", row strides that differ (copied)."""
+    import torch
+
+    x = _k4_inputs(rng, (2, 2 * batch), n_in)
+    t = torch.from_numpy(x.view(np.int64))
+    if layout == "stacked":
+        f = t[:, :batch].contiguous()
+        return f[0], f[1]
+    if layout == "apart":
+        return t[0, :batch].clone(), t[1, :batch].clone()
+    if layout == "strided":
+        return t[0, ::2], t[1, ::2]
+    return t[0, ::2], t[1, :batch].clone()
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("arity_bits", [1, 2, 3, 4, 5])
+def test_k4_leaf_mode_matches_fiber_leaves(k4_lib, arity_bits, batch, monkeypatch):
+    """K4's leaf mode (``ntt_cuda.coset_leaves``) at FRI arity 2^1 to 2^5:
+    the coset NTT of both components zero-padded to 2^rate times their
+    length, each value at its fiber-leaf slot, on the row path and on the
+    four-step (the row path's threshold patched down, so that 2^9 and 2^12
+    take it, with K4's factors and others), from components stacked, apart,
+    strided or of different strides; equal integers against the plain
+    version ``fri_device._commit_codeword_plain`` (``_fiber_leaves`` of
+    ``_ext_coset_ntt_dev``), which the CPU path of FRI's commit takes, and
+    against the JAX package's ``_fiber_leaves(*_ext_coset_ntt_dev(...))``
+    (``fri/fri_device.py``'s round-0 leaves) proof by proof."""
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_tpu.field import goldilocks as jgf
+    from zk_circuits_tpu.fri import fri_device as jfd
+
+    monkeypatch.setattr(ntt_cuda, "ROW_MAX_LOG", 4)
+    rng = np.random.default_rng(800 + 10 * arity_bits + batch)
+    shift = pow(7, 1 << arity_bits, P)
+    for n_in, size, log_n1, layout in ((32, 256, 0, "stacked"), (32, 256, None, "apart"),
+                                       (64, 512, 3, "strided"), (512, 4096, None, "stacked"),
+                                       (16, 512, 0, "mixed")):
+        c0, c1 = _leaf_inputs(rng, batch, n_in, layout)
+        before = ntt_cuda.copies
+        got = ntt_cuda.coset_leaves(c0, c1, shift, size, arity_bits, log_n1=log_n1,
+                                    lib=k4_lib)
+        want = fd._commit_codeword_plain(c0, c1, shift, size, arity_bits)
+        assert got.shape == want.shape == (batch, size >> arity_bits, 2 << arity_bits)
+        assert np.array_equal(got.numpy(), want.numpy()), (n_in, size, log_n1, layout)
+        assert ntt_cuda.copies - before == (layout == "mixed" and batch > 1)
+        for b in range(batch):
+            comps = [jgf.from_u64(np.ascontiguousarray(c[b].numpy()).view(U64)) for c in (c0, c1)]
+            ref = jgf.to_u64(jfd._fiber_leaves(*jfd._ext_coset_ntt_dev(*comps, shift, size),
+                                               1 << arity_bits))
+            assert np.array_equal(got[b].numpy().view(U64), ref), (n_in, size, layout, b)
+
+
+def test_k4_leaf_mode_edges_and_refusals(k4_lib):
+    """The leaf mode on constant rows (0, 1, p - 1), one component given
+    as a 1-D polynomial, the arity the whole codeword (one leaf), and the
+    calls it refuses."""
+    import torch
+
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    for value in (0, 1, P - 1):
+        c = torch.from_numpy(np.full((2, 64), value, dtype=U64).view(np.int64))
+        got = ntt_cuda.coset_leaves(c[0], c[1], 7, 512, 3, lib=k4_lib)
+        want = fd._commit_codeword_plain(c[0][None], c[1][None], 7, 512, 3)
+        assert np.array_equal(got.numpy(), want.numpy()), value
+    x = torch.from_numpy(_k4_inputs(np.random.default_rng(81), (2,), 16).view(np.int64))
+    got = ntt_cuda.coset_leaves(x[0], x[1], 7, 64, 6, lib=k4_lib)   # one leaf of 128 words
+    assert got.shape == (1, 1, 128)
+    assert np.array_equal(got.numpy(),
+                          fd._commit_codeword_plain(x[:1], x[1:], 7, 64, 6).numpy())
+    for bad in (dict(size=48), dict(size=8), dict(arity_bits=0), dict(arity_bits=7)):
+        kw = dict(size=64, arity_bits=2) | bad
+        with pytest.raises(ValueError):
+            ntt_cuda.coset_leaves(x[0], x[1], 7, kw["size"], kw["arity_bits"], lib=k4_lib)
+    with pytest.raises(ValueError):
+        ntt_cuda.coset_leaves(x[0], x[1][:8], 7, 64, 2, lib=k4_lib)   # shapes differ
+    # The kernel takes a second component only in the leaf mode, and the
+    # leaf mode only with one: calls the header's k4_valid refuses.
+    log_cols = (ctypes.c_int * 3)(*ntt_cuda.tiles(2, 64, 0, 132))
+    for leaf_log, x1, half in ((0, x[1].data_ptr(), 1), (0, x[1].data_ptr(), 0), (0, None, 1),
+                               (2, None, 1), (2, x[1].data_ptr(), 0), (2, x[1].data_ptr(), 2)):
+        call = ntt_cuda._Call(x=x[0].data_ptr(), rows=2, in_stride=16, n_in=16, log_n=6,
+                              log_cols=log_cols, scale=1, leaf_log=leaf_log, x1=x1, half=half)
+        assert k4_lib.k4_ntt(0, ctypes.byref(call), None) != 0, (leaf_log, x1, half)
+    with pytest.raises(ValueError):
+        ntt_cuda.coset_leaves(x[0], x[1], 7, 64, 2)   # a CPU tensor without a host library
+
+
+@pytest.mark.parametrize("row_max_log", [12, 4])
+def test_k4_leaf_mode_in_a_zk_batch_proof(k4_lib, row_max_log, monkeypatch):
+    """A zk square circuit with FRI fold rounds, a batch of 2, whose round-0
+    codeword goes through K4's leaf mode on the host build (the row path,
+    and the four-step with the row path's threshold patched down) in place
+    of ``_commit_codeword_plain``: byte-equal to the JAX host path's
+    proofs."""
+    from test_torch_batch import FRI_ROUNDS, TORCH, _reference_bytes, _square
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.ntt import ntt_cuda
+    from zk_circuits_torch.plonk.prover import prove_batch
+    from zk_circuits_torch.utils.serialization import proof_to_bytes as t_bytes
+
+    sizes = []
+
+    def via_k4(f0, f1, shift, size, arity_bits):
+        sizes.append(size)
+        return ntt_cuda.coset_leaves(f0, f1, shift, size, arity_bits, lib=k4_lib)
+
+    monkeypatch.setattr(fd, "_commit_codeword_plain", via_k4)
+    monkeypatch.setattr(ntt_cuda, "ROW_MAX_LOG", row_max_log)
+    want = _reference_bytes(True, FRI_ROUNDS, (3, 7))
+    data, witness = _square(TORCH, True, FRI_ROUNDS, device="cpu")
+    proofs = prove_batch(data, [witness(3), witness(7)], device="cpu")
+    assert [t_bytes(p) for p in proofs] == [want[3], want[7]]
+    assert len(sizes) == 1 and (ntt_cuda.plan(sizes[0]) == 0) == (row_max_log == 12), sizes

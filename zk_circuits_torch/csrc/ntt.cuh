@@ -18,6 +18,17 @@
 //   coset_intt    inverse, post = n^-1 shift^-m
 //   lde           pre = shift^i, n = n_in 2^rate_bits
 //
+// The leaf mode (leaf_log > 0, ntt_cuda.coset_leaves) serves FRI's
+// codewords: the rows are the two components of `half` extension
+// polynomials (row r = comp half + b, comp = 0, 1), the second read at
+// x1 + (r - half) * in_stride (it need not follow the first in memory),
+// and out[r, m] is stored at its fiber-leaf slot instead of its row's,
+//
+//   leaves[b][m mod M][2 (m div M) + comp],   M = n / 2^leaf_log,
+//
+// the (half, M, 2^(leaf_log + 1)) leaves of fri/fri_device.py's
+// _fiber_leaves, with no regroup copy after the transform.
+//
 // Every output is canonical, so equal to the stage loop's (field results
 // are unique).  Two paths, each made of passes; a pass transforms columns
 // of L = 2^l points, a block a tile of C = 2^lc columns:
@@ -94,6 +105,9 @@ struct K4Call {
   int log_n, log_n1;         // log_n1 = 0: the row path; else n1 = 2^log_n1
   int inverse;
   int log_cols[3];           // log2 of a tile's columns, per pass (the wrapper's plan)
+  int leaf_log;              // 0, or the leaf mode's log2 fiber-leaf arity (see above)
+  const uint64_t* x1;        // the leaf mode's: rows from `half` on at x1 + (r - half) * in_stride
+  long long half;            // the leaf mode's polynomials (0 outside it)
 };
 
 // One block's tile.  Row path: batch rows row .. row + count - 1 (columns
@@ -226,6 +240,9 @@ GL_HD bool k4_valid(const K4Call& c) {
   if (c.log_n < 0 || c.log_n > K4_MAX_LOG_N || c.rows < 0 || c.n_in < 1 ||
       c.n_in > (1LL << c.log_n) || c.in_stride < 0 || c.inverse < 0 || c.inverse > 1)
     return false;
+  if (c.leaf_log < 0 || c.leaf_log > c.log_n || !c.leaf_log != !c.x1 ||
+      (c.leaf_log ? c.half < 1 || c.rows != 2 * c.half : c.half != 0))
+    return false;
   const int l1 = c.log_n1, l2 = c.log_n - c.log_n1;
   if (l1 == 0)
     return c.log_n <= K4_PASS_MAX_LOG && k4_tile_fits(c.log_n, c.log_cols[0]);
@@ -309,6 +326,21 @@ GL_HD uint64_t k4_unit_mul(uint64_t y, int u, bool* neg) {
     case 6: *neg = true; return k4_shl<72>(y);    // 2^168
     default: *neg = true; return k4_shl<36>(y);   // 2^132
   }
+}
+
+// The first input of batch row `row` (in the leaf mode x1's from `half` on).
+GL_HD const uint64_t* k4_src(const K4Call& c, long long row) {
+  return c.leaf_log && row >= c.half ? c.x1 + (row - c.half) * c.in_stride
+                                      : c.x + row * c.in_stride;
+}
+
+// Where out[row, m] goes: the row's own slot, or its fiber-leaf slot.
+GL_HD uint64_t* k4_slot(const K4Call& c, long long row, long long m) {
+  if (!c.leaf_log) return c.out + (row << c.log_n) + m;
+  const int comp = row >= c.half, lm = c.log_n - c.leaf_log;
+  const long long b = comp ? row - c.half : row;
+  return c.out + (b << (c.log_n + 1)) + ((m & ((1LL << lm) - 1)) << (c.leaf_log + 1)) +
+         ((m >> lm) << 1) + comp;
 }
 
 // Input value i of the row at `src`: zero from n_in on, times pre[i].
@@ -412,13 +444,13 @@ GL_HD void k4_begin_r(const K4Call& c, int pass, const K4Tile& t, uint64_t* v, i
     uint64_t* a = v + u * R;
     const K4Task k = k4_task(pass, t, 0, tau);
     if (pass == K4_PASS_ROW) {
-      const uint64_t* src = c.x + (t.row + k.c) * c.in_stride;
+      const uint64_t* src = k4_src(c, t.row + k.c);
       const bool live = k.c < t.count;
 #pragma unroll
       for (int m = 0; m < R; m++)
         if (m < (1 << z)) a[m] = live ? k4_in(c, src, k.j + ((long long)m << lm)) : 0;
     } else if (pass == K4_PASS_A) {
-      const uint64_t* src = c.x + t.row * c.in_stride;
+      const uint64_t* src = k4_src(c, t.row);
       const long long j1 = t.first + k.c;
 #pragma unroll
       for (int m = 0; m < R; m++)
@@ -493,11 +525,10 @@ GL_HD void k4_store_r(const K4Call& c, int pass, const K4Tile& t, const uint64_t
     const K4Task k = k4_task(pass, t, t.rounds - 1, tau);
     if (pass == K4_PASS_ROW) {
       if (k.c >= t.count) continue;
-      uint64_t* dst = c.out + ((t.row + k.c) << c.log_n);
 #pragma unroll
       for (int q = 0; q < R; q++) {
         const long long m = k4_dest(c, k.d + ((long long)q << ls));
-        dst[m] = k4_out(c, m, a[q]);
+        *k4_slot(c, t.row + k.c, m) = k4_out(c, m, a[q]);
       }
     } else if (pass == K4_PASS_A) {
       const long long j1 = t.first + k.c;
@@ -507,13 +538,12 @@ GL_HD void k4_store_r(const K4Call& c, int pass, const K4Tile& t, const uint64_t
       for (int q = 0; q < R; q++)
         dst[(k.d + ((long long)q << ls)) << c.log_n1] = gl_mul_m(a[q], k4_next(run));
     } else {
-      uint64_t* dst = c.out + (t.row << c.log_n);
       const long long k2 = t.first + k.c;
       const int log_n2 = c.log_n - c.log_n1;
 #pragma unroll
       for (int q = 0; q < R; q++) {
         const long long m = k4_dest(c, k2 + ((k.d + ((long long)q << ls)) << log_n2));
-        dst[m] = k4_out(c, m, a[q]);
+        *k4_slot(c, t.row, m) = k4_out(c, m, a[q]);
       }
     }
   }

@@ -10,19 +10,23 @@ stage fetches the whole batch's caps or evaluations in one transfer):
   (``openings``: K7 on the card, which computes the powers itself);
 - composition: the alpha-reduced FRI quotient (batch 0 at zeta, batch 1 at
   g*zeta; ``reduce_alpha``: K8's point kernel) with the divide-by-linear
-  (``compose``: K8's scan), then the round-0 codeword NTT and Merkle
+  (``compose``: K8's scan), then the round-0 codeword's coset NTT straight
+  into its fiber leaves (``_commit_codeword``: K4's leaf mode) and Merkle
   commit;
 - fold rounds: coefficient-space fold (new_c[m] = sum_j beta^j c[A*m+j]),
   the next codeword's coset NTT and its fiber leaves (``fold_round``: K9's
   round mode, one launch), then the Merkle commit; the last round's fold
   alone (``fold``: K9's fold mode);
 - query phase: every oracle and every commit-phase tree gathered on the
-  device and fetched in one transfer.
+  device (``gather_trees_batch``: K10, one launch) and fetched in one
+  transfer.
 
-On a CUDA tensor the field arithmetic takes the kernels of ``fri_cuda``; on
-a CPU tensor their plain versions (``_openings_plain``,
-``_reduce_alpha_plain``, ``_compose_plain``, ``_fold_plain``,
-``_fold_round_plain``); any other device raises.
+On a CUDA tensor the field arithmetic takes the kernels of ``fri_cuda``,
+the round-0 codeword K4's leaf mode (``ntt_cuda.coset_leaves``) and the
+query gather K10 (``gather_cuda``); on a CPU tensor their plain versions
+(``_openings_plain``, ``_reduce_alpha_plain``, ``_compose_plain``,
+``_fold_plain``, ``_fold_round_plain``, ``_commit_codeword_plain``,
+``_gather_plain``); any other device raises.
 
 The Fiat-Shamir challenger stays on the host; only caps, the final
 polynomial and query rows leave the device.  Extension elements travel as
@@ -30,6 +34,8 @@ pairs of base tensors (components of GF(p^2) = GF(p)[x]/(x^2 - 7)).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -40,8 +46,9 @@ from ..field.goldilocks import emul as _emul
 from ..hash import merkle as merklem
 from ..host import gl, gle
 from ..ntt import ntt as nttm
+from ..ntt import ntt_cuda
 from . import fri as frim
-from . import fri_cuda
+from . import fri_cuda, gather_cuda
 from .oracle import ext_powers
 
 
@@ -234,11 +241,21 @@ def fold_round(c0, c1, beta, arity_bits: int, next_bits: int, rate_bits: int, sh
                              rate_bits, shift)
 
 
-def _commit_codeword(f0, f1, shift: int, size: int, arity_bits: int):
-    """NTT an ext coefficient pair onto its coset and regroup it into
-    fiber leaves."""
+def _commit_codeword_plain(f0, f1, shift: int, size: int, arity_bits: int):
+    """K4's leaf mode's plain version: the coset NTT of both components
+    (``_ext_coset_ntt_dev``), then the fiber regroup (``_fiber_leaves``)."""
     v0, v1 = _ext_coset_ntt_dev(f0, f1, shift, size)
     return _fiber_leaves(v0, v1, 1 << arity_bits)
+
+
+def _commit_codeword(f0, f1, shift: int, size: int, arity_bits: int):
+    """The fiber leaves (B, size / A, 2 A) of an ext coefficient pair's
+    coset NTT at ``size`` points: on the card one K4 call in its leaf mode,
+    which reads both components in place and stores each value at its
+    leaf slot."""
+    if _on_card(f0):
+        return ntt_cuda.coset_leaves(f0, f1, shift, size, arity_bits)
+    return _commit_codeword_plain(f0, f1, shift, size, arity_bits)
 
 
 def take_rows_batch(x: torch.Tensor, idx: np.ndarray, colmajor: bool) -> torch.Tensor:
@@ -250,52 +267,77 @@ def take_rows_batch(x: torch.Tensor, idx: np.ndarray, colmajor: bool) -> torch.T
     return rows.reshape(-1, rows.shape[-1])
 
 
+def _take_all(trees: list, idxs: list, colmajor, take) -> tuple:
+    """Each tree's rows, then its sibling digests level by level below the
+    cap, each through ``take(leaves_or_level, idx, colmajor)``, as one
+    flat tensor; and each tree's row width."""
+    chunks, widths = [], []
+    for (leaves, levels), idx, cm in zip(trees, idxs, colmajor):
+        i = np.asarray(idx, dtype=np.int64)
+        rows = take(leaves, i, cm)
+        chunks.append(rows.reshape(-1))
+        widths.append(rows.shape[-1])
+        for lv in levels[:-1]:
+            chunks.append(take(lv, i ^ 1, False).reshape(-1))
+            i = i >> 1
+    return torch.cat(chunks), widths
+
+
+def _split(flat: np.ndarray, trees: list, idxs: list, widths: list) -> list:
+    """The fetched words per tree: (rows (*idx.shape, w), sibs (*idx.shape,
+    L, 4))."""
+    out, pos = [], 0
+    for (_, levels), idx, w in zip(trees, idxs, widths):
+        shape, nlev = np.shape(idx), len(levels) - 1
+        q = math.prod(shape)
+        rows = flat[pos : pos + q * w].reshape(*shape, w)
+        pos += q * w
+        sibs = flat[pos : pos + nlev * q * 4].reshape(nlev, *shape, 4)
+        pos += nlev * q * 4
+        axes = (*range(1, len(shape) + 1), 0, len(shape) + 1)   # level axis before the digest
+        out.append((rows, np.ascontiguousarray(sibs.transpose(axes))))
+    assert pos == flat.shape[0]
+    return out
+
+
 def gather_trees(trees: list, idxs: list, colmajor: tuple, take) -> list:
     """trees: per tree (leaves, levels) with leaves (N, w) row-major, or
     (w, N) column-major where ``colmajor`` says so; idxs: per-tree query
     indices.  Gathers every row and sibling path on the device with
     ``take(leaves_or_level, idx, colmajor)`` and fetches them in ONE
     transfer.  Returns [(rows u64 (Q, w), sibs u64 (Q, L, 4))]."""
-    chunks, shapes = [], []
-    for (leaves, levels), idx, cm in zip(trees, idxs, colmajor):
-        i = np.asarray(idx, dtype=np.int64)
-        rows = take(leaves, i, cm)
-        chunks.append(rows.reshape(-1))
-        for lv in levels[:-1]:
-            chunks.append(take(lv, i ^ 1, False).reshape(-1))
-            i = i >> 1
-        shapes.append((rows.shape, len(levels) - 1))
-    flat = gfd.to_u64(torch.cat(chunks))
-    out, pos = [], 0
-    for (q, w), nlev in shapes:
-        rows = flat[pos : pos + q * w].reshape(q, w)
-        pos += q * w
-        sibs = flat[pos : pos + nlev * q * 4].reshape(nlev, q, 4)
-        pos += nlev * q * 4
-        out.append((rows, np.ascontiguousarray(sibs.transpose(1, 0, 2))))
-    assert pos == flat.shape[0]
-    return out
+    flat, widths = _take_all(trees, idxs, colmajor, take)
+    return _split(gfd.to_u64(flat), trees, idxs, widths)
+
+
+def _gather_plain(trees: list, idxs: list, shared: list, colmajor: list) -> torch.Tensor:
+    """K10's plain version (``gather_cuda.gather``): every tree's rows and
+    sibling digests as one flat tensor, a take a leaf matrix and a level
+    (``take_rows_batch``), a shared tree expanded over the batch (no
+    copy)."""
+    B = idxs[0].shape[0]
+
+    def over_batch(tree, sh):
+        leaves, levels = tree
+        if not sh:
+            return tree
+        return leaves.expand(B, *leaves.shape), [lv.expand(B, *lv.shape) for lv in levels]
+
+    return _take_all([over_batch(t, sh) for t, sh in zip(trees, shared)], idxs, colmajor,
+                     take_rows_batch)[0]
 
 
 def gather_trees_batch(trees: list, idxs: list, shared: list, colmajor: list) -> list:
     """``gather_trees`` for a batch of proofs: trees (leaves, levels) carry a
     leading proof axis B unless ``shared`` (the circuit's constants/sigmas
     oracle, one tree for every proof); idxs are (B, Q) per tree.  Every
-    proof's rows and paths come back in ONE transfer.  Returns per tree
-    (rows u64 (B, Q, w), sibs u64 (B, Q, L, 4))."""
+    proof's rows and paths are gathered on the device (on the card by one
+    K10 launch) and come back in ONE transfer.  Returns per tree (rows u64
+    (B, Q, w), sibs u64 (B, Q, L, 4))."""
     idxs = [np.asarray(i, dtype=np.int64) for i in idxs]
-    B = idxs[0].shape[0]
-
-    def over_batch(tree, sh):   # a shared tree seen B times (no copy)
-        leaves, levels = tree
-        if not sh:
-            return tree
-        return leaves.expand(B, *leaves.shape), [lv.expand(B, *lv.shape) for lv in levels]
-
-    flat = gather_trees([over_batch(t, sh) for t, sh in zip(trees, shared)], idxs,
-                        tuple(colmajor), take=take_rows_batch)
-    return [(rows.reshape(*i.shape, -1), sibs.reshape(*i.shape, *sibs.shape[1:]))
-            for (rows, sibs), i in zip(flat, idxs)]
+    body = gather_cuda.gather if _on_card(trees[0][0]) else _gather_plain
+    widths = [lf.shape[-2] if cm else lf.shape[-1] for (lf, _), cm in zip(trees, colmajor)]
+    return _split(gfd.to_u64(body(trees, idxs, shared, colmajor)), trees, idxs, widths)
 
 
 def openings_set(evals: np.ndarray, zs_next: np.ndarray, widths: tuple):
@@ -334,13 +376,14 @@ def compose(comp0, comp1, zeta, zeta_next, alpha, num_zs: int):
 def commit_phase(f0, f1, fri_config, degree_bits: int, chs: list):
     """The FRI commit chain on one device for B proofs, from their (B, n)
     ext coefficient pair f and one Challenger a proof: the round-0 codeword
-    (K4's coset NTT and the fiber regroup), then per fold round commit the B
-    fiber trees at once, fetch their caps in one transfer, observe each
-    proof's cap, draw its beta, and fold: with the next codeword's leaves
-    in one K9 round launch where a round follows and ``round_fits`` holds
-    on the card, else the fold alone and, where a round follows, K4 and the
-    regroup.  Returns (caps, trees, betas, final f0, final f1): per round
-    the caps (B, m, 4), the trees' (leaves, levels) and the betas (B, 2)."""
+    (K4's leaf mode: its coset NTT as fiber leaves), then per fold round
+    commit the B fiber trees at once, fetch their caps in one transfer,
+    observe each proof's cap, draw its beta, and fold: with the next
+    codeword's leaves in one K9 round launch where a round follows and
+    ``round_fits`` holds on the card, else the fold alone and, where a
+    round follows, K4's leaf mode.  Returns (caps, trees, betas, final f0,
+    final f1): per round the caps (B, m, 4), the trees' (leaves, levels)
+    and the betas (B, 2)."""
     size = f0.shape[-1] << fri_config.rate_bits
     shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
     arities = fri_config.reduction_arities(degree_bits)

@@ -19,9 +19,17 @@ blocks an SM where the call has the columns.  Bound on the H100: bytes or
 the products of the radix-16 decomposition, whichever is larger (see the
 kernel source and chip_smoke.py's k4_work).
 
+A sixth, ``coset_leaves`` (K4's leaf mode, ``LEAF_MODE``), serves FRI's
+codewords: the coset NTT of an extension polynomial's two components, read
+from two tensors, each value stored at its fiber-leaf slot, so that K1
+hashes K4's output with no stack before the transform and no regroup
+copy after it (``fri/fri_device.py::_commit_codeword``; its plain version
+is ``_commit_codeword_plain``).
+
 Counters: ``launches`` (kernel launches: 1 a row-path call, 2 a four-step
-call), by mode and by card, and ``copies`` (inputs copied once because
-their last axis was not contiguous or their rows shared no one stride).
+call), by mode (the leaf mode among them) and by card, and ``copies``
+(inputs copied once because their last axis was not contiguous or their
+rows shared no one stride).
 
 Build: nvcc for sm_90a into ``zk_circuits_torch/_build`` at first use, a
 plain C interface loaded with ctypes.  This module launches on CUDA
@@ -45,7 +53,8 @@ from ..utils.nvcc import build_library
 from . import ntt as nttm
 
 HEADERS = ("goldilocks.cuh", "ntt.cuh")
-MODES = ("ntt", "intt", "coset_ntt", "coset_intt", "lde")
+MODES = ("ntt", "intt", "coset_ntt", "coset_intt", "lde")   # transform's
+LEAF_MODE = "coset_leaves"   # coset_leaves' count: the coset NTT stored as fiber leaves
 ROW_MAX_LOG = 12      # the row path's largest transform: 2^12 points (a tile)
 MAX_LOG_N = 26        # the four-step's: factors of up to 2^13 each
 V_LOG = 4             # values a thread holds, log2 (csrc/ntt.cuh K4_LOG_V)
@@ -59,7 +68,7 @@ BLOCKS_PER_SM = 4     # tiles shrink until a pass launches this many blocks an S
 # Launches of the CUDA kernel in this process, in all, by mode and by card,
 # and the inputs copied to a contiguous last axis.
 launches = 0
-launches_by_mode = dict.fromkeys(MODES, 0)
+launches_by_mode = dict.fromkeys(MODES + (LEAF_MODE,), 0)
 launches_by_device: dict = {}
 copies = 0
 build_log = ""   # nvcc's output of the last build (ptxas register report)
@@ -76,7 +85,9 @@ class _Call(ctypes.Structure):
                 ("scale", ctypes.c_ulonglong), ("rows", ctypes.c_longlong),
                 ("in_stride", ctypes.c_longlong), ("n_in", ctypes.c_longlong),
                 ("log_n", ctypes.c_int), ("log_n1", ctypes.c_int),
-                ("inverse", ctypes.c_int), ("log_cols", ctypes.c_int * 3)]
+                ("inverse", ctypes.c_int), ("log_cols", ctypes.c_int * 3),
+                ("leaf_log", ctypes.c_int), ("x1", ctypes.c_void_p),
+                ("half", ctypes.c_longlong)]
 
 
 def reset_launches() -> None:
@@ -294,6 +305,33 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(-1, n_in)
 
 
+def _launch(mode: str, x: torch.Tensor, out: torch.Tensor, rows: int, n: int, log_n1: int, lib,
+            *, pre=None, post=None, scale: int = 1, x1=None, leaf_log: int = 0) -> None:
+    """One ``k4_ntt`` call of ``rows`` transforms to n points from the rows
+    of ``x`` (in the leaf mode, ``x1``'s after x's) into ``out``, counted
+    under ``mode`` where it launches on a card."""
+    dev = x.device
+    lib = _lib() if dev.type == "cuda" else lib
+    scratch = torch.empty((rows, n), dtype=torch.int64, device=dev) if log_n1 else None
+    call = _Call(x=x.data_ptr(), out=out.data_ptr(),
+                 scratch=scratch.data_ptr() if scratch is not None else None,
+                 tw=twiddles(n, log_n1, dev).data_ptr(),
+                 pre=pre.data_ptr() if pre is not None else None,
+                 post=post.data_ptr() if post is not None else None, scale=scale, rows=rows,
+                 in_stride=x.stride(0), n_in=x.shape[-1], log_n=n.bit_length() - 1,
+                 log_n1=log_n1, inverse=int(mode in ("intt", "coset_intt")),
+                 log_cols=(ctypes.c_int * 3)(*tiles(rows, n, log_n1, _sm_count(lib, dev))),
+                 leaf_log=leaf_log, x1=x1.data_ptr() if x1 is not None else None,
+                 half=x.shape[0] if x1 is not None else 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    err = lib.k4_ntt(dev.index or 0, ctypes.byref(call), stream)
+    if err != 0:
+        raise RuntimeError(f"k4_ntt ({mode}, n={n}, log_n1={log_n1}, leaf_log={leaf_log}) "
+                           f"failed: CUDA error {err}")
+    if dev.type == "cuda":
+        _count(mode, dev, 2 if log_n1 else 1)
+
+
 def transform(x: torch.Tensor, mode: str, *, rate_bits: int = 0,
               shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR, size: int | None = None,
               log_n1: int | None = None, lib=None) -> torch.Tensor:
@@ -326,31 +364,53 @@ def transform(x: torch.Tensor, mode: str, *, rate_bits: int = 0,
     if n & (n - 1) or n < n_in or n > 1 << MAX_LOG_N:
         raise ValueError(f"{mode}: {n_in} inputs to {n} points; n must be a power of two "
                          f"in [n_in, 2^{MAX_LOG_N}]")
-    log_n = n.bit_length() - 1
     log_n1 = plan(n) if log_n1 is None else log_n1
     v = _rows(x)
-    rows, dev = v.shape[0], x.device
-    out = torch.empty((rows, n), dtype=torch.int64, device=dev)
-    if rows == 0:
-        return out.view(*x.shape[:-1], n)
-    inverse = mode in ("intt", "coset_intt")
-    lib = _lib() if dev.type == "cuda" else lib
-    scratch = torch.empty_like(out) if log_n1 else None
-    pre = nttm.powers(shift, n_in, dev) if mode in ("coset_ntt", "lde") else None
-    post = _coset_intt_post(shift, n, dev) if mode == "coset_intt" else None
-    call = _Call(x=v.data_ptr(), out=out.data_ptr(),
-                 scratch=scratch.data_ptr() if scratch is not None else None,
-                 tw=twiddles(n, log_n1, dev).data_ptr(),
-                 pre=pre.data_ptr() if pre is not None else None,
-                 post=post.data_ptr() if post is not None else None,
-                 scale=pow(n, gl.P_INT - 2, gl.P_INT) if mode == "intt" else 1, rows=rows,
-                 in_stride=v.stride(0), n_in=n_in, log_n=log_n, log_n1=log_n1,
-                 inverse=int(inverse),
-                 log_cols=(ctypes.c_int * 3)(*tiles(rows, n, log_n1, _sm_count(lib, dev))))
-    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
-    err = lib.k4_ntt(dev.index or 0, ctypes.byref(call), stream)
-    if err != 0:
-        raise RuntimeError(f"k4_ntt ({mode}, n={n}, log_n1={log_n1}) failed: CUDA error {err}")
-    if dev.type == "cuda":
-        _count(mode, dev, 2 if log_n1 else 1)
+    out = torch.empty((v.shape[0], n), dtype=torch.int64, device=x.device)
+    if v.shape[0]:
+        _launch(mode, v, out, v.shape[0], n, log_n1, lib,
+                pre=nttm.powers(shift, n_in, x.device) if mode in ("coset_ntt", "lde") else None,
+                post=_coset_intt_post(shift, n, x.device) if mode == "coset_intt" else None,
+                scale=pow(n, gl.P_INT - 2, gl.P_INT) if mode == "intt" else 1)
     return out.view(*x.shape[:-1], n)
+
+
+def coset_leaves(c0: torch.Tensor, c1: torch.Tensor, shift: int, size: int, arity_bits: int,
+                 *, log_n1: int | None = None, lib=None) -> torch.Tensor:
+    """K4's leaf mode, one call: the coset NTT onto shift * <w_size> of both
+    components c0, c1 of an extension polynomial (each (B, n_in) or
+    (n_in,), zero-padded to ``size``), stored as fiber leaves of arity A =
+    2^arity_bits: (B, size / A, 2 A), leaf j holding [v0(0, j), v1(0, j),
+    v0(1, j), ...] with v(k, j) the value at point k size / A + j; that is
+    ``fri_device._fiber_leaves(*fri_device._ext_coset_ntt_dev(c0, c1,
+    shift, size), A)``.  The components are read where they lie (one row
+    stride for both; else both are copied, counted in ``copies``).
+    ``log_n1`` and ``lib`` as for ``transform``."""
+    global copies
+    if c0.shape != c1.shape or c0.dim() not in (1, 2) or c0.dtype != torch.int64 or \
+            c1.dtype != torch.int64 or c0.shape[-1] < 1 or c0.device != c1.device:
+        raise ValueError(f"K4's leaf mode takes two int64 (B, n) or (n,) components on one "
+                         f"device, got {c0.dtype} {tuple(c0.shape)} on {c0.device} and "
+                         f"{c1.dtype} {tuple(c1.shape)} on {c1.device}")
+    if lib is None and c0.device.type != "cuda":
+        raise ValueError(f"K4 runs on CUDA tensors, got one on {c0.device} (the plain version "
+                         f"is fri/fri_device.py::_commit_codeword_plain)")
+    n_in = c0.shape[-1]
+    if size & (size - 1) or size < n_in or size > 1 << MAX_LOG_N or \
+            not 1 <= arity_bits <= size.bit_length() - 1:
+        raise ValueError(f"K4's leaf mode: {n_in} inputs to {size} points at arity 2^"
+                         f"{arity_bits}; the size must be a power of two in [n_in, "
+                         f"2^{MAX_LOG_N}] and the arity at most the size")
+    x0, x1 = c0.reshape(-1, n_in), c1.reshape(-1, n_in)
+    if x0.stride() != x1.stride() or (n_in > 1 and x0.stride(1) != 1):
+        x0, x1 = x0.contiguous(), x1.contiguous()
+        with _LOCK:
+            copies += 1
+    batch = x0.shape[0]
+    leaves = torch.empty((batch, size >> arity_bits, 2 << arity_bits), dtype=torch.int64,
+                         device=c0.device)
+    if batch:
+        _launch(LEAF_MODE, x0, leaves, 2 * batch, size, plan(size) if log_n1 is None else log_n1,
+                lib, pre=nttm.powers(shift, n_in, c0.device), x1=x1, leaf_log=arity_bits)
+    return leaves
+
