@@ -134,7 +134,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                K7 and K8's point kernel a shard and once more on the first
                (the Z rows at g*zeta), K8's scan once, K9's fold mode a
                shard a round (expected_fri_launches), with no plain FRI
-               body.
+               body, and K10 once (every oracle's and FRI tree's query
+               rows and paths read from the shards where they lie), with
+               no plain take (_take_all, _take_sharded) on the card; K1 at
+               most SHARDED_K1_MAX times a proof (each shard's subtree one
+               tree-mode call, and the PoW sweeps).  A warm sharded proof
+               under torch.profiler: its device operations (fewer than
+               SHARDED_DEVICE_OPS_BEFORE), busy time and idle share.
                Then the device operations of one profiled 2^22 four-step,
                fused and as the sequence it replaced (K2 copies with eager
                torch field operations between them), each with its K2
@@ -173,8 +179,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (cuobjdump); no PyTorch call computes a Goldilocks NTT, so
                no library time; the leaf mode at the round-0 codewords of
                one proof, B=4 and the level-1 batch, beside the parent
-               commit's torch.stack, K4 coset NTT and regroup on the same
-               inputs (paired_ms).  A share of the bound above 1.05 fails.
+               commit's leaf mode on the same inputs (paired_ms) and beside
+               K4's coset NTT of the same rows at the same size (the same
+               words as contiguous rows), with the leaf plan's launches.
+               A share of the bound above 1.05 fails.
 15. aggregate -- the reference's default tree aggregation (b=2, d=3: 8
                leaves) of the wormhole phase's zk proof through the
                port's WormholeProofAggregator on the card: 3 pushes, 5
@@ -263,7 +271,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                trees), each with the constants/sigmas tree shared (batch
                stride 0), every word any u64 (in [p, 2^64) too), indices
                0, N - 1 and repeated; a tree with no sibling level;
-               gather_trees_batch's host arrays against the CPU's.
+               gather_trees_batch's host arrays against the CPU's; and
+               the row-sharded trees of one warm sharded proof at E=4 on
+               one card (and spread over the cards, read through peer
+               pointers, where there are several) against the sharded
+               plain version (_take_all with _take_sharded).
 23. gather_time -- K10's device time (graph_ms of its one launch on
                prepared calls) at those three shapes beside its plain
                version, its bound (gather_work: each gathered word read
@@ -478,6 +490,9 @@ DEVICE_OPS_BEFORE_FRI = 11462        # ... before K7-K9 (PERF.md)
 OPENINGS_FRI_OPS_BEFORE = 11390      # prove/openings+fri's of them (stage_device_ops)
 OPENINGS_FRI_OPS_BEFORE_K10 = 305    # prove/openings+fri's before K10 (the parent's, PERF.md §6)
 SHARDS = 4             # E of the sharded phase
+SHARDED_K1_MAX = 60    # K1 launches a sharded proof, at most: 6 trees x E shards x 2, PoW
+SHARDED_DEVICE_OPS_BEFORE = 2423   # a warm sharded proof's device operations before
+                                   # K10 and K1's tree mode served it (PERF.md)
 BATCH = 4              # proofs per prove_batch call (bench.py's ZKT_BENCH_BATCH)
 NTT_LOG = 22           # SCALING.md's size of one sharded polynomial
 SIM_TIMEOUT = 240      # seconds the multihost phase gives its processes
@@ -489,7 +504,7 @@ K2_TIMED_CALLS = 32    # back-to-back calls per K2 timing (graph_ms)
 # (paired_ms; gather_time its eager gather on the host clock): its
 # zk_circuits_torch/ under PARENT_DIR (git-ignored), unpacked there from the
 # checkout's git history when it has the commit.
-PARENT_COMMIT = "3f6d5643636e99e40b66d5938d64f52dae5f0d32"
+PARENT_COMMIT = "12052c11ab8b8ddbd1569b7aa4f4f278f42a28f6"
 PARENT_DIR = "zk_circuits_torch/_build/parent"
 
 
@@ -739,6 +754,36 @@ def expected_k1_launches(common, batch: int = 1) -> dict:
     top = sum(bool(pc.tree_plan(n, cap, min(pc.config(batch * n)[1], n))["top_threads"])
               for _, n, _, _ in trees)
     return {"tree": len(trees), "top": top, "sponge_min": 1}
+
+
+def expected_sharded_k1_launches(common, shards: int, pow_witness: int) -> int:
+    """K1's launches a sharded proof over ``shards`` shards
+    (hash/merkle.py::sharded_tree): for each of its trees (the wires, zs
+    and quotient commits, the constants/sigmas commit it makes again, and
+    each fold round's FRI tree) and each shard, a tree launch over the
+    shard's leaves and a top launch where its blocks' subtrees end below
+    the local cap height (leaves of 4 felts or fewer are padded by torch
+    and the tree is over their digests paired into rows of 8); one more
+    tree over the shards' roots where they outnumber the cap; and the PoW
+    grind's sweeps in sponge mode."""
+    from zk_circuits_torch.hash import poseidon_cuda as pc
+
+    cap = common.config.fri_config.cap_height
+    local = max(cap - (shards.bit_length() - 1), 0)
+
+    def tree(n: int, cols: int, cap_h: int) -> int:
+        if cols <= 4:
+            if n == 1 << cap_h:
+                return 0
+            n >>= 1
+        return 1 + bool(pc.tree_plan(n, cap_h, min(pc.config(n)[1], n))["top_threads"])
+
+    trees = wormhole_trees(common) + [("constants_sigmas", common.lde_size,
+                                       common.config.num_routed_wires, "column-major")]
+    k1 = shards * sum(tree(n // shards, cols, local) for _, n, cols, _ in trees)
+    if shards > 1 << cap:
+        k1 += len(trees) * tree(shards // 2, 8, cap)
+    return k1 + pow_witness // GRIND_ROWS + 1
 
 
 def _as_layout(rows, layout):
@@ -1454,6 +1499,20 @@ def plain_gather_on_card():
     return plain_calls_on_card(fri_device, ("_gather_plain", "take_rows_batch"))
 
 
+@contextlib.contextmanager
+def plain_sharded_gather_on_card():
+    """The calls of the sharded query gather's plain version
+    (fri/fri_device.py's ``_take_all`` and plonk/prover_sharded.py's
+    ``_take_sharded``) on CUDA tensors inside the block: on the card the
+    sharded proof takes K10."""
+    from zk_circuits_torch.fri import fri_device
+    from zk_circuits_torch.plonk import prover_sharded
+
+    with plain_calls_on_card(fri_device, ("_take_all",)) as a, \
+            plain_calls_on_card(prover_sharded, ("_take_sharded",)) as b:
+        yield [a, b]
+
+
 def fri_launches() -> dict:
     """K7's, K8's and K9's launches so far, K9's in its round mode
     (``k9_round``, among K9's), and K10's (the query gather)."""
@@ -1483,8 +1542,8 @@ def expected_fri_launches(common, shards: int | None = None) -> dict:
     K8's point kernel once a shard and once more for the Z rows at g*zeta,
     K8's scan once (two launches), K9's fold mode once a shard a fold round
     while every shard holds a multiple of the arity, else once
-    (fri_sharded._fold gathers); no K10 (the shards' rows are taken where
-    they lie, prover_sharded._take_sharded)."""
+    (fri_sharded._fold gathers), K10 once (the shards' pieces read where
+    they lie)."""
     from zk_circuits_torch.fri import fri_cuda
 
     rounds = fri_rounds(common)
@@ -1498,7 +1557,7 @@ def expected_fri_launches(common, shards: int | None = None) -> dict:
         k9 += len(pieces)
         pieces = [p >> a for p in pieces]
     return {"k7": shards + 1, "k8": shards + 1 + fri_cuda.SCAN_LAUNCHES, "k9": k9,
-            "k9_round": 0, "k10": 0}
+            "k9_round": 0, "k10": 1}
 
 
 def expected_quotient_launches(common, shards: int = 1) -> tuple[int, int]:
@@ -2198,11 +2257,13 @@ def phase_sharded(state) -> None:
         k4_before = dict(ntt_cuda.launches_by_mode)
         k56_before = quotient_launches()
         fri_before = fri_launches()
-        with plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri:
+        with plain_quotient_on_card() as plain_quotient, plain_fri_on_card() as plain_fri, \
+                plain_sharded_gather_on_card() as (takes, shard_takes):
             res, secs = _synced(fn)
-        if plain_quotient or plain_fri:
+        if plain_quotient or plain_fri or takes or shard_takes:
             raise AssertionError(f"sharded/{step}: plain quotient bodies on the card: "
-                                 f"{plain_quotient}; plain FRI bodies: {plain_fri}")
+                                 f"{plain_quotient}; plain FRI bodies: {plain_fri}; plain "
+                                 f"takes: {takes + shard_takes}")
         k1 = poseidon_cuda.launches - k1_before
         k2 = exchange_cuda.launches - k2_before
         if k2 <= 0 or (hashes and k1 <= 0):
@@ -2320,8 +2381,26 @@ def phase_sharded(state) -> None:
         if not torch.equal(meshm.gather(shards), want):
             raise AssertionError(f"sharded {name} != single-device {name}")
         steps[name].update(points=1 << NTT_LOG, single_s=single_s)
+    k1_want = expected_sharded_k1_launches(
+        cd.common, SHARDS, proofs[0].proof.opening_proof.pow_witness)
+    for name in ("prove_cold", "prove_warm"):   # each shard's subtree one tree-mode call
+        if not steps[name]["k1_launches"] == k1_want <= SHARDED_K1_MAX:
+            raise AssertionError(f"sharded/{name}: {steps[name]['k1_launches']} K1 launches, "
+                                 f"want {k1_want}, at most {SHARDED_K1_MAX}")
     pw = WormholeProver(circuit_data=cd, targets=targets).commit(inputs).partial_witness
-    _, out["profile_warm_proof"] = profiled(lambda: prove_sharded(cd, pw, mesh))
+    _, prof = profiled(lambda: prove_sharded(cd, pw, mesh))
+    out["profile_warm_proof"] = prof
+    if prof["device_ops"] >= SHARDED_DEVICE_OPS_BEFORE:
+        raise AssertionError(f"a warm sharded proof ran {prof['device_ops']} device "
+                             f"operations, {SHARDED_DEVICE_OPS_BEFORE} before K10 and K1's "
+                             f"tree mode")
+    out["per_warm_proof"] = {
+        "k10_launches": steps["prove_warm"]["k7_k9_launches"]["k10"],
+        "k1_launches": steps["prove_warm"]["k1_launches"], "k1_expected": k1_want,
+        "device_ops": prof["device_ops"], "device_ops_before": SHARDED_DEVICE_OPS_BEFORE,
+        "device_busy_s": prof["device_busy_s"], "device_idle_share": prof["device_idle_share"],
+        "wall_s": prof["wall_s"], "leaf_kernel_s": prof["leaf_kernel_s"],
+        "gather_kernel_s": prof["gather_kernel_s"]}
     # device operations of one 2^22 four-step, fused and as the parent ran
     # it (K2 copies with eager torch field operations between them), each
     # with its K2 launches by mode
@@ -3002,7 +3081,7 @@ def phase_k4_check(state) -> None:
                                  f"K4's coset NTT and the regroup ({same[1]})")
         checked.append({"name": name, "mode": ntt_cuda.LEAF_MODE, "shape": [2, *c0.shape],
                         "points": size, "arity_bits": a, "leaves": list(got.shape),
-                        "log_n1": ntt_cuda.plan(size)})
+                        "log_n1": ntt_cuda.leaf_plan(size)})
 
     for name, mode, shape, kw in k4_cases(cd.common):
         check(name, mode, k4_inputs(rng, shape)[0], **kw)
@@ -3095,24 +3174,42 @@ def phase_k4_time(state) -> None:
                              lambda: ntt_cuda.transform(xs[0], mode, **kw))})
         del xs
     # the leaf mode at the main path's round-0 codewords, beside the
-    # parent's sequence on the same inputs (torch.stack, its K4 coset NTT,
-    # the fiber regroup copy: its fri_device._commit_codeword)
+    # parent's leaf mode on the same inputs (paired_ms) and beside K4's
+    # coset NTT of the same rows at the same size, which writes the same
+    # words as contiguous rows (paired too: leaf, coset, coset, leaf)
     parent_fd = parent_fri_device()
+    dev0 = torch.device("cuda:0")
     for name, b, n_in, size, a in k4_leaf_cases(cd.common):
         fs = k4_inputs(rng, (2, b, n_in), K4_TIMED_CALLS)
         calls = [lambda f=f: ntt_cuda.coset_leaves(f[0], f[1], 7, size, a) for f in fs]
+        coset_calls = [lambda f=f: ntt_cuda.transform(f.view(2 * b, n_in), "coset_ntt",
+                                                       shift=7, size=size) for f in fs]
         g = graph_ms(calls)
+        beside = paired_ms(coset_calls, calls)   # "ms": the coset NTT, "parent_ms": the leaf mode
         nbytes, muls = k4_work("coset_ntt", (2, b, n_in), size)
         bound, by = k4_bound_ms(nbytes, muls)
-        log_n1 = ntt_cuda.plan(size)
-        cols = ntt_cuda.tiles(2 * b, size, log_n1, ntt_cuda._sm_count(
-            ntt_cuda._lib(), torch.device("cuda:0")))
+        log_n1 = ntt_cuda.leaf_plan(size)
+        sms_lib = ntt_cuda._sm_count(ntt_cuda._lib(), dev0)
+        cols = ntt_cuda.tiles(2 * b, size, log_n1, sms_lib, leaf=True)
+        launches = [{"log_len": lg, "blocks": nb, "threads": t, "smem_bytes": sm,
+                     "blocks_per_sm": ntt_cuda.occupancy("cuda:0", lg, t, sm),
+                     "blocks_per_sm_of_card": nb / sms}
+                    for lg, (nb, t, sm) in zip(ntt_cuda.pass_logs(size, log_n1),
+                                               ntt_cuda.launch_shape(2 * b, size, log_n1, cols,
+                                                                     leaf=True))]
+        coset_ms = statistics.median(beside["ms"])
         rows_out.append({
             "shape": name, "mode": ntt_cuda.LEAF_MODE, "input": [2, b, n_in], "points": size,
             "arity_bits": a, "leaves": [b, size >> a, 2 << a],
             "launches_per_call": 2 if log_n1 else 1,
             "factors": list(ntt_cuda.split(size)) if log_n1 else None, "log_cols": list(cols),
-            **g, "before_ms": None, "ms_over_before": None,
+            "launch": launches, **g, "before_ms": None, "ms_over_before": None,
+            "coset_ntt_same_rows": {"ms": beside["ms"], "leaf_mode_ms": beside["parent_ms"],
+                                    "ms_range": beside["ms_range"],
+                                    "leaf_mode_ms_range": beside["parent_ms_range"],
+                                    "log_cols": list(ntt_cuda.tiles(2 * b, size, log_n1,
+                                                                    sms_lib))},
+            "ms_over_coset_ntt": statistics.median(beside["parent_ms"]) / coset_ms,
             "plain_ms": cuda_ms(lambda: k4_leaf_plain(fs[0], size, a), reps=3, warmup=1),
             "bound_ms": bound, "bound_by": by, "bytes": nbytes, "muls": muls,
             "share_of_bound": bound / g["ms"], "library_ms": None,
@@ -3120,7 +3217,7 @@ def phase_k4_time(state) -> None:
             "paired_with_parent": paired_ms(calls, [
                 lambda f=f: parent_fd._commit_codeword(f[0], f[1], 7, size, a) for f in fs])
             if parent_fd is not None else None})
-        del fs, calls
+        del fs, calls, coset_calls
     emit({"phase": "k4_time", "int32_mul_per_s": INT32_MUL_PER_S,
           "hbm_bytes_per_s": HBM_BYTES_PER_S, "sms": sms,
           "timing": f"ms: CUDA events around the replay of a CUDA graph of {K4_TIMED_CALLS} "
@@ -3134,7 +3231,10 @@ def phase_k4_time(state) -> None:
                     f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor); library_ms: none, no "
                     f"PyTorch call computes a Goldilocks NTT; the coset_leaves rows: K4's "
                     f"leaf mode, plain_ms the stage loop and the regroup, paired_with_parent "
-                    f"paired_ms against the parent's torch.stack, K4 coset NTT and regroup",
+                    f"paired_ms against the parent's leaf mode (its fri_device."
+                    f"_commit_codeword), coset_ntt_same_rows paired_ms of K4's coset NTT of "
+                    f"the same 2 B rows to the same size (leaf, coset, coset, leaf), "
+                    f"ms_over_coset_ntt the ratio of their medians",
           "rows": rows_out, "sass": kernel_sass_counts(
               ntt_cuda.build(), ntt_cuda.build_log, "k4_kernel",
               key=lambda name: "L" + re.match(r"_Z\d+k4_kernelILi(\d+)E", name).group(1))})
@@ -4567,17 +4667,48 @@ def gather_work(trees: list, idxs: list, colmajor: list) -> int:
     return 16 * words + 8 * sum(i.size for i in idxs)
 
 
+def sharded_gather_call(state, mesh) -> tuple:
+    """(trees, idxs, colmajor) of the query gather of one warm sharded
+    proof of the wormhole over ``mesh`` (the trees' row-sharded pieces
+    where the proof left them), caught at fri_device._gather_pieces."""
+    from zk_circuits_torch.api.prover import WormholeProver
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.plonk.prover_sharded import prove_sharded
+
+    cd, targets, inputs = state["wormhole"]
+    real, seen = fd._gather_pieces, []
+
+    def caught(trees, idxs, colmajor, lib=None):
+        seen.append((trees, idxs, list(colmajor)))
+        return real(trees, idxs, colmajor, lib=lib)
+
+    fd._gather_pieces = caught
+    try:
+        pw = WormholeProver(circuit_data=cd, targets=targets).commit(inputs).partial_witness
+        prove_sharded(cd, pw, mesh)
+    finally:
+        fd._gather_pieces = real
+    if len(seen) != 1:
+        raise AssertionError(f"a sharded proof gathered through K10 {len(seen)} times")
+    return seen[0]
+
+
 def phase_gather_check(state) -> None:
     """K10 against its plain version (fri/fri_device.py's _gather_plain) on
     the card, equal integers: the query gather of one wormhole proof, of
     B=4 and of the level-1 batch (its three FRI trees), each with the
     constants/sigmas tree shared, every word any u64, indices 0, N - 1 and
     repeated; a tree with no sibling level; gather_trees_batch's host arrays
-    against the CPU's.  One launch a call."""
+    against the CPU's; the row-sharded trees of one warm sharded proof
+    (E=SHARDS, one card; spread over the cards too where there are
+    several) against ``_take_all`` with ``_take_sharded``.  One launch a
+    call."""
     import torch
 
     from zk_circuits_torch.fri import fri_device as fd
     from zk_circuits_torch.fri import gather_cuda
+    from zk_circuits_torch.parallel import mesh as meshm
+    from zk_circuits_torch.plonk import prover_sharded as ps
 
     gen = torch.Generator(device="cuda").manual_seed(2061)
     before = gather_cuda.launches
@@ -4615,6 +4746,25 @@ def phase_gather_check(state) -> None:
     check("tree_without_sibling_level", trees[:2] + [capped] + trees[2:],
           idxs[:2] + [idxs[-1] % 16] + idxs[2:], shared[:2] + [False] + shared[2:],
           cm[:2] + [False] + cm[2:])
+    del trees, capped
+    cards = torch.cuda.device_count()
+    meshes = [("sharded_one_card", meshm.Mesh((torch.device("cuda", 0),) * SHARDS))]
+    if cards > 1:
+        meshes.append(("sharded_over_cards", meshm.make_mesh(SHARDS)))
+    for name, mesh in meshes:
+        trees, idxs, cm = sharded_gather_call(state, mesh)
+        got, _ = fd._gather_pieces(trees, idxs, cm)
+        want, _ = fd._take_all(trees, idxs, cm, lambda sh, i, c: ps._take_sharded(
+            sh, i, c, mesh.first))
+        _sync_all()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"gather_check/{name}: K10 over the shards' pieces != the "
+                                 f"plain takes")
+        checked.append({"name": name, "trees": len(trees), "shards": SHARDS,
+                        "cards": sorted({str(p.device) for p in trees[0][0]}),
+                        "queries": int(len(idxs[0])), "words": got.numel(),
+                        "pieces_by_level": [len(lv) for lv in trees[0][1]]})
+        del trees
     state["k10_max_abs_err"] = 0
     emit({"phase": "gather_check", "equal_integers": True, "cases": checked,
           "launches": gather_cuda.launches - before})

@@ -824,8 +824,10 @@ def test_k10_matches_plain(cuda, batch):
 @pytest.mark.parametrize("arity_bits", [1, 2, 3, 4, 5])
 def test_k4_leaf_mode_matches_plain(cuda, arity_bits, batch):
     """K4's leaf mode on the card at FRI's round-0 shape (2^13 -> 2^16, the
-    four-step, two launches) and on the row path (2^9 -> 2^12), the two
-    components read from K8's (2, B, n) buffer: equal to the plain stage
+    four-step, two launches), at 2^9 -> 2^12 (the four-step too: a row-path
+    tile holds a row of each component up to 2^11) and on the row path
+    (2^8 -> 2^11), the two components read from K8's (2, B, n) buffer,
+    stored as whole leaves: equal to the plain stage
     loop's coset NTT regrouped into fiber leaves, and to K4's coset NTT and
     the regroup (``_commit_codeword_plain`` on the card)."""
     from zk_circuits_torch.fri import fri_device as fd
@@ -833,13 +835,13 @@ def test_k4_leaf_mode_matches_plain(cuda, arity_bits, batch):
     from zk_circuits_torch.ntt import ntt_cuda
 
     rng = np.random.default_rng(10 * arity_bits + batch)
-    for n, size in ((1 << 13, 1 << 16), (1 << 9, 1 << 12)):
+    for n, size in ((1 << 13, 1 << 16), (1 << 9, 1 << 12), (1 << 8, 1 << 11)):
         f = gf.from_u64(rng.integers(0, P, (2, batch, n), dtype=np.uint64), cuda)
         before = ntt_cuda.launches_by_mode[ntt_cuda.LEAF_MODE]
         got = ntt_cuda.coset_leaves(f[0], f[1], 7, size, arity_bits)
         torch.cuda.synchronize()
         assert ntt_cuda.launches_by_mode[ntt_cuda.LEAF_MODE] - before == \
-            (2 if ntt_cuda.plan(size) else 1)
+            (2 if ntt_cuda.leaf_plan(size) else 1)
         v = nttm.coset_ntt_plain(f, 7, size)
         assert torch.equal(got, fd._fiber_leaves(v[0], v[1], 1 << arity_bits))
         assert torch.equal(got, fd._commit_codeword_plain(f[0], f[1], 7, size, arity_bits))
@@ -881,3 +883,49 @@ def test_k10_and_leaf_mode_on_a_proof(cuda):
             assert ntt_cuda.launches_by_mode[ntt_cuda.LEAF_MODE] > before[1]
     assert out[0] == out[1]
     assert [d for d, _ in plain] == ["cpu"] * len(plain) and plain
+
+
+def test_sharded_wormhole_gathers_once_and_hashes_by_shard(cuda):
+    """The zk wormhole of the golden inputs proved over make_mesh(4) on the
+    card: K10 once (the shards' pieces read where they lie, no plain take
+    on a CUDA tensor), K1 as chip_smoke.py's sharded phase counts it
+    (``expected_sharded_k1_launches``: each shard's subtree in K1's tree
+    mode, and the PoW sweeps), and the proof's sha256 the pinned
+    ``GOLDEN_WORMHOLE_ZK_SHA256``."""
+    import hashlib
+
+    import chip_smoke
+    from zk_circuits_torch.api.prover import WormholeProver
+    from zk_circuits_torch.circuits.wormhole import golden_fixtures
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.fri import gather_cuda
+    from zk_circuits_torch.parallel import mesh as meshm
+    from zk_circuits_torch.plonk import prover_sharded as ps
+    from zk_circuits_torch.plonk.config import CircuitConfig
+    from zk_circuits_torch.utils.serialization import proof_to_bytes
+
+    prover = WormholeProver(CircuitConfig.standard_recursion_zk_config(), device="cuda")
+    cd, targets = prover.circuit_data, prover.targets
+    mesh = meshm.make_mesh(chip_smoke.SHARDS)
+    takes = []
+    real = {(m, k): getattr(m, k) for m, k in ((fd, "_take_all"), (ps, "_take_sharded"))}
+    for (m, k), fn in real.items():
+        setattr(m, k, lambda *a, _k=k, _fn=fn, **kw: takes.append(_k) or _fn(*a, **kw))
+    try:
+        for _ in range(2):   # the second proof warm
+            pw = WormholeProver(circuit_data=cd, targets=targets).commit(
+                golden_fixtures.test_inputs()).partial_witness
+            before = gather_cuda.launches, poseidon_cuda.launches
+            proof = ps.prove_sharded(cd, pw, mesh)
+            torch.cuda.synchronize()
+            k10, k1 = gather_cuda.launches - before[0], poseidon_cuda.launches - before[1]
+    finally:
+        for (m, k), fn in real.items():
+            setattr(m, k, fn)
+    assert takes == []
+    assert k10 == 1
+    assert k1 == chip_smoke.expected_sharded_k1_launches(
+        cd.common, chip_smoke.SHARDS, proof.proof.opening_proof.pow_witness)
+    assert k1 <= chip_smoke.SHARDED_K1_MAX
+    assert hashlib.sha256(proof_to_bytes(proof)).hexdigest() == \
+        chip_smoke.GOLDEN_WORMHOLE_ZK_SHA256

@@ -240,26 +240,30 @@ def test_k10_refusals(glib):
 
 def test_k10_blob_layout(glib):
     """``describe``'s blob against csrc/gather.cuh's layout: a descriptor a
-    tree, then each tree's levels (pointer, batch stride, row stride), then
-    its indices; output offsets in call order."""
+    tree, then each tree's level records (address, log2 rows a piece,
+    batch stride, row stride), then its indices; a matrix of one piece
+    (every matrix here) has its address in place of a piece table and
+    ONE_PIECE_LOG; output offsets in call order."""
     rng = np.random.default_rng(19)
     trees, _, shared, colmajor, idxs = _forest(rng, 2, 2)
     blob, total, most = gather_cuda.describe(trees, idxs, shared, colmajor)
     d = blob[: 3 * gather_cuda.DESC].reshape(3, gather_cuda.DESC)
     f = {k: i for i, k in enumerate(gather_cuda.FIELDS)}
-    out = 0
+    out, one = 0, gather_cuda.ONE_PIECE_LOG
     for t, ((leaves, levels), idx) in enumerate(zip(trees, idxs)):
         assert d[t, f["leaves"]] == leaves.data_ptr() and d[t, f["out"]] == out
+        assert d[t, f["llog"]] == one
         assert d[t, f["bs"]] == (0 if shared[t] else leaves.stride(0))
         nlev = len(levels) - 1
-        lvl = blob[d[t, f["lvl"]]: d[t, f["lvl"]] + 3 * nlev].reshape(nlev, 3)
+        lvl = blob[d[t, f["lvl"]]: d[t, f["lvl"]] + gather_cuda.LEVEL * nlev].reshape(
+            nlev, gather_cuda.LEVEL)
         assert [tuple(r) for r in lvl] == [
-            (lv.data_ptr(), 0 if shared[t] else lv.stride(0), 4) for lv in levels[:-1]]
+            (lv.data_ptr(), one, 0 if shared[t] else lv.stride(0), 4) for lv in levels[:-1]]
         assert np.array_equal(blob[d[t, f["idx"]]: d[t, f["idx"]] + idx.size], idx.reshape(-1))
         out += d[t, f["total"]]
     assert total == out and most == d[:, f["total"]].max()
     assert blob.size == 3 * gather_cuda.DESC + sum(
-        3 * (len(lv) - 1) + i.size for (_, lv), i in zip(trees, idxs))
+        gather_cuda.LEVEL * (len(lv) - 1) + i.size for (_, lv), i in zip(trees, idxs))
 
 
 FRI_ROUNDS = dict(proof_of_work_bits=2, num_query_rounds=3, reduction_arity_bits=2,

@@ -1030,7 +1030,10 @@ struct ShimBlock {
   }
   template <int B>
   void store() {
-    for (int tid = 0; tid < nthr; tid++) k4_store_r<B>(c, pass, t, v(tid), tid, nthr);
+    for (int tid = 0; tid < nthr; tid++) k4_store_r<B>(c, pass, t, sm, v(tid), tid, nthr);
+  }
+  void flush() {
+    for (int tid = 0; tid < nthr; tid++) k4_flush(c, pass, t, sm, v(tid), tid, nthr);
   }
   void sync() {}
 };
@@ -1544,6 +1547,68 @@ def test_k4_leaf_mode_edges_and_refusals(k4_lib):
         assert k4_lib.k4_ntt(0, ctypes.byref(call), None) != 0, (leaf_log, x1, half)
     with pytest.raises(ValueError):
         ntt_cuda.coset_leaves(x[0], x[1], 7, 64, 2)   # a CPU tensor without a host library
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("arity_bits", [1, 2, 3, 4])
+def test_k4_leaf_mode_stores_whole_leaves(k4_lib, arity_bits, batch, monkeypatch):
+    """The leaf mode's staged store (tiles of both component rows, whole
+    leaves from shared memory) at the FRI arities the main path runs,
+    B = 1 and 3, the second component in a buffer of its own: on the row
+    path (2^8), on small four-steps (2^9 with the row path's threshold
+    patched down; 2^12, past the row path's leaf tiles) and with every SM
+    count from 1 to 256 shrinking the tiles; equal integers against
+    ``fri_device._commit_codeword_plain``."""
+    from zk_circuits_torch.fri import fri_device as fd
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    rng = np.random.default_rng(900 + 10 * arity_bits + batch)
+    shift = pow(7, 1 << arity_bits, P)
+    plans = set()
+    for n_in, size, row_max_log in ((32, 256, 12), (64, 512, 4), (512, 4096, 12)):
+        monkeypatch.setattr(ntt_cuda, "ROW_MAX_LOG", row_max_log)
+        c0, c1 = _leaf_inputs(rng, batch, n_in, "apart")
+        want = fd._commit_codeword_plain(c0, c1, shift, size, arity_bits)
+        for sms in (1, 4, 256):
+            k4_lib.shim_k4_set_sms(sms)
+            try:
+                got = ntt_cuda.coset_leaves(c0, c1, shift, size, arity_bits, lib=k4_lib)
+            finally:
+                k4_lib.shim_k4_set_sms(4)
+            log_n1 = ntt_cuda.leaf_plan(size)
+            plans.add((size, ntt_cuda.tiles(2 * batch, size, log_n1, sms, leaf=True)))
+            assert np.array_equal(got.numpy(), want.numpy()), (n_in, size, sms)
+        assert (ntt_cuda.leaf_plan(size) == 0) == (size == 256), size
+    assert len(plans) > 3, plans   # some SM counts shrank a tile
+
+
+# K4's leaf mode at the main path's round-0 codewords (B proofs, points):
+# one wormhole proof, a batch of 4 and the level-1 aggregation batch; its
+# launches are those of the coset NTT of the same 2 B rows.
+K4_LEAF_PLANS = {(1, 1 << 16): (2, 1 << 16), (4, 1 << 16): (8, 1 << 16),
+                 (4, 1 << 17): (8, 1 << 17)}
+
+
+@pytest.mark.parametrize("shape", sorted(K4_LEAF_PLANS))
+def test_k4_leaf_mode_tile_plans_at_main_path_shapes(k4_lib, shape):
+    """``tiles(..., leaf=True)`` on 132 SMs at the main path's leaf-mode
+    shapes: the header launches what ``launch_shape(..., leaf=True)``
+    says, with the blocks, threads and shared bytes of the coset NTT of
+    the same rows (``K4_MAIN_PLANS``'s plan for them)."""
+    from zk_circuits_torch.ntt import ntt_cuda
+
+    batch, n = shape
+    rows = 2 * batch
+    log_n1 = ntt_cuda.leaf_plan(n)
+    cols = ntt_cuda.tiles(rows, n, log_n1, 132, leaf=True)
+    got = ntt_cuda.launch_shape(rows, n, log_n1, cols, leaf=True)
+    plain_cols = ntt_cuda.tiles(rows, n, log_n1, 132)
+    assert got == ntt_cuda.launch_shape(rows, n, log_n1, plain_cols), (cols, plain_cols)
+    call = ntt_cuda._Call(rows=rows, log_n=n.bit_length() - 1, log_n1=log_n1,
+                          log_cols=(ctypes.c_int * 3)(*cols), leaf_log=4, x1=1, half=batch)
+    out = np.zeros(9, dtype=np.int64)
+    k4_lib.shim_k4_launch(ctypes.byref(call), _ptr(out))
+    assert [tuple(out[3 * p: 3 * p + 3]) for p in (1, 2)] == got
 
 
 @pytest.mark.parametrize("row_max_log", [12, 4])

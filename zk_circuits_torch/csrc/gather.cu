@@ -9,6 +9,11 @@
 // indexing kernel (265 device operations a wormhole proof, PERF.md); here it
 // is one launch for every tree and proof of a call, after one upload of
 // the descriptors and indices (gather.cuh gives the layout and the order).
+// A row-sharded tree (the sharded prover's oracles and FRI trees, E
+// pieces a leaf matrix and a level) is read where its shards lie: a row's
+// piece and its local row come from the row by a shift and a mask, a piece
+// on another card through its peer pointer, so the sharded proof's query
+// phase is the same one launch.
 //
 // Launch: a row of blocks a tree (grid y), K10_THREADS threads a block, a
 // thread an output word in a grid-stride loop over the tree's words;

@@ -69,7 +69,10 @@ struct K4Thread {
   }
   template <int B>
   __device__ __forceinline__ void store() {
-    k4_store_r<B>(c, pass, t, v, threadIdx.x, blockDim.x);
+    k4_store_r<B>(c, pass, t, sm, v, threadIdx.x, blockDim.x);
+  }
+  __device__ __forceinline__ void flush() {
+    k4_flush(c, pass, t, sm, v, threadIdx.x, blockDim.x);
   }
   __device__ __forceinline__ void sync() { __syncthreads(); }
 };
@@ -88,7 +91,7 @@ GL_HD constexpr int k4_min_blocks(int l) { return l > K4_TILE_MAX_LOG ? 1 : l <=
 template <int L>
 __global__ void __launch_bounds__(L > K4_TILE_MAX_LOG ? K4_MAX_THREADS : 256, k4_min_blocks(L))
     k4_kernel(const __grid_constant__ K4Call c, int pass) {
-  extern __shared__ uint64_t k4_smem[];
+  extern __shared__ __align__(16) uint64_t k4_smem[];
   K4Thread th{c, pass, k4_tile(c, pass, blockIdx.x), k4_smem, {}};
   th.t.l = L;   // constants for the compiler from here on
   th.t.rounds = k4_rounds(L);

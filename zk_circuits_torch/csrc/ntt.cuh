@@ -27,7 +27,19 @@
 //   leaves[b][m mod M][2 (m div M) + comp],   M = n / 2^leaf_log,
 //
 // the (half, M, 2^(leaf_log + 1)) leaves of fri/fri_device.py's
-// _fiber_leaves, with no regroup copy after the transform.
+// _fiber_leaves, with no regroup copy after the transform.  A leaf holds
+// words of both component rows, so the passes that store (the row path,
+// pass B) take tiles of the same columns of rows b and half + b (the
+// first component's columns first, k4_col_row) and store whole leaves:
+// the last round puts its values in shared memory in the output's order
+// (k4_stage_index), and after a barrier each thread stores pairs of
+// consecutive words from there, 16 bytes each (k4_flush), a warp 64 words
+// of one run.  On the row path a tile's proofs are one run; in pass B,
+// where column k2 holds the values m = k2 + n2 k1 (k1 < n1),
+// m mod M = k2 + n2 (k1 mod M / n2) and m div M = k1 div (M / n2) while
+// n2 <= M: the column holds M / n2 whole leaves of one component, each
+// leaf 2^(leaf_log + 1) consecutive words of the output (a larger n2 still
+// takes the same order, in shorter runs).
 //
 // Every output is canonical, so equal to the stage loop's (field results
 // are unique).  Two paths, each made of passes; a pass transforms columns
@@ -112,10 +124,12 @@ struct K4Call {
 
 // One block's tile.  Row path: batch rows row .. row + count - 1 (columns
 // from count on are past the last row).  Passes A and B: batch row `row`,
-// j1 (A) or k2 (B) first .. first + 2^lc - 1.
+// j1 (A) or k2 (B) first .. first + 2^lc - 1.  `staged`: the leaf mode's
+// row path and pass B (k4_staged), whose tile holds 2^(lc - 1) columns of
+// each component row and whose last round stores through shared memory.
 struct K4Tile {
   long long row, first;
-  int count, l, lc, rounds;
+  int count, l, lc, rounds, staged;
 };
 
 // A task of a round: column c, subproblem d, index j < M_r.
@@ -180,48 +194,80 @@ GL_HD int k4_pitch(int l, int pass) {
   return (1 << l) + ((1 << l) >> 4) + (pass == K4_PASS_ROW ? 0 : 1);
 }
 
+// Whether the pass stores whole fiber leaves through shared memory: the
+// leaf mode's row path and pass B.
+GL_HD bool k4_staged(const K4Call& c, int pass) { return c.leaf_log && pass != K4_PASS_A; }
+
+// The tile's values at once: 2^(l + lc), and the slots that the staged
+// store takes (two spare slots every 32, k4_stage_pad).
+GL_HD long long k4_stage_elems(int l, int lc) {
+  const long long v = 1LL << (l + lc);
+  return v + (v >> 4);
+}
+
 GL_HD long long k4_blocks(const K4Call& c, int pass) {
   const int lc = c.log_cols[pass];
   if (pass == K4_PASS_ROW) return (c.rows + (1LL << lc) - 1) >> lc;
   const int cols = pass == K4_PASS_A ? c.log_n1 : c.log_n - c.log_n1;
-  return c.rows << (cols - lc);
+  return (c.rows << cols) >> lc;   // a staged pass B: lc up to cols + 1, rows even
 }
 
-// Shared-memory slots of a block of the pass (none for one round).
+// Shared-memory slots of a block of the pass (none for one round, but
+// for a staged store).
 GL_HD long long k4_smem_elems(const K4Call& c, int pass) {
-  const int l = k4_log_len(c, pass);
-  return k4_rounds(l) > 1 ? (long long)k4_pitch(l, pass) << c.log_cols[pass] : 0;
+  const int l = k4_log_len(c, pass), lc = c.log_cols[pass];
+  const long long ex = k4_rounds(l) > 1 ? (long long)k4_pitch(l, pass) << lc : 0;
+  if (!k4_staged(c, pass)) return ex;
+  const long long st = k4_stage_elems(l, lc);
+  return st > ex ? st : ex;
 }
 
+// Block blk's tile.  A staged tile (k4_staged) takes 2^(lc - 1) columns
+// of each component row: row path, proofs row .. row + count - 1 of both
+// components; pass B, proof `row`'s k2 first .. first + 2^(lc - 1) - 1.
 GL_HD K4Tile k4_tile(const K4Call& c, int pass, long long blk) {
   K4Tile t;
   t.l = k4_log_len(c, pass);
   t.lc = c.log_cols[pass];
   t.rounds = k4_rounds(t.l);
+  t.staged = k4_staged(c, pass);
+  const int h = t.lc - t.staged;   // log2 of the tile's columns of one row
   if (pass == K4_PASS_ROW) {
-    t.row = blk << t.lc;
+    t.row = blk << h;
     t.first = 0;
-    const long long left = c.rows - t.row;
-    t.count = left < (1LL << t.lc) ? (int)left : 1 << t.lc;
+    const long long left = (t.staged ? c.half : c.rows) - t.row;
+    t.count = left < (1LL << h) ? (int)left : 1 << h;
   } else {
-    const int per_row = (pass == K4_PASS_A ? c.log_n1 : c.log_n - c.log_n1) - t.lc;
+    const int per_row = (pass == K4_PASS_A ? c.log_n1 : c.log_n - c.log_n1) - h;
     t.row = blk >> per_row;
-    t.first = (blk & ((1LL << per_row) - 1)) << t.lc;
-    t.count = 1 << t.lc;
+    t.first = (blk & ((1LL << per_row) - 1)) << h;
+    t.count = 1 << h;
   }
   return t;
 }
 
+// The batch row of tile column col, and in *cl its column among those of
+// its row (col itself but in a staged tile, whose columns from 2^(lc - 1)
+// on are the second component's, row half + b).
+GL_HD long long k4_col_row(const K4Call& c, int pass, const K4Tile& t, int col, int* cl) {
+  const int h = t.lc - t.staged;
+  *cl = col & ((1 << h) - 1);
+  const long long row = t.staged && (col >> h) ? t.row + c.half : t.row;
+  return pass == K4_PASS_ROW ? row + *cl : row;
+}
+
 // Task tau of round r.  Pass A's first and last rounds, and pass B's last
-// round after others, put neighbouring tasks on neighbouring columns (j1,
-// contiguous in the input and in scratch; k2, contiguous in the output);
-// otherwise neighbouring tasks take neighbouring j, then d.
+// round after others (but staged), put neighbouring tasks on neighbouring
+// columns (j1, contiguous in the input and in scratch; k2, contiguous in
+// the output); otherwise neighbouring tasks take neighbouring j, then d
+// (a staged last round: neighbouring values of a column, whose slots in
+// shared memory are 2^(leaf_log + 1) apart).
 GL_HD K4Task k4_task(int pass, const K4Tile& t, int r, int tau) {
   const int b = k4_radix_log(t.l, r), lm = t.l - k4_done_log(t.l, r) - b;   // log2 M_r
   K4Task k;
   int q;
   if ((pass == K4_PASS_A && (r == 0 || r == t.rounds - 1)) ||
-      (pass == K4_PASS_B && r > 0 && r == t.rounds - 1)) {
+      (pass == K4_PASS_B && !t.staged && r > 0 && r == t.rounds - 1)) {
     k.c = tau & ((1 << t.lc) - 1);
     q = tau >> t.lc;
   } else {
@@ -235,20 +281,24 @@ GL_HD K4Task k4_task(int pass, const K4Tile& t, int r, int tau) {
 
 // A call the kernel takes: n up to 2^26, the row path up to 2^13, the
 // four-step's factors both up to 2^13, n_in in [1, n], tiles that fit a
-// block (k4_tile_fits) and no more columns than the pass has.
+// block (k4_tile_fits) and no more columns than the pass has; the leaf
+// mode forward only and unscaled, its staged tiles of two columns at least
+// (one of each component row).
 GL_HD bool k4_valid(const K4Call& c) {
   if (c.log_n < 0 || c.log_n > K4_MAX_LOG_N || c.rows < 0 || c.n_in < 1 ||
       c.n_in > (1LL << c.log_n) || c.in_stride < 0 || c.inverse < 0 || c.inverse > 1)
     return false;
   if (c.leaf_log < 0 || c.leaf_log > c.log_n || !c.leaf_log != !c.x1 ||
-      (c.leaf_log ? c.half < 1 || c.rows != 2 * c.half : c.half != 0))
+      (c.leaf_log ? c.half < 1 || c.rows != 2 * c.half || c.inverse || c.post || c.scale != 1
+                  : c.half != 0))
     return false;
-  const int l1 = c.log_n1, l2 = c.log_n - c.log_n1;
+  const int l1 = c.log_n1, l2 = c.log_n - c.log_n1, leaf = c.leaf_log != 0;
+  if (leaf && c.log_cols[l1 == 0 ? 0 : 2] < 1) return false;
   if (l1 == 0)
     return c.log_n <= K4_PASS_MAX_LOG && k4_tile_fits(c.log_n, c.log_cols[0]);
   return l1 > 0 && l2 > 0 && l1 <= K4_PASS_MAX_LOG && l2 <= K4_PASS_MAX_LOG &&
          c.scratch != nullptr && c.log_cols[1] <= l1 && k4_tile_fits(l2, c.log_cols[1]) &&
-         c.log_cols[2] <= l2 && k4_tile_fits(l1, c.log_cols[2]);
+         c.log_cols[2] <= l2 + leaf && k4_tile_fits(l1, c.log_cols[2]);
 }
 
 // ---------------------------------------------------------------------------
@@ -443,9 +493,11 @@ GL_HD void k4_begin_r(const K4Call& c, int pass, const K4Tile& t, uint64_t* v, i
     if (tau >= tasks) continue;
     uint64_t* a = v + u * R;
     const K4Task k = k4_task(pass, t, 0, tau);
+    int cl;
+    const long long row = k4_col_row(c, pass, t, k.c, &cl);
     if (pass == K4_PASS_ROW) {
-      const uint64_t* src = k4_src(c, t.row + k.c);
-      const bool live = k.c < t.count;
+      const uint64_t* src = k4_src(c, row);
+      const bool live = cl < t.count;
 #pragma unroll
       for (int m = 0; m < R; m++)
         if (m < (1 << z)) a[m] = live ? k4_in(c, src, k.j + ((long long)m << lm)) : 0;
@@ -456,7 +508,7 @@ GL_HD void k4_begin_r(const K4Call& c, int pass, const K4Tile& t, uint64_t* v, i
       for (int m = 0; m < R; m++)
         if (m < (1 << z)) a[m] = k4_in(c, src, j1 + ((long long)(k.j + (m << lm)) << c.log_n1));
     } else {
-      const uint64_t* src = c.scratch + (t.row << c.log_n) + ((t.first + k.c) << c.log_n1) + k.j;
+      const uint64_t* src = c.scratch + (row << c.log_n) + ((t.first + cl) << c.log_n1) + k.j;
 #pragma unroll
       for (int m = 0; m < R; m++) a[m] = src[(long long)m << lm];
     }
@@ -509,12 +561,54 @@ GL_HD void k4_get_r(const K4Call& c, int pass, const K4Tile& t, const uint64_t* 
   }
 }
 
+// Shared-memory slot of staged value e: a pair of spare slots every 32
+// values, so that the pair (2p, 2p + 1) is one aligned 16-byte load and
+// the last round's writes, 2^(leaf_log + 1) values apart, spread over the
+// banks.
+GL_HD int k4_stage_pad(int e) { return e + ((e >> 5) << 1); }
+
+// Two consecutive words, 16-byte aligned: one 16-byte access on the card.
+GL_HD void k4_load2(const uint64_t* src, uint64_t* w) {
+#ifdef __CUDA_ARCH__
+  const ulonglong2 p = *reinterpret_cast<const ulonglong2*>(src);
+  w[0] = p.x;
+  w[1] = p.y;
+#else
+  w[0] = src[0];
+  w[1] = src[1];
+#endif
+}
+
+GL_HD void k4_store2(uint64_t* dst, const uint64_t* w) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<ulonglong2*>(dst) = make_ulonglong2(w[0], w[1]);
+#else
+  dst[0] = w[0];
+  dst[1] = w[1];
+#endif
+}
+
+// k1's l bits turned g to the right: k1 = k 2^g + t becomes t 2^(l - g) + k.
+GL_HD int k4_rot(int k1, int g, int l) { return ((k1 & ((1 << g) - 1)) << (l - g)) | (k1 >> g); }
+
+// Slot, before k4_stage_pad, of value k1 (< 2^l) of column cl of component
+// comp in a staged tile: e = (cl << (l + 1)) | (rot(k1) << 1) | comp, rot
+// by g = max(l - leaf_log, 0).  Row path: m = k1 = k M + t is slot k of
+// leaf t, so e runs over the tile's proofs' leaves in the output's order;
+// pass B: m mod M = k2 + n2 t and m div M = k, so e runs over column cl's
+// whole leaves, each 2^(leaf_log + 1) words (see the top of the file).
+GL_HD int k4_stage_index(const K4Tile& t, int leaf_log, int cl, int k1, int comp) {
+  const int g = t.l > leaf_log ? t.l - leaf_log : 0;
+  return (((cl << t.l) | k4_rot(k1, g, t.l)) << 1) | comp;
+}
+
 // The last round's A[k] = X[d + S k] (S = S_(rounds - 1)) of the pass:
 // to the output (row path, pass B: inverse's reversal, scale and post
-// fused, canonical) or to scratch times pass A's twiddle w_n^(j1 k2).
+// fused, canonical), to shared memory (a staged tile: k4_flush stores it)
+// or to scratch times pass A's twiddle w_n^(j1 k2).
 template <int B>
-GL_HD void k4_store_r(const K4Call& c, int pass, const K4Tile& t, const uint64_t* v, int tid,
-                      int nthr) {
+GL_HD void k4_store_r(const K4Call& c, int pass, const K4Tile& t, uint64_t* sm,
+                      const uint64_t* v, int tid, int nthr) {
   constexpr int R = 1 << B;
   const int ls = k4_done_log(t.l, t.rounds - 1), tasks = 1 << (t.l + t.lc - B);
 #pragma unroll
@@ -523,7 +617,15 @@ GL_HD void k4_store_r(const K4Call& c, int pass, const K4Tile& t, const uint64_t
     if (tau >= tasks) continue;
     const uint64_t* a = v + u * R;
     const K4Task k = k4_task(pass, t, t.rounds - 1, tau);
-    if (pass == K4_PASS_ROW) {
+    if (t.staged) {   // the leaf mode: forward, no scaling (k4_valid)
+      // k1 = d + q 2^ls with d < 2^ls: the rotation of k1 is that of d or'd
+      // with that of q 2^ls, their bits apart
+      const int h = t.lc - 1, g = t.l > c.leaf_log ? t.l - c.leaf_log : 0;
+      const int head = k4_stage_index(t, c.leaf_log, k.c & ((1 << h) - 1), k.d, k.c >> h);
+#pragma unroll
+      for (int q = 0; q < R; q++)
+        sm[k4_stage_pad(head | (k4_rot(q << ls, g, t.l) << 1))] = gl_canon(a[q]);
+    } else if (pass == K4_PASS_ROW) {
       if (k.c >= t.count) continue;
 #pragma unroll
       for (int q = 0; q < R; q++) {
@@ -549,12 +651,54 @@ GL_HD void k4_store_r(const K4Call& c, int pass, const K4Tile& t, const uint64_t
   }
 }
 
+// A staged tile's words from shared memory to the output, in slot order
+// (k4_stage_index), a pair of words (the two components of one value) at
+// a time: thread tid the pairs tid + nthr u, all loaded (into v, free
+// after the store) before any is stored, each stored as 16 bytes, so that
+// a warp stores 64 consecutive words of the output wherever a run of
+// whole leaves holds them.  The row path's tile is one run from its first
+// proof's leaves; in pass B, where the column holds whole leaves
+// (leaf_log <= l), slot e is word e mod 2^(leaf_log + 1) of leaf
+// first + cl + n2 t (t = bits leaf_log + 1 .. l of e), else the pair goes
+// to k4_slot of its (row, m) and the next word.
+GL_HD void k4_flush(const K4Call& c, int pass, const K4Tile& t, const uint64_t* sm,
+                    uint64_t* v, int tid, int nthr) {
+  const int g = t.l > c.leaf_log ? t.l - c.leaf_log : 0, kb = t.l - g, ll = c.leaf_log + 1;
+  const int pairs = 1 << (t.l + t.lc - 1), log_n2 = c.log_n - c.log_n1;
+  uint64_t* const base = c.out + (t.row << (c.log_n + 1));
+#pragma unroll
+  for (int u = 0; u < K4_V / 2; u++) {
+    const int p = tid + nthr * u;
+    if (p < pairs) k4_load2(sm + k4_stage_pad(2 * p), v + 2 * u);
+  }
+#pragma unroll
+  for (int u = 0; u < K4_V / 2; u++) {
+    const int p = tid + nthr * u, e = 2 * p, cl = e >> (t.l + 1);
+    if (p >= pairs || (pass == K4_PASS_ROW && cl >= t.count)) continue;   // past the last proof
+    uint64_t* dst;
+    if (pass == K4_PASS_ROW) {
+      dst = base + e;
+    } else if (c.leaf_log <= t.l) {   // leaf < M <= 2^25
+      const int leaf = (int)t.first + cl + (((e >> ll) & ((1 << g) - 1)) << log_n2);
+      dst = base + ((long long)leaf << ll) + (e & ((1 << ll) - 1));
+    } else {
+      const int r = (e >> 1) & ((1 << t.l) - 1);
+      const long long k1 = ((long long)(r & ((1 << kb) - 1)) << g) | (r >> kb);
+      dst = k4_slot(c, t.row, t.first + cl + (k1 << log_n2));
+    }
+    k4_store2(dst, v + 2 * u);
+  }
+}
+
 // A block's work on a pass of 2^L points, its phases in order: round 0,
 // then for each later round a put of the last round's values (after a
 // barrier: every read of the exchange before it done), a barrier and the
-// round's get, then the store.  `blk` runs a phase for the block's threads
-// and holds their values: on the card one thread and __syncthreads
-// (ntt.cu), in the host tests every thread in turn and no barrier.
+// round's get, then the store; a staged tile's store goes to shared
+// memory (after a barrier, where rounds exchanged there), and after
+// another barrier the flush stores it to the output.  `blk` runs a phase
+// for the block's threads and holds their values: on the card one thread
+// and __syncthreads (ntt.cu), in the host tests every thread in turn and
+// no barrier.
 template <int L, class Block>
 GL_HD void k4_block(Block& blk) {
   constexpr int k = k4_rounds(L);
@@ -577,7 +721,14 @@ GL_HD void k4_block(Block& blk) {
     blk.template get<k4_radix_log(L, 3)>(3);
   }
   static_assert(k <= 4, "a pass has at most four rounds");
-  blk.template store<k4_radix_log(L, k - 1)>();
+  if (k4_staged(blk.c, blk.pass)) {
+    if constexpr (k > 1) blk.sync();
+    blk.template store<k4_radix_log(L, k - 1)>();
+    blk.sync();
+    blk.flush();
+  } else {
+    blk.template store<k4_radix_log(L, k - 1)>();
+  }
 }
 
 // The kernel's pass lengths, 2^0 .. 2^K4_PASS_MAX_LOG: F<L>(args...) for

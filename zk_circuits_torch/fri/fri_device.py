@@ -300,13 +300,32 @@ def _split(flat: np.ndarray, trees: list, idxs: list, widths: list) -> list:
     return out
 
 
+def _gather_pieces(trees: list, idxs: list, colmajor, lib=None) -> tuple:
+    """K10 over one proof's trees of row-sharded pieces (no proof axis, so
+    read as shared trees of a batch of one): the flat words and each
+    tree's row width.  ``lib`` as for ``gather_cuda.gather``."""
+    widths = [gather_cuda.pieces(lf)[0].shape[-2 if cm else -1]
+              for (lf, _), cm in zip(trees, colmajor)]
+    flat = gather_cuda.gather(trees, [np.asarray(i, dtype=np.int64).reshape(1, -1)
+                                      for i in idxs],
+                              [True] * len(trees), list(colmajor), lib=lib)
+    return flat, widths
+
+
 def gather_trees(trees: list, idxs: list, colmajor: tuple, take) -> list:
-    """trees: per tree (leaves, levels) with leaves (N, w) row-major, or
-    (w, N) column-major where ``colmajor`` says so; idxs: per-tree query
-    indices.  Gathers every row and sibling path on the device with
-    ``take(leaves_or_level, idx, colmajor)`` and fetches them in ONE
-    transfer.  Returns [(rows u64 (Q, w), sibs u64 (Q, L, 4))]."""
-    flat, widths = _take_all(trees, idxs, colmajor, take)
+    """trees: per tree (leaves, levels) of one proof, each leaf matrix and
+    level a list of row-sharded pieces (or one tensor), leaves (N, w)
+    row-major or (w, N) column-major where ``colmajor`` says so; idxs:
+    per-tree query indices.  Gathers every row and sibling path on the
+    device and fetches them in ONE transfer: on CUDA pieces one K10
+    launch on the first piece's card, which reads the pieces where they
+    lie (``_gather_pieces``); else with ``take(leaves_or_level, idx,
+    colmajor)``, the plain version (``_take_all``).  Returns [(rows u64
+    (Q, w), sibs u64 (Q, L, 4))]."""
+    if _on_card(gather_cuda.pieces(trees[0][0])[0]):
+        flat, widths = _gather_pieces(trees, idxs, colmajor)
+    else:
+        flat, widths = _take_all(trees, idxs, colmajor, take)
     return _split(gfd.to_u64(flat), trees, idxs, widths)
 
 

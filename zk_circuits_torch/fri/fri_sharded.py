@@ -10,8 +10,8 @@ contiguous slice, in order):
   {k*m + g}) is one more K2 exchange: with arity a multiple of E, shard s
   holds whole segments k, and the part of each segment that belongs to
   destination d's leaf rows is one strided block;
-- leaves are hashed per shard with K1 and the tree is built row-sharded
-  (hash/merkle.py::sharded_merkle_levels); only the cap is fetched;
+- each shard's subtree is one K1 tree-mode call on its leaf rows
+  (hash/merkle.py::sharded_tree); only the cap is fetched;
 - the fold (new_c[m] = sum_j beta^j c[arity*m + j], K9's fold mode on the
   card, beta in the launch's parameters)
   reads contiguous arity-groups, so it is shard-local while every shard holds a multiple of
@@ -58,8 +58,7 @@ def _commit_level(p0: list, p1: list, shift: int, size: int, a_bits: int,
     v0 = coset_ntt_pieces(p0, shift, size, mesh)
     v1 = coset_ntt_pieces(p1, shift, size, mesh)
     leaves = fiber_leaves_sharded(v0, v1, 1 << a_bits, mesh)
-    levels = merklem.sharded_merkle_levels(
-        [merklem.leaf_digests(t) for t in leaves], cap_height)
+    levels = merklem.sharded_tree(leaves, cap_height)
     return leaves, levels
 
 

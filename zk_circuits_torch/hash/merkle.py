@@ -103,14 +103,39 @@ def device_merkle_levels_values(values: torch.Tensor, cap_height: int) -> list:
     return poseidon_cuda.hash_tree(values.transpose(-1, -2), cap_height)
 
 
+def sharded_tree(leaves: list, cap_height: int) -> list:
+    """Tree builder on row-sharded leaves: ``leaves`` holds each shard's
+    (n/E, cols) leaf rows (any strided view, rows in global order across
+    the E shards, E a power of two).  Returns the levels, each a list of
+    per-shard (m/E, 4) tensors, leaf digests first and the cap last.  Each
+    shard's subtree is one ``poseidon_cuda.hash_tree`` call (K1's tree
+    mode on the card, two launches; its plain level loop on the CPU) down
+    to the local cap height max(cap_height - log2 E, 0); where E >
+    2^cap_height the shards' roots are gathered onto the first shard's
+    device, which builds the levels above (one more ``hash_tree`` over the
+    roots paired into rows of 8; one-element lists).  The same levels as
+    :func:`sharded_merkle_levels` over the shards' leaf digests."""
+    e = len(leaves)
+    if e & (e - 1):
+        raise ValueError(f"{e} shards: the sharded tree needs a power of two")
+    local = max(cap_height - (e.bit_length() - 1), 0)
+    levels = [list(lv) for lv in zip(*(poseidon_cuda.hash_tree(x, local) for x in leaves))]
+    if e > 1 << cap_height:
+        dev = leaves[0].device
+        roots = torch.cat([t.to(dev) for t in levels[-1]])
+        levels += [[lv] for lv in poseidon_cuda.hash_tree(roots.reshape(e // 2, 8), cap_height)]
+    return levels
+
+
 def sharded_merkle_levels(digests: list, cap_height: int) -> list:
-    """Tree builder on a row-sharded leaf level: ``digests`` holds each
-    shard's leaf digests (rows in global order across shards).  Returns the
-    levels, each a list of per-shard (m_i, 4) tensors.  Every shard builds
-    its own subtree; while the mesh has no more shards than the cap has
-    nodes, each subtree ends at that shard's cap nodes.  A level with one
-    node per shard and more nodes than the cap is gathered onto the first
-    shard's device, which builds the levels above it (a one-element list)."""
+    """:func:`sharded_tree`'s plain version, one level and one shard at a
+    time: ``digests`` holds each shard's leaf digests (rows in global order
+    across shards).  Returns the levels, each a list of per-shard (m_i, 4)
+    tensors.  Every shard builds its own subtree; while the mesh has no
+    more shards than the cap has nodes, each subtree ends at that shard's
+    cap nodes.  A level with one node per shard and more nodes than the cap
+    is gathered onto the first shard's device, which builds the levels
+    above it (a one-element list)."""
     levels = [list(digests)]
     while sum(t.shape[0] for t in levels[-1]) > (1 << cap_height):
         cur = levels[-1]

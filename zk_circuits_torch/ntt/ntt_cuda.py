@@ -21,10 +21,14 @@ kernel source and chip_smoke.py's k4_work).
 
 A sixth, ``coset_leaves`` (K4's leaf mode, ``LEAF_MODE``), serves FRI's
 codewords: the coset NTT of an extension polynomial's two components, read
-from two tensors, each value stored at its fiber-leaf slot, so that K1
-hashes K4's output with no stack before the transform and no regroup
-copy after it (``fri/fri_device.py::_commit_codeword``; its plain version
-is ``_commit_codeword_plain``).
+from two tensors and stored as fiber leaves, so that K1 hashes K4's output
+with no stack before the transform and no regroup copy after it
+(``fri/fri_device.py::_commit_codeword``; its plain version is
+``_commit_codeword_plain``).  Its storing pass (the row path, or the
+four-step's pass B) tiles the same columns of both component rows and
+stores whole leaves, consecutive words, from shared memory; the row path
+serves it up to 2^(TILE_MAX_LOG - 1) points, where a tile holds a row of
+each component (``leaf_plan``).
 
 Counters: ``launches`` (kernel launches: 1 a row-path call, 2 a four-step
 call), by mode (the leaf mode among them) and by card, and ``copies``
@@ -63,6 +67,8 @@ TILE_LOG = 12         # a tile's values at most, log2, unless a pass is longer: 
 TILE_MIN_LOG = 9      # and at least (32 threads), where the pass has the columns
 COLS_MIN_LOG = 2      # the four-step's columns at least: the runs of j1 (pass A) and
                       # k2 (pass B) that neighbouring threads load and store
+LEAF_COLS_MIN_LOG = 2  # the leaf mode's pass B columns at least (both components'),
+                       # whose stores go through shared memory
 BLOCKS_PER_SM = 4     # tiles shrink until a pass launches this many blocks an SM
 
 # Launches of the CUDA kernel in this process, in all, by mode and by card,
@@ -162,6 +168,14 @@ def plan(n: int) -> int:
     return split(n)[0].bit_length() - 1
 
 
+def leaf_plan(n: int) -> int:
+    """``plan`` for the leaf mode: the row path only while a tile holds a
+    row of each component (n < 2^TILE_MAX_LOG), else the four-step."""
+    if plan(n) or n < 1 << TILE_MAX_LOG:
+        return plan(n)
+    return split(n)[0].bit_length() - 1
+
+
 def _passes(rows: int, log_n: int, log_n1: int) -> list:
     """(pass, log2 of its length, log2 of the columns it has a batch row
     or, for the row path, of the rows rounded up) of each pass of a call."""
@@ -171,21 +185,26 @@ def _passes(rows: int, log_n: int, log_n1: int) -> list:
 
 
 def _blocks(rows: int, p: int, cols: int, lc: int) -> int:
-    return -(-rows >> lc) if p == 0 else rows << (cols - lc)
+    return -(-rows >> lc) if p == 0 else (rows << cols) >> lc
 
 
-def tiles(rows: int, n: int, log_n1: int, sms: int) -> tuple[int, int, int]:
+def tiles(rows: int, n: int, log_n1: int, sms: int, leaf: bool = False) -> tuple[int, int, int]:
     """log2 of the columns a tile of each pass holds (rows on the row path;
     j1 in pass A, k2 in pass B; K4Call's ``log_cols``): 2^TILE_LOG values,
     or the pass's length if longer, shrunk while the pass launches fewer
     than BLOCKS_PER_SM * ``sms`` blocks, but not below 2^TILE_MIN_LOG
     values nor, on the four-step, 2^COLS_MIN_LOG columns, and never past
-    the columns there are or the kernel's largest tile."""
+    the columns there are or the kernel's largest tile.  In the ``leaf``
+    mode the storing pass's tile holds the same columns of both component
+    rows (csrc/ntt.cuh k4_staged), two columns at least."""
     cols = [0, 0, 0]
     for p, l, have in _passes(rows, n.bit_length() - 1, log_n1):
+        staged = leaf and p != 1
+        top = have + (staged and p == 2)   # pass B's columns of a proof's two rows
         fit = max(0, TILE_MAX_LOG - l)   # csrc/ntt.cuh k4_tile_fits
-        lo = min(have, fit, max(0, TILE_MIN_LOG - l, COLS_MIN_LOG if p else 0))
-        lc = max(lo, min(have, fit, TILE_LOG - l))
+        least = LEAF_COLS_MIN_LOG if staged and p else COLS_MIN_LOG if p else int(staged)
+        lo = min(top, fit, max(0, TILE_MIN_LOG - l, least))
+        lc = max(lo, min(top, fit, TILE_LOG - l))
         while lc > lo and _blocks(rows, p, have, lc) < BLOCKS_PER_SM * sms:
             lc -= 1
         cols[p] = lc
@@ -212,15 +231,19 @@ def pass_logs(n: int, log_n1: int) -> list:
     return [l for _, l, _ in _passes(1, n.bit_length() - 1, log_n1)]
 
 
-def launch_shape(rows: int, n: int, log_n1: int, cols: tuple) -> list:
+def launch_shape(rows: int, n: int, log_n1: int, cols: tuple, leaf: bool = False) -> list:
     """(blocks, threads, shared bytes) of each launch of a call, as
-    csrc/ntt.cu makes them (k4_blocks, k4_threads, k4_smem_elems)."""
+    csrc/ntt.cu makes them (k4_blocks, k4_threads, k4_smem_elems); ``leaf``
+    for the leaf mode, whose storing pass also stages its tile in shared
+    memory (k4_stage_elems)."""
     out = []
     for p, l, have in _passes(rows, n.bit_length() - 1, log_n1):
         lc = cols[p]
         pitch = (1 << l) + ((1 << l) >> 4) + (p != 0)
-        out.append((_blocks(rows, p, have, lc), max(1, 1 << (l + lc - V_LOG)),
-                    8 * (pitch << lc) if rounds(l) > 1 else 0))
+        elems = pitch << lc if rounds(l) > 1 else 0
+        if leaf and p != 1:
+            elems = max(elems, (1 << (l + lc)) + (1 << (l + lc) >> 4))
+        out.append((_blocks(rows, p, have, lc), max(1, 1 << (l + lc - V_LOG)), 8 * elems))
     return out
 
 
@@ -320,7 +343,8 @@ def _launch(mode: str, x: torch.Tensor, out: torch.Tensor, rows: int, n: int, lo
                  post=post.data_ptr() if post is not None else None, scale=scale, rows=rows,
                  in_stride=x.stride(0), n_in=x.shape[-1], log_n=n.bit_length() - 1,
                  log_n1=log_n1, inverse=int(mode in ("intt", "coset_intt")),
-                 log_cols=(ctypes.c_int * 3)(*tiles(rows, n, log_n1, _sm_count(lib, dev))),
+                 log_cols=(ctypes.c_int * 3)(*tiles(rows, n, log_n1, _sm_count(lib, dev),
+                                                    leaf=bool(leaf_log))),
                  leaf_log=leaf_log, x1=x1.data_ptr() if x1 is not None else None,
                  half=x.shape[0] if x1 is not None else 0)
     stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
@@ -385,7 +409,8 @@ def coset_leaves(c0: torch.Tensor, c1: torch.Tensor, shift: int, size: int, arit
     ``fri_device._fiber_leaves(*fri_device._ext_coset_ntt_dev(c0, c1,
     shift, size), A)``.  The components are read where they lie (one row
     stride for both; else both are copied, counted in ``copies``).
-    ``log_n1`` and ``lib`` as for ``transform``."""
+    ``log_n1`` (default ``leaf_plan``'s) and ``lib`` as for
+    ``transform``."""
     global copies
     if c0.shape != c1.shape or c0.dim() not in (1, 2) or c0.dtype != torch.int64 or \
             c1.dtype != torch.int64 or c0.shape[-1] < 1 or c0.device != c1.device:
@@ -410,7 +435,8 @@ def coset_leaves(c0: torch.Tensor, c1: torch.Tensor, shift: int, size: int, arit
     leaves = torch.empty((batch, size >> arity_bits, 2 << arity_bits), dtype=torch.int64,
                          device=c0.device)
     if batch:
-        _launch(LEAF_MODE, x0, leaves, 2 * batch, size, plan(size) if log_n1 is None else log_n1,
+        _launch(LEAF_MODE, x0, leaves, 2 * batch, size,
+                leaf_plan(size) if log_n1 is None else log_n1,
                 lib, pre=nttm.powers(shift, n_in, c0.device), x1=x1, leaf_log=arity_bits)
     return leaves
 

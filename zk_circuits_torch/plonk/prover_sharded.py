@@ -8,8 +8,8 @@ cross-shard move written out (there is no partitioner):
   INTT+LDE locally (parallel/ntt_sharded.py::lde_batch_sharded); the
   poly->row re-shard is one block exchange (K2) of (E, E, B) blocks with
   B = (k_pad/E)*(8n/E), read in place from the column-major LDE; the zero
-  padding is sliced off, leaves are hashed per shard with K1 and the tree
-  is built row-sharded (hash/merkle.py::sharded_merkle_levels);
+  padding is sliced off, and each shard's subtree is one K1 tree-mode
+  call on its rows, read in place (hash/merkle.py::sharded_tree);
 - quotient: the vanishing evaluation runs row-parallel on the 8n coset;
   the zs(g*x) operand is row i + 2^rate_bits, so each shard takes a
   2^rate_bits-row halo from the next shard (wrapping around), a plain
@@ -21,7 +21,10 @@ cross-shard move written out (there is no partitioner):
   small (n, 2) partial sums are added on the first shard, which composes
   the FRI polynomial (K8's scan); the FRI commit chain is
   fri/fri_sharded.py; the PoW grind runs through K1 on the first shard;
-  query rows and Merkle paths are gathered from the shard that owns them.
+  query rows and Merkle paths are gathered where they lie, every oracle
+  and FRI tree in one K10 launch on the first shard's card
+  (fri_device.gather_trees; on CPU shards its plain version,
+  ``_take_sharded``).
 
 The witness and the Fiat-Shamir challenger stay on the host, as in the
 JAX package's sharded prover.  Proof bytes
@@ -86,11 +89,10 @@ def commit_sharded(coeffs: list, num_polys: int, rate_bits: int,
                    cap_height: int, mesh: Mesh) -> ShardedBatch:
     """Commit poly-sharded coefficients (shard i: (k_pad/E, n), the real
     polynomials first): LDE per shard, re-shard to rows (K2), drop the
-    padding, hash the leaves per shard (K1), build the tree row-sharded."""
+    padding, each shard's subtree over its rows (K1's tree mode)."""
     rows = rows_from_polys(lde_batch_sharded(coeffs, rate_bits, mesh), mesh)
     rows = [r[:num_polys] for r in rows]
-    levels = merklem.sharded_merkle_levels(
-        [merklem.leaf_digests(r.t()) for r in rows], cap_height)
+    levels = merklem.sharded_tree([r.t() for r in rows], cap_height)
     cap = gfd.to_u64(gather(levels[-1], dim=0))
     return ShardedBatch(coeffs, rows, levels, num_polys, cap)
 
@@ -189,7 +191,8 @@ def _first_rows(blocks: list, k: int) -> list:
 def _take_sharded(shards: list, idx: np.ndarray, colmajor: bool,
                   device) -> torch.Tensor:
     """Rows ``idx`` of a row-sharded matrix, each taken on the shard that
-    owns it and assembled on ``device``."""
+    owns it and assembled on ``device``: K10's plain version for sharded
+    trees (``fri_device.gather_trees``' ``take``)."""
     per = shards[0].shape[1 if colmajor else 0]
     owner = idx // per
     parts, order = [], []
